@@ -1,0 +1,221 @@
+"""The JAX package's parameter trees as the port's state dicts.
+
+`klvae_state_from_jax(tree)` and `cfg_unet_state_from_jax(tree)` take the
+params of vqgan_tpu's KLVAE / CFGUnet as nested dicts of numpy arrays
+(`{"params": ...}` or the inner dict) and return a `state_dict` for the
+port's KLVAE / CFGUnet. The port's names and shapes are the reference
+PyTorch models', so this is the inverse of the JAX package's
+checkpoint/torch_import.py:
+- flax conv HWIO -> OIHW;
+- flax ConvTranspose HWIO -> torch [in, out, kh, kw] with the taps flipped;
+- flax Dense [in, out] -> Linear [out, in];
+- GroupNorm scale/bias -> weight/bias; RMSNorm g [C] -> [1, C, 1, 1].
+The JAX tree's autonames (LinearAttention_{i}, CrossAttentionCond_{i},
+Attention_0, Dense_0..3) are mapped as torch_import maps them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+__all__ = ["klvae_state_from_jax", "cfg_unet_state_from_jax"]
+
+
+def _t(a) -> torch.Tensor:
+    # copy: the caller's arrays may be read-only or shared
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _params(tree) -> dict:
+    return tree["params"] if "params" in tree else tree
+
+
+def _conv(out, key, p):
+    out[f"{key}.weight"] = _t(np.transpose(p["kernel"], (3, 2, 0, 1)))
+    if "bias" in p:
+        out[f"{key}.bias"] = _t(p["bias"])
+
+
+def _conv_transpose(out, key, p):
+    w = np.transpose(p["kernel"], (2, 3, 0, 1))[:, :, ::-1, ::-1]
+    out[f"{key}.weight"] = _t(w)
+    out[f"{key}.bias"] = _t(p["bias"])
+
+
+def _dense(out, key, p):
+    out[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        out[f"{key}.bias"] = _t(p["bias"])
+
+
+def _groupnorm(out, key, p):
+    out[f"{key}.weight"] = _t(p["GroupNorm_0"]["scale"])
+    out[f"{key}.bias"] = _t(p["GroupNorm_0"]["bias"])
+
+
+def _rms(out, key, p):
+    out[key] = _t(np.asarray(p["g"]).reshape(1, -1, 1, 1))
+
+
+# --- KL-VAE ---------------------------------------------------------------
+
+
+def _resblock(out, prefix, p):
+    _groupnorm(out, f"{prefix}.norm1", p["GroupNorm_0"])
+    _conv(out, f"{prefix}.conv1", p["conv1"])
+    _groupnorm(out, f"{prefix}.norm2", p["GroupNorm_1"])
+    _conv(out, f"{prefix}.conv2", p["conv2"])
+    if "nin_shortcut" in p:
+        _conv(out, f"{prefix}.nin_shortcut", p["nin_shortcut"])
+
+
+def _attnblock(out, prefix, p):
+    _groupnorm(out, f"{prefix}.norm", p["GroupNorm_0"])
+    for name in ("q", "k", "v", "proj_out"):
+        _conv(out, f"{prefix}.{name}", p[name])
+
+
+def _mid(out, prefix, p):
+    _resblock(out, f"{prefix}.mid.block_1", p["mid_block_1"])
+    _attnblock(out, f"{prefix}.mid.attn_1", p["mid_attn_1"])
+    _resblock(out, f"{prefix}.mid.block_2", p["mid_block_2"])
+
+
+def _levels(p, kind):
+    """Per-level (blocks, attns) keys of an encoder ('down') or decoder
+    ('up') tree: {level: ([block keys], [attn keys])}."""
+    levels: Dict[int, tuple] = {}
+    for key in p:
+        parts = key.split("_")
+        if parts[0] == kind and parts[2] in ("block", "attn"):
+            blocks, attns = levels.setdefault(int(parts[1]), ([], []))
+            (blocks if parts[2] == "block" else attns).append(int(parts[3]))
+    return levels
+
+
+def _encoder(out, p):
+    _conv(out, "encoder.conv_in", p["conv_in"])
+    for i, (blocks, attns) in sorted(_levels(p, "down").items()):
+        for j in sorted(blocks):
+            _resblock(out, f"encoder.down.{i}.block.{j}", p[f"down_{i}_block_{j}"])
+        for j in sorted(attns):
+            _attnblock(out, f"encoder.down.{i}.attn.{j}", p[f"down_{i}_attn_{j}"])
+        if f"down_{i}_downsample" in p:
+            _conv(out, f"encoder.down.{i}.downsample",
+                  p[f"down_{i}_downsample"]["Conv_0"])
+    _mid(out, "encoder", p)
+    _groupnorm(out, "encoder.norm_out", p["norm_out"])
+    _conv(out, "encoder.conv_out", p["conv_out"])
+
+
+def _decoder(out, p):
+    _conv(out, "decoder.conv_in", p["conv_in"])
+    _mid(out, "decoder", p)
+    for i, (blocks, attns) in sorted(_levels(p, "up").items()):
+        for j in sorted(blocks):
+            _resblock(out, f"decoder.up.{i}.block.{j}", p[f"up_{i}_block_{j}"])
+        for j in sorted(attns):
+            _attnblock(out, f"decoder.up.{i}.attn.{j}", p[f"up_{i}_attn_{j}"])
+        if f"up_{i}_upsample" in p:
+            _conv_transpose(out, f"decoder.up.{i}.upsample",
+                            p[f"up_{i}_upsample"]["ConvTranspose_0"])
+    _groupnorm(out, "decoder.norm_out", p["norm_out"])
+    _conv(out, "decoder.conv_out", p["conv_out"])
+
+
+def klvae_state_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """vqgan_tpu KLVAE params -> state dict of the port's KLVAE."""
+    p = _params(tree)
+    out: Dict[str, torch.Tensor] = {}
+    _encoder(out, p["encoder"])
+    _decoder(out, p["decoder"])
+    _conv(out, "quant_conv", p["quant_conv"])
+    _conv(out, "post_quant_conv", p["post_quant_conv"])
+    return out
+
+
+# --- CFG U-Net ------------------------------------------------------------
+
+
+def _film_resblock(out, prefix, p):
+    _dense(out, f"{prefix}.mlp.1", p["mlp"])
+    for block in ("block1", "block2"):
+        _conv(out, f"{prefix}.{block}.proj", p[block]["proj"])
+        _rms(out, f"{prefix}.{block}.norm.g", p[block]["RMSNorm_0"])
+    if "res_conv" in p:
+        _conv(out, f"{prefix}.res_conv", p["res_conv"])
+
+
+def _linear_attention(out, prefix, prenorm, inner):
+    _rms(out, f"{prefix}.fn.norm.g", prenorm["norm"])
+    _conv(out, f"{prefix}.fn.fn.to_qkv", inner["to_qkv"])
+    _conv(out, f"{prefix}.fn.fn.to_out.0", inner["to_out"])
+    _rms(out, f"{prefix}.fn.fn.to_out.1.g", inner["out_norm"])
+
+
+def _full_attention(out, prefix, prenorm, inner):
+    _rms(out, f"{prefix}.fn.norm.g", prenorm["norm"])
+    _conv(out, f"{prefix}.fn.fn.to_qkv", inner["to_qkv"])
+    _conv(out, f"{prefix}.fn.fn.to_out", inner["to_out"])
+
+
+def _cross_attention(out, prefix, prenorm, inner):
+    _rms(out, f"{prefix}.fn.norm.g", prenorm["norm"])
+    _conv(out, f"{prefix}.fn.fn.to_q", inner["to_q"])
+    _dense(out, f"{prefix}.fn.fn.to_k", inner["to_k"])
+    _dense(out, f"{prefix}.fn.fn.to_v", inner["to_v"])
+    _conv(out, f"{prefix}.fn.fn.to_out", inner["to_out"])
+
+
+def cfg_unet_state_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """vqgan_tpu CFGUnet params -> state dict of the port's CFGUnet."""
+    p = _params(tree)
+    out: Dict[str, torch.Tensor] = {
+        "classes_emb.weight": _t(p["classes_emb"]["embedding"]),
+        "null_classes_emb": _t(p["null_classes_emb"]),
+    }
+    _dense(out, "classes_mlp.0", p["Dense_0"])
+    _dense(out, "classes_mlp.2", p["Dense_1"])
+    if "sinu_pos_emb" in p:
+        out["time_mlp.0.weights"] = _t(p["sinu_pos_emb"]["weights"])
+    _dense(out, "time_mlp.1", p["Dense_2"])
+    _dense(out, "time_mlp.3", p["Dense_3"])
+    _conv(out, "init_conv", p["init_conv"])
+
+    n_res = 0
+    while f"down_{n_res}_block1" in p:
+        n_res += 1
+    for i in range(n_res):
+        _film_resblock(out, f"downs.{i}.0", p[f"down_{i}_block1"])
+        _film_resblock(out, f"downs.{i}.1", p[f"down_{i}_block2"])
+        _linear_attention(out, f"downs.{i}.2", p[f"down_{i}_attn"],
+                          p[f"LinearAttention_{i}"])
+        _cross_attention(out, f"downs.{i}.3", p[f"down_{i}_cross_attn"],
+                         p[f"CrossAttentionCond_{i}"])
+        _conv(out, f"downs.{i}.4", p[f"down_{i}_downsample"])
+
+    _film_resblock(out, "mid_block1", p["mid_block1"])
+    _full_attention(out, "mid_attn", p["mid_attn"], p["Attention_0"])
+    _cross_attention(out, "mid_cross_attn", p["mid_cross_attn"],
+                     p[f"CrossAttentionCond_{n_res}"])
+    _film_resblock(out, "mid_block2", p["mid_block2"])
+
+    for i in range(n_res):
+        _film_resblock(out, f"ups.{i}.0", p[f"up_{i}_block1"])
+        _film_resblock(out, f"ups.{i}.1", p[f"up_{i}_block2"])
+        _linear_attention(out, f"ups.{i}.2", p[f"up_{i}_attn"],
+                          p[f"LinearAttention_{n_res + i}"])
+        _cross_attention(out, f"ups.{i}.3", p[f"up_{i}_cross_attn"],
+                         p[f"CrossAttentionCond_{n_res + 1 + i}"])
+        up = p[f"up_{i}_upsample"]
+        if "Conv_0" in up:  # nearest upsample + conv
+            _conv(out, f"ups.{i}.4.1", up["Conv_0"])
+        else:  # last resolution: plain 3x3 conv
+            _conv(out, f"ups.{i}.4", up)
+
+    _film_resblock(out, "final_res_block", p["final_res_block"])
+    _conv(out, "final_conv", p["final_conv"])
+    return out

@@ -1,0 +1,119 @@
+"""Build the hand-written CUDA kernels in `csrc/` and load them with ctypes.
+
+Each source compiles with `nvcc` into its own shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds). Libraries land in
+`vqgan_tpu_torch/_build/`, named by the hash of the source, so an edited
+source builds anew at its next use and a stale library is never loaded.
+`build_all` starts one `nvcc` per source at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["CudaKernel", "build_all", "nvcc_path"]
+
+PACKAGE = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+BUILD_DIR = PACKAGE / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: `nvcc` on PATH, else under CUDA_HOME or
+    /usr/local/cuda. Raises when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+class CudaKernel:
+    """One kernel source in `csrc/`, its C entry point and a launch count.
+
+    `launches` is a plain integer that the kernel's wrapper raises by one at
+    each launch, and only there (`count`); `launches_by_shape` splits it by
+    the shapes launched. Callers reset both to count a run.
+    """
+
+    def __init__(self, source: str, symbol: str, argtypes: list):
+        self.source = CSRC / source
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self.launches_by_shape = {}
+        self.build_log = ""
+        self._fn = None
+
+    def count(self, shape) -> None:
+        self.launches += 1
+        self.launches_by_shape[shape] = self.launches_by_shape.get(shape, 0) + 1
+
+    @property
+    def library_path(self) -> Path:
+        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+        return BUILD_DIR / f"lib{self.source.stem}_{digest}.so"
+
+    def _compile_command(self, out: Path) -> list:
+        return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
+
+    def start_build(self):
+        """Start nvcc in the background unless the library exists. Returns
+        (process, temporary output) or None."""
+        if self.library_path.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen(self._compile_command(Path(tmp)),
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        return proc, Path(tmp)
+
+    def finish_build(self, started) -> None:
+        if started is None:
+            return
+        proc, tmp = started
+        log, _ = proc.communicate()
+        self.build_log = log
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed for {self.source.name} "
+                f"(exit {proc.returncode}):\n{log}")
+        os.replace(tmp, self.library_path)  # atomic: no half-written library
+
+    def function(self):
+        """The C entry point, building the library first if needed."""
+        if self._fn is None:
+            self.finish_build(self.start_build())
+            lib = ctypes.CDLL(str(self.library_path))
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+
+def build_all(kernels) -> None:
+    """Compile every kernel that is not built yet, all nvcc processes at
+    once, then load each."""
+    started = [(k, k.start_build()) for k in kernels]
+    for kernel, handle in started:
+        kernel.finish_build(handle)
+    for kernel in kernels:
+        kernel.function()

@@ -1,0 +1,74 @@
+"""ctypes binding of `csrc/flash_fwd.cu`, the flash-attention forward kernel.
+
+`flash_fwd` takes CUDA tensors in the BSHD layout and launches the kernel on
+PyTorch's current stream. It raises on anything the kernel does not take; it
+never falls back to another implementation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import CudaKernel
+
+__all__ = ["FLASH_FWD", "flash_fwd", "MAX_HEAD_DIM"]
+
+MAX_HEAD_DIM = 512
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID_Y = 65535
+
+_p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+FLASH_FWD = CudaKernel(
+    "flash_fwd.cu", "vq_flash_fwd",
+    [_p, _p, _p, _p, _p,              # q, k, v, o, lse
+     _i, _i, _i, _i, _i,              # B, H, Sq, Skv, D
+     *([_i64] * 12),                  # (batch, seq, head) strides of q, k, v, o
+     ctypes.c_float, _i, _p])         # scale, dtype, stream
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float):
+    """q [B, Sq, H, D], k/v [B, Skv, H, D] on one CUDA device, fp32 or bf16,
+    last axis contiguous. Returns (out [B, Sq, H, D] in q's dtype,
+    lse [B, H, Sq] fp32)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd needs CUDA tensors, got {q.device}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must lie on one device")
+    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"flash_fwd takes float32 or bfloat16 q/k/v of one "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("q, k and v must be [batch, seq, heads, head_dim]")
+    b, s_q, h, d = q.shape
+    s_kv = k.shape[1]
+    if k.shape != (b, s_kv, h, d) or v.shape != k.shape:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim must be a multiple of 8 in [8, "
+                         f"{MAX_HEAD_DIM}], got {d}")
+    if s_q < 1 or s_kv < 1 or b * h > _MAX_GRID_Y:
+        raise ValueError(f"unsupported sizes: B*H={b * h}, Sq={s_q}, "
+                         f"Skv={s_kv}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("the head_dim axis of q, k and v must be contiguous")
+
+    out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+    fn = FLASH_FWD.function()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), b, h, s_q, s_kv, d,
+                 q.stride(0), q.stride(1), q.stride(2),
+                 k.stride(0), k.stride(1), k.stride(2),
+                 v.stride(0), v.stride(1), v.stride(2),
+                 out.stride(0), out.stride(1), out.stride(2),
+                 float(scale), _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+    FLASH_FWD.count((b, s_q, h, d, str(q.dtype).removeprefix("torch.")))
+    return out, lse

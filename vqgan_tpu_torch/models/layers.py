@@ -1,0 +1,186 @@
+"""Shared NCHW building blocks for the autoencoders and U-Nets.
+
+Counterpart of vqgan_tpu/models/layers.py. Parameters are fp32; each layer
+computes in its `dtype` (the JAX package's `dtype`, with
+`param_dtype=float32`): convolutions and dense layers cast their input and
+weights to it, norms compute in fp32 and return the input's dtype.
+Parameter names are those of the reference PyTorch models, so their state
+dicts load directly.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import sdpa
+
+__all__ = [
+    "Conv2d",
+    "Linear",
+    "GroupNorm",
+    "RMSNorm",
+    "ResnetBlock",
+    "AttnBlock",
+    "Downsample",
+    "UpsampleTranspose",
+    "UpsampleNearest",
+]
+
+
+def _cast(t, dtype):
+    return None if t is None else t.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """Conv2d with fp32 parameters that computes in `dtype`."""
+
+    def __init__(self, *args, dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        d = self.compute_dtype
+        return self._conv_forward(x.to(d), self.weight.to(d), _cast(self.bias, d))
+
+
+class Linear(nn.Linear):
+    """Linear with fp32 parameters that computes in `dtype`."""
+
+    def __init__(self, *args, dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        d = self.compute_dtype
+        return F.linear(x.to(d), self.weight.to(d), _cast(self.bias, d))
+
+
+def group_count(channels: int, num_groups: int = 32) -> int:
+    """32 groups, or fewer where the channels do not divide (small test
+    configs), as in the JAX package."""
+    groups = min(num_groups, channels)
+    while channels % groups:
+        groups -= 1
+    return groups
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm(32) with eps 1e-6 in fp32 math."""
+
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6):
+        super().__init__(group_count(channels, num_groups), channels, eps=eps)
+
+    def forward(self, x):
+        return F.group_norm(x.float(), self.num_groups, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """Channel RMSNorm with a learned gain, fp32 math:
+    x * rsqrt(sum(x^2) + 1e-12) * g * sqrt(C). The epsilon sits inside the
+    root, unlike F.normalize's max(|x|, eps). `g` is [1, C, 1, 1]."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.g = nn.Parameter(torch.ones(1, channels, 1, 1))
+
+    def forward(self, x):
+        x32 = x.float()
+        normed = x32 * torch.rsqrt((x32 * x32).sum(dim=1, keepdim=True) + 1e-12)
+        return (normed * self.g * (x.shape[1] ** 0.5)).to(x.dtype)
+
+
+class ResnetBlock(nn.Module):
+    """GroupNorm, SiLU, conv3x3 twice, with a 1x1 shortcut when the channel
+    count changes. Dropout is not ported: this slice only runs inference."""
+
+    def __init__(self, in_channels: int, out_channels: int | None = None,
+                 dtype=torch.float32):
+        super().__init__()
+        out_channels = out_channels or in_channels
+        self.norm1 = GroupNorm(in_channels)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1,
+                            dtype=dtype)
+        self.norm2 = GroupNorm(out_channels)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1,
+                            dtype=dtype)
+        self.nin_shortcut = (Conv2d(in_channels, out_channels, 1, dtype=dtype)
+                             if in_channels != out_channels else None)
+
+    def forward(self, x):
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.nin_shortcut is not None:
+            x = self.nin_shortcut(x)
+        return x + h
+
+
+def to_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, heads*dh, H, W] -> [B, H*W, heads, dh] (BSHD, contiguous: the
+    reshape alone can return a view whose head_dim axis is strided, which
+    the flash kernel refuses)."""
+    b, c, h, w = t.shape
+    return t.permute(0, 2, 3, 1).reshape(b, h * w, heads, c // heads
+                                         ).contiguous()
+
+
+def from_heads(t: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[B, H*W, heads, dh] -> [B, heads*dh, H, W]."""
+    b = t.shape[0]
+    return t.reshape(b, h, w, -1).permute(0, 3, 1, 2)
+
+
+class AttnBlock(nn.Module):
+    """Single-head self-attention over spatial positions with 1x1 q/k/v
+    projections and a residual, through the port's `sdpa` (the flash
+    kernel on CUDA)."""
+
+    def __init__(self, channels: int, dtype=torch.float32):
+        super().__init__()
+        self.norm = GroupNorm(channels)
+        self.q = Conv2d(channels, channels, 1, dtype=dtype)
+        self.k = Conv2d(channels, channels, 1, dtype=dtype)
+        self.v = Conv2d(channels, channels, 1, dtype=dtype)
+        self.proj_out = Conv2d(channels, channels, 1, dtype=dtype)
+
+    def forward(self, x):
+        _, _, h, w = x.shape
+        hn = self.norm(x)
+        out = sdpa(to_heads(self.q(hn), 1), to_heads(self.k(hn), 1),
+                   to_heads(self.v(hn), 1))
+        return x + self.proj_out(from_heads(out, h, w))
+
+
+class Downsample(Conv2d):
+    """Stride-2 3x3 conv."""
+
+    def __init__(self, channels: int, dtype=torch.float32):
+        super().__init__(channels, channels, 3, stride=2, padding=1,
+                         dtype=dtype)
+
+
+class UpsampleTranspose(nn.ConvTranspose2d):
+    """ConvTranspose k4 s2 p1: exact 2x upsampling. The JAX package's
+    `ConvTranspose(padding="SAME")` holds the same taps spatially flipped."""
+
+    def __init__(self, channels: int, dtype=torch.float32):
+        super().__init__(channels, channels, 4, stride=2, padding=1)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        d = self.compute_dtype
+        return F.conv_transpose2d(x.to(d), self.weight.to(d),
+                                  self.bias.to(d), stride=2, padding=1)
+
+
+class UpsampleNearest(nn.Sequential):
+    """Nearest-neighbour 2x upsample, then a 3x3 conv (parameters at `.1`)."""
+
+    def __init__(self, in_channels: int, out_channels: int | None = None,
+                 dtype=torch.float32):
+        super().__init__(
+            nn.Upsample(scale_factor=2, mode="nearest"),
+            Conv2d(in_channels, out_channels or in_channels, 3, padding=1,
+                   dtype=dtype))

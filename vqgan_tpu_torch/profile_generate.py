@@ -1,0 +1,117 @@
+"""Where the generation time goes on the GPU.
+
+    python -m vqgan_tpu_torch.profile_generate [--batch_size 16] [--steps 10]
+
+Builds the full-width LDMConfig U-Net and the default fp32 KL-VAE with
+random weights from `--seed`, then measures, after a warm-up:
+- one DDIM step (U-Net forward + update) at cond_scale 1.0 and 3.0: host
+  wall time per step, device kernel time per step and the device's idle
+  share, from torch.profiler over `--steps` steps;
+- the VAE decode of one batch: wall time and device kernel time;
+- the kernels that take the most device time, and the launches per step.
+Prints one JSON object. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from .build import build_cfg_unet_diffusion
+from .configs.ldm_config import LDMConfig
+from .core.diffusion_math import ddim_step
+from .device import resolve_device, set_full_fp32_precision
+from .generate import load_vae
+
+
+def _device_us(event) -> float:
+    return getattr(event, "self_device_time_total", None) \
+        or getattr(event, "self_cuda_time_total", 0.0)
+
+
+def profiled(fn, reps: int, top: int = 8) -> dict:
+    """Host wall ms per call (without the profiler), then, from a profiled
+    repeat, device kernel ms per call, the idle share of the unprofiled
+    wall time, kernel launches per call and the top kernels by device
+    time; `reps` calls each, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3 / reps
+    ranked = sorted(kernels, key=_device_us, reverse=True)[:top]
+    return {
+        "wall_ms": wall_ms,
+        "device_ms": device_ms if kernels else None,
+        "idle_share": 1.0 - device_ms / wall_ms if kernels else None,
+        "launches": sum(e.count for e in kernels) / reps,
+        "top": [{"kernel": e.key[:80], "ms": _device_us(e) / 1e3 / reps,
+                 "count": e.count / reps} for e in ranked],
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batch_size", type=int, default=16)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    device = resolve_device("cuda")
+    set_full_fp32_precision()
+    torch.manual_seed(args.seed)
+    config = LDMConfig()
+    _, diffusion = build_cfg_unet_diffusion(config, device=device)
+    vae = load_vae(None, config.latent_channels, config.image_size,
+                   device=device)
+    b, s, c = args.batch_size, config.latent_size, config.latent_channels
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    x = torch.randn((b, c, s, s), generator=gen, device=device)
+    t = torch.full((b,), 500, dtype=torch.long, device=device)
+    classes = torch.arange(b, device=device) % config.num_users
+    noise = torch.randn_like(x)
+
+    def step(cond_scale):
+        def run():
+            with torch.inference_mode():
+                pred_noise, x_start = diffusion.model_predictions(
+                    x, t, classes, cond_scale=cond_scale, rescaled_phi=0.7,
+                    clip_x_start=True)
+                return ddim_step(diffusion.schedule, x, x_start, pred_noise,
+                                 500, 493, noise, diffusion.ddim_sampling_eta)
+        return run
+
+    latents = torch.randn((b, s, s, c), generator=gen, device=device) * 0.5
+
+    def decode():
+        with torch.inference_mode():
+            return vae.decode_latents(latents)
+
+    out = {
+        "device": torch.cuda.get_device_name(0),
+        "batch_size": b,
+        "ddim_step_cond_scale_1": profiled(step(1.0), args.steps),
+        "ddim_step_cond_scale_3": profiled(step(3.0), args.steps),
+        "vae_decode": profiled(decode, 2),
+    }
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()
