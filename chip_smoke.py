@@ -6,23 +6,43 @@
 
 Phases, in order; any failure exits non-zero:
 1. A CUDA device must be present; print its name and power limit.
-2. Build every hand-written kernel from the sources in this checkout.
+2. Build every hand-written kernel from the sources in this checkout, one
+   nvcc per source, all at once.
 3. Hold each kernel against its plain PyTorch version on the card (TF32
-   off) at the main path's shapes and at ragged shapes; time the kernel,
-   the plain version and one PyTorch library call, and compute the bound.
-4. Run the whole slice on a small input (tiny U-Net and KL-VAE in fp32,
-   5 DDIM steps at cond_scale 3.0 with injected noise, then the decode)
-   on the card and on the CPU, where attention takes the plain version,
-   and hold the two images against each other.
-5. Drive the main path, `python -m vqgan_tpu_torch.generate`, at full width
+   off): the forward at the main paths' shapes and at ragged shapes; the
+   backward kernels (dQ; dK and dV) at the training shape, the KL-VAE
+   shape, ragged shapes and with strided dO. Time each kernel, its plain
+   version and one PyTorch library call at the main paths' shapes (and the
+   backward at the KL-VAE shape, for the next slice), and compute the
+   bound.
+4. Run the generation slice on a small input (tiny U-Net and KL-VAE in
+   fp32, 5 DDIM steps at cond_scale 3.0 with injected noise, then the
+   decode) on the card and on the CPU, where attention takes the plain
+   version, and hold the two images against each other.
+4b. Run three training steps of a tiny fp32 U-Net on the card and on the
+   CPU from the same weights with injected t, noise and cond-drop mask;
+   hold the gradients, losses, parameters and EMA against each other, and
+   require one launch of each flash kernel per step.
+5. Drive generation, `python -m vqgan_tpu_torch.generate`, at full width
    with seeded random weights: LDMConfig defaults (dim 96, mults 1-2-4-4,
    8 heads x 64, T=1000, DDIM-150, pred_v, cosine, bf16 U-Net) and the
    default fp32 KL-VAE at 256 px; two users of one batch of 16 at
    cond_scale 1.0, then one batch at cond_scale 3.0 / rescaled_phi 0.7.
    The kernel launch counts are reset just before and read just after, and
-   must be 151 per batch (150 U-Net steps + 1 VAE decode). The JPG layout
-   must be written and every image finite.
-6. Print the kernels' JSON line, then the device line last.
+   must be 151 forward launches per batch (150 U-Net steps + 1 VAE decode)
+   and no backward launch. The JPG layout must be written and every image
+   finite.
+5b. Drive training, `python -m vqgan_tpu_torch.train_latent_cfg`, at full
+   width (LDMConfig defaults, batch 8, no VAE) on a split and latent cache
+   of 31 users x 50 seeded random [32, 32, 4] latents: 41 steps, then a
+   resume from that checkpoint to step 50. Every loss must be finite; each
+   flash kernel must launch once per step at [8, 16, 8, 64] bf16; the EMA
+   must equal the online weights after step 40 (the last warm copy:
+   update_every 10, update_after_step 100) and differ from the final ones;
+   the checkpoint and its latest pointer must load back. Then generate 4
+   images from that checkpoint (EMA weights) with a seeded random KL-VAE
+   state dict: 151 forward launches, no backward launch.
+6. Print the kernels' JSON line, then the card line, then the device line.
 """
 
 from __future__ import annotations
@@ -32,6 +52,7 @@ import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -87,6 +108,7 @@ def cuda_ms(torch, fn, iters: int) -> float:
 def attention_cases():
     """(label, B, Sq, Skv, H, D, dtype, main_path)."""
     return [
+        ("unet_mid_train", 8, 16, 16, 8, 64, "bfloat16", True),
         ("unet_mid", 16, 16, 16, 8, 64, "bfloat16", True),
         ("unet_mid_cfg", 32, 16, 16, 8, 64, "bfloat16", True),
         ("vae_mid", 16, 1024, 1024, 1, 512, "float32", True),
@@ -145,7 +167,7 @@ def check_flash_fwd(torch, peaks, seed: int):
         flops = 4 * b * h * s_q * s_kv * d
         t_bytes = n_bytes / peaks["bytes_per_s"] * 1e3
         t_ops = flops / peaks[dt] * 1e3
-        rows[label] = {
+        row = rows[("flash_fwd", label)] = {
             "name": "flash_fwd",
             "key": (b, s_q, h, d, dt),
             "shape": f"[{b},{s_q},{h},{d}] {dt}",
@@ -162,8 +184,144 @@ def check_flash_fwd(torch, peaks, seed: int):
         }
         print(f"flash_fwd {label}: kernel_ms={kernel_ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-              f"bound_ms={rows[label]['bound_ms']:.4f} "
-              f"({rows[label]['bound_by']})")
+              f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']})")
+    return rows
+
+
+def bwd_cases():
+    """(label, B, Sq, Skv, H, D, dtype, timed, strided dO, main_path).
+    The KL-VAE shape is timed for the next slice (stage-1 training), which
+    is not this script's main path: it gets no row in the kernels line."""
+    return [
+        ("unet_mid_train", 8, 16, 16, 8, 64, "bfloat16", True, False, True),
+        ("unet_mid_train_strided_do", 8, 16, 16, 8, 64, "bfloat16", False,
+         True, False),
+        ("vae_mid", 16, 1024, 1024, 1, 512, "float32", True, False, False),
+        ("ragged_d512", 2, 100, 100, 1, 512, "float32", False, True, False),
+        ("ragged_cross", 2, 64, 17, 4, 32, "float32", False, True, False),
+        ("ragged_tiny_bf16", 1, 7, 7, 2, 16, "bfloat16", False, False,
+         False),
+    ]
+
+
+def check_flash_bwd(torch, peaks, seed: int):
+    """dQ and dK/dV kernels against their plain versions on the card, on
+    (q, k, v, dO) from a seed and the forward kernel's out and LSE.
+    Tolerance, relative to the largest plain value: fp32 2e-5 (the same
+    fp32 math summed in another order), bf16 1e-2 (the same fp32 sums, then
+    one rounding to bf16's 8 bits, at most 2^-7 of the value)."""
+    import torch.nn.functional as F
+
+    from vqgan_tpu_torch.kernels.flash_bwd import flash_bwd_dkv, flash_bwd_dq
+    from vqgan_tpu_torch.kernels.flash_fwd import flash_fwd
+    from vqgan_tpu_torch.ops.attention import (
+        flash_bwd_dkv_reference,
+        flash_bwd_dq_reference,
+        flash_delta,
+    )
+
+    rows = {}
+    rng = np.random.default_rng(seed + 1)
+    for label, b, s_q, s_kv, h, d, dt, timed, strided, main in bwd_cases():
+        dtype = getattr(torch, dt)
+
+        def make(s):
+            x = rng.standard_normal((b, s, h, d)).astype(np.float32)
+            return torch.from_numpy(x).to("cuda", dtype)
+
+        q, k, v, do = make(s_q), make(s_kv), make(s_kv), make(s_q)
+        if strided:
+            # batch/sequence/head strides the kernels read in place
+            do = torch.cat([do, do], dim=-1)[..., :d]
+            k = torch.cat([k, k], dim=-1)[..., :d]
+        scale = 1.0 / np.sqrt(d)
+        out, lse = flash_fwd(q, k, v, scale)
+        delta = flash_delta(out, do)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, scale)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale)
+        torch.cuda.synchronize()
+        ref_dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, scale)
+        ref_dk, ref_dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                 scale)
+        tol = 2e-5 if dt == "float32" else 1e-2
+        errs, sizes = {}, {}
+        for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                               ("dv", dv, ref_dv)):
+            err = (got.float() - ref.float()).abs().max().item()
+            size = sizes[name] = ref.float().abs().max().item()
+            errs[name] = err
+            if (not bool(torch.isfinite(got).all())
+                    or err > tol * max(size, 1.0)):
+                fail(f"flash_bwd {name} disagrees with its plain version at "
+                     f"{label}: max err {err:.3e}, max |plain| {size:.3e}, "
+                     f"tolerance {tol} relative")
+        print(f"flash_bwd {label} [{b},{s_q},{h},{d}] kv={s_kv} {dt}"
+              f"{' strided dO' if strided else ''}: "
+              + " ".join(f"max|{n}-plain|={e:.3e} (max|plain| "
+                         f"{sizes[n]:.3e})" for n, e in errs.items()))
+        if not timed:
+            continue
+
+        iters = 20 if s_q >= 1024 else 200
+        ms = {
+            "flash_bwd_dq": cuda_ms(torch, lambda: flash_bwd_dq(
+                q, k, v, do, lse, delta, scale), iters),
+            "flash_bwd_dkv": cuda_ms(torch, lambda: flash_bwd_dkv(
+                q, k, v, do, lse, delta, scale), iters),
+        }
+        plain = {
+            "flash_bwd_dq": cuda_ms(torch, lambda: flash_bwd_dq_reference(
+                q, k, v, do, lse, delta, scale), iters),
+            "flash_bwd_dkv": cuda_ms(torch, lambda: flash_bwd_dkv_reference(
+                q, k, v, do, lse, delta, scale), iters),
+        }
+        # library yardstick: the whole backward (dQ, dK and dV) of PyTorch's
+        # fused attention, its forward outside the timed loop
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        g = do.transpose(1, 2)
+        library_ms = cuda_ms(
+            torch, lambda: lib_out.backward(g, retain_graph=True), iters)
+        itemsize = q.element_size()
+        n_q, n_kv = b * s_q * h * d, b * s_kv * h * d
+        stats = 2 * 4 * b * h * s_q  # lse and delta, fp32
+        work = {  # name: (bytes, flops)
+            "flash_bwd_dq": ((3 * n_q + 2 * n_kv) * itemsize + stats,
+                             6 * b * h * s_q * s_kv * d),
+            "flash_bwd_dkv": ((2 * n_q + 4 * n_kv) * itemsize + stats,
+                              8 * b * h * s_q * s_kv * d),
+        }
+        for name, (n_bytes, flops) in work.items():
+            t_bytes = n_bytes / peaks["bytes_per_s"] * 1e3
+            t_ops = flops / peaks[dt] * 1e3
+            err = errs["dq"] if name == "flash_bwd_dq" else max(
+                errs["dk"], errs["dv"])
+            row = {
+                "name": name,
+                "key": (b, s_q, h, d, dt),
+                "shape": f"[{b},{s_q},{h},{d}] {dt}",
+                "route": "cuda",
+                "source": "vqgan_tpu_torch/csrc/flash_bwd.cu",
+                "replaces": ("vqgan_tpu/ops/attention.py:190"
+                             if name == "flash_bwd_dq"
+                             else "vqgan_tpu/ops/attention.py:221"),
+                "launches": None,
+                "max_abs_err": err,
+                "ms": ms[name],
+                "plain_ms": plain[name],
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms,
+            }
+            if main:
+                rows[(name, label)] = row
+            print(f"{name} {label}: kernel_ms={ms[name]:.4f} "
+                  f"plain_ms={plain[name]:.4f} bound_ms="
+                  f"{row['bound_ms']:.6f} ({row['bound_by']})")
+        print(f"flash_bwd {label}: dq+dkv kernel_ms="
+              f"{sum(ms.values()):.4f} vs library backward (dq, dk, dv) "
+              f"ms={library_ms:.4f}")
     return rows
 
 
@@ -209,6 +367,131 @@ def check_small_pipeline(torch, kernels, seed: int):
              "kernel (expected 5 U-Net + 3 VAE attention launches)")
 
 
+def reset_counts(kernels):
+    for k in kernels.values():
+        k.launches = 0
+        k.launches_by_shape.clear()
+
+
+def read_counts(kernels) -> dict:
+    """{(kernel name, shape key): launches} since the last reset."""
+    return {(name, key): n for name, k in kernels.items()
+            for key, n in k.launches_by_shape.items()}
+
+
+def check_small_training(torch, kernels, seed: int):
+    """Three training steps of a tiny fp32 U-Net on the card and on the CPU
+    from the same weights, with injected t, noise and cond-drop mask (TF32
+    off). Tolerances:
+    - first-step gradients, 1e-3 of the largest: the same fp32 math through
+      ~40 layers forward and back, summed in other orders (cuDNN, the
+      kernels) on the two devices;
+    - losses, rtol 1e-3;
+    - parameters and EMA, as their moves from the initial weights: the
+      card's move differs from the CPU's by at most 5% in norm (a card run
+      that skipped one of the 3 updates would be ~30% off, one with no
+      update 100%), and by more than lr / 2 in at most 10 elements. Adam's
+      first steps are sign-like (m / sqrt(v) is +-1 for a lone gradient),
+      so a gradient element near zero whose sign differs between the
+      devices moves its weight by about lr one way on one and the other
+      way on the other; every other element agrees to rounding (2.4e-6 at
+      lr 1e-4 in the runs so far)."""
+    import copy
+
+    from vqgan_tpu_torch.diffusion import GaussianDiffusion
+    from vqgan_tpu_torch.models import CFGUnet
+    from vqgan_tpu_torch.training.ldm_step import (
+        LDMTrainState,
+        make_ldm_optimizer,
+        make_ldm_train_step,
+    )
+
+    n_steps, b, lr = 3, 4, 1e-4
+    torch.manual_seed(seed)
+    init = CFGUnet(dim=16, num_classes=3, cond_drop_prob=0.0,
+                   dim_mults=(1, 2), channels=4, attn_dim_head=16,
+                   attn_heads=2)
+    rng = np.random.default_rng(seed + 2)
+    lat = rng.standard_normal((n_steps, b, 8, 8, 4)).astype(np.float32)
+    noise = rng.standard_normal((n_steps, b, 8, 8, 4)).astype(np.float32)
+    ts = rng.integers(0, 20, (n_steps, b))
+    classes = rng.integers(0, 3, (n_steps, b))
+    masks = rng.random((n_steps, b)) < 0.5
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(init).to(dev).train()
+        diffusion = GaussianDiffusion(
+            model, image_size=8, channels=4, timesteps=20,
+            objective="pred_v", min_snr_loss_weight=True,
+            auto_normalize=False, device=torch.device(dev))
+
+        def inputs(i):
+            return dict(latents=torch.from_numpy(lat[i]).to(dev),
+                        classes=torch.from_numpy(classes[i]).to(dev),
+                        t=torch.from_numpy(ts[i]).to(dev),
+                        noise=noise[i],
+                        cond_drop_mask=torch.from_numpy(masks[i]).to(dev))
+
+        first = inputs(0)
+        diffusion.loss(first["latents"], first["classes"], t=first["t"],
+                       noise=first["noise"],
+                       cond_drop_mask=first["cond_drop_mask"]).backward()
+        grads = torch.cat([p.grad.flatten().cpu() for p in model.parameters()
+                           if p.grad is not None])
+        model.zero_grad(set_to_none=True)
+
+        opt = make_ldm_optimizer(model.parameters(), learning_rate=lr,
+                                 weight_decay=1e-4, betas=(0.9, 0.99),
+                                 max_grad_norm=1.0)
+        state = LDMTrainState(0, model,
+                              copy.deepcopy(model).requires_grad_(False), opt)
+        step = make_ldm_train_step(diffusion, opt, ema_update_every=1,
+                                   ema_update_after_step=1)
+        reset_counts(kernels)
+        losses = []
+        for i in range(n_steps):
+            x = inputs(i)
+            log = step(state, x.pop("latents"), x.pop("classes"), **x)
+            losses.append(float(log["loss"]))
+        launches = {name: k.launches for name, k in kernels.items()}
+
+        def flat(m):
+            return torch.cat([p.detach().flatten().cpu()
+                              for p in m.parameters()])
+        out[dev] = (grads, losses, flat(model), flat(state.ema_model),
+                    launches)
+
+    (g_cpu, l_cpu, p_cpu, e_cpu, _), (g_gpu, l_gpu, p_gpu, e_gpu, launches) \
+        = out["cpu"], out["cuda"]
+    p_init = torch.cat([p.detach().flatten() for p in init.parameters()])
+    grad_err = (g_gpu - g_cpu).abs().max().item()
+    grad_size = g_cpu.abs().max().item()
+    loss_err = max(abs(a - c) / abs(c) for a, c in zip(l_gpu, l_cpu))
+    moves = {}  # name: (max|diff|, |move diff| / |CPU move|, n over lr/2)
+    for name, on_card, on_cpu in (("param", p_gpu, p_cpu),
+                                  ("ema", e_gpu, e_cpu)):
+        diff = on_card - on_cpu
+        cpu_move = (on_cpu - p_init).norm().item()
+        if cpu_move == 0.0:
+            fail(f"the CPU's {name}s did not move in {n_steps} steps")
+        moves[name] = (diff.abs().max().item(), diff.norm().item() / cpu_move,
+                       int((diff.abs() > lr / 2).sum()))
+    print(f"small training, card vs CPU: max|grad diff|={grad_err:.3e} "
+          f"(max|grad| {grad_size:.3e}), losses card {l_gpu} cpu {l_cpu} "
+          f"(max rel diff {loss_err:.3e}); "
+          + ", ".join(f"{n}s: max|diff|={m:.3e}, |move diff|/|cpu move|="
+                      f"{r:.3e}, {k} over lr/2"
+                      for n, (m, r, k) in moves.items())
+          + f"; launches on the card {launches}")
+    if grad_err > 1e-3 * grad_size or loss_err > 1e-3 \
+            or any(r > 0.05 or k > 10 for _, r, k in moves.values()) \
+            or not all(np.isfinite(l_gpu)):
+        fail("training on the card disagrees with the CPU")
+    if any(n != n_steps for n in launches.values()):
+        fail(f"expected {n_steps} launches of each flash kernel in "
+             f"{n_steps} training steps, got {launches}")
+
+
 def run_generate(torch, argv):
     """generate.main(argv) -> (its result, host seconds of the whole call)."""
     from vqgan_tpu_torch import generate
@@ -235,7 +518,8 @@ def check_images(paths, n_expected):
 
 
 def drive_main_path(torch, kernels, seed: int):
-    """Full-width generation; returns (launches by shape, samples/s)."""
+    """Full-width generation; returns ({(kernel, shape): launches},
+    samples/s)."""
     flash = kernels["flash_fwd"]
     batch = 16
     common = ["--random_init", "--seed", str(seed), "--batch_size",
@@ -252,14 +536,13 @@ def drive_main_path(torch, kernels, seed: int):
              2),
             ("cond_scale 3.0", ["--user_ids", "3", "--cond_scale", "3.0",
                                 "--rescaled_phi", "0.7"], 1)]
-    by_shape = {}
+    counts = {}
     rates = {}
     for label, extra, n_batches in runs:
-        for k in kernels.values():
-            k.launches = 0
-            k.launches_by_shape.clear()
+        reset_counts(kernels)
         result, secs = run_generate(
             torch, [*common, *extra, "--output_dir", str(OUT / "generated")])
+        run_counts = read_counts(kernels)
         launches = flash.launches
         shapes = dict(flash.launches_by_shape)
         check_images(result["images"], n_batches * batch)
@@ -269,12 +552,118 @@ def drive_main_path(torch, kernels, seed: int):
               f"{batch_secs:.3f} s = {rates[label]:.4f} samples/s (whole "
               f"call with model set-up {secs:.3f} s); flash_fwd launches "
               f"{launches} by shape {shapes}")
-        if launches != 151 * n_batches:
+        if launches != 151 * n_batches or any(
+                k.launches for name, k in kernels.items()
+                if name != "flash_fwd"):
             fail(f"flash_fwd launched {launches} times for {n_batches} "
-                 f"batch(es); expected 151 per batch")
-        for shape, n in shapes.items():
-            by_shape[shape] = by_shape.get(shape, 0) + n
-    return by_shape, rates
+                 f"batch(es), expected 151 per batch and no backward "
+                 f"launch: {run_counts}")
+        for key, n in run_counts.items():
+            counts[key] = counts.get(key, 0) + n
+    return counts, rates
+
+
+def write_latent_data(work: Path, seed: int):
+    """A split of 31 users ID_1..ID_31 with 50 training images each, and
+    their latents, [32, 32, 4] fp32 from a numpy seed, in the latent cache's
+    `user_{label:02d}_{stem}.npy` naming (about 25 MB)."""
+    from vqgan_tpu_torch.data import LatentCache, save_split
+
+    rng = np.random.default_rng(seed)
+    cache = LatentCache(work / "latents_cache")
+    split = {"metadata": {"method": "chip_smoke", "seed": seed}, "users": {}}
+    for user in range(1, 32):
+        names = [f"frame_{i:03d}.png" for i in range(50)]
+        split["users"][f"ID_{user}"] = {"train_images": names,
+                                        "test_images": []}
+        latents = rng.standard_normal((50, 32, 32, 4)).astype(np.float32)
+        for name, z in zip(names, latents):
+            cache.save(user - 1, name, z)
+    save_split(split, work / "data_split.json")
+    return work / "data_split.json", cache.folder
+
+
+def drive_training(torch, kernels, seed: int, work: Path):
+    """Full-width training through `train_latent_cfg.main`: 41 steps, then a
+    resume to step 50; then generation from its checkpoint. Returns
+    ({(kernel, shape): launches} of the training steps, latents/s)."""
+    from vqgan_tpu_torch import generate, train_latent_cfg
+    from vqgan_tpu_torch.checkpoint import CheckpointManager
+    from vqgan_tpu_torch.models import KLVAE
+
+    split, cache = write_latent_data(work, seed)
+    results = work / "results"
+    common = ["--split", str(split), "--latents_cache_folder", str(cache),
+              "--data_path", str(work / "images"), "--results_folder",
+              str(results), "--seed", str(seed)]
+    train_key = (8, 16, 8, 64, "bfloat16")
+
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = train_latent_cfg.main([*common, "--train_num_steps", "41"])
+    secs = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    # the EMA's last warm copy is of these weights (step 40's update)
+    warm = {k: v.detach().clone()
+            for k, v in first["trainer"].model.state_dict().items()}
+    del first["trainer"]
+    reset_counts(kernels)
+    second = train_latent_cfg.main([*common, "--train_num_steps", "50",
+                                    "--resume", "-1"])
+    trainer = second.pop("trainer")
+    for key, n in read_counts(kernels).items():
+        counts[key] = counts.get(key, 0) + n
+
+    losses = first["losses"] + second["losses"]
+    print(f"train_latent_cfg: {len(first['losses'])} + "
+          f"{len(second['losses'])} steps (resumed), whole first call "
+          f"{secs:.3f} s; {first['timed_steps']} steps after a warm-up of "
+          f"5 in {first['timed_seconds']:.3f} s = "
+          f"{first['latents_per_s']:.4f} latents/s; losses {losses}; "
+          f"launches {counts}")
+    if len(losses) != 50 or not all(np.isfinite(losses)):
+        fail(f"expected 50 finite losses, got {losses}")
+    expected = {(name, train_key): 50 for name in kernels}
+    if counts != expected:
+        fail(f"expected one launch of each flash kernel per step at "
+             f"{train_key}: {counts}")
+    ema = trainer.ema_model.state_dict()
+    online = trainer.model.state_dict()
+    if trainer.state.step != 50 or any(
+            not torch.equal(ema[k], warm[k]) for k in warm):
+        fail("the EMA weights are not the warm copy of step 40")
+    if all(torch.equal(ema[k], online[k]) for k in online):
+        fail("the EMA weights equal the final online weights")
+    ckpt = CheckpointManager(results, prefix="model")
+    saved = ckpt.restore()
+    if ckpt.latest_milestone() != 1 or saved["step"] != 50 or any(
+            not torch.equal(saved["ema"][k], ema[k].cpu()) for k in ema):
+        fail(f"checkpoint {ckpt.all_milestones()} does not load back")
+    print(f"checkpoint {ckpt.path(1).name} ({ckpt.path(1).stat().st_size} "
+          f"bytes) loads back at step {saved['step']}; EMA = step-40 warm "
+          f"copy, != final weights")
+    rate = first["latents_per_s"]
+    del trainer, saved, warm, ema, online
+
+    # generation from that checkpoint, with a seeded random KL-VAE file
+    vae_pt = work / "kl_vae.pt"
+    torch.manual_seed(seed)
+    torch.save(KLVAE().state_dict(), vae_pt)
+    reset_counts(kernels)
+    result, gen_secs = run_generate(torch, [
+        "--checkpoint", str(results), "--vae_weights", str(vae_pt),
+        "--num_images", "4", "--batch_size", "4", "--user_ids", "1",
+        "--seed", str(seed), "--output_dir", str(OUT / "from_checkpoint")])
+    gen_counts = read_counts(kernels)
+    check_images(result["images"], 4)
+    print(f"generate --checkpoint: 4 images in {gen_secs:.3f} s; launches "
+          f"{gen_counts}")
+    if kernels["flash_fwd"].launches != 151 or any(
+            k.launches for name, k in kernels.items() if name != "flash_fwd"):
+        fail(f"generation from the checkpoint: expected 151 forward "
+             f"launches and no backward launch, got {gen_counts}")
+    return counts, rate
 
 
 def main():
@@ -300,22 +689,31 @@ def main():
     build_all(KERNELS.values())
     print(f"kernel build: {time.perf_counter() - t0:.3f} s "
           f"({', '.join(KERNELS)})")
-    for kname, k in KERNELS.items():
+    for k in KERNELS.values():  # kernels of one source share its build log
         for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  {kname} ptxas: {line.strip()}")
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "smem")):
+                print(f"  {k.source.name} ptxas: {line.strip()}")
 
-    rows = check_flash_fwd(torch, peaks, args.seed)
+    rows = {**check_flash_fwd(torch, peaks, args.seed),
+            **check_flash_bwd(torch, peaks, args.seed)}
     check_small_pipeline(torch, KERNELS, args.seed)
+    check_small_training(torch, KERNELS, args.seed)
 
     if not args.kernels_only:
-        by_shape, rates = drive_main_path(torch, KERNELS, args.seed)
-        for row in rows.values():
-            row["launches"] = by_shape.get(row["key"], 0)
-            if not row["launches"]:
-                fail(f"main-path shape {row['shape']} never reached the "
-                     f"kernel: {by_shape}")
+        counts, rates = drive_main_path(torch, KERNELS, args.seed)
         print("samples/s: " + json.dumps(rates))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+            train_counts, rate = drive_training(torch, KERNELS, args.seed,
+                                                Path(work))
+        print(f"latents/s: {rate}")
+        for key, n in train_counts.items():
+            counts[key] = counts.get(key, 0) + n
+        for row in rows.values():
+            row["launches"] = counts.get((row["name"], row["key"]), 0)
+            if not row["launches"]:
+                fail(f"main-path shape {row['shape']} never reached "
+                     f"{row['name']}: {counts}")
 
     for row in rows.values():
         del row["key"]

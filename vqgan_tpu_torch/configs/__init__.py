@@ -1,3 +1,3 @@
-from .ldm_config import LDMConfig
+from .ldm_config import BaselineLDMConfig, LDMConfig
 
-__all__ = ["LDMConfig"]
+__all__ = ["BaselineLDMConfig", "LDMConfig"]

@@ -1,0 +1,116 @@
+"""Host-side data pipeline: the port's copy of what stage-2 training needs
+from vqgan_tpu/data/datasets.py.
+
+- `load_image`: Resize(shorter side) + CenterCrop + [0, 1] float32 HWC,
+  with PIL (the reference's torchvision transform).
+- `BatchLoader`: a shuffling batch iterator that assembles batches on a
+  background thread, double-buffered, so the device does not wait on the
+  host. Same seed, same batches as the JAX package's.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from pathlib import Path
+from typing import Iterator, Tuple
+
+import numpy as np
+
+__all__ = ["load_image", "BatchLoader"]
+
+
+def load_image(path: str | Path, image_size: int) -> np.ndarray:
+    """[image_size, image_size, 3] float32 in [0, 1]."""
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB")
+    w, h = img.size
+    scale = image_size / min(w, h)
+    img = img.resize((max(image_size, round(w * scale)),
+                      max(image_size, round(h * scale))), Image.BILINEAR)
+    w, h = img.size
+    left, top = (w - image_size) // 2, (h - image_size) // 2
+    img = img.crop((left, top, left + image_size, top + image_size))
+    return np.asarray(img, np.float32) / 255.0
+
+
+class BatchLoader:
+    """Shuffling, prefetching batch iterator over an indexable dataset of
+    (array, label) items; yields (stacked arrays, int32 labels)."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 drop_last: bool = True, seed: int = 0, prefetch: int = 2,
+                 repeat: bool = False):
+        if batch_size <= 0:
+            raise ValueError(f"batch_size must be positive, got {batch_size}")
+        if drop_last and len(dataset) < batch_size:
+            raise ValueError(
+                f"dataset has {len(dataset)} items < batch_size {batch_size} "
+                f"with drop_last=True: no batch can ever be produced")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.rng = np.random.default_rng(seed)
+        self.prefetch = prefetch
+        self.repeat = repeat
+
+    def _epoch_order(self):
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        return order
+
+    def _make_batch(self, idxs):
+        items, labels = zip(*(self.dataset[int(i)] for i in idxs))
+        return np.stack(items), np.asarray(labels, np.int32)
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def put(item):
+            """put() that observes `stop` while the queue is full."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                while True:
+                    order = self._epoch_order()
+                    n = len(order)
+                    end = n - (n % self.batch_size) if self.drop_last else n
+                    for s in range(0, end, self.batch_size):
+                        if not put(self._make_batch(
+                                order[s:s + self.batch_size])):
+                            return
+                    if not self.repeat:
+                        break
+                put(None)
+            except BaseException as ex:
+                # a dataset error reaches the consumer instead of leaving it
+                # blocked on an empty queue
+                put(ex)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+
+    def __len__(self):
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)

@@ -1,13 +1,14 @@
-"""Gaussian diffusion with classifier-free guidance: the DDIM sampler.
+"""Gaussian diffusion with classifier-free guidance: the training loss and
+the DDIM sampler.
 
-Counterpart of vqgan_tpu/diffusion/gaussian.py for generation:
-`model_predictions` (with the CFG [cond; null] pair as one 2B-batch forward),
-`ddim_sample` (a Python loop over the (time, time_next) pairs, with
-injectable noise) and `sample`. NCHW inside; `ddim_sample` and `sample` take
-an NHWC `shape` and `init_noise`/`step_noise` and return NHWC, like the JAX
-package. Training (`p_losses`, `loss`), the ancestral sampler,
-`interpolate`, immiscible noise, self-conditioning, CFG++ and
-`return_all_timesteps` come with later slices.
+Counterpart of vqgan_tpu/diffusion/gaussian.py for training and generation:
+`p_losses` and `loss` (Min-SNR weighted, offset noise, cond-drop; t, noise
+and the cond-drop mask can be injected), `model_predictions` (with the CFG
+[cond; null] pair as one 2B-batch forward), `ddim_sample` (a Python loop
+over the (time, time_next) pairs, with injectable noise) and `sample`. NCHW
+inside; the public functions take and return NHWC latents, like the JAX
+package. The ancestral sampler, `interpolate`, immiscible noise,
+self-conditioning, CFG++ and `return_all_timesteps` come with later slices.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ class GaussianDiffusion:
     objective: str = "pred_noise"
     beta_schedule: str = "cosine"
     ddim_sampling_eta: float = 1.0
+    offset_noise_strength: float = 0.0
     min_snr_loss_weight: bool = False
     min_snr_gamma: float = 5.0
     auto_normalize: bool = True
@@ -69,8 +71,70 @@ class GaussianDiffusion:
             raise ValueError("sampling_timesteps exceeds timesteps")
         self.is_ddim_sampling = self.sampling_timesteps < self.timesteps
 
+    def normalize(self, x):
+        return dm.normalize_to_neg_one_to_one(x) if self.auto_normalize else x
+
     def unnormalize(self, x):
         return dm.unnormalize_to_zero_to_one(x) if self.auto_normalize else x
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+
+    def p_losses(self, x_start, t, classes, *, noise=None,
+                 cond_drop_mask=None, cond_drop_prob: Optional[float] = None,
+                 generator: torch.Generator = None,
+                 return_features: bool = False):
+        """Min-SNR-weighted MSE of the model's prediction at times `t` [B].
+        x_start and `noise` are NHWC; noise is drawn from `generator` when
+        not given, as are the offset noise and, without `cond_drop_mask`,
+        the model's random class dropout. Returns the scalar loss, and the
+        model's mid-block features with `return_features`."""
+        x_start = _nchw(torch.as_tensor(x_start, device=self.device))
+        b, c = x_start.shape[:2]
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator,
+                                device=x_start.device)
+        else:
+            noise = _nchw(torch.as_tensor(noise, dtype=torch.float32,
+                                          device=x_start.device))
+        if self.offset_noise_strength > 0.0:
+            # per-(sample, channel) constant offset
+            offset = torch.randn((b, c), generator=generator,
+                                 device=x_start.device)
+            noise = noise + self.offset_noise_strength * offset[:, :, None,
+                                                                None]
+        t = torch.as_tensor(t, device=x_start.device)
+        x = dm.q_sample(self.schedule, x_start, t, noise)
+        model_out = self.model(x, t, classes, cond_drop_mask=cond_drop_mask,
+                               cond_drop_prob=cond_drop_prob,
+                               generator=generator,
+                               return_features=return_features)
+        features = None
+        if return_features:
+            model_out, features = model_out
+
+        if self.objective == "pred_noise":
+            target = noise
+        elif self.objective == "pred_x0":
+            target = x_start
+        else:
+            target = dm.predict_v(self.schedule, x_start, t, noise)
+        loss = ((model_out.float() - target.float()) ** 2).mean(
+            dim=tuple(range(1, model_out.ndim)))
+        loss = (loss * self.schedule.loss_weight[t]).mean()
+        return (loss, features) if return_features else loss
+
+    def loss(self, img, classes, *, t=None, generator: torch.Generator = None,
+             **kwargs):
+        """The training objective: t uniform in [0, T) from `generator`
+        (unless given), normalize, then `p_losses`. `img` is NHWC."""
+        img = torch.as_tensor(img, device=self.device)
+        if t is None:
+            t = torch.randint(0, self.timesteps, (img.shape[0],),
+                              generator=generator, device=img.device)
+        return self.p_losses(self.normalize(img), t, classes,
+                             generator=generator, **kwargs)
 
     def model_predictions(self, x, t, classes, *, cond_scale: float = 6.0,
                           rescaled_phi: float = 0.7,

@@ -7,10 +7,12 @@
 Counterpart of cli/generate.py, with its flags and its output layout:
 per user, batches of at most `--batch_size` DDIM samples, decoded by the
 KL-VAE and written as `ID_{user}/generated_{i:03d}.jpg` at quality 95.
-Weights come from PyTorch state-dict files (the port's or the reference
-models'), or are drawn at random from `--seed` with `--random_init`.
-Reading the JAX package's Orbax checkpoints (`--checkpoint`) needs JAX and
-is not supported here.
+U-Net weights come from a results folder of the port's trainer
+(`--checkpoint DIR [--milestone M]`: its config and its EMA weights, as the
+JAX CLI reads its checkpoints; the JAX package's Orbax checkpoints are
+refused with a message), or from a PyTorch state-dict file (the port's or
+the reference models'), or are drawn at random from `--seed` with
+`--random_init`.
 
 Runs on the GPU by default (`--device cpu` to run on the CPU). fp32 matmuls
 and convolutions run in full fp32 (TF32 off), as the JAX package's "highest"
@@ -30,6 +32,7 @@ from PIL import Image
 
 from .build import build_cfg_unet_diffusion
 from .checkpoint.load import load_weights
+from .checkpoint.manager import CheckpointManager
 from .configs.ldm_config import LDMConfig
 from .device import resolve_device, set_full_fp32_precision
 from .models.autoencoder import AutoencoderConfig, KLVAE
@@ -70,9 +73,10 @@ def generate_samples(diffusion, user_label: int, n: int, cond_scale: float,
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--checkpoint", default=None,
-                    help="Orbax checkpoint of the JAX package (not readable "
-                         "without JAX; use --unet_weights)")
-    ap.add_argument("--milestone", type=int, default=None)
+                    help="results folder of the port's trainer "
+                         "(model-{milestone}.pt and its config)")
+    ap.add_argument("--milestone", type=int, default=None,
+                    help="with --checkpoint; default the latest")
     ap.add_argument("--unet_weights", default=None,
                     help="CFG U-Net state dict (.pt), port or reference")
     ap.add_argument("--vae_weights", "--vae_path", dest="vae_weights",
@@ -92,11 +96,12 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.checkpoint is not None:
-        ap.error("--checkpoint (Orbax) needs JAX; pass --unet_weights")
-    if not args.random_init and (args.unet_weights is None
-                                 or args.vae_weights is None):
-        ap.error("pass --unet_weights and --vae_weights, or --random_init")
+    if args.checkpoint is not None and args.unet_weights is not None:
+        ap.error("pass --checkpoint or --unet_weights, not both")
+    if not args.random_init and (args.vae_weights is None or (
+            args.unet_weights is None and args.checkpoint is None)):
+        ap.error("pass --checkpoint or --unet_weights, and --vae_weights; "
+                 "or --random_init")
     return args
 
 
@@ -106,12 +111,22 @@ def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
     set_full_fp32_precision()
-    config = (LDMConfig.from_dict(json.loads(Path(args.config).read_text()))
-              if args.config else LDMConfig())
+    unet_weights = args.unet_weights
+    if args.checkpoint is not None:
+        # the config saved with the milestone, the EMA weights of its file
+        ckpt = CheckpointManager(args.checkpoint, prefix="model")
+        unet_weights = ckpt.checked_path(args.milestone)
+        milestone = int(unet_weights.stem.rsplit("-", 1)[-1])
+        config = LDMConfig.from_dict(ckpt.load_config(milestone) or {})
+    elif args.config:
+        config = LDMConfig.from_dict(json.loads(Path(args.config).read_text()))
+    else:
+        config = LDMConfig()
 
     torch.manual_seed(args.seed)  # random weights, where no file is given
-    diffusion, _ = load_model(config, None if args.random_init
-                              else args.unet_weights, device)
+    diffusion, _ = load_model(
+        config, unet_weights if args.checkpoint or not args.random_init
+        else None, device)
     vae = load_vae(None if args.random_init else args.vae_weights,
                    config.latent_channels, config.image_size, device=device)
     cond_scale = (args.cond_scale if args.cond_scale is not None

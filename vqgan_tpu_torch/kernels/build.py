@@ -4,7 +4,8 @@ Each source compiles with `nvcc` into its own shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds). Libraries land in
 `vqgan_tpu_torch/_build/`, named by the hash of the source, so an edited
 source builds anew at its next use and a stale library is never loaded.
-`build_all` starts one `nvcc` per source at once.
+`build_all` starts one `nvcc` per source at once; kernels whose entry points
+share a source share its library.
 """
 
 from __future__ import annotations
@@ -110,10 +111,14 @@ class CudaKernel:
 
 
 def build_all(kernels) -> None:
-    """Compile every kernel that is not built yet, all nvcc processes at
-    once, then load each."""
-    started = [(k, k.start_build()) for k in kernels]
-    for kernel, handle in started:
+    """Compile every source that is not built yet, one nvcc process per
+    source, all at once, then load each kernel. Kernels that share a source
+    share its library (and the first one's `build_log`)."""
+    started = {}
+    for kernel in kernels:
+        if kernel.source not in started:
+            started[kernel.source] = (kernel, kernel.start_build())
+    for kernel, handle in started.values():
         kernel.finish_build(handle)
     for kernel in kernels:
         kernel.function()

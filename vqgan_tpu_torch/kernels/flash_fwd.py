@@ -13,10 +13,11 @@ import torch
 
 from .build import CudaKernel
 
-__all__ = ["FLASH_FWD", "flash_fwd", "MAX_HEAD_DIM"]
+__all__ = ["FLASH_FWD", "flash_fwd", "check_attention_inputs",
+           "MAX_HEAD_DIM", "DTYPES"]
 
 MAX_HEAD_DIM = 512
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -28,33 +29,46 @@ FLASH_FWD = CudaKernel(
      ctypes.c_float, _i, _p])         # scale, dtype, stream
 
 
-def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              scale: float):
-    """q [B, Sq, H, D], k/v [B, Skv, H, D] on one CUDA device, fp32 or bf16,
-    last axis contiguous. Returns (out [B, Sq, H, D] in q's dtype,
-    lse [B, H, Sq] fp32)."""
+def check_attention_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *more: torch.Tensor):
+    """Raise unless q [B, Sq, H, D] and k/v [B, Skv, H, D] (and `more`
+    tensors shaped like q) lie on one CUDA device in one dtype the kernels
+    take, with a head_dim the kernels take and a contiguous last axis.
+    Returns (B, Sq, Skv, H, D)."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd needs CUDA tensors, got {q.device}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k and v must lie on one device")
-    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"flash_fwd takes float32 or bfloat16 q/k/v of one "
-                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise ValueError(f"{name} needs CUDA tensors, got {q.device}")
+    if any(t.device != q.device for t in (k, v, *more)):
+        raise ValueError(f"{name}: every input must lie on one device")
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in (k, v, *more)):
+        raise TypeError(f"{name} takes float32 or bfloat16 inputs of one "
+                        f"dtype, got {[str(t.dtype) for t in (q, k, v, *more)]}")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k and v must be [batch, seq, heads, head_dim]")
     b, s_q, h, d = q.shape
     s_kv = k.shape[1]
-    if k.shape != (b, s_kv, h, d) or v.shape != k.shape:
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if (k.shape != (b, s_kv, h, d) or v.shape != k.shape
+            or any(t.shape != q.shape for t in more)):
+        raise ValueError(f"{name}: shape mismatch, q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, others "
+                         f"{[tuple(t.shape) for t in more]}")
     if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim must be a multiple of 8 in [8, "
                          f"{MAX_HEAD_DIM}], got {d}")
     if s_q < 1 or s_kv < 1 or b * h > _MAX_GRID_Y:
         raise ValueError(f"unsupported sizes: B*H={b * h}, Sq={s_q}, "
                          f"Skv={s_kv}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("the head_dim axis of q, k and v must be contiguous")
+    if any(t.stride(-1) != 1 for t in (q, k, v, *more)):
+        raise ValueError(f"{name}: the head_dim axis of every input must be "
+                         f"contiguous")
+    return b, s_q, s_kv, h, d
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float):
+    """q [B, Sq, H, D], k/v [B, Skv, H, D] on one CUDA device, fp32 or bf16,
+    last axis contiguous. Returns (out [B, Sq, H, D] in q's dtype,
+    lse [B, H, Sq] fp32)."""
+    b, s_q, s_kv, h, d = check_attention_inputs("flash_fwd", q, k, v)
 
     out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
@@ -67,7 +81,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  k.stride(0), k.stride(1), k.stride(2),
                  v.stride(0), v.stride(1), v.stride(2),
                  out.stride(0), out.stride(1), out.stride(2),
-                 float(scale), _DTYPES[q.dtype], stream)
+                 float(scale), DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     FLASH_FWD.count((b, s_q, h, d, str(q.dtype).removeprefix("torch.")))

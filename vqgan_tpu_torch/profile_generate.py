@@ -51,8 +51,11 @@ def profiled(fn, reps: int, top: int = 8) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    # device events, less user annotations (the optimizer's step range spans
+    # kernels that are counted already)
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     device_ms = sum(_device_us(e) for e in kernels) / 1e3 / reps
     ranked = sorted(kernels, key=_device_us, reverse=True)[:top]
     return {

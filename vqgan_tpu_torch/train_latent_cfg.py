@@ -1,0 +1,90 @@
+"""Stage-2 latent-diffusion training.
+
+    python -m vqgan_tpu_torch.train_latent_cfg --split data_split.json \\
+        --data_path data/Normal_line --latents_cache_folder latents_cache \\
+        --vae_path kl_vae_best.pt --results_folder results
+    python -m vqgan_tpu_torch.train_latent_cfg ... --resume -1  # latest
+
+Counterpart of cli/train_latent_cfg.py: LDMConfig (or, with `--baseline`,
+the all-optimizations-off BaselineLDMConfig) with the flags' overrides, and
+a JSON of further LDMConfig fields with `--config`; the CFG U-Net trained on
+the cached latents, with resume. `--vae_path` is a KL-VAE state dict
+(`.pt`); with it, latents missing from the cache are encoded and every
+checkpoint comes with a sample grid. The JAX package's mesh, sharding and
+scan dispatch have no counterpart here.
+
+Runs on the GPU by default (`--device cpu` to run on the CPU), with TF32
+off for fp32 matmuls and convolutions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+from .configs.ldm_config import BaselineLDMConfig, LDMConfig
+from .device import resolve_device, set_full_fp32_precision
+
+__all__ = ["main", "parse_args"]
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--vae_path", default=None,
+                    help="KL-VAE state dict (.pt)")
+    ap.add_argument("--data_path", default=None)
+    ap.add_argument("--split", default=None, help="data split JSON")
+    ap.add_argument("--results_folder", default=None)
+    ap.add_argument("--latents_cache_folder", default=None)
+    ap.add_argument("--train_num_steps", type=int, default=None)
+    ap.add_argument("--train_batch_size", type=int, default=None)
+    ap.add_argument("--resume", type=int, default=None,
+                    help="milestone to resume from; -1 for the latest")
+    ap.add_argument("--baseline", action="store_true",
+                    help="ablation baseline config (all optimizations off)")
+    ap.add_argument("--config", default=None,
+                    help="JSON of further LDMConfig fields")
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """Train. Returns the trainer's `train` result (every step's loss, and
+    latents/s after the warm-up) with the trainer under "trainer"."""
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    set_full_fp32_precision()
+    cls = BaselineLDMConfig if args.baseline else LDMConfig
+    raw = json.loads(Path(args.config).read_text()) if args.config else {}
+    raw.update({k: v for k, v in vars(args).items()
+                if v is not None and k in cls.__dataclass_fields__})
+    config = cls.from_dict(raw)
+    config.print_config_summary()
+    if args.baseline:
+        config.print_ablation_table()
+
+    vae = None
+    if args.vae_path:
+        from .generate import load_vae
+
+        vae = load_vae(args.vae_path, config.latent_channels,
+                       config.image_size, device=device)
+
+    from .training.ldm_trainer import LatentDiffusionTrainer
+
+    trainer = LatentDiffusionTrainer(config, split_path=args.split, vae=vae,
+                                     device=device)
+    if args.resume is not None:
+        step = trainer.load(None if args.resume < 0 else args.resume)
+        print(f"resumed from step {step}")
+    result = trainer.train(num_steps=args.train_num_steps)
+    if result["latents_per_s"] is not None:
+        print(f"{result['timed_steps']} steps after warm-up: "
+              f"{result['latents_per_s']:.2f} latents/s")
+    return {**result, "trainer": trainer}
+
+
+if __name__ == "__main__":
+    main()

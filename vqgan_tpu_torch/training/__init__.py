@@ -1,0 +1,14 @@
+from .ema import ema_decay_at_step, ema_update
+from .ldm_step import (
+    LDMOptimizer,
+    LDMTrainState,
+    global_norm,
+    make_ldm_optimizer,
+    make_ldm_train_step,
+)
+from .watchdog import TrainingDiverged, TrainingWatchdog, check_sample_range
+
+__all__ = ["LDMOptimizer", "LDMTrainState", "TrainingDiverged",
+           "TrainingWatchdog", "check_sample_range", "ema_decay_at_step",
+           "ema_update", "global_norm", "make_ldm_optimizer",
+           "make_ldm_train_step"]
