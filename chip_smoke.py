@@ -2,19 +2,21 @@
 """Smoke run of the PyTorch/CUDA port (vqgan_tpu_torch) on one GPU.
 
     python3 chip_smoke.py                 # every phase
-    python3 chip_smoke.py --kernels-only  # build + kernel-vs-plain checks
+    python3 chip_smoke.py --kernels-only  # build + kernel and small checks
 
 Phases, in order; any failure exits non-zero:
 1. A CUDA device must be present; print its name and power limit.
 2. Build every hand-written kernel from the sources in this checkout, one
    nvcc per source, all at once.
 3. Hold each kernel against its plain PyTorch version on the card (TF32
-   off): the forward at the main paths' shapes and at ragged shapes; the
-   backward kernels (dQ; dK and dV) at the training shape, the KL-VAE
-   shape, ragged shapes and with strided dO. Time each kernel, its plain
-   version and one PyTorch library call at the main paths' shapes (and the
-   backward at the KL-VAE shape, for the next slice), and compute the
-   bound.
+   off): the flash forward at the main paths' shapes and at ragged shapes;
+   the backward kernels (dQ; dK and dV) at the LDM training shape, the
+   KL-VAE shape, the VQ-VAE's bf16 d = 512 shape, ragged shapes and with
+   strided dO; the VQ kernel in both modes at the VQ-GAN main-path shape
+   [8192,256]x[128,256], at K = 8192, at a ragged shape and on a codebook
+   of repeated rows, with its fused usage histogram against bincount. Time
+   each kernel, its plain version and one PyTorch library call at the main
+   paths' shapes (and a few others), and compute the bound.
 4. Run the generation slice on a small input (tiny U-Net and KL-VAE in
    fp32, 5 DDIM steps at cond_scale 3.0 with injected noise, then the
    decode) on the card and on the CPU, where attention takes the plain
@@ -23,6 +25,11 @@ Phases, in order; any failure exits non-zero:
    CPU from the same weights with injected t, noise and cond-drop mask;
    hold the gradients, losses, parameters and EMA against each other, and
    require one launch of each flash kernel per step.
+4c. Run three VQ-GAN training steps (disc_start 1) of a tiny fp32 config
+   on the card and on the CPU from the same weights and images; hold the
+   indices, losses, first G step's gradients, BatchNorm statistics and
+   parameter moves against each other; one VQ launch per step and five of
+   each flash kernel per G step.
 5. Drive generation, `python -m vqgan_tpu_torch.generate`, at full width
    with seeded random weights: LDMConfig defaults (dim 96, mults 1-2-4-4,
    8 heads x 64, T=1000, DDIM-150, pred_v, cosine, bf16 U-Net) and the
@@ -30,7 +37,7 @@ Phases, in order; any failure exits non-zero:
    cond_scale 1.0, then one batch at cond_scale 3.0 / rescaled_phi 0.7.
    The kernel launch counts are reset just before and read just after, and
    must be 151 forward launches per batch (150 U-Net steps + 1 VAE decode)
-   and no backward launch. The JPG layout must be written and every image
+   and no other launch. The JPG layout must be written and every image
    finite.
 5b. Drive training, `python -m vqgan_tpu_torch.train_latent_cfg`, at full
    width (LDMConfig defaults, batch 8, no VAE) on a split and latent cache
@@ -42,6 +49,15 @@ Phases, in order; any failure exits non-zero:
    the checkpoint and its latest pointer must load back. Then generate 4
    images from that checkpoint (EMA weights) with a seeded random KL-VAE
    state dict: 151 forward launches, no backward launch.
+5c. Drive stage-1 VQ-GAN training, `python -m vqgan_tpu_torch.train_vqgan`,
+   at full width (VQGANConfig defaults: batch 8 at 256 px, bf16) on 31
+   users x 8 seeded smooth-pattern JPGs: 10 G-only steps (disc_start 10),
+   then a resume to step 30 (G + D). Every loss finite; per G step one VQ
+   launch at [8192,256]x[128,256] and two of each flash kernel at
+   [8,1024,1,512] bf16, plus one VQ and two forward launches per
+   reconstruction grid; the discriminator unchanged after the first call
+   and moved after the second; checkpoints and the latest pointer load
+   back; the grids exist. Prints images/s.
 6. Print the kernels' JSON line, then the card line, then the device line.
 """
 
@@ -71,6 +87,8 @@ _PEAKS = {
 # differ only in summation order (fp32) or in one final bf16 rounding step
 _ATOL = {"float32": {"out": 2e-5, "lse": 1e-4},
          "bfloat16": {"out": 1e-2, "lse": 1e-4}}
+
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def fail(msg: str):
@@ -112,6 +130,7 @@ def attention_cases():
         ("unet_mid", 16, 16, 16, 8, 64, "bfloat16", True),
         ("unet_mid_cfg", 32, 16, 16, 8, 64, "bfloat16", True),
         ("vae_mid", 16, 1024, 1024, 1, 512, "float32", True),
+        ("vqvae_mid_train", 8, 1024, 1024, 1, 512, "bfloat16", True),
         ("ragged_d512", 2, 100, 100, 1, 512, "float32", False),
         ("ragged_cross", 2, 64, 17, 4, 32, "float32", False),
         ("ragged_tiny_bf16", 1, 7, 7, 2, 16, "bfloat16", False),
@@ -190,13 +209,17 @@ def check_flash_fwd(torch, peaks, seed: int):
 
 def bwd_cases():
     """(label, B, Sq, Skv, H, D, dtype, timed, strided dO, main_path).
-    The KL-VAE shape is timed for the next slice (stage-1 training), which
-    is not this script's main path: it gets no row in the kernels line."""
+    The fp32 KL-VAE shape is timed for stage-1 KL-VAE training, which is
+    not this script's main path: it gets no row in the kernels line. The
+    VQ-VAE's mid-block attention in VQ-GAN training is the bf16 d = 512
+    shape."""
     return [
         ("unet_mid_train", 8, 16, 16, 8, 64, "bfloat16", True, False, True),
         ("unet_mid_train_strided_do", 8, 16, 16, 8, 64, "bfloat16", False,
          True, False),
         ("vae_mid", 16, 1024, 1024, 1, 512, "float32", True, False, False),
+        ("vqvae_mid_train", 8, 1024, 1024, 1, 512, "bfloat16", True, False,
+         True),
         ("ragged_d512", 2, 100, 100, 1, 512, "float32", False, True, False),
         ("ragged_cross", 2, 64, 17, 4, 32, "float32", False, True, False),
         ("ragged_tiny_bf16", 1, 7, 7, 2, 16, "bfloat16", False, False,
@@ -322,6 +345,135 @@ def check_flash_bwd(torch, peaks, seed: int):
         print(f"flash_bwd {label}: dq+dkv kernel_ms="
               f"{sum(ms.values()):.4f} vs library backward (dq, dk, dv) "
               f"ms={library_ms:.4f}")
+    return rows
+
+
+# A kernel index may differ from the plain version's only where the plain
+# version's two scores lie within this fraction of |z|^2 + |e|^2, the size
+# of the terms the score sums: the dot product is summed in another order
+# (fp32 rounding of a 256-term sum is ~1e-7 of that size), so a near-tie can
+# go either way. z_q must then equal wherever the indices do.
+_VQ_FLIP_RTOL = 1e-6
+
+
+def vq_index_flips(torch, z, codebook, got, want, mode: str, rtol: float):
+    """(number of rows where `got` != `want`, number of them that are not
+    near-ties within `rtol` by the plain version's scores, the largest
+    score excess of a `got` pick over the `want` pick)."""
+    from vqgan_tpu_torch.ops.vq import vq_scores
+
+    rows = torch.nonzero(got != want).flatten()
+    if rows.numel() == 0:
+        return 0, 0, 0.0
+    scores = vq_scores(z[rows], codebook, mode)
+    got_s = scores.gather(1, got[rows].long()[:, None]).squeeze(1)
+    want_s = scores.gather(1, want[rows].long()[:, None]).squeeze(1)
+    e_sq = (codebook.float() ** 2).sum(1)
+    scale = (z[rows].float() ** 2).sum(1) + e_sq[want[rows].long()]
+    far = (got_s - want_s).abs() > rtol * scale
+    return (int(rows.numel()), int(far.sum()),
+            (got_s - want_s).max().item())
+
+
+def vq_cases():
+    """(label, N, K, D, duplicates, main_path): the main path's shape (a
+    batch of 8 32x32 latent grids against the 128-code codebook), the
+    JAX package's bench shape (K = 8192), a ragged one, and one whose
+    codebook repeats rows (ties must go to the lowest index)."""
+    return [
+        ("vqgan_main", 8192, 128, 256, False, True),
+        ("bench_k8192", 8192, 8192, 256, False, False),
+        ("ragged", 777, 130, 40, False, False),
+        ("ties", 777, 130, 40, True, False),
+    ]
+
+
+def check_vq(torch, peaks, seed: int):
+    """The VQ kernel in both modes against its plain version on the card:
+    indices (exact but for near-ties, `_VQ_FLIP_RTOL`), z_q where the
+    indices agree, the fused usage histogram against `bincount`. Times the
+    kernel, the plain version and the reference's own route (addmm,
+    argmin, index_select) at the timed shapes."""
+    from vqgan_tpu_torch.kernels.vq import vq_nearest
+    from vqgan_tpu_torch.ops.vq import (
+        codebook_usage,
+        vq_lookup,
+        vq_lookup_reference,
+    )
+
+    rows = {}
+    rng = np.random.default_rng(seed + 3)
+    for label, n, k, d, dup, main in vq_cases():
+        cb = rng.standard_normal((k, d)).astype(np.float32)
+        if dup:
+            cb[k // 2:] = cb[:k - k // 2]  # every code twice
+            z = cb[rng.integers(0, k, n)] + 0.05 * rng.standard_normal(
+                (n, d)).astype(np.float32)
+        else:
+            z = rng.standard_normal((n, d)).astype(np.float32)
+        z, cb = (torch.from_numpy(a).to("cuda") for a in (z, cb))
+        e_sq = (cb * cb).sum(1)
+        for mode, use_kernel in (("fp32", "fp32"), ("bf16", True)):
+            idx, usage = vq_nearest(z, cb, e_sq, mode)
+            zq, idx_op, usage_op = vq_lookup(z, cb, use_kernel)
+            torch.cuda.synchronize()
+            ref_zq, ref_idx = vq_lookup_reference(z, cb, mode)
+            flips, far, score_err = vq_index_flips(
+                torch, z, cb, idx, ref_idx, mode, _VQ_FLIP_RTOL)
+            same = idx == ref_idx
+            zq_err = (zq - ref_zq)[same].abs().max().item() if same.any() \
+                else 0.0
+            hist_ok = torch.equal(usage, codebook_usage(idx, k)) and \
+                torch.equal(usage_op, usage) and torch.equal(idx_op, idx)
+            print(f"vq_nearest {label} [{n},{d}]x[{k},{d}] {mode}: "
+                  f"{flips} index flips vs plain ({far} not near-ties, "
+                  f"largest score excess {score_err:.3e}), "
+                  f"max|z_q-plain| where equal {zq_err:.3e}, usage "
+                  f"{'= bincount' if hist_ok else '!= bincount'}")
+            if far or zq_err != 0.0 or not hist_ok or int(usage.sum()) != n:
+                fail(f"vq_nearest disagrees with its plain version at "
+                     f"{label} {mode}")
+            if dup and (idx >= k // 2).any():  # the upper copies
+                fail("vq_nearest broke a tie toward a higher index")
+            if label not in ("vqgan_main", "bench_k8192"):
+                continue
+
+            iters = 20 if k >= 8192 else 200
+            kernel_ms = cuda_ms(
+                torch, lambda: vq_nearest(z, cb, e_sq, mode), iters)
+            plain_ms = cuda_ms(
+                torch, lambda: vq_lookup_reference(z, cb, mode), iters)
+
+            def library():
+                dist = torch.addmm((z * z).sum(1, keepdim=True) + e_sq, z,
+                                   cb.t(), alpha=-2.0)
+                return cb.index_select(0, torch.argmin(dist, dim=1))
+
+            library_ms = cuda_ms(torch, library, iters)
+            n_bytes = 4 * (n * d + k * d + k + n + k)
+            t_bytes = n_bytes / peaks["bytes_per_s"] * 1e3
+            t_ops = 2 * n * k * d / peaks[
+                "float32" if mode == "fp32" else "bfloat16"] * 1e3
+            row = {
+                "name": "vq_nearest",
+                "key": (n, k, d, mode),
+                "shape": f"[{n},{d}]x[{k},{d}] {mode}",
+                "route": "cuda",
+                "source": "vqgan_tpu_torch/csrc/vq.cu",
+                "replaces": "vqgan_tpu/ops/vq.py:76",
+                "launches": None,
+                "max_abs_err": score_err,  # of the picked code's score
+                "ms": kernel_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms,
+            }
+            if main and mode == "fp32":  # the main path's mode
+                rows[("vq_nearest", label)] = row
+            print(f"vq_nearest {label} {mode}: kernel_ms={kernel_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                  f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']})")
     return rows
 
 
@@ -453,7 +605,7 @@ def check_small_training(torch, kernels, seed: int):
             x = inputs(i)
             log = step(state, x.pop("latents"), x.pop("classes"), **x)
             losses.append(float(log["loss"]))
-        launches = {name: k.launches for name, k in kernels.items()}
+        launches = {name: kernels[name].launches for name in FLASH}
 
         def flat(m):
             return torch.cat([p.detach().flatten().cpu()
@@ -490,6 +642,133 @@ def check_small_training(torch, kernels, seed: int):
     if any(n != n_steps for n in launches.values()):
         fail(f"expected {n_steps} launches of each flash kernel in "
              f"{n_steps} training steps, got {launches}")
+
+
+def _flat(torch, module, params_only=True):
+    """The module's parameters (or its BatchNorm running statistics) as
+    one CPU vector."""
+    return torch.cat([v.detach().flatten().cpu().float()
+                      for k, v in module.state_dict().items()
+                      if params_only != ("running" in k)])
+
+
+def check_small_vqgan(torch, kernels, seed: int):
+    """Three VQ-GAN training steps of a tiny fp32 config on the card and on
+    the CPU from the same weights and images (TF32 off), disc_start 1: step
+    0 is G only, steps 1-2 G + D. Tolerances:
+    - indices of the initial encoder's z, exact but for near-ties within
+      1e-4 of |z|^2 + |e|^2 by the CPU's scores: the encoders' outputs
+      differ by cuDNN's and the CPU's summation orders (~1e-6 relative);
+    - usage counts of every step, exact where the indices agree;
+    - losses, rtol 1e-4;
+    - the first G step's gradients, codebook included, 1e-3 of the largest;
+    - BatchNorm running statistics, 1e-4 (convolutions summed in other
+      orders before each norm);
+    - parameter moves from the initial weights: the card's differs from
+      the CPU's by at most 5% in norm and by over lr / 2 in at most 1% of
+      the elements (Adam's first steps are sign-like, and conv biases under
+      GroupNorm have a gradient of exactly 0 in exact arithmetic, rounding
+      noise in practice: such an element moves by about lr either way).
+    One VQ launch per step and 5 launches of each flash kernel per G step
+    (attention at 16 px: 1 in the encoder's level, 2 in the decoder's, and
+    the two mid blocks); none in the D steps."""
+    import copy
+
+    from vqgan_tpu_torch.models import LPIPS, VQVAE, PatchGANDiscriminator
+    from vqgan_tpu_torch.models.lpips import perceptual_loss_fn
+    from vqgan_tpu_torch.training import (
+        VQGANTrainState,
+        make_gan_optimizers,
+        make_vqgan_split_steps,
+    )
+
+    n_steps, b, lr = 3, 4, 4.5e-5
+    torch.manual_seed(seed)
+    vq_init = VQVAE(ch=16, ch_mult=(1, 2), num_res_blocks=1, resolution=32,
+                    z_channels=16, num_embeddings=8, embedding_dim=16)
+    d_init = PatchGANDiscriminator(ndf=8, n_layers=2)
+    lpips_init = LPIPS()
+    images = np.random.default_rng(seed + 4).random(
+        (n_steps, b, 32, 32, 3)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        vqvae = copy.deepcopy(vq_init).to(dev)
+        disc = copy.deepcopy(d_init).to(dev)
+        lpips = copy.deepcopy(lpips_init).to(dev).eval().requires_grad_(False)
+        opt_g, opt_d = make_gan_optimizers(vqvae.parameters(),
+                                           disc.parameters(),
+                                           learning_rate=lr,
+                                           disc_learning_rate=lr)
+        grads = []
+        g_update = opt_g.step
+
+        def record(g, norm=None, g_update=g_update, grads=grads):
+            if not grads:  # the first G step's gradients, before clipping
+                grads.append(torch.cat([t.detach().flatten().cpu()
+                                        for t in g]))
+            return g_update(g, norm)
+
+        opt_g.step = record
+        g_step, d_step = make_vqgan_split_steps(
+            disc_start=1, perceptual_fn=perceptual_loss_fn(lpips))
+        state = VQGANTrainState(0, vqvae, disc, opt_g, opt_d)
+        with torch.no_grad():
+            x0 = torch.from_numpy(images[0]).to(dev).permute(0, 3, 1, 2)
+            z = vqvae.encode_pre_quant(x0).permute(0, 2, 3, 1).reshape(-1, 16)
+            idx = vqvae.encode_to_indices(x0).flatten()
+        reset_counts(kernels)
+        logs = []
+        for i in range(n_steps):
+            x = torch.from_numpy(images[i]).to(dev)
+            recon, log = g_step(state, x)
+            if i >= 1:
+                log.update(d_step(state, x, recon))
+            logs.append({k: v.cpu() for k, v in log.items()})
+        launches = {name: k.launches for name, k in kernels.items()}
+        out[dev] = dict(z=z.cpu(), idx=idx.cpu(), logs=logs, grads=grads[0],
+                        vq=_flat(torch, vqvae), d=_flat(torch, disc),
+                        stats=_flat(torch, disc, params_only=False),
+                        launches=launches)
+
+    cpu, gpu = out["cpu"], out["cuda"]
+    codebook = vq_init.quantizer.embedding.weight.detach()
+    flips, far, _ = vq_index_flips(torch, cpu["z"], codebook, gpu["idx"],
+                                   cpu["idx"], "fp32", 1e-4)
+    loss_err = max(abs(g[k].item() - c[k].item()) / max(abs(c[k].item()),
+                                                        1e-12)
+                   for g, c in zip(gpu["logs"], cpu["logs"])
+                   for k in c if k != "usage_counts")
+    usage_ok = flips > 0 or all(
+        torch.equal(g["usage_counts"], c["usage_counts"])
+        for g, c in zip(gpu["logs"], cpu["logs"]))
+    grad_err = (gpu["grads"] - cpu["grads"]).abs().max().item()
+    grad_size = cpu["grads"].abs().max().item()
+    stats_err = (gpu["stats"] - cpu["stats"]).abs().max().item()
+    moves = {}
+    for name, init in (("vq", _flat(torch, vq_init)),
+                       ("d", _flat(torch, d_init))):
+        cpu_move = cpu[name] - init
+        diff = gpu[name] - cpu[name]
+        if cpu_move.norm().item() == 0.0:
+            fail(f"the CPU's {name} parameters did not move")
+        moves[name] = (diff.norm().item() / cpu_move.norm().item(),
+                       (diff.abs() > lr / 2).float().mean().item())
+    expected = {"vq_nearest": n_steps, "flash_fwd": 5 * n_steps,
+                "flash_bwd_dq": 5 * n_steps, "flash_bwd_dkv": 5 * n_steps}
+    print(f"small VQ-GAN training, card vs CPU: {flips} index flips ({far} "
+          f"not near-ties); max rel loss diff {loss_err:.3e}; max|grad "
+          f"diff|={grad_err:.3e} (max|grad| {grad_size:.3e}); max|BN stats "
+          f"diff|={stats_err:.3e}; "
+          + ", ".join(f"{n} moves: |diff|/|cpu move|={r:.3e}, {f:.2%} over "
+                      f"lr/2" for n, (r, f) in moves.items())
+          + f"; launches on the card {gpu['launches']}")
+    if far or not usage_ok or loss_err > 1e-4 \
+            or grad_err > 1e-3 * grad_size or stats_err > 1e-4 \
+            or any(r > 0.05 or f > 0.01 for r, f in moves.values()):
+        fail("VQ-GAN training on the card disagrees with the CPU")
+    if gpu["launches"] != expected:
+        fail(f"expected launches {expected} in {n_steps} VQ-GAN steps, got "
+             f"{gpu['launches']}")
 
 
 def run_generate(torch, argv):
@@ -624,7 +903,7 @@ def drive_training(torch, kernels, seed: int, work: Path):
           f"launches {counts}")
     if len(losses) != 50 or not all(np.isfinite(losses)):
         fail(f"expected 50 finite losses, got {losses}")
-    expected = {(name, train_key): 50 for name in kernels}
+    expected = {(name, train_key): 50 for name in FLASH}
     if counts != expected:
         fail(f"expected one launch of each flash kernel per step at "
              f"{train_key}: {counts}")
@@ -666,6 +945,115 @@ def drive_training(torch, kernels, seed: int, work: Path):
     return counts, rate
 
 
+def write_image_data(work: Path, seed: int):
+    """A split of 31 users ID_1..ID_31 with 8 training JPGs each (the
+    reference's 31 users; 8 images each instead of its 50, to keep the
+    set-up short), 256x256: smooth seeded patterns (two colour gratings per
+    image), not white noise, so the files stay small."""
+    from PIL import Image
+
+    from vqgan_tpu_torch.data import save_split
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:256, 0:256].astype(np.float32) / 256.0
+    split = {"metadata": {"method": "chip_smoke", "seed": seed}, "users": {}}
+    for user in range(1, 32):
+        names = [f"frame_{i:03d}.jpg" for i in range(8)]
+        folder = work / "images" / f"ID_{user}"
+        folder.mkdir(parents=True)
+        for name in names:
+            f = rng.uniform(1.0, 8.0, (2, 3, 1, 1))
+            phase = rng.uniform(0, 2 * np.pi, (2, 3, 1, 1))
+            img = 0.5 + 0.25 * (np.sin(2 * np.pi * f[0] * xx + phase[0])
+                                + np.cos(2 * np.pi * f[1] * yy + phase[1]))
+            Image.fromarray((img.transpose(1, 2, 0) * 255).astype(
+                np.uint8)).save(folder / name, quality=90)
+        split["users"][f"ID_{user}"] = {"train_images": names,
+                                        "test_images": []}
+    save_split(split, work / "data_split.json")
+    return work / "data_split.json", work / "images"
+
+
+def drive_vqgan_training(torch, kernels, seed: int, work: Path):
+    """Full-width stage-1 training through `train_vqgan.main` (VQGANConfig
+    defaults: batch 8 at 256 px, bf16): 10 G-only steps (disc_start 10)
+    with the off-cadence final save, then a resume to step 30 (G + D from
+    step 10, saves at steps 20 and 30). Returns ({(kernel, shape):
+    launches}, {"G only": images/s, "G + D": images/s})."""
+    from vqgan_tpu_torch import train_vqgan
+    from vqgan_tpu_torch.checkpoint import CheckpointManager
+    from vqgan_tpu_torch.training.vqgan_trainer import VQGANTrainer
+
+    split, images = write_image_data(work, seed)
+    config = work / "vqgan_config.json"
+    config.write_text(json.dumps({"seed": seed, "images_per_user_train": 8}))
+    results = work / "vqgan"
+    common = ["--config", str(config), "--split", str(split), "--data_path",
+              str(images), "--results_folder", str(results),
+              "--disc_start", "10", "--save_every", "20"]
+    vq_key = (8192, 128, 256, "fp32")
+    attn_key = (8, 1024, 1, 512, "bfloat16")
+
+    def expected(g_steps, grids):
+        return {("vq_nearest", vq_key): g_steps + grids,
+                ("flash_fwd", attn_key): 2 * (g_steps + grids),
+                ("flash_bwd_dq", attn_key): 2 * g_steps,
+                ("flash_bwd_dkv", attn_key): 2 * g_steps}
+
+    reset_counts(kernels)
+    first = train_vqgan.main([*common, "--train_steps", "10"])
+    first_counts = read_counts(kernels)
+    trainer = first.pop("trainer")
+    cfg = trainer.config
+    fresh = VQGANTrainer(cfg, device="cpu")  # the seeded initial weights
+    d_init = {k: v.clone() for k, v in fresh.disc.state_dict().items()}
+    del fresh
+    d_first = {k: v.cpu() for k, v in trainer.disc.state_dict().items()}
+    del trainer
+    reset_counts(kernels)
+    second = train_vqgan.main([*common, "--train_steps", "30",
+                               "--resume", "-1"])
+    second_counts = read_counts(kernels)
+    trainer = second.pop("trainer")
+
+    losses = first["losses"] + second["losses"]
+    rates = {"G only": first["images_per_s"], "G + D": second["images_per_s"]}
+    print(f"train_vqgan: {len(first['losses'])} G-only steps + "
+          f"{len(second['losses'])} G+D steps (resumed); images/s after a "
+          f"warm-up of 5: {rates}; losses {losses}; launches "
+          f"{first_counts} then {second_counts}")
+    if len(losses) != 30 or not all(np.isfinite(losses)):
+        fail(f"expected 30 finite losses, got {losses}")
+    if first_counts != expected(10, 1) or second_counts != expected(20, 2):
+        fail(f"expected 1 VQ and 2 of each flash launch per G step and 1 VQ "
+             f"+ 2 forward launches per grid: {first_counts}, "
+             f"{second_counts}")
+    if any(not torch.equal(d_first[k], v) for k, v in d_init.items()):
+        fail("the discriminator moved before disc_start")
+    d_final = {k: v.cpu() for k, v in trainer.disc.state_dict().items()}
+    moved = [k for k, v in d_init.items() if not torch.equal(d_final[k], v)]
+    if len(moved) != len(d_init):
+        fail(f"only {moved} of the discriminator moved after disc_start")
+    ckpt = CheckpointManager(results, prefix="vqgan")
+    saved = ckpt.restore()
+    if (ckpt.all_milestones() != [1, 2] or ckpt.latest_milestone() != 2
+            or saved["step"] != 30 or ckpt.restore(1)["step"] != 20
+            or any(not torch.equal(saved["disc"][k], v)
+                   for k, v in d_final.items())):
+        fail(f"checkpoint {ckpt.all_milestones()} does not load back")
+    for m in (1, 2):
+        if not (results / f"reconstruction-{m}.png").exists():
+            fail(f"reconstruction-{m}.png was not written")
+    print(f"checkpoint {ckpt.path(2).name} ({ckpt.path(2).stat().st_size} "
+          f"bytes) loads back at step {saved['step']}; discriminator "
+          f"unchanged through step 10, moved by step 30; reconstruction "
+          f"grids written")
+    counts = dict(first_counts)
+    for key, n in second_counts.items():
+        counts[key] = counts.get(key, 0) + n
+    return counts, rates
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -696,9 +1084,11 @@ def main():
                 print(f"  {k.source.name} ptxas: {line.strip()}")
 
     rows = {**check_flash_fwd(torch, peaks, args.seed),
-            **check_flash_bwd(torch, peaks, args.seed)}
+            **check_flash_bwd(torch, peaks, args.seed),
+            **check_vq(torch, peaks, args.seed)}
     check_small_pipeline(torch, KERNELS, args.seed)
     check_small_training(torch, KERNELS, args.seed)
+    check_small_vqgan(torch, KERNELS, args.seed)
 
     if not args.kernels_only:
         counts, rates = drive_main_path(torch, KERNELS, args.seed)
@@ -707,7 +1097,11 @@ def main():
             train_counts, rate = drive_training(torch, KERNELS, args.seed,
                                                 Path(work))
         print(f"latents/s: {rate}")
-        for key, n in train_counts.items():
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_vq_") as work:
+            vq_counts, vq_rates = drive_vqgan_training(
+                torch, KERNELS, args.seed, Path(work))
+        print("images/s: " + json.dumps(vq_rates))
+        for key, n in [*train_counts.items(), *vq_counts.items()]:
             counts[key] = counts.get(key, 0) + n
         for row in rows.values():
             row["launches"] = counts.get((row["name"], row["key"]), 0)

@@ -198,10 +198,17 @@ def test_load_weights_unwraps_reference_containers(tmp_path):
         load_weights(CFGUnet(**UNET), tmp_path / "short.pt")
 
 
-def test_entry_points_default_to_gpu_and_raise_without_one(monkeypatch):
-    from vqgan_tpu_torch import generate, profile_generate
+def test_entry_points_default_to_gpu_and_raise_without_one(monkeypatch,
+                                                          tmp_path):
+    from vqgan_tpu_torch import (
+        generate,
+        profile_generate,
+        profile_vqgan_train,
+        train_vqgan,
+    )
     from vqgan_tpu_torch.build import build_cfg_unet_diffusion
-    from vqgan_tpu_torch.configs import LDMConfig
+    from vqgan_tpu_torch.configs import LDMConfig, VQGANConfig
+    from vqgan_tpu_torch.training.vqgan_trainer import VQGANTrainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -212,6 +219,13 @@ def test_entry_points_default_to_gpu_and_raise_without_one(monkeypatch):
         generate.main(["--random_init", "--output_dir", "unused"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profile_generate.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_vqgan.main(["--results_folder", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VQGANTrainer(VQGANConfig(ch=8, ch_mult=(1, 2),
+                                 results_folder=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_vqgan_train.main([])
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "vqgan_tpu")

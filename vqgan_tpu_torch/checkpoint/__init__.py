@@ -1,6 +1,14 @@
-from .from_jax import cfg_unet_state_from_jax, klvae_state_from_jax
+from .from_jax import (
+    cfg_unet_state_from_jax,
+    klvae_state_from_jax,
+    lpips_state_from_jax,
+    patchgan_state_from_jax,
+    vqvae_state_from_jax,
+)
 from .load import load_weights, read_state_dict
 from .manager import CheckpointManager
 
 __all__ = ["CheckpointManager", "cfg_unet_state_from_jax",
-           "klvae_state_from_jax", "load_weights", "read_state_dict"]
+           "klvae_state_from_jax", "load_weights", "lpips_state_from_jax",
+           "patchgan_state_from_jax", "read_state_dict",
+           "vqvae_state_from_jax"]

@@ -1,11 +1,15 @@
 """The JAX package's parameter trees as the port's state dicts.
 
-`klvae_state_from_jax(tree)` and `cfg_unet_state_from_jax(tree)` take the
-params of vqgan_tpu's KLVAE / CFGUnet as nested dicts of numpy arrays
-(`{"params": ...}` or the inner dict) and return a `state_dict` for the
-port's KLVAE / CFGUnet. The port's names and shapes are the reference
-PyTorch models', so this is the inverse of the JAX package's
-checkpoint/torch_import.py:
+`klvae_state_from_jax`, `cfg_unet_state_from_jax`, `vqvae_state_from_jax`,
+`patchgan_state_from_jax` and `lpips_state_from_jax` take the variables of
+vqgan_tpu's KLVAE / CFGUnet / VQVAE / PatchGANDiscriminator / LPIPS as
+nested dicts of numpy arrays (`{"params": ...}` or the inner dict; the
+discriminator's with its `batch_stats` or `actnorm_stats`) and return a
+`state_dict` for the port's module. The port's names and shapes are the
+reference PyTorch models', so this is the inverse of the JAX package's
+checkpoint/torch_import.py (`load_torch_klvae`, `load_torch_cfg_unet`,
+`load_torch_vqvae`, `load_torch_patchgan`, and the LPIPS module's
+`load_torch_lpips_weights`):
 - flax conv HWIO -> OIHW;
 - flax ConvTranspose HWIO -> torch [in, out, kh, kw] with the taps flipped;
 - flax Dense [in, out] -> Linear [out, in];
@@ -21,7 +25,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["klvae_state_from_jax", "cfg_unet_state_from_jax"]
+__all__ = ["klvae_state_from_jax", "cfg_unet_state_from_jax",
+           "vqvae_state_from_jax", "patchgan_state_from_jax",
+           "lpips_state_from_jax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -218,4 +224,69 @@ def cfg_unet_state_from_jax(tree) -> Dict[str, torch.Tensor]:
 
     _film_resblock(out, "final_res_block", p["final_res_block"])
     _conv(out, "final_conv", p["final_conv"])
+    return out
+
+
+# --- VQ-GAN: VQ-VAE, PatchGAN, LPIPS ----------------------------------------
+
+
+def vqvae_state_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """vqgan_tpu VQVAE params -> state dict of the port's VQVAE."""
+    p = _params(tree)
+    out: Dict[str, torch.Tensor] = {}
+    _encoder(out, p["encoder"])
+    _decoder(out, p["decoder"])
+    out["quantizer.embedding.weight"] = _t(p["quantizer"]["embedding"])
+    if "pre_quant_conv" in p:
+        _conv(out, "pre_quant_conv", p["pre_quant_conv"])
+        _conv(out, "post_quant_conv", p["post_quant_conv"])
+    return out
+
+
+def patchgan_state_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """vqgan_tpu PatchGANDiscriminator variables -> state dict of the port's
+    PatchGANDiscriminator, in the reference's `main` Sequential positions.
+    The norm follows the variables: `batch_stats` (BatchNorm: scale/bias
+    and the running mean/var), `actnorm_stats` (ActNorm's buffers), or
+    neither (GroupNorm: scale/bias)."""
+    p = _params(variables)
+    stats = variables.get("batch_stats")
+    act = variables.get("actnorm_stats")
+    n_layers = sum(1 for k in p if k.startswith("conv_")) - 2
+    out: Dict[str, torch.Tensor] = {}
+    _conv(out, "main.0", p["conv_0"])
+    for n in range(1, n_layers + 1):
+        idx = 3 * n - 1
+        _conv(out, f"main.{idx}", p[f"conv_{n}"])
+        norm = f"main.{idx + 1}"
+        if act is not None:
+            a = act[f"norm_{n}"]
+            out[f"{norm}.initialized"] = torch.tensor(
+                int(np.asarray(a["initialized"])), dtype=torch.int32)
+            out[f"{norm}.bias"] = _t(a["bias"])
+            out[f"{norm}.weight"] = _t(a["weight"])
+            continue
+        out[f"{norm}.weight"] = _t(p[f"norm_{n}"]["scale"])
+        out[f"{norm}.bias"] = _t(p[f"norm_{n}"]["bias"])
+        if stats is not None:
+            out[f"{norm}.running_mean"] = _t(stats[f"norm_{n}"]["mean"])
+            out[f"{norm}.running_var"] = _t(stats[f"norm_{n}"]["var"])
+    _conv(out, f"main.{3 * n_layers + 2}", p["conv_out"])
+    return out
+
+
+# Sequential positions of torchvision VGG16's convolutions in `features`
+_VGG16_CONV_POSITIONS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def lpips_state_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """vqgan_tpu LPIPS params -> state dict of the port's LPIPS
+    (`vgg.features.{i}.*`, `lin{i}.model.1.weight` [1, C, 1, 1])."""
+    p = _params(tree)
+    out: Dict[str, torch.Tensor] = {}
+    for conv_idx, pos in enumerate(_VGG16_CONV_POSITIONS):
+        _conv(out, f"vgg.features.{pos}", p["vgg"][f"conv_{conv_idx}"])
+    for i in range(5):
+        out[f"lin{i}.model.1.weight"] = _t(
+            np.asarray(p[f"lin_{i}"]).reshape(1, -1, 1, 1))
     return out

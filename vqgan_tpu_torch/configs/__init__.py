@@ -1,3 +1,4 @@
 from .ldm_config import BaselineLDMConfig, LDMConfig
+from .vqgan_config import VQGANConfig
 
-__all__ = ["BaselineLDMConfig", "LDMConfig"]
+__all__ = ["BaselineLDMConfig", "LDMConfig", "VQGANConfig"]

@@ -1,8 +1,11 @@
-"""Host-side data pipeline: the port's copy of what stage-2 training needs
-from vqgan_tpu/data/datasets.py.
+"""Host-side data pipeline: the port's copy of what training needs from
+vqgan_tpu/data/datasets.py.
 
 - `load_image`: Resize(shorter side) + CenterCrop + [0, 1] float32 HWC,
   with PIL (the reference's torchvision transform).
+- `ImageFolderDataset`: the split's images of each `ID_x` user folder,
+  (image, 0-based label) items, decoded with PIL (the JAX package's
+  native C++ decoder is not ported).
 - `BatchLoader`: a shuffling batch iterator that assembles batches on a
   background thread, double-buffered, so the device does not wait on the
   host. Same seed, same batches as the JAX package's.
@@ -13,11 +16,13 @@ from __future__ import annotations
 import queue
 import threading
 from pathlib import Path
-from typing import Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
-__all__ = ["load_image", "BatchLoader"]
+from .splits import train_images_for_user
+
+__all__ = ["load_image", "ImageFolderDataset", "BatchLoader"]
 
 
 def load_image(path: str | Path, image_size: int) -> np.ndarray:
@@ -33,6 +38,41 @@ def load_image(path: str | Path, image_size: int) -> np.ndarray:
     left, top = (w - image_size) // 2, (h - image_size) // 2
     img = img.crop((left, top, left + image_size, top + image_size))
     return np.asarray(img, np.float32) / 255.0
+
+
+class ImageFolderDataset:
+    """Split-driven dataset over `ID_x` user folders. subset: "train" |
+    "test" | "gen_train" | "class_train", the split list read per user
+    (gen/class fall back to train_images when absent)."""
+
+    def __init__(self, data_path: str | Path, split: Dict,
+                 subset: str = "train", image_size: int = 256):
+        self.data_path = Path(data_path)
+        self.image_size = image_size
+        self.items: List[Tuple[Path, int]] = []  # (path, 0-based label)
+        for user, info in split["users"].items():
+            label = int(user.split("_")[1]) - 1
+            if subset == "train":
+                names = train_images_for_user(split, user)
+            elif subset == "test":
+                names = info["test_images"]
+            elif subset == "gen_train":
+                names = info.get("gen_train_images",
+                                 info.get("train_images", []))
+            elif subset == "class_train":
+                names = info.get("class_train_images",
+                                 info.get("train_images", []))
+            else:
+                raise ValueError(f"unknown subset {subset!r}")
+            for name in names:
+                self.items.append((self.data_path / user / name, label))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i: int) -> Tuple[np.ndarray, int]:
+        path, label = self.items[i]
+        return load_image(path, self.image_size), label
 
 
 class BatchLoader:

@@ -1,4 +1,9 @@
 from .autoencoder import AutoencoderConfig, DiagonalGaussian, KLVAE
+from .discriminator import MultiScaleDiscriminator, PatchGANDiscriminator
+from .lpips import LPIPS
 from .unet_cfg import CFGUnet
+from .vq_vae import VQVAE, VectorQuantizer
 
-__all__ = ["AutoencoderConfig", "DiagonalGaussian", "KLVAE", "CFGUnet"]
+__all__ = ["AutoencoderConfig", "DiagonalGaussian", "KLVAE", "CFGUnet",
+           "LPIPS", "MultiScaleDiscriminator", "PatchGANDiscriminator",
+           "VQVAE", "VectorQuantizer"]

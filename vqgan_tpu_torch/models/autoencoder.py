@@ -48,11 +48,11 @@ class AutoencoderConfig:
 
 
 class _Mid(nn.Module):
-    def __init__(self, channels: int, dtype):
+    def __init__(self, channels: int, dtype, dropout: float = 0.0):
         super().__init__()
-        self.block_1 = ResnetBlock(channels, dtype=dtype)
+        self.block_1 = ResnetBlock(channels, dtype=dtype, dropout=dropout)
         self.attn_1 = AttnBlock(channels, dtype=dtype)
-        self.block_2 = ResnetBlock(channels, dtype=dtype)
+        self.block_2 = ResnetBlock(channels, dtype=dtype, dropout=dropout)
 
     def forward(self, h):
         return self.block_2(self.attn_1(self.block_1(h)))
@@ -91,7 +91,8 @@ class Encoder(nn.Module):
             block_out = cfg.ch * mult
             blocks, attns = [], []
             for _ in range(cfg.num_res_blocks):
-                blocks.append(ResnetBlock(block_in, block_out, dtype=dtype))
+                blocks.append(ResnetBlock(block_in, block_out, dtype=dtype,
+                                          dropout=cfg.dropout))
                 block_in = block_out
                 if curr_res in cfg.attn_resolutions:
                     attns.append(AttnBlock(block_in, dtype=dtype))
@@ -101,7 +102,7 @@ class Encoder(nn.Module):
                 curr_res //= 2
             levels.append(_Level(blocks, attns, "downsample", down))
         self.down = nn.ModuleList(levels)
-        self.mid = _Mid(block_in, dtype)
+        self.mid = _Mid(block_in, dtype, cfg.dropout)
         self.norm_out = GroupNorm(block_in)
         out_ch = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
         self.conv_out = Conv2d(block_in, out_ch, 3, padding=1, dtype=dtype)
@@ -123,13 +124,14 @@ class Decoder(nn.Module):
         curr_res = cfg.resolution // 2 ** (n - 1)
         self.conv_in = Conv2d(cfg.z_channels, block_in, 3, padding=1,
                               dtype=dtype)
-        self.mid = _Mid(block_in, dtype)
+        self.mid = _Mid(block_in, dtype, cfg.dropout)
         levels = [None] * n
         for i_level in reversed(range(n)):
             block_out = cfg.ch * cfg.ch_mult[i_level]
             blocks, attns = [], []
             for _ in range(cfg.num_res_blocks + 1):
-                blocks.append(ResnetBlock(block_in, block_out, dtype=dtype))
+                blocks.append(ResnetBlock(block_in, block_out, dtype=dtype,
+                                          dropout=cfg.dropout))
                 block_in = block_out
                 if curr_res in cfg.attn_resolutions:
                     attns.append(AttnBlock(block_in, dtype=dtype))

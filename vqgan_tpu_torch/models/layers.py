@@ -22,6 +22,7 @@ __all__ = [
     "GroupNorm",
     "RMSNorm",
     "ResnetBlock",
+    "check_no_dropout",
     "AttnBlock",
     "Downsample",
     "UpsampleTranspose",
@@ -92,13 +93,24 @@ class RMSNorm(nn.Module):
         return (normed * self.g * (x.shape[1] ** 0.5)).to(x.dtype)
 
 
+def check_no_dropout(dropout: float) -> None:
+    """Raise for dropout > 0, which the port does not implement: the JAX
+    package draws its dropout bits from its own generator, so a port of it
+    could not be held against it. Every shipped config has dropout 0."""
+    if dropout > 0.0:
+        raise NotImplementedError(
+            f"dropout={dropout} is not supported by the PyTorch port; "
+            f"use dropout=0.0")
+
+
 class ResnetBlock(nn.Module):
     """GroupNorm, SiLU, conv3x3 twice, with a 1x1 shortcut when the channel
-    count changes. Dropout is not ported: this slice only runs inference."""
+    count changes. `dropout` must be 0 (`check_no_dropout`)."""
 
     def __init__(self, in_channels: int, out_channels: int | None = None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout: float = 0.0):
         super().__init__()
+        check_no_dropout(dropout)
         out_channels = out_channels or in_channels
         self.norm1 = GroupNorm(in_channels)
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1,

@@ -10,8 +10,18 @@ from .attention import (
     sdpa,
     sdpa_reference,
 )
+from .vq import (
+    VQLookupFunction,
+    codebook_usage,
+    revive_dead_codes,
+    vq_lookup,
+    vq_lookup_reference,
+    vq_nearest_indices,
+)
 
 __all__ = ["FlashAttentionFunction", "flash_attention", "flash_bwd_dkv",
            "flash_bwd_dkv_reference", "flash_bwd_dq", "flash_bwd_dq_reference",
            "flash_forward", "flash_forward_reference", "sdpa",
-           "sdpa_reference"]
+           "sdpa_reference", "VQLookupFunction", "codebook_usage",
+           "revive_dead_codes", "vq_lookup", "vq_lookup_reference",
+           "vq_nearest_indices"]

@@ -1,0 +1,131 @@
+"""Vector-quantization lookup for the port: a hand-written nearest-code
+kernel on CUDA tensors, its plain PyTorch version on CPU tensors.
+
+Counterpart of vqgan_tpu/ops/vq.py. z is [N, D] and the codebook [K, D].
+
+- `vq_lookup_reference`: the plain version, (z_q, indices int32), in either
+  of the kernel's modes. "fp32" scores (|z|^2 + |e|^2) - 2 z.e exactly as
+  the JAX package's plain version; "bf16" scores |e|^2 - 2 z.e with the
+  cross term over bf16-rounded inputs, as its fast kernel.
+- `vq_nearest_indices`: (indices, usage [K] int32): the kernel
+  (csrc/vq.cu, usage counted in the kernel) for a CUDA tensor, the plain
+  version and `codebook_usage` for a CPU tensor, an error otherwise.
+- `vq_lookup`: the differentiable op the quantizer calls, with the JAX
+  package's custom VJP: zero gradient to z, the cotangent of z_q
+  scatter-added (`index_add_`) into the selected codebook rows. The JAX
+  package has no backward kernel, so neither has the port. The gather
+  z_q = E[idx] stays outside the kernel (`index_select`), as in JAX.
+  `use_kernel` "auto" and "fp32" take the exact mode, True the bf16 mode.
+  The JAX package's TPU dispatch thresholds are not carried over: on the
+  card the exact fp32 search is a few microseconds of a training step, and
+  it picks the codes the CPU picks.
+- `codebook_usage`, `revive_dead_codes`: the non-kernel parts of the JAX
+  module that the trainer uses.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..kernels.vq import vq_nearest
+
+__all__ = ["vq_lookup", "vq_lookup_reference", "vq_nearest_indices",
+           "codebook_usage", "revive_dead_codes", "vq_scores",
+           "VQLookupFunction"]
+
+_MODES = {"auto": "fp32", "fp32": "fp32", True: "bf16"}
+
+
+def vq_scores(z, codebook, mode: str = "fp32"):
+    """[N, K] fp32 scores of the plain version, whose row argmin is the
+    nearest code."""
+    z32, e32 = z.float(), codebook.float()
+    e_sq = (e32 * e32).sum(1)
+    if mode == "bf16":
+        cross = (z32.to(torch.bfloat16).float()
+                 @ e32.to(torch.bfloat16).float().T)
+        return e_sq - 2.0 * cross
+    return ((z32 * z32).sum(1, keepdim=True) + e_sq) - 2.0 * (z32 @ e32.T)
+
+
+def vq_lookup_reference(z, codebook, mode: str = "fp32"):
+    """What the kernel computes, in plain PyTorch: (z_q [N, D] in the
+    codebook's dtype, indices [N] int32), ties to the lowest index."""
+    if mode not in ("fp32", "bf16"):
+        raise ValueError(f"mode must be 'fp32' or 'bf16', got {mode!r}")
+    idx = torch.argmin(vq_scores(z, codebook, mode), dim=1).to(torch.int32)
+    return codebook.index_select(0, idx), idx
+
+
+def codebook_usage(indices, num_embeddings: int):
+    """Per-code use counts [K] int32 (a bincount of fixed length)."""
+    return torch.bincount(indices.reshape(-1).long(),
+                          minlength=num_embeddings).to(torch.int32)
+
+
+def vq_nearest_indices(z, codebook, mode: str = "fp32"):
+    """(indices [N] int32, usage [K] int32): the kernel for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    if z.device.type == "cuda":
+        e32 = codebook.float()
+        return vq_nearest(z.float().contiguous(), e32.contiguous(),
+                          (e32 * e32).sum(1), mode)
+    if z.device.type != "cpu":
+        raise ValueError(f"vq_lookup runs on CUDA or CPU tensors, not "
+                         f"{z.device}")
+    _, idx = vq_lookup_reference(z, codebook, mode)
+    return idx, codebook_usage(idx, codebook.shape[0])
+
+
+class VQLookupFunction(torch.autograd.Function):
+    """z_q = codebook[nearest(z)]: gradient to the codebook only."""
+
+    @staticmethod
+    def forward(ctx, z, codebook, mode):
+        idx, usage = vq_nearest_indices(z, codebook, mode)
+        ctx.mark_non_differentiable(idx, usage)
+        ctx.save_for_backward(idx)
+        ctx.codebook_shape = codebook.shape
+        return codebook.index_select(0, idx), idx, usage
+
+    @staticmethod
+    def backward(ctx, g_zq, _g_idx, _g_usage):
+        (idx,) = ctx.saved_tensors
+        g_codebook = None
+        if ctx.needs_input_grad[1]:
+            g_codebook = torch.zeros(ctx.codebook_shape, dtype=g_zq.dtype,
+                                     device=g_zq.device).index_add_(0, idx, g_zq)
+        return None, g_codebook, None  # no gradient to z (None means zero)
+
+
+def vq_lookup(z, codebook, use_kernel="auto"):
+    """Nearest-codebook lookup. z [N, D], codebook [K, D]. Returns (z_q
+    [N, D], indices [N] int32, usage [K] int32); z_q carries gradient to
+    the codebook only, so compose the straight-through estimator outside.
+    use_kernel: "auto" or "fp32" (exact scores) or True (bf16 cross term);
+    the plain version is `vq_lookup_reference`."""
+    if use_kernel not in _MODES:
+        raise ValueError(f"use_kernel must be 'auto', 'fp32' or True, got "
+                         f"{use_kernel!r}")
+    return VQLookupFunction.apply(z, codebook, _MODES[use_kernel])
+
+
+def revive_dead_codes(codebook, usage_counts, z, generator:
+                      Optional[torch.Generator] = None, threshold: int = 1):
+    """Re-anchor under-used codes to random encoder outputs: every code whose
+    accumulated usage is below `threshold` becomes a row of z drawn
+    uniformly (from `generator`). z: [..., D] pre-quant features. Returns
+    (new codebook, number revived (0-d tensor), dead mask [K] bool)."""
+    k, d = codebook.shape
+    z2 = z.reshape(-1, z.shape[-1]).to(codebook.dtype)
+    if z2.shape[-1] != d:
+        raise ValueError(f"z rows have {z2.shape[-1]} features, the codebook "
+                         f"{d}")
+    dead = usage_counts < threshold
+    rows = torch.randint(0, z2.shape[0], (k,), generator=generator,
+                         device=z2.device)
+    new_codebook = torch.where(dead[:, None], z2.index_select(0, rows),
+                               codebook)
+    return new_codebook, dead.sum(), dead

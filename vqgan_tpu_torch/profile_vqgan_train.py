@@ -1,0 +1,86 @@
+"""Where a stage-1 VQ-GAN training step's time goes on the GPU.
+
+    python -m vqgan_tpu_torch.profile_vqgan_train [--batch_size 8] [--steps 5]
+
+Counterpart of cli/profile_training.py for the port. Builds the full-width
+VQGANConfig models (VQ-VAE ch 128, mults 1-2-2-4, codebook 128 x 256;
+PatchGAN ndf 64, 3 layers, BatchNorm; VGG16-LPIPS; bf16 compute, fp32
+parameters) and their two Adam chains with random weights from `--seed`,
+and a batch of random [B, 256, 256, 3] images. Then measures, with
+`profile_generate.profiled` after a warm-up:
+- one G step before `disc_start` (the discriminator read without a graph);
+- one G step plus one D step from `disc_start` on;
+each as host wall ms, device kernel ms, the device's idle share, launches
+and the top kernels, plus the launches of each hand-written kernel per
+step. Prints one JSON object. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import tempfile
+
+import torch
+
+from .configs.vqgan_config import VQGANConfig
+from .device import resolve_device, set_full_fp32_precision
+from .kernels import KERNELS
+from .profile_generate import profiled
+from .training.vqgan_trainer import VQGANTrainer
+
+
+def _per_step(step_fn, reps: int) -> dict:
+    """profiled(step_fn, reps) with each hand-written kernel's launches per
+    call of `step_fn`."""
+    calls = 0
+
+    def fn():
+        nonlocal calls
+        calls += 1
+        step_fn()
+
+    for k in KERNELS.values():
+        k.launches = 0
+    out = profiled(fn, reps)
+    out["kernel_launches_per_step"] = {
+        name: k.launches / calls for name, k in KERNELS.items()}
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batch_size", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    device = resolve_device("cuda")
+    set_full_fp32_precision()
+    with tempfile.TemporaryDirectory(prefix="profile_vqgan_") as work:
+        cfg = VQGANConfig(batch_size=args.batch_size, seed=args.seed,
+                          results_folder=work)
+        trainer = VQGANTrainer(cfg, device=device)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        s = cfg.image_size
+        images = torch.rand((args.batch_size, s, s, cfg.in_channels),
+                            generator=gen, device=device)
+
+        def step_at(step):
+            def run():
+                trainer.state.step = step
+                trainer.dispatch_step(images, step)
+            return run
+
+        out = {
+            "device": torch.cuda.get_device_name(0),
+            "batch_size": args.batch_size,
+            "g_step": _per_step(step_at(0), args.steps),
+            "g_and_d_step": _per_step(step_at(cfg.disc_start), args.steps),
+        }
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

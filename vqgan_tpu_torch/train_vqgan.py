@@ -1,0 +1,99 @@
+"""Stage-1 VQ-GAN training.
+
+    python -m vqgan_tpu_torch.train_vqgan --split data_split.json \\
+        --data_path data/Normal_line --results_folder results/vqgan
+    python -m vqgan_tpu_torch.train_vqgan ... --resume -1  # latest
+
+Counterpart of cli/train_vqgan.py: VQGANConfig with the flags' overrides,
+and a JSON of further VQGANConfig fields with `--config`; the VQ-VAE,
+PatchGAN and LPIPS losses trained on the split's images, with resume,
+reconstruction grids and `vqgan-{m}.pt` checkpoints. `--lpips_weights` is
+the JAX CLI's `.npz` of exported weights: torchvision VGG16 tensors under
+`vgg.` (`vgg.features.0.weight`, ...) and lpips ones under `lin.`
+(`lin.lin0.model.1.weight`, ...). The JAX CLI's XLA dispatch flags
+(`--step_mode`, `--scan_block`, `--fast_compile`) have no counterpart.
+
+Runs on the GPU by default (`--device cpu` to run on the CPU), with TF32
+off for fp32 matmuls and convolutions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+from .configs.vqgan_config import VQGANConfig
+from .device import resolve_device, set_full_fp32_precision
+
+__all__ = ["main", "parse_args", "read_lpips_npz"]
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--data_path", default=None)
+    ap.add_argument("--split", default=None, help="data split JSON")
+    ap.add_argument("--results_folder", default=None)
+    ap.add_argument("--train_steps", type=int, default=None)
+    ap.add_argument("--batch_size", type=int, default=None)
+    ap.add_argument("--image_size", type=int, default=None)
+    ap.add_argument("--num_embeddings", type=int, default=None)
+    ap.add_argument("--disc_start", type=int, default=None)
+    ap.add_argument("--save_every", type=int, default=None,
+                    dest="save_and_sample_every",
+                    help="checkpoint + reconstruction-grid cadence in steps")
+    ap.add_argument("--resume", type=int, default=None,
+                    help="milestone to resume from; -1 for the latest")
+    ap.add_argument("--revive_dead_codes_every", type=int, default=None,
+                    help="re-anchor codes unused for this many steps to "
+                         "random encoder outputs (0 or unset: off)")
+    ap.add_argument("--revive_usage_threshold", type=int, default=None)
+    ap.add_argument("--lpips_weights", default=None,
+                    help=".npz of exported VGG16 + lpips weights")
+    ap.add_argument("--config", default=None,
+                    help="JSON of further VQGANConfig fields")
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def read_lpips_npz(path) -> dict:
+    """{"vgg": {...}, "lin": {...}} from the `vgg.` / `lin.` keys of an
+    `.npz`, for `VQGANTrainer(lpips_weights=...)`."""
+    import numpy as np
+
+    with np.load(path) as data:
+        return {part: {k[len(part) + 1:]: data[k] for k in data.files
+                       if k.startswith(part + ".")}
+                for part in ("vgg", "lin")}
+
+
+def main(argv=None) -> dict:
+    """Train. Returns the trainer's `train` result (every step's loss, and
+    images/s after the warm-up) with the trainer under "trainer"."""
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    set_full_fp32_precision()
+    raw = json.loads(Path(args.config).read_text()) if args.config else {}
+    raw.update({k: v for k, v in vars(args).items()
+                if v is not None and k in VQGANConfig.__dataclass_fields__})
+    config = VQGANConfig.from_dict(raw)
+    config.print_config_summary()
+    lpips_weights = (read_lpips_npz(args.lpips_weights)
+                     if args.lpips_weights else None)
+
+    from .training.vqgan_trainer import VQGANTrainer
+
+    trainer = VQGANTrainer(config, split_path=args.split,
+                           lpips_weights=lpips_weights, device=device)
+    if args.resume is not None:
+        step = trainer.load(None if args.resume < 0 else args.resume)
+        print(f"resumed from step {step}")
+    result = trainer.train(num_steps=args.train_steps)
+    if result["images_per_s"] is not None:
+        print(f"{result['timed_steps']} steps after warm-up: "
+              f"{result['images_per_s']:.2f} images/s")
+    return {**result, "trainer": trainer}
+
+
+if __name__ == "__main__":
+    main()

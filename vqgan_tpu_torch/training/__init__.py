@@ -6,9 +6,16 @@ from .ldm_step import (
     make_ldm_optimizer,
     make_ldm_train_step,
 )
+from .vqgan_step import (
+    VQGANTrainState,
+    make_gan_optimizers,
+    make_vqgan_split_steps,
+    reset_codebook_moments,
+)
 from .watchdog import TrainingDiverged, TrainingWatchdog, check_sample_range
 
 __all__ = ["LDMOptimizer", "LDMTrainState", "TrainingDiverged",
            "TrainingWatchdog", "check_sample_range", "ema_decay_at_step",
            "ema_update", "global_norm", "make_ldm_optimizer",
-           "make_ldm_train_step"]
+           "make_ldm_train_step", "VQGANTrainState", "make_gan_optimizers",
+           "make_vqgan_split_steps", "reset_codebook_moments"]
