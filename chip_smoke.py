@@ -7,16 +7,22 @@
 Phases, in order; any failure exits non-zero:
 1. A CUDA device must be present; print its name and power limit.
 2. Build every hand-written kernel from the sources in this checkout, one
-   nvcc per source, all at once.
+   nvcc per source, all at once; print each instance's registers, spills
+   and shared memory, and the count of tensor-core (HMMA) instructions in
+   each library's SASS, which must not be 0 for the forward and dQ.
 3. Hold each kernel against its plain PyTorch version on the card (TF32
-   off): the flash forward at the main paths' shapes and at ragged shapes;
-   the backward kernels (dQ; dK and dV) at the LDM training shape, the
-   KL-VAE shape, the VQ-VAE's bf16 d = 512 shape, ragged shapes and with
-   strided dO; the VQ kernel in both modes at the VQ-GAN main-path shape
+   off): the flash forward at the main paths' shapes and at ragged shapes
+   (Sq not a multiple of the q tile, head_dim padded to 16, Skv shorter
+   than a K/V tile, strided q, every head-width instance); the backward
+   kernels (dQ; dK and dV) at the LDM training shape, the KL-VAE shape,
+   the VQ-VAE's bf16 d = 512 shape, the same ragged shapes and with
+   strided dO; a view whose rows are not 16-byte aligned must be refused;
+   the VQ kernel in both modes at the VQ-GAN main-path shape
    [8192,256]x[128,256], at K = 8192, at a ragged shape and on a codebook
    of repeated rows, with its fused usage histogram against bincount. Time
    each kernel, its plain version and one PyTorch library call at the main
-   paths' shapes (and a few others), and compute the bound.
+   paths' shapes (and a few others), and compute the bound. Print the error
+   that rounding P and dS to bf16 adds by itself at the VQ-VAE's shape.
 4. Run the generation slice on a small input (tiny U-Net and KL-VAE in
    fp32, 5 DDIM steps at cond_scale 3.0 with injected noise, then the
    decode) on the card and on the CPU, where attention takes the plain
@@ -89,6 +95,8 @@ _ATOL = {"float32": {"out": 2e-5, "lse": 1e-4},
          "bfloat16": {"out": 1e-2, "lse": 1e-4}}
 
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# sources whose products are mma.sync on the tensor cores
+TENSOR_CORE_SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu")
 
 
 def fail(msg: str):
@@ -102,6 +110,23 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def tensor_core_instructions(kernels) -> dict:
+    """{source name: count of HMMA (tensor-core) instructions in the SASS of
+    its built library}, read with the toolkit's cuobjdump."""
+    from vqgan_tpu_torch.kernels.build import nvcc_path
+
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    counts = {}
+    for k in kernels.values():
+        if k.source.name not in counts:
+            sass = subprocess.run(
+                [str(tool), "--dump-sass", str(k.library_path)],
+                capture_output=True, text=True, check=True, timeout=300)
+            counts[k.source.name] = sum(
+                "HMMA" in line for line in sass.stdout.splitlines())
+    return counts
 
 
 def peaks_for(name: str) -> dict:
@@ -134,6 +159,19 @@ def attention_cases():
         ("ragged_d512", 2, 100, 100, 1, 512, "float32", False),
         ("ragged_cross", 2, 64, 17, 4, 32, "float32", False),
         ("ragged_tiny_bf16", 1, 7, 7, 2, 16, "bfloat16", False),
+        # the tensor-core tiling's edges: Sq not a multiple of the 64-row
+        # tile (with a strided, 16-byte-aligned q), head columns padded to
+        # 16, Skv shorter than one K/V tile
+        ("ragged_d512_bf16", 2, 100, 100, 1, 512, "bfloat16", False),
+        ("ragged_d24_bf16", 2, 40, 40, 3, 24, "bfloat16", False),
+        ("ragged_d24", 2, 40, 40, 3, 24, "float32", False),
+        ("short_kv_bf16", 3, 130, 9, 2, 64, "bfloat16", False),
+        # every other head-width instance of the kernels
+        ("ragged_d64", 1, 33, 47, 2, 64, "float32", False),
+        ("ragged_d128", 2, 70, 50, 2, 128, "float32", False),
+        ("ragged_d128_bf16", 2, 70, 50, 2, 128, "bfloat16", False),
+        ("ragged_d256", 1, 80, 90, 2, 256, "float32", False),
+        ("ragged_d256_bf16", 1, 80, 90, 2, 256, "bfloat16", False),
     ]
 
 
@@ -153,7 +191,7 @@ def check_flash_fwd(torch, peaks, seed: int):
             return torch.from_numpy(x).to("cuda", dtype)
 
         q, k, v = make(s_q), make(s_kv), make(s_kv)
-        if label == "ragged_cross":
+        if label in ("ragged_cross", "ragged_d512_bf16"):
             # strided views: the kernel reads BSHD in place
             q = torch.cat([q, q], dim=-1)[..., :d]
         scale = 1.0 / np.sqrt(d)
@@ -204,7 +242,34 @@ def check_flash_fwd(torch, peaks, seed: int):
         print(f"flash_fwd {label}: kernel_ms={kernel_ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
               f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']})")
+    check_layout_refused(torch)
     return rows
+
+
+def check_layout_refused(torch):
+    """The wrappers raise on a view whose rows do not start on 16 bytes
+    (the kernels stage rows by 16-byte copies), and launch nothing."""
+    from vqgan_tpu_torch.kernels import KERNELS
+    from vqgan_tpu_torch.kernels.flash_bwd import flash_bwd_dq
+    from vqgan_tpu_torch.kernels.flash_fwd import flash_fwd
+
+    flat = torch.zeros(2 * 8 * 64 + 1, device="cuda", dtype=torch.bfloat16)
+    bad = flat[1:].view(2, 8, 1, 64)  # base 2 bytes past 16
+    good = torch.zeros_like(bad)
+    stats = torch.zeros(2, 1, 8, device="cuda")
+    before = {name: k.launches for name, k in KERNELS.items()}
+    for name, call in (
+            ("flash_fwd", lambda: flash_fwd(bad, good, good, 0.125)),
+            ("flash_bwd_dq", lambda: flash_bwd_dq(good, good, good, bad,
+                                                   stats, stats, 0.125))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"{name} refuses a misaligned view: {e}")
+        else:
+            fail(f"{name} took a view whose rows are not 16-byte aligned")
+    if {name: k.launches for name, k in KERNELS.items()} != before:
+        fail("a refused call launched a kernel")
 
 
 def bwd_cases():
@@ -223,6 +288,19 @@ def bwd_cases():
         ("ragged_d512", 2, 100, 100, 1, 512, "float32", False, True, False),
         ("ragged_cross", 2, 64, 17, 4, 32, "float32", False, True, False),
         ("ragged_tiny_bf16", 1, 7, 7, 2, 16, "bfloat16", False, False,
+         False),
+        ("ragged_d512_bf16", 2, 100, 100, 1, 512, "bfloat16", False, True,
+         False),
+        ("ragged_d24_bf16", 2, 40, 40, 3, 24, "bfloat16", False, False,
+         False),
+        ("ragged_d24", 2, 40, 40, 3, 24, "float32", False, True, False),
+        ("short_kv_bf16", 3, 130, 9, 2, 64, "bfloat16", False, True, False),
+        ("ragged_d64", 1, 33, 47, 2, 64, "float32", False, False, False),
+        ("ragged_d128", 2, 70, 50, 2, 128, "float32", False, True, False),
+        ("ragged_d128_bf16", 2, 70, 50, 2, 128, "bfloat16", False, False,
+         False),
+        ("ragged_d256", 1, 80, 90, 2, 256, "float32", False, False, False),
+        ("ragged_d256_bf16", 1, 80, 90, 2, 256, "bfloat16", False, True,
          False),
     ]
 
@@ -325,7 +403,9 @@ def check_flash_bwd(torch, peaks, seed: int):
                 "key": (b, s_q, h, d, dt),
                 "shape": f"[{b},{s_q},{h},{d}] {dt}",
                 "route": "cuda",
-                "source": "vqgan_tpu_torch/csrc/flash_bwd.cu",
+                "source": ("vqgan_tpu_torch/csrc/flash_bwd_dq.cu"
+                           if name == "flash_bwd_dq"
+                           else "vqgan_tpu_torch/csrc/flash_bwd.cu"),
                 "replaces": ("vqgan_tpu/ops/attention.py:190"
                              if name == "flash_bwd_dq"
                              else "vqgan_tpu/ops/attention.py:221"),
@@ -346,6 +426,31 @@ def check_flash_bwd(torch, peaks, seed: int):
               f"{sum(ms.values()):.4f} vs library backward (dq, dk, dv) "
               f"ms={library_ms:.4f}")
     return rows
+
+
+def bf16_rounding_alone(torch, seed: int):
+    """At the VQ-VAE's [8,1024,1,512] bf16 shape, the error that rounding P
+    to bf16 before P.V (forward) and dS before dS.K (dQ) adds by itself, the
+    outputs' own rounding apart: plain fp32 math on the card with and
+    without that one rounding. Returns (max |O error|, max |dQ error| /
+    max |dQ|)."""
+    rng = np.random.default_rng(seed + 5)
+    b, s, d = 8, 1024, 512
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, s, d)).astype(
+        np.float32)).to("cuda", torch.bfloat16).float() for _ in range(4))
+    scale = 1.0 / np.sqrt(d)
+    logits = torch.bmm(q * scale, k.transpose(1, 2))
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l_sum = p.sum(-1, keepdim=True)
+    out = torch.bmm(p, v) / l_sum
+    err_o = (torch.bmm(p.bfloat16().float(), v) / l_sum - out).abs().max()
+    probs = torch.exp(logits - (m + torch.log(l_sum)))
+    ds = probs * (torch.bmm(do, v.transpose(1, 2))
+                  - (do * out).sum(-1, keepdim=True))
+    dq = torch.bmm(ds, k) * scale
+    err_dq = (torch.bmm(ds.bfloat16().float(), k) * scale - dq).abs().max()
+    return err_o.item(), (err_dq / dq.abs().max()).item()
 
 
 # A kernel index may differ from the plain version's only where the plain
@@ -1082,10 +1187,18 @@ def main():
             if any(w in line for w in ("entry function", "registers",
                                        "spill", "smem")):
                 print(f"  {k.source.name} ptxas: {line.strip()}")
+    hmma = tensor_core_instructions(KERNELS)
+    print("HMMA instructions in the built SASS: " + json.dumps(hmma))
+    if any(not hmma[source] for source in TENSOR_CORE_SOURCES):
+        fail(f"{TENSOR_CORE_SOURCES} must run on the tensor cores: {hmma}")
 
     rows = {**check_flash_fwd(torch, peaks, args.seed),
             **check_flash_bwd(torch, peaks, args.seed),
             **check_vq(torch, peaks, args.seed)}
+    err_p, err_ds = bf16_rounding_alone(torch, args.seed)
+    print(f"[8,1024,1,512] bf16, rounding alone (plain fp32 math): P to "
+          f"bf16 before P.V moves O by at most {err_p:.3e}; dS to bf16 "
+          f"before dS.K moves dQ by at most {err_ds:.3e} of max|dQ|")
     check_small_pipeline(torch, KERNELS, args.seed)
     check_small_training(torch, KERNELS, args.seed)
     check_small_vqgan(torch, KERNELS, args.seed)

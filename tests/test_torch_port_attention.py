@@ -109,6 +109,46 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_other_devices():
         flash_forward(q.to("meta"), k.to("meta"), v.to("meta"))
 
 
+def test_library_name_follows_the_headers(tmp_path):
+    # a kernel source includes csrc/*.cuh: an edited header must name (and
+    # so build) a new library, never load the one built from the old header
+    from vqgan_tpu_torch.kernels.build import CudaKernel
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "tiles.cuh"\n')
+    (csrc / "tiles.cuh").write_text("// first\n")
+    kernel = CudaKernel("k.cu", "k", [])
+    kernel.source = csrc / "k.cu"
+    first = kernel.library_path
+    (csrc / "tiles.cuh").write_text("// second\n")
+    assert kernel.library_path != first
+    (csrc / "tiles.cuh").write_text("// first\n")
+    assert kernel.library_path == first
+    (csrc / "k.cu").write_text('#include "tiles.cuh"\n// edited\n')
+    assert kernel.library_path != first
+
+
+def test_kernel_layout_check_refuses_rows_off_16_bytes():
+    from vqgan_tpu_torch.kernels.flash_fwd import check_kernel_layout
+
+    q = torch.zeros(2, 16, 8, 64, dtype=torch.bfloat16)
+    check_kernel_layout("flash_fwd", q, q[:, :8], q.transpose(1, 2))
+    # a strided but aligned view, as the kernels read it in place
+    check_kernel_layout("flash_fwd", torch.cat([q, q], dim=-1)[..., :64])
+    # an axis of length 1 is never stepped along, whatever its stride
+    check_kernel_layout("flash_fwd", torch.zeros(64).as_strided(
+        (1, 4, 1, 16), (3, 16, 5, 1)))
+    flat = torch.zeros(2 * 8 * 64 + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):  # base 2 bytes off
+        check_kernel_layout("flash_fwd", flat[1:].view(2, 8, 1, 64))
+    with pytest.raises(ValueError, match="16-byte"):  # rows 36 bytes apart
+        check_kernel_layout("flash_fwd", torch.zeros(8, 1, 1, 9).as_strided(
+            (8, 1, 1, 8), (9, 9, 9, 1)))
+    with pytest.raises(ValueError, match="contiguous"):
+        check_kernel_layout("flash_fwd", q.transpose(2, 3))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -178,6 +178,55 @@ def test_unet_backward_meets_the_kernel_contract(monkeypatch):
     assert net.mid_attn.fn.fn.to_qkv.weight.grad is not None
 
 
+@pytest.mark.parametrize("model", ["vqvae", "klvae"])
+def test_vae_attention_meets_the_kernel_layout(monkeypatch, model):
+    # a training step of the VQ-VAE (bf16, as VQ-GAN training runs it) or
+    # the KL-VAE (fp32) reaches the flash kernels from its level and mid
+    # attention blocks, forward and backward; every q, k, v and dO must be
+    # one the tensor-core kernels stage with 16-byte copies (on the CPU the
+    # plain path would not notice)
+    from vqgan_tpu_torch.kernels.flash_fwd import check_kernel_layout
+    from vqgan_tpu_torch.models import KLVAE, VQVAE
+    from vqgan_tpu_torch.models.autoencoder import AutoencoderConfig
+
+    calls = []
+    real = {n: getattr(port_attention, n)
+            for n in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")}
+
+    def checked(name, n_inputs):
+        def fn(*args):
+            inputs = args[:n_inputs]
+            calls.append(name)
+            check_kernel_layout(name, *inputs)
+            assert len({t.dtype for t in inputs}) == 1
+            return real[name](*args)
+        return fn
+
+    for name, n_inputs in (("flash_forward", 3), ("flash_bwd_dq", 4),
+                           ("flash_bwd_dkv", 4)):
+        monkeypatch.setattr(port_attention, name, checked(name, n_inputs))
+    torch.manual_seed(0)
+    if model == "vqvae":
+        net = VQVAE(ch=16, ch_mult=(1, 2), num_res_blocks=1, resolution=32,
+                    z_channels=16, num_embeddings=8, embedding_dim=16,
+                    dtype=torch.bfloat16)
+        recon, _, _ = net(torch.rand(2, 3, 32, 32))
+        # the straight-through quantizer passes this to the encoder too
+        loss = recon.float().square().mean()
+    else:
+        net = KLVAE(AutoencoderConfig(ch=32, ch_mult=(1, 2),
+                                      num_res_blocks=1, attn_resolutions=(8,),
+                                      resolution=16))
+        recon, posterior = net(torch.rand(2, 3, 16, 16),
+                               generator=torch.Generator().manual_seed(0))
+        loss = recon.square().mean() + posterior.kl().mean()
+    loss.backward()
+    # 5 attention blocks (1 in the encoder's level, 2 in the decoder's, the
+    # two mid blocks), each once forward and once backward
+    assert calls.count("flash_forward") == 5
+    assert calls.count("flash_bwd_dq") == calls.count("flash_bwd_dkv") == 5
+
+
 def test_no_gradient_wanted_saves_nothing(monkeypatch):
     # generation runs under inference_mode: the forward alone, no autograd
     # Function, so nothing is saved and no backward kernel can run

@@ -1,53 +1,45 @@
-// Flash-attention backward for Hopper (sm_90a), fp32 and bf16 inputs: two
-// kernels, dQ and dK+dV.
+// Flash-attention backward, dK and dV, for Hopper (sm_90a), fp32 and bf16
+// inputs. (dQ is its own kernel on the tensor cores, flash_bwd_dq.cu.)
 //
-// Replaces the TPU kernels `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`
-// in vqgan_tpu/ops/attention.py (launched by `_flash_backward`). With
+// Replaces the TPU kernel `_flash_bwd_dkv_kernel` in
+// vqgan_tpu/ops/attention.py (launched by `_flash_backward`). With
 // P = exp(scale * Q K^T - LSE) recomputed from the forward's saved log-sum-exp
 // (never stored in device memory), dP = dO V^T and the row term
 // delta = rowsum(dO * O) computed by the caller:
-//   dQ = scale * sum_j [P * (dP - delta)] K_j        (kv columns past Skv: P = 0)
 //   dV = sum_i P^T dO_i,  dK = scale * sum_i [P * (dP - delta)]^T Q_i
 //                                                    (q rows past Sq: P = 0)
 // Every sum is taken in fp32. Each output element is written by one thread of
-// one block (one block per q tile for dQ, one per kv tile for dK/dV, as in the
-// JAX grid): no atomics, so a run is bit-for-bit repeatable.
+// one block (one block per kv tile, as in the JAX grid): no atomics, so a run
+// is bit-for-bit repeatable.
 //
 // What bounds it on this card, at the shapes it is used at:
-//  - U-Net mid block in training, [8, 16, 8, 64] bf16: ~6 MFLOP for dQ and
-//    ~8 MFLOP for dK/dV over ~100 KB of data, so the launch (a few
-//    microseconds) bounds it. One block covers a whole (batch, head) pair.
-//  - KL-VAE mid block in stage-1 training, [B, 1024, 1, 512] fp32: 6*B*S^2*d
-//    and 8*B*S^2*d FLOP (50 and 69 GFLOP at B = 16), i.e. fp32 operations. No
-//    TF32 (the JAX side is held to "highest" precision), so the ceiling is the
-//    fp32 rate outside the tensor cores; in this first version the
-//    shared-memory loads that feed the FMAs come before it.
-// What the design does about it, the forward kernel's structure (flash_fwd.cu)
-// in both kernels: 8 warps; the block owns 16 rows (2 per warp) and streams
-// tiles of 32 rows of the other operand through shared memory, one row per
-// lane. A lane computes the scores and dP of its warp's 2 rows against its
-// tile row, so each of those dot products is a private loop over d; tile rows
-// are padded by one float so the lanes' reads hit distinct banks. The
-// accumulators are in registers, lane + 32 * j for the d columns. The products
-// P.dO, dS.K and dS^T.Q take the per-lane P and dS by shuffles, as the
-// forward's P.V. All data is staged in fp32.
-//  - dQ: the block owns 16 q rows (scaled Q and dO staged, [16][D] each) and
-//    streams K and V tiles ([32][D+1] each).
-//  - dK/dV: the block owns 16 kv rows (K and V staged, [16][D] each) and
-//    streams scaled-Q and dO tiles ([32][D+1] each); lse and delta of the
-//    lane's q row come from device memory per tile.
-// Shared memory is 4 * (2 * 16 * D + 2 * 32 * (D + 1)) bytes for both, 192 KB
-// at d = 512, raised above the 48 KB default with cudaFuncSetAttribute. The
-// same tiles serve every d: at d = 512 the two accumulators of a dK/dV lane
-// are 2 x 2 x 16 floats. `nvcc -Xptxas -v` for sm_90a: no spills and no
-// stack frame at any d; registers per thread, dQ 40-48 up to d = 256 and 64
-// at d = 512, dK/dV 40 up to d = 64, 48 at 128, 64 at 256 and 128 at 512.
-// At d = 512 the 192 KB of shared memory holds one block per SM.
-// Strides are passed in, so BSHD tensors are read and written in place; the
-// last axis must be contiguous.
+//  - U-Net mid block in training, [8, 16, 8, 64] bf16: ~8 MFLOP over
+//    ~100 KB of data, so the launch (a few microseconds) bounds it. One
+//    block covers a whole (batch, head) pair.
+//  - VQ-VAE mid block in VQ-GAN training, [8, 1024, 1, 512] bf16, and the
+//    KL-VAE's [B, 1024, 1, 512] fp32: 8*B*S^2*d FLOP (34 GFLOP at B = 8),
+//    i.e. operations. This SIMT version does not use the tensor cores; the
+//    shared-memory loads that feed its FMAs come before the fp32 rate.
+// What the design does about it: 8 warps; the block owns 16 kv rows (2 per
+// warp; K and V staged in fp32, [16][D] each) and streams tiles of 32 q rows
+// (scaled Q and dO, [32][D+1] each) through shared memory, one row per lane.
+// A lane computes the scores and dP of its q row against its warp's 2 kv
+// rows, each a private loop over d; tile rows are padded by one float so
+// the lanes' reads hit distinct banks; lse and delta of the lane's q row
+// come from device memory per tile. The accumulators are in registers,
+// lane + 32 * j for the d columns, and P^T.dO and dS^T.Q take the per-lane
+// P and dS by shuffles. All data is staged in fp32.
+// Shared memory is 4 * (2 * 16 * D + 2 * 32 * (D + 1)) bytes, 192 KB at
+// d = 512, raised above the 48 KB default with cudaFuncSetAttribute. The same
+// tiles serve every d: at d = 512 the two accumulators of a lane are
+// 2 x 2 x 16 floats. `nvcc -Xptxas -v` for sm_90a: no spills and no stack
+// frame at any d; 40 registers per thread up to d = 64, 48 at 128, 64 at 256
+// and 128 at 512. At d = 512 the 192 KB of shared memory holds one block per
+// SM. Strides are passed in, so BSHD tensors are read and written in place;
+// the last axis must be contiguous.
 //
-// C interface (ctypes): vq_flash_bwd_dq(...) and vq_flash_bwd_dkv(...) return
-// cudaGetLastError() of the launch as an int; 0 means launched.
+// C interface (ctypes): vq_flash_bwd_dkv(...) returns cudaGetLastError() of
+// the launch as an int; 0 means launched.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,7 +62,6 @@ struct Params {
   const void* dout;
   const float* lse;    // [B, H, Sq]
   const float* delta;  // [B, H, Sq]
-  void* dq;
   void* dk;
   void* dv;
   int B, H, Sq, Skv, D;
@@ -79,7 +70,6 @@ struct Params {
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
   int64_t do_sb, do_ss, do_sh;
-  int64_t dq_sb, dq_ss, dq_sh;
   int64_t dk_sb, dk_ss, dk_sh;
   int64_t dv_sb, dv_ss, dv_sh;
   float scale;
@@ -106,107 +96,6 @@ __device__ __forceinline__ void stage(float* dst, int ld, const T* src,
     const int c = i - r * D;
     const int s = s0 + r;
     dst[r * ld + c] = s < S ? load_f32(src + s * ss + c) * mul : 0.f;
-  }
-}
-
-// NJ = ceil(D / 32): output columns per lane (lane + 32 * j).
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const Params p) {
-  extern __shared__ float smem[];
-  const int D = p.D;
-  const int ld = D + 1;  // odd row stride: conflict-free column reads
-  float* q_s = smem;                        // [16][D], scaled
-  float* do_s = q_s + kBlockRows * D;       // [16][D]
-  float* k_s = do_s + kBlockRows * D;       // [32][D + 1]
-  float* v_s = k_s + kTile * ld;            // [32][D + 1]
-
-  const int bh = blockIdx.y;
-  const int b = bh / p.H;
-  const int h = bh - b * p.H;
-  const int q0 = blockIdx.x * kBlockRows;
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x - warp * kWarp;
-
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  T* dq = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-
-  stage(q_s, D, q, p.q_ss, q0, kBlockRows, p.Sq, D, p.scale);
-  stage(do_s, D, dout, p.do_ss, q0, kBlockRows, p.Sq, D, 1.f);
-
-  float lse[kRows], delta[kRows], acc[kRows][NJ];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + warp * kRows + i;
-    const int64_t at = static_cast<int64_t>(bh) * p.Sq + row;
-    lse[i] = row < p.Sq ? p.lse[at] : 0.f;
-    delta[i] = row < p.Sq ? p.delta[at] : 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  const float* q_row0 = q_s + (warp * kRows) * D;
-  const float* do_row0 = do_s + (warp * kRows) * D;
-  const int n_tiles = (p.Skv + kTile - 1) / kTile;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int kv0 = t * kTile;
-    __syncthreads();  // the previous tile is consumed; Q and dO are staged
-    stage(k_s, ld, k, p.k_ss, kv0, kTile, p.Skv, D, 1.f);
-    stage(v_s, ld, v, p.v_ss, kv0, kTile, p.Skv, D, 1.f);
-    __syncthreads();
-
-    // Scores and dP of this warp's rows against kv row `lane`.
-    float s[kRows], dp[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) s[i] = dp[i] = 0.f;
-    const float* k_row = k_s + lane * ld;
-    const float* v_row = v_s + lane * ld;
-    for (int c = 0; c < D; ++c) {
-      const float kc = k_row[c];
-      const float vc = v_row[c];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        s[i] = fmaf(q_row0[i * D + c], kc, s[i]);
-        dp[i] = fmaf(do_row0[i * D + c], vc, dp[i]);
-      }
-    }
-    // dS = P * (dP - delta), zero on kv columns past the end
-    const bool valid = kv0 + lane < p.Skv;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      s[i] = valid ? expf(s[i] - lse[i]) * (dp[i] - delta[i]) : 0.f;
-
-    // acc += dS K, with dS[row, c] broadcast from lane c.
-    const int n_valid = min(kTile, p.Skv - kv0);
-    for (int c = 0; c < n_valid; ++c) {
-      float dsc[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) dsc[i] = __shfl_sync(kFull, s[i], c);
-      const float* k_c = k_s + c * ld;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = lane + kWarp * j;
-        if (d < D) {
-          const float kd = k_c[d];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(dsc[i], kd, acc[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + warp * kRows + i;
-    if (row >= p.Sq) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = lane + kWarp * j;
-      if (d < D) store_as(dq + row * p.dq_ss + d, acc[i][j] * p.scale);
-    }
   }
 }
 
@@ -331,36 +220,26 @@ size_t smem_bytes(int D) {
                           2 * static_cast<size_t>(kTile) * (D + 1));
 }
 
-// kDKV: false launches dQ over q tiles, true dK/dV over kv tiles.
-template <bool kDKV, typename T, int NJ>
+template <typename T, int NJ>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  auto kernel = kDKV ? flash_bwd_dkv_kernel<T, NJ> : flash_bwd_dq_kernel<T, NJ>;
+  auto kernel = flash_bwd_dkv_kernel<T, NJ>;
   const size_t smem = smem_bytes(p.D);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int rows = kDKV ? p.Skv : p.Sq;
-  const dim3 grid((rows + kBlockRows - 1) / kBlockRows, p.B * p.H);
+  const dim3 grid((p.Skv + kBlockRows - 1) / kBlockRows, p.B * p.H);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool kDKV, typename T>
+template <typename T>
 cudaError_t dispatch(const Params& p, cudaStream_t stream) {
-  if (p.D <= 32) return launch<kDKV, T, 1>(p, stream);
-  if (p.D <= 64) return launch<kDKV, T, 2>(p, stream);
-  if (p.D <= 128) return launch<kDKV, T, 4>(p, stream);
-  if (p.D <= 256) return launch<kDKV, T, 8>(p, stream);
-  return launch<kDKV, T, 16>(p, stream);
-}
-
-template <bool kDKV>
-int run(const Params& p, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0 ? dispatch<kDKV, float>(p, st)
-                               : dispatch<kDKV, __nv_bfloat16>(p, st);
-  return static_cast<int>(err);
+  if (p.D <= 32) return launch<T, 1>(p, stream);
+  if (p.D <= 64) return launch<T, 2>(p, stream);
+  if (p.D <= 128) return launch<T, 4>(p, stream);
+  if (p.D <= 256) return launch<T, 8>(p, stream);
+  return launch<T, 16>(p, stream);
 }
 
 Params make_params(const void* q, const void* k, const void* v,
@@ -374,7 +253,7 @@ Params make_params(const void* q, const void* k, const void* v,
   p.dout = dout;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
-  p.dq = p.dk = p.dv = nullptr;
+  p.dk = p.dv = nullptr;
   p.B = B;
   p.H = H;
   p.Sq = Sq;
@@ -384,7 +263,6 @@ Params make_params(const void* q, const void* k, const void* v,
   p.k_sb = s[3]; p.k_ss = s[4]; p.k_sh = s[5];
   p.v_sb = s[6]; p.v_ss = s[7]; p.v_sh = s[8];
   p.do_sb = s[9]; p.do_ss = s[10]; p.do_sh = s[11];
-  p.dq_sb = p.dq_ss = p.dq_sh = 0;
   p.dk_sb = p.dk_ss = p.dk_sh = 0;
   p.dv_sb = p.dv_ss = p.dv_sh = 0;
   p.scale = scale;
@@ -397,20 +275,6 @@ Params make_params(const void* q, const void* k, const void* v,
 // head) element strides of q, k, v and dO, 12 values. The caller checks
 // shapes (D a multiple of 8, at most 512), dtypes, that every last axis has
 // stride 1, and that lse and delta are contiguous [B, H, Sq] fp32.
-extern "C" int vq_flash_bwd_dq(const void* q, const void* k, const void* v,
-                               const void* dout, const void* lse,
-                               const void* delta, void* dq, int B, int H,
-                               int Sq, int Skv, int D,
-                               const int64_t* in_strides, int64_t dq_sb,
-                               int64_t dq_ss, int64_t dq_sh, float scale,
-                               int dtype, void* stream) {
-  Params p = make_params(q, k, v, dout, lse, delta, B, H, Sq, Skv, D,
-                         in_strides, scale);
-  p.dq = dq;
-  p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
-  return run<false>(p, dtype, stream);
-}
-
 extern "C" int vq_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv, int B,
@@ -425,5 +289,8 @@ extern "C" int vq_flash_bwd_dkv(const void* q, const void* k, const void* v,
   p.dv = dv;
   p.dk_sb = dk_sb; p.dk_ss = dk_ss; p.dk_sh = dk_sh;
   p.dv_sb = dv_sb; p.dv_ss = dv_ss; p.dv_sh = dv_sh;
-  return run<true>(p, dtype, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = dtype == 0 ? dispatch<float>(p, st)
+                               : dispatch<__nv_bfloat16>(p, st);
+  return static_cast<int>(err);
 }

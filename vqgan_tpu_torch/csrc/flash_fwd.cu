@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), fp32 and bf16 inputs.
+// Flash-attention forward for Hopper (sm_90a) on the tensor cores, fp32 and
+// bf16 inputs.
 //
 // Replaces the TPU kernel `_flash_fwd_kernel` in vqgan_tpu/ops/attention.py
 // (launched by `_flash_forward`): O = softmax(scale * Q K^T) V with an online
@@ -6,43 +7,60 @@
 // sequence end masked to -1e30, the row sum floored at 1e-30, and the per-row
 // log-sum-exp LSE = m + log(l) written in fp32 for a backward pass.
 //
-// What bounds it on this card: the main path calls it at two shapes.
-//  - U-Net mid block, [2B, 16, 8, 64] bf16: a few hundred KB of data and
-//    ~4 MFLOP, so the launch itself (a few microseconds) bounds it. One block
-//    covers a whole (batch, head) pair; there is no tiling to speak of.
-//  - KL-VAE mid block, [B, 1024, 1, 512] fp32: 4*B*S^2*d = 34 GFLOP at B=16
-//    against 134 MB of data, i.e. operations. The kernel does no TF32 (the
-//    JAX tests' "highest" precision), so the ceiling is the card's fp32 rate
-//    outside the tensor cores, and in this first version the shared-memory
-//    loads feeding the FMAs come before that.
-// What the design does about it: one block of 8 warps per (batch*head, tile
-// of 16 query rows); each warp owns 2 query rows, and a lane owns one kv
-// column of the 32-wide score tile and every 32nd output column. Q (scaled,
-// fp32) and one K/V tile of 32 rows live in shared memory; K rows are padded
-// by one float so the lanes' column reads hit distinct banks, V rows are read
-// stride-1. Row max and row sum are warp shuffles, probabilities reach the
-// P.V product through shuffles, and the accumulator stays in registers. At
-// d = 512 fp32 that is 160 KB of dynamic shared memory, set above the 48 KB
-// default with cudaFuncSetAttribute. Strides are passed in, so BSHD tensors
-// are read and written in place without a transpose.
+// What bounds it on this card, at the main path's shapes (4 * B * S^2 * d
+// operations; bytes = Q, K, V and O once, LSE):
+//  - VQ-VAE mid block in VQ-GAN training, [8, 1024, 1, 512] bf16: 17.2 GFLOP
+//    against 34 MB, operations: 0.0174 ms at 989 TFLOP/s.
+//  - KL-VAE mid block in generation, [16, 1024, 1, 512] fp32: 34.4 GFLOP
+//    against 134 MB, operations: 0.513 ms at the 67 TFLOP/s fp32 rate. The
+//    JAX side holds fp32 to "highest" precision, so fp32 runs as 3xTF32
+//    (three TF32 products per product on the tensor cores, 0.21 ms at
+//    495 TFLOP/s).
+//  - U-Net mid block, [2B, 16, 8, 64] bf16: a few hundred KB and a few
+//    MFLOP, so the launch itself (a few microseconds) bounds it.
+// What the design does about it (primitives in flash_tc.cuh):
+//  - A block owns RG row groups of 16 MT query rows (fewer groups when Sq
+//    is small: the U-Net's Sq = 16 takes one 16-row tile per (batch, head))
+//    and streams K/V tiles of KV rows through NBUF shared-memory buffers.
+//    Q is staged once by 16-byte cp.async; K/V rows arrive by bulk copies
+//    (the TMA engine) issued by warp 0 on an mbarrier per buffer, the next
+//    tile's copies overlapping this tile's products.
+//  - S = Q K^T and O += P V are mma.sync on the tensor cores with fp32
+//    accumulation: bf16 m16n8k16 (P rounded to bf16 once: at
+//    [8,1024,1,512] the kernel stays within one bf16 step of the plain fp32
+//    version, PERF.md), or fp32 as 3xTF32 m16n8k8 (P split hi/lo too). The
+//    softmax stays in fp32 registers on the S fragments, which become P's
+//    A fragments without a trip through memory; it runs in base 2
+//    (exp2 of scale * log2(e) * S), the LSE converted back to base e.
+//  - At wide heads the O accumulator does not fit one warp, so CS warps
+//    share a row group, each owning DC = d / CS columns: each computes a
+//    partial S over its columns, the partials are summed through a small
+//    shared-memory exchange (every warp of the group gets the same bits),
+//    and each accumulates its own DC columns of O.
+//  - Rows are padded by 16 bytes in shared memory (no bank conflicts);
+//    columns past d up to the staged width and rows past S are zeros.
+// Configurations at the main path's shapes, with `nvcc -Xptxas -v` for
+// sm_90a (no instance spills or keeps a stack frame):
+//  - d = 512 bf16: 8 warps = 4 row groups x 2 column halves (MT 1), 16 x 256
+//    fp32 of O per warp, two 32-row K/V buffers; 232 registers, 216,080
+//    bytes of shared memory (Q 64 x 512, K/V 2 x 2 x 32 x 512, exchange).
+//  - d = 512 fp32: 8 warps = 2 row groups of 32 rows (MT 2) x 4 column
+//    quarters, 2 x 16 x 128 fp32 of O per warp, one 16-row K/V buffer (64
+//    query rows per block halve the K/V traffic of 32); 234 registers,
+//    214,536 bytes.
+//  - d = 64 bf16 (U-Net): one warp per 16-row tile, 64-row K/V tiles; 139
+//    registers, 39,184 bytes.
+// Strides are passed in, so BSHD tensors are read in place; the wrapper
+// checks that every row start is 16-byte aligned.
 //
 // C interface (ctypes): vq_flash_fwd(...) returns cudaGetLastError() of the
 // launch as an int; 0 means launched.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_tc.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * kWarp;
-constexpr int kRows = 2;                // query rows per warp
-constexpr int kBlockQ = kWarps * kRows;  // 16 query rows per block
-constexpr int kBlockKV = kWarp;          // 32 kv rows per tile, one per lane
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
+using namespace flash_tc;
 
 struct Params {
   const void* q;
@@ -59,175 +77,203 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+// T: element type. DC: head columns per warp; CS: warps per row group (the
+// staged width is DC * CS >= d); KV: rows per K/V tile; RG: row groups per
+// block at most; NBUF: K/V buffers; MT: 16-row m-tiles per warp (a row
+// group is 16 MT rows).
+template <typename T, int DC, int CS, int KV, int RG, int NBUF, int MT>
+struct Config {
+  static constexpr int kCols = DC * CS;
+  static constexpr int kLd = kCols + Pad<T>::kElems;
+  static constexpr int kGroupRows = 16 * MT;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off /= 2)
-    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  return x;
-}
+  // Q, the K/V buffers, the column-split exchange, one mbarrier per buffer
+  static size_t smem_bytes(int rg) {
+    const size_t rows = kGroupRows * static_cast<size_t>(rg);
+    size_t bytes = sizeof(T) * (rows + 2 * NBUF * KV) * kLd;
+    if (CS > 1) bytes += sizeof(float) * rg * CS * MT * (KV / 2) * 32;
+    return bytes + sizeof(uint64_t) * NBUF;
+  }
+};
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off /= 2)
-    x += __shfl_xor_sync(kFull, x, off);
-  return x;
-}
-
-// NJ = ceil(D / 32): output columns per lane (lane + 32 * j).
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int DC, int CS, int KV, int RG, int NBUF, int MT>
+__global__ void __launch_bounds__(32 * RG * CS, 1)
     flash_fwd_kernel(const Params p) {
-  extern __shared__ float smem[];
-  const int D = p.D;
-  const int k_stride = D + 1;  // odd row stride: conflict-free column reads
-  float* q_s = smem;                       // [kBlockQ][D], scaled
-  float* k_s = q_s + kBlockQ * D;          // [kBlockKV][D + 1]
-  float* v_s = k_s + kBlockKV * k_stride;  // [kBlockKV][D]
+  using C = Config<T, DC, CS, KV, RG, NBUF, MT>;
+  constexpr int kLd = C::kLd;
+  constexpr int NS = KV / 8;  // n-tiles of the score tile
+  constexpr int NO = DC / 8;  // n-tiles of a warp's output columns
+  constexpr int kSlot = MT * NS * 4 * 32;  // one warp's partial scores
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int groups = blockDim.x / (32 * CS);
+  const int rows = C::kGroupRows * groups;
+  const int warps = groups * CS;
+  T* q_s = reinterpret_cast<T*>(smem);  // [rows][kLd]
+  T* kv_s = q_s + rows * kLd;           // NBUF x (K [KV][kLd], V [KV][kLd])
+  float* xch = reinterpret_cast<float*>(kv_s + 2 * NBUF * KV * kLd);
 
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int tid = threadIdx.x;
-  const int warp = tid / kWarp;
-  const int lane = tid - warp * kWarp;
+  const int q0 = blockIdx.x * rows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int rg = warp / CS;
+  const int cs = warp - rg * CS;
+  const int c0 = cs * DC;  // this warp's first head column
 
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const int n_tiles = (p.Skv + KV - 1) / KV;
+  const KvStream<T, KV, kLd, C::kCols, NBUF> kv{
+      kv_s, reinterpret_cast<uint64_t*>(xch + (CS > 1 ? warps * kSlot : 0)),
+      static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh,
+      static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh,
+      p.k_ss, p.v_ss, p.Skv, p.D, n_tiles};
 
-  // Stage the query tile in fp32, pre-scaled; rows past Sq are zero.
-  for (int i = tid; i < kBlockQ * D; i += kThreads) {
-    const int r = i / D;
-    const int c = i - r * D;
-    const int s = q0 + r;
-    q_s[i] = s < p.Sq ? load_f32(q + s * p.q_ss + c) * p.scale : 0.f;
-  }
+  stage_rows<T, C::kCols>(q_s, kLd, q, p.q_ss, q0, rows, p.Sq, p.D);
+  cp_async_commit();
+  kv.init();
+  __syncthreads();  // mbarriers initialised and armed, columns zeroed
+  if (warp == 0)
+    for (int t = 0; t < (NBUF > 1 ? NBUF - 1 : 1) && t < n_tiles; ++t)
+      kv.issue(t);
 
-  float acc[kRows][NJ];
-  float m[kRows];
-  float l[kRows];
+  float acc[MT][NO][4];
+  zero(acc);
+  float m[MT][2], l[MT][2];  // running max; this lane's share of the sums
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
+    for (int r = 0; r < 2; ++r) {
+      m[i][r] = kNegInf;
+      l[i][r] = 0.f;
+    }
 
-  const float* q_row0 = q_s + (warp * kRows) * D;
-  const int n_tiles = (p.Skv + kBlockKV - 1) / kBlockKV;
+  const T* q_w = q_s + rg * C::kGroupRows * kLd + c0;
+  float* xch_group = xch + rg * CS * kSlot;
+  // the softmax runs in base 2: x = scale * log2(e) * S, m and the LSE's
+  // max in the same units
+  const float scale2 = p.scale * 1.4426950408889634f;
   for (int t = 0; t < n_tiles; ++t) {
-    const int kv0 = t * kBlockKV;
-    __syncthreads();  // the previous tile is consumed; Q is staged
-    for (int i = tid; i < kBlockKV * D; i += kThreads) {
-      const int r = i / D;
-      const int c = i - r * D;
-      const int s = kv0 + r;
-      const bool in = s < p.Skv;
-      // zero, not garbage, past the end: p = 0 there, and 0 * NaN is NaN
-      k_s[r * k_stride + c] = in ? load_f32(k + s * p.k_ss + c) : 0.f;
-      v_s[r * D + c] = in ? load_f32(v + s * p.v_ss + c) : 0.f;
-    }
+    const T* k_t = kv.wait(t);
+    const T* v_t = k_t + KV * kLd;
+    cp_async_wait<0>();  // Q
+    // tile t and Q visible to every warp; every warp is done with tile
+    // t - 1, its buffer and the exchange
     __syncthreads();
+    if (NBUF > 1 && t + NBUF - 1 < n_tiles && warp == 0)
+      kv.issue(t + NBUF - 1);  // overlaps the products of tiles t, t + 1..
 
-    // Scores of this warp's rows against kv column `lane`.
-    float s[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) s[i] = 0.f;
-    const float* k_row = k_s + lane * k_stride;
-    for (int c = 0; c < D; ++c) {
-      const float kc = k_row[c];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) s[i] = fmaf(q_row0[i * D + c], kc, s[i]);
+    float s[MT][NS][4];
+    zero(s);
+    MmaRows<T>::template a_smem_b_nk<MT, NS, DC>(s, q_w, kLd, k_t + c0,
+                                                 kLd);
+    if (CS > 1) {
+      xch_put(xch_group + cs * kSlot, s);
+      row_sync(1 + rg, 32 * CS);
+      xch_sum<CS>(xch_group, s);
     }
 
-    // Online softmax: each row lives in one warp, so max and sum are shuffles.
-    const bool valid = kv0 + lane < p.Skv;
+    // online softmax on the fragments: rows g (r = 0) and g + 8 (r = 1) of
+    // each m-tile
+    const int kv0 = t * KV;
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const float si = valid ? s[i] : kNegInf;
-      const float m_new = fmaxf(m[i], warp_max(si));
-      const float pi = expf(si - m_new);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + warp_sum(pi);
-      m[i] = m_new;
-      s[i] = pi;
+    for (int i = 0; i < MT; ++i) {
+      float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-
-    // acc += P V, with P[row, c] broadcast from lane c.
-    const int n_valid = min(kBlockKV, p.Skv - kv0);
-    for (int c = 0; c < n_valid; ++c) {
-      float pc[kRows];
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) pc[i] = __shfl_sync(kFull, s[i], c);
-      const float* v_row = v_s + c * D;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = lane + kWarp * j;
-        if (d < D) {
-          const float vd = v_row[d];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(pc[i], vd, acc[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          const float x =
+              kv0 + frag_col(n, j) < p.Skv ? s[i][n][j] * scale2 : kNegInf;
+          s[i][n][j] = x;
+          mx[j >> 1] = fmaxf(mx[j >> 1], x);
         }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[i][r], quad_max(mx[r]));
+        alpha[r] = exp2f(m[i][r] - m_new);
+        m[i][r] = m_new;
+        l[i][r] *= alpha[r];
       }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float e = exp2f(s[i][n][j] - m[i][j >> 1]);
+          s[i][n][j] = e;
+          l[i][j >> 1] += e;
+        }
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][n][j] *= alpha[j >> 1];
+    }
+
+    MmaRows<T>::template a_frag_b_kn<MT, NS, NO>(acc, s, v_t + c0, kLd);
+    if (NBUF == 1 && t + 1 < n_tiles) {
+      __syncthreads();  // the one buffer is consumed
+      if (warp == 0) kv.issue(t + 1);
     }
   }
 
+  const int g = lane >> 2;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + warp * kRows + i;
-    if (row >= p.Sq) continue;
-    const float l_safe = fmaxf(l[i], 1e-30f);
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = lane + kWarp * j;
-      if (d < D) store_as(o + row * p.o_ss + d, acc[i][j] / l_safe);
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + rg * C::kGroupRows + 16 * i + g + 8 * r;
+      const float l_safe = fmaxf(quad_sum(l[i][r]), 1e-30f);
+      if (row >= p.Sq) continue;
+      const float inv = 1.f / l_safe;
+      T* o_row = o + row * p.o_ss;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const int col = c0 + frag_col(n, 0);
+        if (col < p.D)
+          store_pair(o_row + col, acc[i][n][2 * r] * inv,
+                     acc[i][n][2 * r + 1] * inv);
+      }
+      if (cs == 0 && (lane & 3) == 0)
+        p.lse[static_cast<int64_t>(bh) * p.Sq + row] =
+            m[i][r] * 0.6931471805599453f + logf(l_safe);
     }
-    if (lane == 0) p.lse[static_cast<int64_t>(bh) * p.Sq + row] = m[i] + logf(l_safe);
-  }
 }
 
-template <typename T, int NJ>
+template <typename T, int DC, int CS, int KV, int RG, int NBUF, int MT>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(kBlockQ) * p.D +
-                       static_cast<size_t>(kBlockKV) * (p.D + 1) +
-                       static_cast<size_t>(kBlockKV) * p.D);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + kBlockQ - 1) / kBlockQ, p.B * p.H);
-  flash_fwd_kernel<T, NJ><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  using C = Config<T, DC, CS, KV, RG, NBUF, MT>;
+  auto kernel = flash_fwd_kernel<T, DC, CS, KV, RG, NBUF, MT>;
+  static std::atomic<unsigned> raised{0};
+  return launch_tiles(kernel, p, stream, C::kGroupRows, RG, CS,
+                      C::smem_bytes(RG), C::smem_bytes, raised);
 }
 
-template <typename T>
-cudaError_t dispatch(const Params& p, cudaStream_t stream) {
-  if (p.D <= 32) return launch<T, 1>(p, stream);
-  if (p.D <= 64) return launch<T, 2>(p, stream);
-  if (p.D <= 128) return launch<T, 4>(p, stream);
-  if (p.D <= 256) return launch<T, 8>(p, stream);
-  return launch<T, 16>(p, stream);
+cudaError_t dispatch_bf16(const Params& p, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  if (p.D <= 32) return launch<T, 32, 1, 64, 4, 2, 1>(p, st);
+  if (p.D <= 64) return launch<T, 64, 1, 64, 4, 2, 1>(p, st);
+  if (p.D <= 128) return launch<T, 128, 1, 64, 4, 2, 1>(p, st);
+  if (p.D <= 256) return launch<T, 128, 2, 64, 4, 2, 1>(p, st);
+  return launch<T, 256, 2, 32, 4, 2, 1>(p, st);
+}
+
+cudaError_t dispatch_f32(const Params& p, cudaStream_t st) {
+  if (p.D <= 32) return launch<float, 32, 1, 64, 4, 2, 1>(p, st);
+  if (p.D <= 64) return launch<float, 64, 1, 64, 4, 2, 1>(p, st);
+  if (p.D <= 128) return launch<float, 128, 1, 32, 4, 2, 1>(p, st);
+  if (p.D <= 256) return launch<float, 128, 2, 32, 4, 2, 1>(p, st);
+  return launch<float, 128, 4, 16, 2, 1, 2>(p, st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. The caller checks shapes (D a multiple of
-// 8, at most 512), dtypes and that every last axis has stride 1.
+// 8, at most 512), dtypes, that every last axis has stride 1 and that every
+// row start is 16-byte aligned.
 extern "C" int vq_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int H, int Sq, int Skv,
                             int D, int64_t q_sb, int64_t q_ss, int64_t q_sh,
@@ -252,7 +298,6 @@ extern "C" int vq_flash_fwd(const void* q, const void* k, const void* v,
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0 ? dispatch<float>(p, st)
-                               : dispatch<__nv_bfloat16>(p, st);
+  cudaError_t err = dtype == 0 ? dispatch_f32(p, st) : dispatch_bf16(p, st);
   return static_cast<int>(err);
 }

@@ -2,8 +2,9 @@
 
 Each source compiles with `nvcc` into its own shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds). Libraries land in
-`vqgan_tpu_torch/_build/`, named by the hash of the source, so an edited
-source builds anew at its next use and a stale library is never loaded.
+`vqgan_tpu_torch/_build/`, named by the hash of the source and of every
+header beside it (`csrc/*.cuh`), so an edited source or header builds anew
+at its next use and a stale library is never loaded.
 `build_all` starts one `nvcc` per source at once; kernels whose entry points
 share a source share its library.
 """
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 __all__ = ["CudaKernel", "build_all", "nvcc_path"]
 
@@ -66,8 +69,13 @@ class CudaKernel:
 
     @property
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.source.stem}_{digest}.so"
+        """The built library, named by a hash of the source and of every
+        header in its directory (a source may include any of them)."""
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.name.encode())
+            h.update(header.read_bytes())
+        return BUILD_DIR / f"lib{self.source.stem}_{h.hexdigest()[:16]}.so"
 
     def _compile_command(self, out: Path) -> list:
         return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
@@ -97,6 +105,17 @@ class CudaKernel:
                 f"nvcc failed for {self.source.name} "
                 f"(exit {proc.returncode}):\n{log}")
         os.replace(tmp, self.library_path)  # atomic: no half-written library
+
+    def launch(self, device: torch.device, *args) -> int:
+        """Call the C entry point with `args` and then PyTorch's current
+        stream on `device`, with `device` current; returns its error code.
+        The device switch is skipped when `device` is current already (the
+        small main-path shapes are bound by this host time)."""
+        fn = self.function()
+        if device.index == torch.cuda.current_device():
+            return fn(*args, torch.cuda.current_stream().cuda_stream)
+        with torch.cuda.device(device):
+            return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
     def function(self):
         """The C entry point, building the library first if needed."""

@@ -1,10 +1,11 @@
-"""ctypes binding of `csrc/flash_bwd.cu`, the flash-attention backward
-kernels: dQ, and dK with dV.
+"""ctypes bindings of the flash-attention backward kernels: dQ
+(`csrc/flash_bwd_dq.cu`, tensor cores) and dK with dV (`csrc/flash_bwd.cu`).
 
 `flash_bwd_dq` and `flash_bwd_dkv` take CUDA tensors in the BSHD layout and
 launch on PyTorch's current stream. They raise on anything the kernels do not
-take (a strided head_dim axis included: the caller makes dO contiguous where
-it has to); they never fall back to another implementation.
+take (a strided head_dim axis or a row start that is not 16-byte aligned
+included: the caller makes dO contiguous where it has to); they never fall
+back to another implementation.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import ctypes
 import torch
 
 from .build import CudaKernel
-from .flash_fwd import DTYPES, check_attention_inputs
+from .flash_fwd import DTYPE_NAMES, DTYPES, check_attention_inputs
 
 __all__ = ["FLASH_BWD_DQ", "FLASH_BWD_DKV", "flash_bwd_dq", "flash_bwd_dkv"]
 
@@ -22,7 +23,7 @@ _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _STRIDES = ctypes.c_int64 * 12
 _COMMON = [_p] * 6                          # q, k, v, dO, lse, delta
 FLASH_BWD_DQ = CudaKernel(
-    "flash_bwd.cu", "vq_flash_bwd_dq",
+    "flash_bwd_dq.cu", "vq_flash_bwd_dq",
     [*_COMMON, _p,                          # dq
      _i, _i, _i, _i, _i,                    # B, H, Sq, Skv, D
      ctypes.POINTER(_i64),                  # strides of q, k, v, dO
@@ -55,23 +56,20 @@ def _launch(kernel: CudaKernel, name: str, q, k, v, do, lse, delta,
     b, s_q, h, d = q.shape
     strides = _STRIDES(*(s for t in (q, k, v, do) for s in t.stride()[:3]))
     out_strides = [s for t in outputs for s in t.stride()[:3]]
-    fn = kernel.function()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(),
-                 *(t.data_ptr() for t in outputs), b, h, s_q, k.shape[1], d,
-                 strides,
-                 *out_strides, float(scale), DTYPES[q.dtype], stream)
+    err = kernel.launch(
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outputs),
+        b, h, s_q, k.shape[1], d, strides, *out_strides, float(scale),
+        DTYPES[q.dtype])
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    kernel.count((b, s_q, h, d, str(q.dtype).removeprefix("torch.")))
+    kernel.count((b, s_q, h, d, DTYPE_NAMES[q.dtype]))
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
     """q/dO [B, Sq, H, D], k/v [B, Skv, H, D] on one CUDA device, fp32 or
-    bf16, last axis contiguous; lse and delta [B, H, Sq] fp32. Returns dq
-    [B, Sq, H, D] in q's dtype."""
+    bf16, last axis contiguous, row starts 16-byte aligned; lse and delta
+    [B, H, Sq] fp32. Returns dq [B, Sq, H, D] in q's dtype."""
     b, s_q, _, h, d = _check("flash_bwd_dq", q, k, v, do, lse, delta)
     dq = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     _launch(FLASH_BWD_DQ, "flash_bwd_dq", q, k, v, do, lse, delta, [dq],

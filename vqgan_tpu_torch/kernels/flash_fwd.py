@@ -1,8 +1,9 @@
 """ctypes binding of `csrc/flash_fwd.cu`, the flash-attention forward kernel.
 
 `flash_fwd` takes CUDA tensors in the BSHD layout and launches the kernel on
-PyTorch's current stream. It raises on anything the kernel does not take; it
-never falls back to another implementation.
+PyTorch's current stream. It raises on anything the kernel does not take (a
+strided head_dim axis, a row start that is not 16-byte aligned); it never
+falls back to another implementation.
 """
 
 from __future__ import annotations
@@ -14,10 +15,11 @@ import torch
 from .build import CudaKernel
 
 __all__ = ["FLASH_FWD", "flash_fwd", "check_attention_inputs",
-           "MAX_HEAD_DIM", "DTYPES"]
+           "check_kernel_layout", "MAX_HEAD_DIM", "DTYPES", "DTYPE_NAMES"]
 
 MAX_HEAD_DIM = 512
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 _MAX_GRID_Y = 65535
 
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -29,12 +31,38 @@ FLASH_FWD = CudaKernel(
      ctypes.c_float, _i, _p])         # scale, dtype, stream
 
 
+def check_kernel_layout(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is one the tensor-core kernels can stage
+    with 16-byte copies: last axis contiguous, base pointer and the strides
+    of every other axis longer than 1 a multiple of 16 bytes. The main
+    path's tensors are contiguous with head_dim a multiple of 8, so they
+    meet this; a misaligned view is refused, not copied."""
+    for i, t in enumerate(tensors):
+        strides = t.stride()
+        if strides[-1] != 1:
+            raise ValueError(f"{name}: the head_dim axis of every input must "
+                             f"be contiguous (input {i} has strides "
+                             f"{strides})")
+        size = t.element_size()
+        bits = t.data_ptr()
+        for s in strides[:-1]:
+            bits |= s * size
+        # an axis of length 1 is never stepped along, whatever its stride
+        if bits % 16 and (t.data_ptr() % 16 or any(
+                n > 1 and (s * size) % 16
+                for n, s in zip(t.shape[:-1], strides[:-1]))):
+            raise ValueError(f"{name}: every row of input {i} must start on "
+                             f"a 16-byte boundary (strides {t.stride()}, "
+                             f"{size}-byte elements, base "
+                             f"{t.data_ptr() % 16} bytes past 16)")
+
+
 def check_attention_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *more: torch.Tensor):
     """Raise unless q [B, Sq, H, D] and k/v [B, Skv, H, D] (and `more`
     tensors shaped like q) lie on one CUDA device in one dtype the kernels
-    take, with a head_dim the kernels take and a contiguous last axis.
-    Returns (B, Sq, Skv, H, D)."""
+    take, with a head_dim the kernels take, in the layout of
+    `check_kernel_layout`. Returns (B, Sq, Skv, H, D)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {q.device}")
     if any(t.device != q.device for t in (k, v, *more)):
@@ -57,32 +85,25 @@ def check_attention_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
     if s_q < 1 or s_kv < 1 or b * h > _MAX_GRID_Y:
         raise ValueError(f"unsupported sizes: B*H={b * h}, Sq={s_q}, "
                          f"Skv={s_kv}")
-    if any(t.stride(-1) != 1 for t in (q, k, v, *more)):
-        raise ValueError(f"{name}: the head_dim axis of every input must be "
-                         f"contiguous")
+    check_kernel_layout(name, q, k, v, *more)
     return b, s_q, s_kv, h, d
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float):
     """q [B, Sq, H, D], k/v [B, Skv, H, D] on one CUDA device, fp32 or bf16,
-    last axis contiguous. Returns (out [B, Sq, H, D] in q's dtype,
-    lse [B, H, Sq] fp32)."""
+    last axis contiguous, row starts 16-byte aligned. Returns (out
+    [B, Sq, H, D] in q's dtype, lse [B, H, Sq] fp32)."""
     b, s_q, s_kv, h, d = check_attention_inputs("flash_fwd", q, k, v)
 
     out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-    fn = FLASH_FWD.function()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), b, h, s_q, s_kv, d,
-                 q.stride(0), q.stride(1), q.stride(2),
-                 k.stride(0), k.stride(1), k.stride(2),
-                 v.stride(0), v.stride(1), v.stride(2),
-                 out.stride(0), out.stride(1), out.stride(2),
-                 float(scale), DTYPES[q.dtype], stream)
+    err = FLASH_FWD.launch(
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, h, s_q, s_kv, d, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], float(scale),
+        DTYPES[q.dtype])
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
-    FLASH_FWD.count((b, s_q, h, d, str(q.dtype).removeprefix("torch.")))
+    FLASH_FWD.count((b, s_q, h, d, DTYPE_NAMES[q.dtype]))
     return out, lse

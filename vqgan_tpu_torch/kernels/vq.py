@@ -54,12 +54,9 @@ def vq_nearest(z: torch.Tensor, codebook: torch.Tensor, e_sq: torch.Tensor,
 
     idx = torch.empty((n,), dtype=torch.int32, device=z.device)
     usage = torch.zeros((k,), dtype=torch.int32, device=z.device)
-    fn = VQ_NEAREST.function()
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = fn(z.data_ptr(), codebook.data_ptr(), e_sq.data_ptr(),
-                 idx.data_ptr(), usage.data_ptr(), n, k, d, MODES[mode],
-                 stream)
+    err = VQ_NEAREST.launch(z.device, z.data_ptr(), codebook.data_ptr(),
+                            e_sq.data_ptr(), idx.data_ptr(),
+                            usage.data_ptr(), n, k, d, MODES[mode])
     if err != 0:
         raise RuntimeError(f"vq_nearest kernel launch failed: CUDA error {err}")
     VQ_NEAREST.count((n, k, d, mode))

@@ -119,7 +119,7 @@ def flash_forward(q, k, v, scale: float | None = None):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, scale: float | None = None):
-    """dQ of flash attention: the kernel (csrc/flash_bwd.cu) for a CUDA
+    """dQ of flash attention: the kernel (csrc/flash_bwd_dq.cu) for a CUDA
     tensor, `flash_bwd_dq_reference` for a CPU tensor."""
     scale = _scale(q, scale)
     if _on_kernel_device("flash_bwd_dq", q):

@@ -34,11 +34,13 @@ def _device_us(event) -> float:
         or getattr(event, "self_cuda_time_total", 0.0)
 
 
-def profiled(fn, reps: int, top: int = 8) -> dict:
+def profiled(fn, reps: int, top: int = 8, named: dict | None = None) -> dict:
     """Host wall ms per call (without the profiler), then, from a profiled
     repeat, device kernel ms per call, the idle share of the unprofiled
     wall time, kernel launches per call and the top kernels by device
-    time; `reps` calls each, after one warm-up call."""
+    time; `reps` calls each, after one warm-up call. `named` ({label:
+    substring of a kernel name}) adds the device ms per call of the kernels
+    whose names hold each substring."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -58,7 +60,7 @@ def profiled(fn, reps: int, top: int = 8) -> dict:
                and not getattr(e, "is_user_annotation", False)]
     device_ms = sum(_device_us(e) for e in kernels) / 1e3 / reps
     ranked = sorted(kernels, key=_device_us, reverse=True)[:top]
-    return {
+    out = {
         "wall_ms": wall_ms,
         "device_ms": device_ms if kernels else None,
         "idle_share": 1.0 - device_ms / wall_ms if kernels else None,
@@ -66,6 +68,11 @@ def profiled(fn, reps: int, top: int = 8) -> dict:
         "top": [{"kernel": e.key[:80], "ms": _device_us(e) / 1e3 / reps,
                  "count": e.count / reps} for e in ranked],
     }
+    if named:
+        out["named_ms"] = {
+            label: sum(_device_us(e) for e in kernels if part in e.key)
+            / 1e3 / reps for label, part in named.items()}
+    return out
 
 
 def main(argv=None):

@@ -11,8 +11,8 @@ and a batch of random [B, 256, 256, 3] images. Then measures, with
 - one G step before `disc_start` (the discriminator read without a graph);
 - one G step plus one D step from `disc_start` on;
 each as host wall ms, device kernel ms, the device's idle share, launches
-and the top kernels, plus the launches of each hand-written kernel per
-step. Prints one JSON object. Needs a CUDA device.
+and the top kernels, plus the launches and device ms of each hand-written
+kernel per step. Prints one JSON object. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,9 +30,16 @@ from .profile_generate import profiled
 from .training.vqgan_trainer import VQGANTrainer
 
 
+# the device functions of the hand-written kernels, by KERNELS name
+_KERNEL_FUNCTIONS = {"flash_fwd": "flash_fwd_kernel",
+                     "flash_bwd_dq": "flash_bwd_dq_kernel",
+                     "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                     "vq_nearest": "vq_nearest_kernel"}
+
+
 def _per_step(step_fn, reps: int) -> dict:
-    """profiled(step_fn, reps) with each hand-written kernel's launches per
-    call of `step_fn`."""
+    """profiled(step_fn, reps) with each hand-written kernel's launches and
+    device ms per call of `step_fn`."""
     calls = 0
 
     def fn():
@@ -42,7 +49,7 @@ def _per_step(step_fn, reps: int) -> dict:
 
     for k in KERNELS.values():
         k.launches = 0
-    out = profiled(fn, reps)
+    out = profiled(fn, reps, named=_KERNEL_FUNCTIONS)
     out["kernel_launches_per_step"] = {
         name: k.launches / calls for name, k in KERNELS.items()}
     return out
