@@ -6,7 +6,9 @@ JAX einsum reference. The CUDA kernel itself is held against the plain
 version in `test_kernel_matches_plain_on_gpu`, which needs a card.
 """
 
+import importlib.util
 import math
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -129,24 +131,30 @@ def test_library_name_follows_the_headers(tmp_path):
     assert kernel.library_path != first
 
 
-def test_kernel_layout_check_refuses_rows_off_16_bytes():
-    from vqgan_tpu_torch.kernels.flash_fwd import check_kernel_layout
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
-    q = torch.zeros(2, 16, 8, 64, dtype=torch.bfloat16)
-    check_kernel_layout("flash_fwd", q, q[:, :8], q.transpose(1, 2))
-    # a strided but aligned view, as the kernels read it in place
-    check_kernel_layout("flash_fwd", torch.cat([q, q], dim=-1)[..., :64])
-    # an axis of length 1 is never stepped along, whatever its stride
-    check_kernel_layout("flash_fwd", torch.zeros(64).as_strided(
-        (1, 4, 1, 16), (3, 16, 5, 1)))
-    flat = torch.zeros(2 * 8 * 64 + 1, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="16-byte"):  # base 2 bytes off
-        check_kernel_layout("flash_fwd", flat[1:].view(2, 8, 1, 64))
-    with pytest.raises(ValueError, match="16-byte"):  # rows 36 bytes apart
-        check_kernel_layout("flash_fwd", torch.zeros(8, 1, 1, 9).as_strided(
-            (8, 1, 1, 8), (9, 9, 9, 1)))
-    with pytest.raises(ValueError, match="contiguous"):
-        check_kernel_layout("flash_fwd", q.transpose(2, 3))
+
+@pytest.mark.parametrize("dtype,want_ms", [("float32", 0.2082),
+                                           ("bfloat16", 0.01737)])
+def test_chip_smoke_bound_takes_each_dtype_at_its_fastest_rate(dtype,
+                                                               want_ms):
+    # the forward at the main path's [B, 1024, 1, 512] shapes is bound by
+    # its operations: bf16 at 989 TFLOP/s; fp32 at fp32 accuracy goes
+    # fastest as 3xTF32, three TF32 products at 495 TFLOP/s (not the fp32
+    # units' 67 TFLOP/s, which would flatter a kernel)
+    smoke = _chip_smoke()
+    b = 16 if dtype == "float32" else 8
+    itemsize = 4 if dtype == "float32" else 2
+    ms, by = smoke.bound(smoke.peaks_for("NVIDIA H100 80GB HBM3"),
+                         4 * b * 1024 * 512 * itemsize + 4 * b * 1024,
+                         4 * b * 1024 * 1024 * 512, dtype)
+    assert by == "operations"
+    assert ms == pytest.approx(want_ms, rel=1e-3)
 
 
 @pytest.fixture

@@ -183,9 +183,10 @@ def test_vae_attention_meets_the_kernel_layout(monkeypatch, model):
     # a training step of the VQ-VAE (bf16, as VQ-GAN training runs it) or
     # the KL-VAE (fp32) reaches the flash kernels from its level and mid
     # attention blocks, forward and backward; every q, k, v and dO must be
-    # one the tensor-core kernels stage with 16-byte copies (on the CPU the
-    # plain path would not notice)
-    from vqgan_tpu_torch.kernels.flash_fwd import check_kernel_layout
+    # one the tensor-core kernels stage with 16-byte copies: last axis
+    # contiguous, base and the stride of every axis longer than 1 a multiple
+    # of 16 bytes (on the CPU the plain path would not notice; on the card
+    # the entry points refuse anything else)
     from vqgan_tpu_torch.models import KLVAE, VQVAE
     from vqgan_tpu_torch.models.autoencoder import AutoencoderConfig
 
@@ -197,7 +198,11 @@ def test_vae_attention_meets_the_kernel_layout(monkeypatch, model):
         def fn(*args):
             inputs = args[:n_inputs]
             calls.append(name)
-            check_kernel_layout(name, *inputs)
+            for t in inputs:
+                size = t.element_size()
+                assert t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+                assert all(n == 1 or s * size % 16 == 0 for n, s in
+                           zip(t.shape[:-1], t.stride()[:-1])), t.stride()
             assert len({t.dtype for t in inputs}) == 1
             return real[name](*args)
         return fn

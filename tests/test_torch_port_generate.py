@@ -203,7 +203,6 @@ def test_entry_points_default_to_gpu_and_raise_without_one(monkeypatch,
     from vqgan_tpu_torch import (
         generate,
         profile_generate,
-        profile_kernels,
         profile_vqgan_train,
         train_vqgan,
     )
@@ -227,8 +226,6 @@ def test_entry_points_default_to_gpu_and_raise_without_one(monkeypatch,
                                  results_folder=str(tmp_path)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profile_vqgan_train.main([])
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        profile_kernels.main([])
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "vqgan_tpu")

@@ -16,8 +16,9 @@
 //    against 42 MB, operations: 0.0261 ms at 989 TFLOP/s.
 //  - U-Net mid block in LDM training, [8, 16, 8, 64] bf16: ~6 MFLOP over
 //    ~100 KB, so the launch (a few microseconds) bounds it.
-//  - (Off the main path: stage-1 KL-VAE training's [B, 1024, 1, 512] fp32,
-//    3xTF32 as in the forward.)
+//  - (Off the main path: stage-1 KL-VAE training's [16, 1024, 1, 512] fp32,
+//    3xTF32 as in the forward: 51.5 GFLOP, three TF32 products each at
+//    495 TFLOP/s, 0.312 ms.)
 // What the design does about it (primitives in flash_tc.cuh; the forward's
 // structure, flash_fwd.cu):
 //  - A block owns RG row groups of 16 MT query rows with Q and dO staged
@@ -26,9 +27,12 @@
 //  - Per tile, S = Q K^T and dP = dO V^T are mma.sync on the tensor cores;
 //    P = exp2(scale * log2(e) * S - log2(e) * LSE) (zero past Skv) and
 //    dS = P * (dP - delta) in fp32 registers; then dQ += dS K on the tensor
-//    cores, dS rounded to bf16 once (or split hi/lo in 3xTF32 for fp32), the
-//    S fragments serving as dS's A fragments. dQ is written once, times the
-//    scale, in the input dtype.
+//    cores, the S fragments serving as dS's A fragments. dS goes in as
+//    hi + lo, two bf16 products (one more product per tile; measured at
+//    [8,1024,1,512], dS rounded to bf16 once put dQ 6.1e-3 of max|dQ| from
+//    the plain version, over the 2e-3 the design allowed, PERF.md), or
+//    split for 3xTF32 for fp32. dQ is written once, times the scale, in the
+//    input dtype.
 //  - Wide heads split columns as the forward does: CS warps share a row
 //    group, each computes partial S and dP over its DC = d / CS columns,
 //    the partials are summed through shared memory (identical bits in every
@@ -40,11 +44,11 @@
 //    of shared memory (Q and dO 64 x 512, K/V 2 x 2 x 16 x 512, exchange).
 //  - d = 64 bf16 (U-Net): one warp per 16-row tile, 64-row K/V tiles; 167
 //    registers, 41,488 bytes.
-// Strides are passed in, so BSHD tensors are read and written in place; the
-// wrapper checks that every row start is 16-byte aligned.
+// Strides are passed in, so BSHD tensors are read and written in place.
 //
 // C interface (ctypes): vq_flash_bwd_dq(...) returns cudaGetLastError() of
-// the launch as an int; 0 means launched.
+// the launch as an int (0 means launched), or kMisaligned, launching
+// nothing, when a row of q, k, v or dO does not start on 16 bytes.
 
 #include "flash_tc.cuh"
 
@@ -201,7 +205,8 @@ __global__ void __launch_bounds__(32 * RG * CS, 1)
           s[i][n][j] = pr * (dp[i][n][j] - delta[i][r]);
         }
 
-    MmaRows<T>::template a_frag_b_kn<MT, NS, NO>(acc, s, k_t + c0, kLd);
+    MmaRows<T>::template a_frag_b_kn<MT, NS, NO, true>(acc, s, k_t + c0,
+                                                       kLd);
     if (NBUF == 1 && t + 1 < n_tiles) {
       __syncthreads();  // the one buffer is consumed
       if (warp == 0) kv.issue(t + 1);
@@ -256,8 +261,8 @@ cudaError_t dispatch_f32(const Params& p, cudaStream_t st) {
 // dtype: 0 = float32, 1 = bfloat16. `in_strides` holds the (batch, sequence,
 // head) element strides of q, k, v and dO, 12 values. The caller checks
 // shapes (D a multiple of 8, at most 512), dtypes, that every last axis has
-// stride 1, that every row start is 16-byte aligned, and that lse and delta
-// are contiguous [B, H, Sq] fp32.
+// stride 1, and that lse and delta are contiguous [B, H, Sq] fp32; dq is
+// fresh (aligned rows).
 extern "C" int vq_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq, int B, int H,
@@ -266,6 +271,12 @@ extern "C" int vq_flash_bwd_dq(const void* q, const void* k, const void* v,
                                int64_t dq_ss, int64_t dq_sh, float scale,
                                int dtype, void* stream) {
   const int64_t* s = in_strides;
+  const int64_t elem = dtype == 0 ? 4 : 2;
+  const void* inputs[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i)
+    if (!rows_aligned(inputs[i], s[3 * i], s[3 * i + 1], s[3 * i + 2], B,
+                      i == 1 || i == 2 ? Skv : Sq, H, elem))
+      return kMisaligned;
   Params p;
   p.q = q;
   p.k = k;

@@ -12,10 +12,10 @@
 //  - VQ-VAE mid block in VQ-GAN training, [8, 1024, 1, 512] bf16: 17.2 GFLOP
 //    against 34 MB, operations: 0.0174 ms at 989 TFLOP/s.
 //  - KL-VAE mid block in generation, [16, 1024, 1, 512] fp32: 34.4 GFLOP
-//    against 134 MB, operations: 0.513 ms at the 67 TFLOP/s fp32 rate. The
-//    JAX side holds fp32 to "highest" precision, so fp32 runs as 3xTF32
-//    (three TF32 products per product on the tensor cores, 0.21 ms at
-//    495 TFLOP/s).
+//    against 134 MB. The JAX side holds fp32 to "highest" precision; the
+//    fastest fp32-accurate product here is 3xTF32 (three TF32 products per
+//    product on the tensor cores at 495 TFLOP/s), so operations: 0.208 ms.
+//    (The fp32 units' 67 TFLOP/s would take 0.513 ms.)
 //  - U-Net mid block, [2B, 16, 8, 64] bf16: a few hundred KB and a few
 //    MFLOP, so the launch itself (a few microseconds) bounds it.
 // What the design does about it (primitives in flash_tc.cuh):
@@ -50,11 +50,11 @@
 //    214,536 bytes.
 //  - d = 64 bf16 (U-Net): one warp per 16-row tile, 64-row K/V tiles; 139
 //    registers, 39,184 bytes.
-// Strides are passed in, so BSHD tensors are read in place; the wrapper
-// checks that every row start is 16-byte aligned.
+// Strides are passed in, so BSHD tensors are read in place.
 //
 // C interface (ctypes): vq_flash_fwd(...) returns cudaGetLastError() of the
-// launch as an int; 0 means launched.
+// launch as an int (0 means launched), or kMisaligned, launching nothing,
+// when a row of q, k or v does not start on 16 bytes.
 
 #include "flash_tc.cuh"
 
@@ -272,8 +272,8 @@ cudaError_t dispatch_f32(const Params& p, cudaStream_t st) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. The caller checks shapes (D a multiple of
-// 8, at most 512), dtypes, that every last axis has stride 1 and that every
-// row start is 16-byte aligned.
+// 8, at most 512), dtypes and that every last axis has stride 1; o is fresh
+// (aligned rows).
 extern "C" int vq_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int H, int Sq, int Skv,
                             int D, int64_t q_sb, int64_t q_ss, int64_t q_sh,
@@ -281,6 +281,11 @@ extern "C" int vq_flash_fwd(const void* q, const void* k, const void* v,
                             int64_t v_sb, int64_t v_ss, int64_t v_sh,
                             int64_t o_sb, int64_t o_ss, int64_t o_sh,
                             float scale, int dtype, void* stream) {
+  const int64_t elem = dtype == 0 ? 4 : 2;
+  if (!rows_aligned(q, q_sb, q_ss, q_sh, B, Sq, H, elem) ||
+      !rows_aligned(k, k_sb, k_ss, k_sh, B, Skv, H, elem) ||
+      !rows_aligned(v, v_sb, v_ss, v_sh, B, Skv, H, elem))
+    return kMisaligned;
   Params p;
   p.q = q;
   p.k = k;

@@ -287,6 +287,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// (x, y) = hi + lo, each a pair of bf16: hi rounds to bf16, lo is the
+// remainder rounded to bf16, so hi + lo keeps ~16 mantissa bits.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
 template <int M, int N>
 __device__ __forceinline__ void zero(float (&x)[M][N][4]) {
 #pragma unroll
@@ -309,6 +319,8 @@ __device__ __forceinline__ void zero(float (&x)[M][N][4]) {
 // MmaRows<T>::a_frag_b_kn: acc[i][n] += P_i . B, P the 16 MT x (8 NS) fp32
 //   C fragments of an earlier product (in registers), B = (8 NS) rows x
 //   (NT * 8) columns at `b`, [k][n] in shared memory. O += P V, dQ += dS K.
+//   SPLIT (bf16 only; fp32 always splits) takes P as hi + lo in two
+//   products.
 
 template <typename T>
 struct MmaRows;
@@ -346,8 +358,9 @@ struct MmaRows<__nv_bfloat16> {
     }
   }
 
-  // P rounds to bf16 once, then the product accumulates in fp32.
-  template <int MT, int NS, int NT>
+  // P rounds to bf16 once (SPLIT: P = hi + lo, the small product first),
+  // then the product accumulates in fp32.
+  template <int MT, int NS, int NT, bool SPLIT = false>
   static __device__ __forceinline__ void a_frag_b_kn(
       float (&acc)[MT][NT][4], const float (&p)[MT][NS][4], const T* b,
       int ldb) {
@@ -357,20 +370,27 @@ struct MmaRows<__nv_bfloat16> {
         b + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldb + (lane >> 4) * 8);
 #pragma unroll
     for (int j = 0; j < NS / 2; ++j) {
-      uint32_t af[MT][4];
+      uint32_t af[MT][4], lo[MT][4];
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        af[i][0] = pack_bf16(p[i][2 * j][0], p[i][2 * j][1]);
-        af[i][1] = pack_bf16(p[i][2 * j][2], p[i][2 * j][3]);
-        af[i][2] = pack_bf16(p[i][2 * j + 1][0], p[i][2 * j + 1][1]);
-        af[i][3] = pack_bf16(p[i][2 * j + 1][2], p[i][2 * j + 1][3]);
-      }
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* x = p[i][2 * j + (e >> 1)] + 2 * (e & 1);
+          if (SPLIT)
+            split_bf16(x[0], x[1], af[i][e], lo[i][e]);
+          else
+            af[i][e] = pack_bf16(x[0], x[1]);
+        }
 #pragma unroll
       for (int n = 0; n < NT; n += 2) {
         uint32_t bf[4];
         ldsm_x4_trans(bf, b_addr + (j * 16 * ldb + n * 8) * 2);
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
+          if (SPLIT) {
+            mma_bf16(acc[i][n], lo[i], bf[0], bf[1]);
+            mma_bf16(acc[i][n + 1], lo[i], bf[2], bf[3]);
+          }
           mma_bf16(acc[i][n], af[i], bf[0], bf[1]);
           mma_bf16(acc[i][n + 1], af[i], bf[2], bf[3]);
         }
@@ -438,7 +458,7 @@ struct MmaRows<float> {
   // tf32 A fragment wants t and t + 4: the k index is permuted instead
   // (k = t reads column 2t, k = t + 4 reads 2t + 1), and B's rows with it,
   // so B comes by scalar loads of rows 2t and 2t + 1.
-  template <int MT, int NS, int NT>
+  template <int MT, int NS, int NT, bool SPLIT = true>
   static __device__ __forceinline__ void a_frag_b_kn(
       float (&acc)[MT][NT][4], const float (&p)[MT][NS][4], const T* b,
       int ldb) {
@@ -546,7 +566,22 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-// ---- host: the launch of a tile kernel --------------------------------------
+// ---- host: the layout check and the launch of a tile kernel -----------------
+
+// What an entry point returns, launching nothing, when an input's rows do
+// not all start on 16 bytes (the staging copies move 16-byte chunks); the
+// wrapper raises on it. CUDA error codes are never negative.
+constexpr int kMisaligned = -1;
+
+// True when every row of a [B, S, H, d] tensor at `base` (element strides
+// sb, ss, sh; the last axis contiguous) starts on a 16-byte boundary. An
+// axis of length 1 is never stepped along, whatever its stride.
+inline bool rows_aligned(const void* base, int64_t sb, int64_t ss,
+                         int64_t sh, int B, int S, int H, int64_t elem) {
+  return reinterpret_cast<uintptr_t>(base) % 16 == 0 &&
+         (B == 1 || sb * elem % 16 == 0) && (S == 1 || ss * elem % 16 == 0) &&
+         (H == 1 || sh * elem % 16 == 0);
+}
 //
 // One CTA per tile of `group_rows` * groups query rows (groups = RG, or
 // fewer when Sq is small: the U-Net's Sq = 16 takes one 16-row tile) per

@@ -23,8 +23,11 @@
 //
 // What bounds it on this card: at the main path's shape (N = 8192 rows of a
 // batch-8 32x32 latent grid, K = 128, D = 256) the work is 2 N K D = 537
-// MFLOP of fp32 (8.0 us at 67 TFLOP/s without tensor cores) against 8.5 MB of
-// input (2.5 us at 3.35 TB/s): operations. At K = 8192 it is 34 GFLOP, 0.5 ms.
+// MFLOP of fp32 against 8.5 MB of input (2.55 us at 3.35 TB/s): operations,
+// 3.25 us at 165 TFLOP/s, the card's fastest fp32-accurate rate (3xTF32,
+// three TF32 products on the tensor cores at 495 TFLOP/s; this SIMT kernel
+// has the fp32 units' 67 TFLOP/s, 8.0 us). At K = 8192 it is 34 GFLOP,
+// 0.21 ms.
 // What the design does about it: an SGEMM-shaped SIMT kernel whose epilogue
 // is a running argmin, so the [N, K] score matrix never reaches device memory.
 // A block of 16 x 16 threads owns 64 z rows and walks the codebook in tiles of

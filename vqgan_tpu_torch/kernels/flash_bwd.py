@@ -3,9 +3,9 @@
 
 `flash_bwd_dq` and `flash_bwd_dkv` take CUDA tensors in the BSHD layout and
 launch on PyTorch's current stream. They raise on anything the kernels do not
-take (a strided head_dim axis or a row start that is not 16-byte aligned
-included: the caller makes dO contiguous where it has to); they never fall
-back to another implementation.
+take (a strided head_dim axis included: the caller makes dO contiguous where
+it has to; for dQ also a row start that is not 16-byte aligned, which its
+entry point refuses); they never fall back to another implementation.
 """
 
 from __future__ import annotations
@@ -15,7 +15,12 @@ import ctypes
 import torch
 
 from .build import CudaKernel
-from .flash_fwd import DTYPE_NAMES, DTYPES, check_attention_inputs
+from .flash_fwd import (
+    DTYPE_NAMES,
+    DTYPES,
+    check_attention_inputs,
+    raise_on_error,
+)
 
 __all__ = ["FLASH_BWD_DQ", "FLASH_BWD_DKV", "flash_bwd_dq", "flash_bwd_dkv"]
 
@@ -61,8 +66,7 @@ def _launch(kernel: CudaKernel, name: str, q, k, v, do, lse, delta,
         lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outputs),
         b, h, s_q, k.shape[1], d, strides, *out_strides, float(scale),
         DTYPES[q.dtype])
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    raise_on_error(name, err, q, k, v, do)
     kernel.count((b, s_q, h, d, DTYPE_NAMES[q.dtype]))
 
 

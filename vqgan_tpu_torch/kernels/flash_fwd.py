@@ -15,12 +15,15 @@ import torch
 from .build import CudaKernel
 
 __all__ = ["FLASH_FWD", "flash_fwd", "check_attention_inputs",
-           "check_kernel_layout", "MAX_HEAD_DIM", "DTYPES", "DTYPE_NAMES"]
+           "raise_on_error", "MAX_HEAD_DIM", "DTYPES", "DTYPE_NAMES"]
 
 MAX_HEAD_DIM = 512
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 _MAX_GRID_Y = 65535
+# what the tensor-core entry points return, launching nothing, when an
+# input row does not start on 16 bytes (`kMisaligned` in csrc/flash_tc.cuh)
+_MISALIGNED = -1
 
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 FLASH_FWD = CudaKernel(
@@ -31,38 +34,12 @@ FLASH_FWD = CudaKernel(
      ctypes.c_float, _i, _p])         # scale, dtype, stream
 
 
-def check_kernel_layout(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is one the tensor-core kernels can stage
-    with 16-byte copies: last axis contiguous, base pointer and the strides
-    of every other axis longer than 1 a multiple of 16 bytes. The main
-    path's tensors are contiguous with head_dim a multiple of 8, so they
-    meet this; a misaligned view is refused, not copied."""
-    for i, t in enumerate(tensors):
-        strides = t.stride()
-        if strides[-1] != 1:
-            raise ValueError(f"{name}: the head_dim axis of every input must "
-                             f"be contiguous (input {i} has strides "
-                             f"{strides})")
-        size = t.element_size()
-        bits = t.data_ptr()
-        for s in strides[:-1]:
-            bits |= s * size
-        # an axis of length 1 is never stepped along, whatever its stride
-        if bits % 16 and (t.data_ptr() % 16 or any(
-                n > 1 and (s * size) % 16
-                for n, s in zip(t.shape[:-1], strides[:-1]))):
-            raise ValueError(f"{name}: every row of input {i} must start on "
-                             f"a 16-byte boundary (strides {t.stride()}, "
-                             f"{size}-byte elements, base "
-                             f"{t.data_ptr() % 16} bytes past 16)")
-
-
 def check_attention_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *more: torch.Tensor):
     """Raise unless q [B, Sq, H, D] and k/v [B, Skv, H, D] (and `more`
     tensors shaped like q) lie on one CUDA device in one dtype the kernels
-    take, with a head_dim the kernels take, in the layout of
-    `check_kernel_layout`. Returns (B, Sq, Skv, H, D)."""
+    take, with a head_dim the kernels take and a contiguous last axis.
+    Returns (B, Sq, Skv, H, D)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {q.device}")
     if any(t.device != q.device for t in (k, v, *more)):
@@ -85,8 +62,21 @@ def check_attention_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
     if s_q < 1 or s_kv < 1 or b * h > _MAX_GRID_Y:
         raise ValueError(f"unsupported sizes: B*H={b * h}, Sq={s_q}, "
                          f"Skv={s_kv}")
-    check_kernel_layout(name, q, k, v, *more)
+    if any(t.stride(-1) != 1 for t in (q, k, v, *more)):
+        raise ValueError(f"{name}: the head_dim axis of every input must be "
+                         f"contiguous")
     return b, s_q, s_kv, h, d
+
+
+def raise_on_error(name: str, err: int, *inputs: torch.Tensor) -> None:
+    """Raise unless `err`, an entry point's return code, says launched."""
+    if err == _MISALIGNED:
+        raise ValueError(
+            f"{name}: every row of every input must start on a 16-byte "
+            f"boundary, got bases {[t.data_ptr() % 16 for t in inputs]} "
+            f"bytes past 16 and strides {[t.stride() for t in inputs]}")
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,7 +93,6 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr(), b, h, s_q, s_kv, d, *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], float(scale),
         DTYPES[q.dtype])
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+    raise_on_error("flash_fwd", err, q, k, v)
     FLASH_FWD.count((b, s_q, h, d, DTYPE_NAMES[q.dtype]))
     return out, lse
