@@ -9,21 +9,25 @@ Phases, in order; any failure exits non-zero:
 2. Build every hand-written kernel from the sources in this checkout, one
    nvcc per source, all at once; print each instance's registers, spills
    and shared memory, and the count of tensor-core (HMMA) instructions in
-   each library's SASS, which must not be 0 for the forward and dQ.
+   each library's SASS, which must not be 0 for the three flash kernels.
 3. Hold each kernel against its plain PyTorch version on the card (TF32
    off): the flash forward at the main paths' shapes and at ragged shapes
    (Sq not a multiple of the q tile, head_dim padded to 16, Skv shorter
    than a K/V tile, strided q, every head-width instance); the backward
    kernels (dQ; dK and dV) at the LDM training shape, the KL-VAE shape,
    the VQ-VAE's bf16 d = 512 shape, the same ragged shapes and with
-   strided dO; a view whose rows are not 16-byte aligned must be refused;
-   the VQ kernel in both modes at the VQ-GAN main-path shape
+   strided dO; at the VQ-VAE shape every backward output within 2e-3 of
+   its largest plain value, or, where the plain version is itself farther
+   than that from an fp64 evaluation, no farther from it than the plain
+   version, and dK/dV equal bit for bit in two runs; a view whose rows are
+   not 16-byte aligned must be refused by each flash kernel; the VQ
+   kernel in both modes at the VQ-GAN main-path shape
    [8192,256]x[128,256], at K = 8192, at a ragged shape and on a codebook
    of repeated rows, with its fused usage histogram against bincount. Time
-   each kernel (and, in a CUDA graph, its device time), its plain version
-   and one PyTorch library call at the main paths' shapes (and a few
-   others), and compute the bound. For bf16, print the share of elements
-   that differ from the plain version's.
+   each kernel, its plain version and one PyTorch library call at the main
+   paths' shapes (and a few others), the kernel and the library call also
+   as device time (in a CUDA graph), and compute the bound. For bf16,
+   print the share of elements that differ from the plain version's.
 4. Run the generation slice on a small input (tiny U-Net and KL-VAE in
    fp32, 5 DDIM steps at cond_scale 3.0 with injected noise, then the
    decode) on the card and on the CPU, where attention takes the plain
@@ -102,7 +106,15 @@ _ATOL = {"float32": {"out": 2e-5, "lse": 1e-4},
 
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # sources whose products are mma.sync on the tensor cores
-TENSOR_CORE_SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu")
+TENSOR_CORE_SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu",
+                       "flash_bwd_dkv.cu")
+# bf16 backward at the VQ-VAE's [8, 1024, 1, 512]: each output within this
+# share of its largest plain value (a bf16 step at the top of the range is
+# 2^-8 to 2^-7 of it, so this allows rounding flips only below ~max / 4).
+# Where the plain fp32 version itself lies farther than this from an fp64
+# evaluation of the same math (rounding flips of its own), the kernel must
+# instead lie no farther from that evaluation than the plain version does.
+_BF16_RULE = 2e-3
 
 
 def fail(msg: str):
@@ -154,16 +166,17 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int) -> float:
+def device_ms(torch, fn, iters: int, stream=None) -> float:
     """Time of one call on the card with the host out of the way: `iters`
-    calls captured in one CUDA graph, replayed and timed by CUDA events (at
-    the U-Net's small shapes `cuda_ms` reads the host's time of a call).
-    Not torch.profiler: once it has run, every later launch of the process
-    pays more host time, and the main-path phases come after this one."""
+    calls captured in one CUDA graph (on `stream`, if given), replayed and
+    timed by CUDA events (at the U-Net's small shapes `cuda_ms` reads the
+    host's time of a call). Not torch.profiler: once it has run, every
+    later launch of the process pays more host time, and the main-path
+    phases come after this one."""
     fn()  # outside the capture: the kernel is built and configured
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     return cuda_ms(torch, graph.replay, 3) / iters
@@ -255,9 +268,12 @@ def check_flash_fwd(torch, peaks, seed: int):
         plain_ms = cuda_ms(
             torch, lambda: flash_forward_reference(q, k, v, scale), iters)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        library_ms = cuda_ms(
-            torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, scale=scale), iters)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+
+        library_ms = cuda_ms(torch, library, iters)
+        lib_dev_ms = device_ms(torch, library, iters)
         itemsize = q.element_size()
         n_bytes = (2 * b * s_q * h * d + 2 * b * s_kv * h * d) * itemsize \
             + 4 * b * h * s_q
@@ -280,7 +296,7 @@ def check_flash_fwd(torch, peaks, seed: int):
         }
         print(f"flash_fwd {label}: kernel_ms={kernel_ms:.4f} "
               f"(device {dev_ms:.4f}) plain_ms={plain_ms:.4f} "
-              f"library_ms={library_ms:.4f} "
+              f"library_ms={library_ms:.4f} (device {lib_dev_ms:.4f}) "
               f"bound_ms={bound_ms:.6f} ({bound_by})")
     check_layout_refused(torch)
     return rows
@@ -290,7 +306,7 @@ def check_layout_refused(torch):
     """The wrappers raise on a view whose rows do not start on 16 bytes
     (the kernels stage rows by 16-byte copies), and launch nothing."""
     from vqgan_tpu_torch.kernels import KERNELS
-    from vqgan_tpu_torch.kernels.flash_bwd import flash_bwd_dq
+    from vqgan_tpu_torch.kernels.flash_bwd import flash_bwd_dkv, flash_bwd_dq
     from vqgan_tpu_torch.kernels.flash_fwd import flash_fwd
 
     flat = torch.zeros(2 * 8 * 64 + 1, device="cuda", dtype=torch.bfloat16)
@@ -301,7 +317,9 @@ def check_layout_refused(torch):
     for name, call in (
             ("flash_fwd", lambda: flash_fwd(bad, good, good, 0.125)),
             ("flash_bwd_dq", lambda: flash_bwd_dq(good, good, good, bad,
-                                                   stats, stats, 0.125))):
+                                                   stats, stats, 0.125)),
+            ("flash_bwd_dkv", lambda: flash_bwd_dkv(good, bad, good, good,
+                                                     stats, stats, 0.125))):
         try:
             call()
         except ValueError as e:
@@ -345,12 +363,44 @@ def bwd_cases():
     ]
 
 
+def backward_work(b, s_q, s_kv, h, d, itemsize) -> dict:
+    """{kernel name: (bytes, operations)} of the backward kernels at
+    [b, s_q, h, d] with s_kv kv rows: each input read once and each output
+    written once (LSE and delta in fp32), 2 operations per multiply-add of
+    the products (dQ: S, dP, dS K; dK/dV: S, dP, P^T dO, dS^T Q)."""
+    n_q, n_kv = b * s_q * h * d, b * s_kv * h * d
+    stats = 2 * 4 * b * h * s_q
+    return {
+        "flash_bwd_dq": ((3 * n_q + 2 * n_kv) * itemsize + stats,
+                         6 * b * h * s_q * s_kv * d),
+        "flash_bwd_dkv": ((2 * n_q + 4 * n_kv) * itemsize + stats,
+                          8 * b * h * s_q * s_kv * d),
+    }
+
+
+def backward_in_fp64(torch, q, k, v, do, lse, delta, scale) -> dict:
+    """{"dq", "dk", "dv"}: the backward kernels' math on the same inputs
+    (the same LSE and delta) in fp64, rounded once to the input dtype."""
+    qs = q.double() * scale
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qs, k.double())
+                  - lse.double()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.double(), v.double())
+    ds = p * (dp - delta.double()[..., None])
+    return {"dq": (torch.einsum("bhqk,bkhd->bqhd", ds, k.double())
+                   * scale).to(q.dtype),
+            "dk": torch.einsum("bhqk,bqhd->bkhd", ds, qs).to(k.dtype),
+            "dv": torch.einsum("bhqk,bqhd->bkhd", p, do.double()).to(
+                v.dtype)}
+
+
 def check_flash_bwd(torch, peaks, seed: int):
     """dQ and dK/dV kernels against their plain versions on the card, on
     (q, k, v, dO) from a seed and the forward kernel's out and LSE.
     Tolerance, relative to the largest plain value: fp32 2e-5 (the same
     fp32 math summed in another order), bf16 1e-2 (the same fp32 sums, then
-    one rounding to bf16's 8 bits, at most 2^-7 of the value)."""
+    one rounding to bf16's 8 bits, at most 2^-7 of the value), and at the
+    VQ-VAE's bf16 shape `_BF16_RULE`; there dK/dV must also repeat bit for
+    bit (each element is summed in one fixed order)."""
     import torch.nn.functional as F
 
     from vqgan_tpu_torch.kernels.flash_bwd import flash_bwd_dkv, flash_bwd_dq
@@ -400,8 +450,31 @@ def check_flash_bwd(torch, peaks, seed: int):
         print(f"flash_bwd {label} [{b},{s_q},{h},{d}] kv={s_kv} {dt}"
               f"{' strided dO' if strided else ''}: "
               + " ".join(f"max|{n}-plain|={e:.3e} (max|plain| "
-                         f"{sizes[n]:.3e}{shares[n]})"
+                         f"{sizes[n]:.3e}, {e / sizes[n]:.3e} of it"
+                         f"{shares[n]})"
                          for n, e in errs.items()))
+        if label == "vqvae_mid_train":
+            exact = backward_in_fp64(torch, q, k, v, do, lse, delta, scale)
+            for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                                   ("dv", dv, ref_dv)):
+                size = sizes[name]
+                got_off = (got.float() - exact[name].float()).abs().max()
+                plain_off = (ref.float() - exact[name].float()).abs().max()
+                print(f"flash_bwd {name} {label}: {errs[name] / size:.3e} of "
+                      f"max|plain| from plain (rule {_BF16_RULE}); from an "
+                      f"fp64 evaluation: kernel {got_off.item() / size:.3e}, "
+                      f"plain {plain_off.item() / size:.3e}")
+                if errs[name] > _BF16_RULE * size and not (
+                        plain_off > _BF16_RULE * size
+                        and got_off <= plain_off):
+                    fail(f"flash_bwd {name} at {label}: over {_BF16_RULE} "
+                         f"of the largest plain value from plain")
+            dk2, dv2 = flash_bwd_dkv(q, k, v, do, lse, delta, scale)
+            repeat = torch.equal(dk2, dk) and torch.equal(dv2, dv)
+            print(f"flash_bwd_dkv {label}: a second run is "
+                  f"{'equal bit for bit' if repeat else 'NOT equal'}")
+            if not repeat:
+                fail(f"flash_bwd_dkv does not repeat bit for bit at {label}")
         if not timed:
             continue
 
@@ -432,15 +505,20 @@ def check_flash_bwd(torch, peaks, seed: int):
         g = do.transpose(1, 2)
         library_ms = cuda_ms(
             torch, lambda: lib_out.backward(g, retain_graph=True), iters)
-        itemsize = q.element_size()
-        n_q, n_kv = b * s_q * h * d, b * s_kv * h * d
-        stats = 2 * 4 * b * h * s_q  # lse and delta, fp32
-        work = {  # name: (bytes, flops)
-            "flash_bwd_dq": ((3 * n_q + 2 * n_kv) * itemsize + stats,
-                             6 * b * h * s_q * s_kv * d),
-            "flash_bwd_dkv": ((2 * n_q + 4 * n_kv) * itemsize + stats,
-                              8 * b * h * s_q * s_kv * d),
-        }
+        # its device time: autograd runs each backward op on its forward
+        # op's stream, so fresh leaves and the forward go on the stream the
+        # graph captures, and autograd.grad returns the gradients without
+        # accumulating them into the leaves
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+            side_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        lib_dev_ms = device_ms(
+            torch, lambda: torch.autograd.grad(side_out, leaves, g,
+                                               retain_graph=True),
+            iters, stream=side)
+        work = backward_work(b, s_q, s_kv, h, d, q.element_size())
         for name, (n_bytes, flops) in work.items():
             bound_ms, bound_by = bound(peaks, n_bytes, flops, dt)
             err = errs["dq"] if name == "flash_bwd_dq" else max(
@@ -450,9 +528,7 @@ def check_flash_bwd(torch, peaks, seed: int):
                 "key": (b, s_q, h, d, dt),
                 "shape": f"[{b},{s_q},{h},{d}] {dt}",
                 "route": "cuda",
-                "source": ("vqgan_tpu_torch/csrc/flash_bwd_dq.cu"
-                           if name == "flash_bwd_dq"
-                           else "vqgan_tpu_torch/csrc/flash_bwd.cu"),
+                "source": f"vqgan_tpu_torch/csrc/{name}.cu",
                 "replaces": ("vqgan_tpu/ops/attention.py:190"
                              if name == "flash_bwd_dq"
                              else "vqgan_tpu/ops/attention.py:221"),
@@ -470,8 +546,9 @@ def check_flash_bwd(torch, peaks, seed: int):
                   f"{dev[name]:.4f}) plain_ms={plain[name]:.4f} "
                   f"bound_ms={bound_ms:.6f} ({bound_by})")
         print(f"flash_bwd {label}: dq+dkv kernel_ms="
-              f"{sum(ms.values()):.4f} vs library backward (dq, dk, dv) "
-              f"ms={library_ms:.4f}")
+              f"{sum(ms.values()):.4f} (device {sum(dev.values()):.4f}) vs "
+              f"library backward (dq, dk, dv) ms={library_ms:.4f} (device "
+              f"{lib_dev_ms:.4f})")
     return rows
 
 
@@ -579,6 +656,7 @@ def check_vq(torch, peaks, seed: int):
                 return cb.index_select(0, torch.argmin(dist, dim=1))
 
             library_ms = cuda_ms(torch, library, iters)
+            lib_dev_ms = device_ms(torch, library, iters)
             bound_ms, bound_by = bound(
                 peaks, 4 * (n * d + k * d + k + n + k), 2 * n * k * d,
                 "float32" if mode == "fp32" else "bfloat16")
@@ -601,7 +679,7 @@ def check_vq(torch, peaks, seed: int):
                 rows[("vq_nearest", label)] = row
             print(f"vq_nearest {label} {mode}: kernel_ms={kernel_ms:.4f} "
                   f"(device {dev_ms:.4f}) plain_ms={plain_ms:.4f} "
-                  f"library_ms={library_ms:.4f} "
+                  f"library_ms={library_ms:.4f} (device {lib_dev_ms:.4f}) "
                   f"bound_ms={bound_ms:.6f} ({bound_by})")
     return rows
 

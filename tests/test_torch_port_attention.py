@@ -157,6 +157,43 @@ def test_chip_smoke_bound_takes_each_dtype_at_its_fastest_rate(dtype,
     assert ms == pytest.approx(want_ms, rel=1e-3)
 
 
+@pytest.mark.parametrize("name,b,dtype,want_ms", [
+    ("flash_bwd_dkv", 8, "bfloat16", 0.03474),
+    ("flash_bwd_dkv", 16, "float32", 0.4165),
+    ("flash_bwd_dq", 8, "bfloat16", 0.02606),
+    ("flash_bwd_dq", 16, "float32", 0.3124)])
+def test_chip_smoke_backward_bound(name, b, dtype, want_ms):
+    # the backward at the VQ-VAE's bf16 and the KL-VAE's fp32
+    # [B, 1024, 1, 512]: dK/dV does 8 B S^2 d operations (S^T, dP^T, P^T dO,
+    # dS^T Q), dQ 6 B S^2 d, both bound by operations at the dtype's rate
+    smoke = _chip_smoke()
+    itemsize = 4 if dtype == "float32" else 2
+    n_bytes, flops = smoke.backward_work(b, 1024, 1024, 1, 512,
+                                         itemsize)[name]
+    assert flops == (8 if name == "flash_bwd_dkv" else 6) * b * 1024 ** 2 \
+        * 512
+    ms, by = smoke.bound(smoke.peaks_for("NVIDIA H100 80GB HBM3"), n_bytes,
+                         flops, dtype)
+    assert by == "operations"
+    assert ms == pytest.approx(want_ms, rel=1e-3)
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"])
+def test_every_flash_source_is_gated_on_the_tensor_cores(name):
+    # chip_smoke.py fails unless the SASS of each TENSOR_CORE_SOURCES
+    # library holds HMMA instructions; every flash kernel's source is one
+    # and is built on the shared tensor-core tiles
+    from vqgan_tpu_torch.kernels import KERNELS
+
+    smoke = _chip_smoke()
+    assert name in smoke.FLASH
+    source = KERNELS[name].source
+    assert source.name == f"{name}.cu"
+    assert source.name in smoke.TENSOR_CORE_SOURCES
+    assert '#include "flash_tc.cuh"' in source.read_text()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -228,6 +228,68 @@ def test_entry_points_default_to_gpu_and_raise_without_one(monkeypatch,
         profile_vqgan_train.main([])
 
 
+def test_profile_steps_reads_every_wall_time_before_any_profiled_run(
+        monkeypatch):
+    # once torch.profiler has run in a process, every later launch costs
+    # more host time: the profile entry points time every step they report
+    # first, and only then run the profiled repeats
+    from types import SimpleNamespace
+
+    from vqgan_tpu_torch import profile_generate
+
+    events = []
+    profiling = []
+
+    class Recorder:
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def __enter__(self):
+            events.append("profile")
+            profiling.append(True)
+            return self
+
+        def __exit__(self, *exc):
+            profiling.pop()
+            return False
+
+        def key_averages(self):
+            return []
+
+    clock = iter(range(0, 1000, 3))
+
+    def perf_counter():
+        events.append("clock")
+        return next(clock)
+
+    monkeypatch.setattr(profile_generate, "profile", Recorder)
+    monkeypatch.setattr(profile_generate, "time",
+                        SimpleNamespace(perf_counter=perf_counter))
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *args: events.append("sync"))
+
+    def step(label):
+        return lambda: events.append((label, bool(profiling)))
+
+    out = profile_generate.profile_steps({"g": (step("g"), 3),
+                                          "g_and_d": (step("g_and_d"), 2)})
+    first = events.index("profile")
+    assert "clock" not in events[first:]
+
+    def timed(label, reps):
+        # a warm-up call, then the repeats between two clock reads, each
+        # after a synchronise
+        return [(label, False), "sync", "clock", *[(label, False)] * reps,
+                "sync", "clock"]
+
+    assert events[:first] == timed("g", 3) + timed("g_and_d", 2)
+    assert events[first:] == ["profile", *[("g", True)] * 3, "sync",
+                              "profile", *[("g_and_d", True)] * 2, "sync"]
+    assert out["g"]["wall_ms"] == pytest.approx(3e3 / 3)
+    assert out["g_and_d"]["wall_ms"] == pytest.approx(3e3 / 2)
+    assert out["g"]["device_ms"] is None
+
+
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "vqgan_tpu")
 
 

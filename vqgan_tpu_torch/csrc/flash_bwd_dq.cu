@@ -125,7 +125,7 @@ __global__ void __launch_bounds__(32 * RG * CS, 1)
   const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
   T* dq = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
   const int n_tiles = (p.Skv + KV - 1) / KV;
-  const KvStream<T, KV, kLd, C::kCols, NBUF> kv{
+  const TileStream<T, KV, kLd, C::kCols, NBUF> kv{
       kv_s,
       reinterpret_cast<uint64_t*>(xch + (CS > 1 ? warps * 2 * kSlot : 0)),
       static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh,
@@ -235,7 +235,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   using C = Config<T, DC, CS, KV, RG, NBUF, MT>;
   auto kernel = flash_bwd_dq_kernel<T, DC, CS, KV, RG, NBUF, MT>;
   static std::atomic<unsigned> raised{0};
-  return launch_tiles(kernel, p, stream, C::kGroupRows, RG, CS,
+  return launch_tiles(kernel, p, stream, p.Sq, C::kGroupRows, RG, CS,
                       C::smem_bytes(RG), C::smem_bytes, raised);
 }
 

@@ -126,7 +126,7 @@ __global__ void __launch_bounds__(32 * RG * CS, 1)
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
   const int n_tiles = (p.Skv + KV - 1) / KV;
-  const KvStream<T, KV, kLd, C::kCols, NBUF> kv{
+  const TileStream<T, KV, kLd, C::kCols, NBUF> kv{
       kv_s, reinterpret_cast<uint64_t*>(xch + (CS > 1 ? warps * kSlot : 0)),
       static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh,
       static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh,
@@ -248,7 +248,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   using C = Config<T, DC, CS, KV, RG, NBUF, MT>;
   auto kernel = flash_fwd_kernel<T, DC, CS, KV, RG, NBUF, MT>;
   static std::atomic<unsigned> raised{0};
-  return launch_tiles(kernel, p, stream, C::kGroupRows, RG, CS,
+  return launch_tiles(kernel, p, stream, p.Sq, C::kGroupRows, RG, CS,
                       C::smem_bytes(RG), C::smem_bytes, raised);
 }
 

@@ -1,7 +1,7 @@
 // Tensor-core tile primitives for the flash-attention kernels on Hopper
-// (sm_90a): cp.async staging of the resident rows, a stream of K/V tiles by
-// bulk copy (TMA) on mbarriers, ldmatrix fragment loads, and two MMA
-// policies behind one interface, bf16 (mma.sync m16n8k16, fp32
+// (sm_90a): cp.async staging of the resident rows, a stream of row tiles
+// (K/V, or Q/dO) by bulk copy (TMA) on mbarriers, ldmatrix fragment loads,
+// and two MMA policies behind one interface, bf16 (mma.sync m16n8k16, fp32
 // accumulation) and fp32 as 3xTF32 (mma.sync m16n8k8 on a split
 // x = hi + lo, summing lo*hi + hi*lo + hi*hi, which keeps near-fp32
 // agreement: the dropped lo*lo term and the rounding of lo are ~2^-21 of
@@ -88,7 +88,7 @@ __device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src,
   }
 }
 
-// ---- K/V tiles by bulk copy (the TMA engine without a tensor map) ---------
+// ---- row tiles by bulk copy (the TMA engine without a tensor map) ---------
 //
 // One instruction moves a whole row into shared memory and reports its
 // bytes to an mbarrier, so no thread spends registers or issue slots on
@@ -159,37 +159,40 @@ __device__ __forceinline__ void zero_box(T* dst, int ld, int r0, int r1,
   }
 }
 
-// The K/V tile stream of one CTA: NBUF buffers of (K [KV][LD], V [KV][LD])
-// at `tiles`, one mbarrier per buffer at `bars`. Tile t goes to buffer
-// t % NBUF. Rows below Skv arrive by bulk copy (COLS >= d columns staged);
-// columns past d are zeroed once, rows past Skv when their tile arrives.
-// Each buffer's mbarrier is armed for its next tile as soon as its current
-// tile has arrived, so it is always armed before anything copies into it.
+// The tile stream of one CTA: tiles of ROWS rows of two [S, d] row tensors
+// (K and V for the forward and dQ, Q and dO for dK/dV), NBUF buffers of
+// (a [ROWS][LD], b [ROWS][LD]) at `tiles`, one mbarrier per buffer at
+// `bars`. Tile t goes to buffer t % NBUF. Rows below S arrive by bulk copy
+// (COLS >= d columns staged); columns past d are zeroed once, rows past S
+// when their tile arrives. Each buffer's mbarrier is armed for its next tile
+// as soon as its current tile has arrived, so it is always armed before
+// anything copies into it.
 //   init()       every thread, then __syncthreads()
 //   issue(t)     warp 0, after a __syncthreads() that follows the last read
 //                of tile t's buffer
-//   wait(t)      every thread; then a __syncthreads() before the tile is
+//   wait(t)      every thread; returns tile t's a rows (b follows at
+//                + ROWS * LD); then a __syncthreads() before the tile is
 //                read
-template <typename T, int KV, int LD, int COLS, int NBUF>
-struct KvStream {
+template <typename T, int ROWS, int LD, int COLS, int NBUF>
+struct TileStream {
   T* tiles;
   uint64_t* bars;
-  const T* k;
-  const T* v;
-  int64_t k_ss, v_ss;
-  int Skv, D, n_tiles;
+  const T* a;
+  const T* b;
+  int64_t a_ss, b_ss;
+  int S, D, n_tiles;
 
-  __device__ T* k_tile(int t) const {
-    return tiles + (t % NBUF) * 2 * KV * LD;
+  __device__ T* tile(int t) const {
+    return tiles + (t % NBUF) * 2 * ROWS * LD;
   }
 
   __device__ uint32_t tile_bytes(int t) const {
-    const int rows = min(KV, Skv - t * KV);
+    const int rows = min(ROWS, S - t * ROWS);
     return 2u * rows * D * sizeof(T);
   }
 
   __device__ void init() const {
-    if (D < COLS) zero_box(tiles, LD, 0, 2 * NBUF * KV, D, COLS);
+    if (D < COLS) zero_box(tiles, LD, 0, 2 * NBUF * ROWS, D, COLS);
     if (threadIdx.x == 0) {
       for (int i = 0; i < NBUF; ++i) mbar_init(&bars[i]);
       fence_mbar_init();
@@ -199,16 +202,16 @@ struct KvStream {
   }
 
   __device__ void issue(int t) const {
-    const int kv0 = t * KV;
-    const int rows = min(KV, Skv - kv0);
+    const int s0 = t * ROWS;
+    const int rows = min(ROWS, S - s0);
     const uint32_t row_bytes = D * sizeof(T);
-    T* k_dst = k_tile(t);
-    T* v_dst = k_dst + KV * LD;
+    T* a_dst = tile(t);
+    T* b_dst = a_dst + ROWS * LD;
     uint64_t* bar = &bars[t % NBUF];
     fence_proxy_async();
     for (int r = threadIdx.x & 31; r < rows; r += 32) {
-      bulk_copy(k_dst + r * LD, k + (kv0 + r) * k_ss, row_bytes, bar);
-      bulk_copy(v_dst + r * LD, v + (kv0 + r) * v_ss, row_bytes, bar);
+      bulk_copy(a_dst + r * LD, a + (s0 + r) * a_ss, row_bytes, bar);
+      bulk_copy(b_dst + r * LD, b + (s0 + r) * b_ss, row_bytes, bar);
     }
   }
 
@@ -217,13 +220,13 @@ struct KvStream {
     mbar_wait(bar, (t / NBUF) & 1);
     if (threadIdx.x == 0 && t + NBUF < n_tiles)
       mbar_expect_tx(bar, tile_bytes(t + NBUF));
-    T* k_dst = k_tile(t);
-    const int rows = Skv - t * KV;
-    if (rows < KV) {  // the last tile: zeros, not stale rows, past Skv
-      zero_box(k_dst, LD, rows, KV, 0, COLS);
-      zero_box(k_dst + KV * LD, LD, rows, KV, 0, COLS);
+    T* a_dst = tile(t);
+    const int rows = S - t * ROWS;
+    if (rows < ROWS) {  // the last tile: zeros, not stale rows, past S
+      zero_box(a_dst, LD, rows, ROWS, 0, COLS);
+      zero_box(a_dst + ROWS * LD, LD, rows, ROWS, 0, COLS);
     }
-    return k_dst;
+    return a_dst;
   }
 };
 
@@ -313,12 +316,14 @@ __device__ __forceinline__ void zero(float (&x)[M][N][4]) {
 // so every B fragment it loads feeds MT products.
 // MmaRows<T>::a_smem_b_nk: acc[i][n] += A_i . B^T over KC columns, A = 16 MT
 //   rows at `a` (row stride lda), B = NT * 8 rows at `b` (row stride ldb),
-//   both [row][k] in shared memory. S = Q K^T and dP = dO V^T. The k loop is
+//   both [row][k] in shared memory. S = Q K^T and dP = dO V^T (for dK/dV
+//   the transposes, S^T = K Q^T and dP^T = V dO^T). The k loop is
 //   unrolled whole, so the compiler can issue the next step's ldmatrix
 //   before this step's products.
 // MmaRows<T>::a_frag_b_kn: acc[i][n] += P_i . B, P the 16 MT x (8 NS) fp32
 //   C fragments of an earlier product (in registers), B = (8 NS) rows x
-//   (NT * 8) columns at `b`, [k][n] in shared memory. O += P V, dQ += dS K.
+//   (NT * 8) columns at `b`, [k][n] in shared memory. O += P V, dQ += dS K,
+//   dV += P^T dO and dK += dS^T Q.
 //   SPLIT (bf16 only; fp32 always splits) takes P as hi + lo in two
 //   products.
 
@@ -583,16 +588,17 @@ inline bool rows_aligned(const void* base, int64_t sb, int64_t ss,
          (H == 1 || sh * elem % 16 == 0);
 }
 //
-// One CTA per tile of `group_rows` * groups query rows (groups = RG, or
-// fewer when Sq is small: the U-Net's Sq = 16 takes one 16-row tile) per
+// One CTA per tile of `group_rows` * groups owned rows (of `owned`: the
+// query rows for the forward and dQ, the kv rows for dK/dV; groups = RG, or
+// fewer when `owned` is small: the U-Net's S = 16 takes one 16-row tile) per
 // (batch, head), `smem_bytes(groups)` of dynamic shared memory. The
 // kernel's limit is raised to `max_smem` once per device: `raised` (one per
 // kernel) holds a bit for each device done, as the small main-path shapes
 // are bound by the launch's host time.
 template <typename P>
 cudaError_t launch_tiles(void (*kernel)(P), const P& p, cudaStream_t stream,
-                         int group_rows, int RG, int CS, size_t max_smem,
-                         size_t (*smem_bytes)(int),
+                         int owned, int group_rows, int RG, int CS,
+                         size_t max_smem, size_t (*smem_bytes)(int),
                          std::atomic<unsigned>& raised) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -606,9 +612,9 @@ cudaError_t launch_tiles(void (*kernel)(P), const P& p, cudaStream_t stream,
     raised.fetch_or(bit);
   }
   const int groups =
-      p.Sq < group_rows * RG ? (p.Sq + group_rows - 1) / group_rows : RG;
+      owned < group_rows * RG ? (owned + group_rows - 1) / group_rows : RG;
   const int rows = group_rows * groups;
-  const dim3 grid((p.Sq + rows - 1) / rows, p.B * p.H);
+  const dim3 grid((owned + rows - 1) / rows, p.B * p.H);
   kernel<<<grid, 32 * groups * CS, smem_bytes(groups), stream>>>(p);
   return cudaGetLastError();
 }

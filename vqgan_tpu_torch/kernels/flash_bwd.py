@@ -1,11 +1,12 @@
-"""ctypes bindings of the flash-attention backward kernels: dQ
-(`csrc/flash_bwd_dq.cu`, tensor cores) and dK with dV (`csrc/flash_bwd.cu`).
+"""ctypes bindings of the flash-attention backward kernels, both on the
+tensor cores: dQ (`csrc/flash_bwd_dq.cu`) and dK with dV
+(`csrc/flash_bwd_dkv.cu`).
 
 `flash_bwd_dq` and `flash_bwd_dkv` take CUDA tensors in the BSHD layout and
 launch on PyTorch's current stream. They raise on anything the kernels do not
 take (a strided head_dim axis included: the caller makes dO contiguous where
-it has to; for dQ also a row start that is not 16-byte aligned, which its
-entry point refuses); they never fall back to another implementation.
+it has to; also a row start that is not 16-byte aligned, which the entry
+points refuse); they never fall back to another implementation.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ FLASH_BWD_DQ = CudaKernel(
      _i64, _i64, _i64,                      # strides of dq
      ctypes.c_float, _i, _p])               # scale, dtype, stream
 FLASH_BWD_DKV = CudaKernel(
-    "flash_bwd.cu", "vq_flash_bwd_dkv",
+    "flash_bwd_dkv.cu", "vq_flash_bwd_dkv",
     [*_COMMON, _p, _p,                      # dk, dv
      _i, _i, _i, _i, _i,                    # B, H, Sq, Skv, D
      ctypes.POINTER(_i64),                  # strides of q, k, v, dO

@@ -128,8 +128,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float | None = None):
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float | None = None):
-    """(dK, dV) of flash attention: the kernel (csrc/flash_bwd.cu) for a
-    CUDA tensor, `flash_bwd_dkv_reference` for a CPU tensor."""
+    """(dK, dV) of flash attention: the kernel (csrc/flash_bwd_dkv.cu) for
+    a CUDA tensor, `flash_bwd_dkv_reference` for a CPU tensor."""
     scale = _scale(q, scale)
     if _on_kernel_device("flash_bwd_dkv", q):
         return _dkv_kernel(q, k, v, do, lse, delta, scale)

@@ -9,7 +9,9 @@ random weights from `--seed`, then measures, after a warm-up:
   share, from torch.profiler over `--steps` steps;
 - the VAE decode of one batch: wall time and device kernel time;
 - the kernels that take the most device time, and the launches per step.
-Prints one JSON object. Needs a CUDA device.
+Every wall time is read before the first profiled run (`profile_steps`):
+once torch.profiler has run in a process, every later launch costs more
+host time. Prints one JSON object. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -34,20 +36,25 @@ def _device_us(event) -> float:
         or getattr(event, "self_cuda_time_total", 0.0)
 
 
-def profiled(fn, reps: int, top: int = 8, named: dict | None = None) -> dict:
-    """Host wall ms per call (without the profiler), then, from a profiled
-    repeat, device kernel ms per call, the idle share of the unprofiled
-    wall time, kernel launches per call and the top kernels by device
-    time; `reps` calls each, after one warm-up call. `named` ({label:
-    substring of a kernel name}) adds the device ms per call of the kernels
-    whose names hold each substring."""
+def wall_ms(fn, reps: int) -> float:
+    """Host wall ms per call of `fn`: `reps` calls after one warm-up call,
+    the device synchronised at both ends, no profiler running."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def profiled(fn, reps: int, wall: float, top: int = 8,
+             named: dict | None = None) -> dict:
+    """From `reps` calls under torch.profiler: device kernel ms per call,
+    the idle share of `wall` (the unprofiled wall ms per call, read before
+    any profiler ran), kernel launches per call and the top kernels by
+    device time. `named` ({label: substring of a kernel name}) adds the
+    device ms per call of the kernels whose names hold each substring."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -61,9 +68,9 @@ def profiled(fn, reps: int, top: int = 8, named: dict | None = None) -> dict:
     device_ms = sum(_device_us(e) for e in kernels) / 1e3 / reps
     ranked = sorted(kernels, key=_device_us, reverse=True)[:top]
     out = {
-        "wall_ms": wall_ms,
+        "wall_ms": wall,
         "device_ms": device_ms if kernels else None,
-        "idle_share": 1.0 - device_ms / wall_ms if kernels else None,
+        "idle_share": 1.0 - device_ms / wall if kernels else None,
         "launches": sum(e.count for e in kernels) / reps,
         "top": [{"kernel": e.key[:80], "ms": _device_us(e) / 1e3 / reps,
                  "count": e.count / reps} for e in ranked],
@@ -73,6 +80,17 @@ def profiled(fn, reps: int, top: int = 8, named: dict | None = None) -> dict:
             label: sum(_device_us(e) for e in kernels if part in e.key)
             / 1e3 / reps for label, part in named.items()}
     return out
+
+
+def profile_steps(steps: dict, named: dict | None = None) -> dict:
+    """{label: (fn, reps)} -> {label: `profiled` stats}, in two passes:
+    first every label's wall ms (`wall_ms`), then every label's profiled
+    repeats. Once torch.profiler has run in a process, every later launch
+    costs more host time, so no wall time is read after the first profiled
+    call."""
+    walls = {label: wall_ms(fn, reps) for label, (fn, reps) in steps.items()}
+    return {label: profiled(fn, reps, walls[label], named=named)
+            for label, (fn, reps) in steps.items()}
 
 
 def main(argv=None):
@@ -115,9 +133,9 @@ def main(argv=None):
     out = {
         "device": torch.cuda.get_device_name(0),
         "batch_size": b,
-        "ddim_step_cond_scale_1": profiled(step(1.0), args.steps),
-        "ddim_step_cond_scale_3": profiled(step(3.0), args.steps),
-        "vae_decode": profiled(decode, 2),
+        **profile_steps({"ddim_step_cond_scale_1": (step(1.0), args.steps),
+                         "ddim_step_cond_scale_3": (step(3.0), args.steps),
+                         "vae_decode": (decode, 2)}),
     }
     print(json.dumps(out))
     return out

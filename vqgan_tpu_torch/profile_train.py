@@ -6,12 +6,13 @@ Builds the full-width LDMConfig U-Net (bf16 compute), its AdamW optimizer
 with clipping and its EMA copy with random weights from `--seed`, and a
 batch of random [B, 32, 32, 4] latents with classes. Then measures one whole
 training step (forward, backward, clipping, AdamW, EMA update) after a
-warm-up, with `profile_generate.profiled`: host wall ms per step, device
-kernel ms per step, the device's idle share, launches per step and the top
-kernels. The EMA step counter starts past the warm-copy regime with the
-LDMConfig cadence, so one step in `ema_update_every` updates the EMA, as
-in a long run. Also counts the flash kernels' launches per step. Prints
-one JSON object. Needs a CUDA device.
+warm-up, with `profile_generate.profile_steps`: host wall ms per step (read
+first, with no profiler run yet in the process), then device kernel ms per
+step, the device's idle share, launches per step and the top kernels. The
+EMA step counter starts past the warm-copy regime with the LDMConfig
+cadence, so one step in `ema_update_every` updates the EMA, as in a long
+run. Also counts the flash kernels' launches per step. Prints one JSON
+object. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from .build import build_cfg_unet_diffusion
 from .configs.ldm_config import LDMConfig
 from .device import resolve_device, set_full_fp32_precision
 from .kernels import KERNELS
-from .profile_generate import profiled
+from .profile_generate import profile_steps
 from .training.ldm_step import (
     LDMTrainState,
     make_ldm_optimizer,
@@ -71,7 +72,7 @@ def main(argv=None):
     out = {
         "device": torch.cuda.get_device_name(0),
         "batch_size": b,
-        "train_step": profiled(step, args.steps),
+        **profile_steps({"train_step": (step, args.steps)}),
     }
     n_steps = state.step - n_before
     out["flash_launches_per_step"] = {

@@ -7,12 +7,15 @@ VQGANConfig models (VQ-VAE ch 128, mults 1-2-2-4, codebook 128 x 256;
 PatchGAN ndf 64, 3 layers, BatchNorm; VGG16-LPIPS; bf16 compute, fp32
 parameters) and their two Adam chains with random weights from `--seed`,
 and a batch of random [B, 256, 256, 3] images. Then measures, with
-`profile_generate.profiled` after a warm-up:
+`profile_generate.profile_steps` after a warm-up:
 - one G step before `disc_start` (the discriminator read without a graph);
 - one G step plus one D step from `disc_start` on;
 each as host wall ms, device kernel ms, the device's idle share, launches
 and the top kernels, plus the launches and device ms of each hand-written
-kernel per step. Prints one JSON object. Needs a CUDA device.
+kernel per step. Both wall times are read first, G only then G + D, and
+only then the profiled repeats of each: once torch.profiler has run in a
+process, every later launch costs more host time. Prints one JSON object.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 from .configs.vqgan_config import VQGANConfig
 from .device import resolve_device, set_full_fp32_precision
 from .kernels import KERNELS
-from .profile_generate import profiled
+from .profile_generate import profile_steps
 from .training.vqgan_trainer import VQGANTrainer
 
 
@@ -37,22 +40,19 @@ _KERNEL_FUNCTIONS = {"flash_fwd": "flash_fwd_kernel",
                      "vq_nearest": "vq_nearest_kernel"}
 
 
-def _per_step(step_fn, reps: int) -> dict:
-    """profiled(step_fn, reps) with each hand-written kernel's launches and
-    device ms per call of `step_fn`."""
-    calls = 0
+def _counting(step_fn):
+    """(fn, tally): fn runs `step_fn` and adds to tally the call and each
+    hand-written kernel's launches in it."""
+    tally = {"calls": 0, "launches": dict.fromkeys(KERNELS, 0)}
 
     def fn():
-        nonlocal calls
-        calls += 1
+        before = {name: k.launches for name, k in KERNELS.items()}
         step_fn()
+        tally["calls"] += 1
+        for name, k in KERNELS.items():
+            tally["launches"][name] += k.launches - before[name]
 
-    for k in KERNELS.values():
-        k.launches = 0
-    out = profiled(fn, reps, named=_KERNEL_FUNCTIONS)
-    out["kernel_launches_per_step"] = {
-        name: k.launches / calls for name, k in KERNELS.items()}
-    return out
+    return fn, tally
 
 
 def main(argv=None):
@@ -79,12 +79,19 @@ def main(argv=None):
                 trainer.dispatch_step(images, step)
             return run
 
+        counted = {"g_step": _counting(step_at(0)),
+                   "g_and_d_step": _counting(step_at(cfg.disc_start))}
         out = {
             "device": torch.cuda.get_device_name(0),
             "batch_size": args.batch_size,
-            "g_step": _per_step(step_at(0), args.steps),
-            "g_and_d_step": _per_step(step_at(cfg.disc_start), args.steps),
+            **profile_steps({label: (fn, args.steps)
+                             for label, (fn, _) in counted.items()},
+                            named=_KERNEL_FUNCTIONS),
         }
+        for label, (_, tally) in counted.items():
+            out[label]["kernel_launches_per_step"] = {
+                name: n / tally["calls"]
+                for name, n in tally["launches"].items()}
     print(json.dumps(out))
     return out
 
