@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero:
 2. Build every hand-written kernel from the sources in this checkout, one
    nvcc per source, all at once; print each instance's registers, spills
    and shared memory, and the count of tensor-core (HMMA) instructions in
-   each library's SASS, which must not be 0 for the three flash kernels.
+   each library's SASS, which must not be 0 for any of them.
 3. Hold each kernel against its plain PyTorch version on the card (TF32
    off): the flash forward at the main paths' shapes and at ragged shapes
    (Sq not a multiple of the q tile, head_dim padded to 16, Skv shorter
@@ -22,8 +22,10 @@ Phases, in order; any failure exits non-zero:
    version, and dK/dV equal bit for bit in two runs; a view whose rows are
    not 16-byte aligned must be refused by each flash kernel; the VQ
    kernel in both modes at the VQ-GAN main-path shape
-   [8192,256]x[128,256], at K = 8192, at a ragged shape and on a codebook
-   of repeated rows, with its fused usage histogram against bincount. Time
+   [8192,256]x[128,256], at K = 8192, at ragged shapes (D = 40; D = 33,
+   which the wrapper pads; D = 300, past the kernel's 256 resident
+   columns) and on a codebook of repeated rows, with its fused usage
+   histogram against bincount. Time
    each kernel, its plain version and one PyTorch library call at the main
    paths' shapes (and a few others), the kernel and the library call also
    as device time (in a CUDA graph), and compute the bound. For bf16,
@@ -107,7 +109,7 @@ _ATOL = {"float32": {"out": 2e-5, "lse": 1e-4},
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # sources whose products are mma.sync on the tensor cores
 TENSOR_CORE_SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu",
-                       "flash_bwd_dkv.cu")
+                       "flash_bwd_dkv.cu", "vq.cu")
 # bf16 backward at the VQ-VAE's [8, 1024, 1, 512]: each output within this
 # share of its largest plain value (a bf16 step at the top of the range is
 # 2^-8 to 2^-7 of it, so this allows rounding flips only below ~max / 4).
@@ -555,8 +557,10 @@ def check_flash_bwd(torch, peaks, seed: int):
 # A kernel index may differ from the plain version's only where the plain
 # version's two scores lie within this fraction of |z|^2 + |e|^2, the size
 # of the terms the score sums: the dot product is summed in another order
-# (fp32 rounding of a 256-term sum is ~1e-7 of that size), so a near-tie can
-# go either way. z_q must then equal wherever the indices do.
+# (fp32 rounding of a 256-term sum is ~1e-7 of that size) and, in the exact
+# mode, as 3xTF32 on the tensor cores (the dropped lo*lo term and the
+# rounding of lo are ~2^-21 of each product), so a near-tie can go either
+# way. z_q must then equal wherever the indices do.
 _VQ_FLIP_RTOL = 1e-6
 
 
@@ -582,14 +586,25 @@ def vq_index_flips(torch, z, codebook, got, want, mode: str, rtol: float):
 def vq_cases():
     """(label, N, K, D, duplicates, main_path): the main path's shape (a
     batch of 8 32x32 latent grids against the 128-code codebook), the
-    JAX package's bench shape (K = 8192), a ragged one, and one whose
-    codebook repeats rows (ties must go to the lowest index)."""
+    JAX package's bench shape (K = 8192), a ragged one, one whose codebook
+    repeats rows (ties must go to the lowest index), one whose rows
+    (D = 33) are not a multiple of 16 bytes, so the wrapper pads them, and
+    one wider than the kernel's 256 resident columns (D = 300)."""
     return [
         ("vqgan_main", 8192, 128, 256, False, True),
         ("bench_k8192", 8192, 8192, 256, False, False),
         ("ragged", 777, 130, 40, False, False),
         ("ties", 777, 130, 40, True, False),
+        ("ragged_d33", 777, 130, 33, False, False),
+        ("wide_d300", 300, 70, 300, False, False),
     ]
+
+
+def vq_work(n: int, k: int, d: int):
+    """(bytes, operations) of one nearest-code search: z, the codebook and
+    |e|^2 read once (fp32, as the wrapper takes them), the indices and the
+    usage written once; 2 N K D operations for the cross term."""
+    return 4 * (n * d + k * d + k + n + k), 2 * n * k * d
 
 
 def check_vq(torch, peaks, seed: int):
@@ -606,6 +621,7 @@ def check_vq(torch, peaks, seed: int):
     )
 
     rows = {}
+    device_times = {}  # device ms of each timed shape and mode
     rng = np.random.default_rng(seed + 3)
     for label, n, k, d, dup, main in vq_cases():
         cb = rng.standard_normal((k, d)).astype(np.float32)
@@ -658,7 +674,7 @@ def check_vq(torch, peaks, seed: int):
             library_ms = cuda_ms(torch, library, iters)
             lib_dev_ms = device_ms(torch, library, iters)
             bound_ms, bound_by = bound(
-                peaks, 4 * (n * d + k * d + k + n + k), 2 * n * k * d,
+                peaks, *vq_work(n, k, d),
                 "float32" if mode == "fp32" else "bfloat16")
             row = {
                 "name": "vq_nearest",
@@ -677,10 +693,13 @@ def check_vq(torch, peaks, seed: int):
             }
             if main and mode == "fp32":  # the main path's mode
                 rows[("vq_nearest", label)] = row
+            device_times[f"{label} {mode}"] = {
+                "kernel": dev_ms, "library": lib_dev_ms, "bound": bound_ms}
             print(f"vq_nearest {label} {mode}: kernel_ms={kernel_ms:.4f} "
                   f"(device {dev_ms:.4f}) plain_ms={plain_ms:.4f} "
                   f"library_ms={library_ms:.4f} (device {lib_dev_ms:.4f}) "
                   f"bound_ms={bound_ms:.6f} ({bound_by})")
+    print("vq_nearest device ms (CUDA graph): " + json.dumps(device_times))
     return rows
 
 

@@ -8,9 +8,13 @@ package's (vqgan_tpu/ops/vq.py), on inputs made from numpy seeds.
 - The bf16 mode, held as tests/test_vq.py holds JAX's bf16 kernel.
 - Gradients: none to z, the cotangent scatter-added into the codebook.
 - `revive_dead_codes` and `reset_codebook_moments` on fixed inputs.
-- The kernel wrapper's contract on the CPU; the kernel itself against the
-  plain version in a `gpu`-marked test.
+- The kernel wrapper's contract on the CPU, its column padding, the
+  smoke's bound of the kernel's work and its tensor-core gate; the kernel
+  itself against the plain version in a `gpu`-marked test.
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -224,6 +228,137 @@ def test_lookup_contract_on_the_cpu():
         vq_lookup(tz, tcb, False)  # the plain version is vq_lookup_reference
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("k,mode,want_ms,want_by", [
+    (128, "fp32", 0.0032538, "operations"),  # 537 MFLOP at 165 TFLOP/s
+    (128, "bf16", 0.0025533, "bytes"),       # 8.55 MB at 3.35 TB/s
+    (8192, "fp32", 0.20824, "operations"),   # 34.4 GFLOP at 165 TFLOP/s
+])
+def test_chip_smoke_vq_bound(k, mode, want_ms, want_by):
+    # the search over z [8192, 256] (a batch of 8 32x32 latent grids): fp32
+    # at 3xTF32's rate, bf16 at the bf16 rate, where the fp32 inputs'
+    # bytes take longer than the products
+    smoke = _chip_smoke()
+    n_bytes, flops = smoke.vq_work(8192, k, 256)
+    assert flops == 2 * 8192 * k * 256
+    assert n_bytes == 4 * (8192 * 256 + k * 256 + 2 * k + 8192)
+    ms, by = smoke.bound(smoke.peaks_for("NVIDIA H100 80GB HBM3"), n_bytes,
+                         flops, "float32" if mode == "fp32" else "bfloat16")
+    assert by == want_by
+    assert ms == pytest.approx(want_ms, rel=1e-4)
+
+
+def test_vq_source_is_gated_on_the_tensor_cores():
+    # chip_smoke.py fails unless the SASS of each TENSOR_CORE_SOURCES
+    # library holds HMMA instructions; the VQ kernel is one, built on the
+    # flash kernels' tensor-core tiles
+    from vqgan_tpu_torch.kernels import KERNELS
+
+    source = KERNELS["vq_nearest"].source
+    assert source.name == "vq.cu"
+    assert source.name in _chip_smoke().TENSOR_CORE_SOURCES
+    assert '#include "flash_tc.cuh"' in source.read_text()
+
+
+def _column_ordered_scores(z, codebook, mode):
+    """The plain version's scores with every sum taken column by column in
+    index order, so that zero columns appended at the end add exactly 0."""
+    z32, e32 = z.float(), codebook.float()
+    if mode == "bf16":
+        z32, ex = z32.bfloat16().float(), e32.bfloat16().float()
+    else:
+        ex = e32
+    cross = torch.zeros(z.shape[0], codebook.shape[0])
+    z_sq = torch.zeros(z.shape[0], 1)
+    e_sq = torch.zeros(codebook.shape[0])
+    for c in range(z.shape[1]):
+        cross = cross + z32[:, c:c + 1] * ex[:, c]
+        z_sq = z_sq + z32[:, c:c + 1] * z32[:, c:c + 1]
+        e_sq = e_sq + e32[:, c] * e32[:, c]
+    if mode == "bf16":
+        return e_sq - 2.0 * cross
+    return (z_sq + e_sq) - 2.0 * cross
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [33, 40, 3, 17])
+def test_staged_padding_keeps_scores_and_indices(d, dtype):
+    # the wrapper pads rows to 16 bytes with zero columns (D = 33: fp32 to
+    # 36, bf16 to 40); the padded plain version picks the same codes with
+    # the same scores, bit for bit
+    from vqgan_tpu_torch.kernels.vq import staged
+    from vqgan_tpu_torch.ops.vq import vq_scores
+
+    mode = "fp32" if dtype == torch.float32 else "bf16"
+    rng = np.random.default_rng(d)
+    z = torch.from_numpy(rng.standard_normal((257, d)).astype(np.float32))
+    cb = torch.from_numpy(rng.standard_normal((130, d)).astype(np.float32))
+    zp, cbp = staged(z, dtype), staged(cb, dtype)
+    step = 16 // zp.element_size()
+    assert zp.dtype == dtype and zp.is_contiguous()
+    assert zp.shape == (257, -(-d // step) * step)
+    assert zp.data_ptr() % 16 == 0 and cbp.data_ptr() % 16 == 0
+    assert torch.equal(zp[:, :d], z.to(dtype))
+    assert not zp[:, d:].any() and not cbp[:, d:].any()
+    # the codebook as fp32 at the staged width: its bf16 rounding is the
+    # bf16 staging, and its norms are the |e|^2 the wrapper passes in
+    cbw = torch.nn.functional.pad(cb, (0, zp.shape[1] - d))
+    assert torch.equal(cbp, cbw.to(dtype))
+    zp = zp.float()  # bf16 staging rounds what the bf16 mode rounds anyway
+    if mode == "fp32":
+        # BLAS keeps its summation blocking for a pad to the next 4
+        want = vq_scores(z, cb, mode)
+        got = vq_scores(zp, cbw, mode)
+        assert torch.equal(got, want)
+        assert torch.equal(got.argmin(1), want.argmin(1))
+    want = _column_ordered_scores(z, cb, mode)
+    got = _column_ordered_scores(zp, cbw, mode)
+    assert torch.equal(got, want)
+    assert torch.equal(got.argmin(1), want.argmin(1))
+    _, idx = vq_lookup_reference(z, cb, mode)
+    _, idx_p = vq_lookup_reference(zp, cbw, mode)
+    assert torch.equal(idx_p, idx)
+
+
+def test_staged_returns_a_ready_input_itself():
+    from vqgan_tpu_torch.kernels.vq import staged
+
+    x = torch.ones(5, 8)
+    assert staged(x, torch.float32) is x
+    y = staged(x.t().contiguous().t(), torch.float32)  # strided: a copy
+    assert y.is_contiguous() and torch.equal(y, x)
+    view = torch.arange(41.0)[1:].view(5, 8)  # rows start 4 bytes off
+    assert view.data_ptr() % 16 == 4
+    y = staged(view, torch.float32)  # an aligned copy
+    assert y.data_ptr() % 16 == 0 and torch.equal(y, view)
+
+
+def test_bench_vq_takes_source_copies_and_needs_a_card(monkeypatch):
+    # bench_vq times the package's vq.cu beside copies of it, each named
+    # once; without a card it raises before it builds anything
+    from vqgan_tpu_torch import bench_vq
+    from vqgan_tpu_torch.kernels.vq import VQ_NEAREST
+
+    sources = bench_vq.parse_variants(["wide=other/vq.cu"])
+    assert list(sources) == ["shipped", "wide"]
+    assert sources["shipped"] == VQ_NEAREST.source
+    assert sources["wide"] == Path("other/vq.cu")
+    for bad in ["wide", "wide=-DX=1", "=a.cu", "shipped=a.cu"]:
+        with pytest.raises(ValueError, match="NAME=PATH"):
+            bench_vq.parse_variants([bad])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(bench_vq, "_start_build", None)  # never reached
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_vq.main([])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -234,7 +369,9 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["fp32", "bf16"])
-@pytest.mark.parametrize("n,d,k", [(8192, 256, 128), (777, 40, 130)])
+@pytest.mark.parametrize("n,d,k", [(8192, 256, 128), (777, 40, 130),
+                                   (777, 33, 130), (8192, 256, 8192),
+                                   (300, 300, 70)])
 def test_kernel_matches_plain_on_gpu(cuda_device, n, d, k, mode):
     from vqgan_tpu_torch.kernels.vq import VQ_NEAREST
 

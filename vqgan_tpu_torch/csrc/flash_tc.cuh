@@ -588,18 +588,12 @@ inline bool rows_aligned(const void* base, int64_t sb, int64_t ss,
          (H == 1 || sh * elem % 16 == 0);
 }
 //
-// One CTA per tile of `group_rows` * groups owned rows (of `owned`: the
-// query rows for the forward and dQ, the kv rows for dK/dV; groups = RG, or
-// fewer when `owned` is small: the U-Net's S = 16 takes one 16-row tile) per
-// (batch, head), `smem_bytes(groups)` of dynamic shared memory. The
-// kernel's limit is raised to `max_smem` once per device: `raised` (one per
-// kernel) holds a bit for each device done, as the small main-path shapes
-// are bound by the launch's host time.
-template <typename P>
-cudaError_t launch_tiles(void (*kernel)(P), const P& p, cudaStream_t stream,
-                         int owned, int group_rows, int RG, int CS,
-                         size_t max_smem, size_t (*smem_bytes)(int),
-                         std::atomic<unsigned>& raised) {
+// Raises `kernel`'s dynamic shared-memory limit to `max_smem` once per
+// device: `raised` (one per kernel) holds a bit for each device done, as
+// the small main-path shapes are bound by the launch's host time.
+template <typename K>
+cudaError_t raise_smem_limit(K* kernel, size_t max_smem,
+                             std::atomic<unsigned>& raised) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -611,6 +605,21 @@ cudaError_t launch_tiles(void (*kernel)(P), const P& p, cudaStream_t stream,
     if (err != cudaSuccess) return err;
     raised.fetch_or(bit);
   }
+  return cudaSuccess;
+}
+
+// One CTA per tile of `group_rows` * groups owned rows (of `owned`: the
+// query rows for the forward and dQ, the kv rows for dK/dV; groups = RG, or
+// fewer when `owned` is small: the U-Net's S = 16 takes one 16-row tile) per
+// (batch, head), `smem_bytes(groups)` of dynamic shared memory, the
+// kernel's limit raised to `max_smem` (`raise_smem_limit`).
+template <typename P>
+cudaError_t launch_tiles(void (*kernel)(P), const P& p, cudaStream_t stream,
+                         int owned, int group_rows, int RG, int CS,
+                         size_t max_smem, size_t (*smem_bytes)(int),
+                         std::atomic<unsigned>& raised) {
+  const cudaError_t err = raise_smem_limit(kernel, max_smem, raised);
+  if (err != cudaSuccess) return err;
   const int groups =
       owned < group_rows * RG ? (owned + group_rows - 1) / group_rows : RG;
   const int rows = group_rows * groups;

@@ -21,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CudaKernel", "build_all", "nvcc_path"]
+__all__ = ["CudaKernel", "build_all", "nvcc_path", "raise_on_error"]
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -31,6 +31,20 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
+# what the tensor-core entry points return, launching nothing, when an
+# input row does not start on 16 bytes (`kMisaligned` in csrc/flash_tc.cuh)
+_MISALIGNED = -1
+
+
+def raise_on_error(name: str, err: int, *inputs: torch.Tensor) -> None:
+    """Raise unless `err`, an entry point's return code, says launched."""
+    if err == _MISALIGNED:
+        raise ValueError(
+            f"{name}: every row of every input must start on a 16-byte "
+            f"boundary, got bases {[t.data_ptr() % 16 for t in inputs]} "
+            f"bytes past 16 and strides {[t.stride() for t in inputs]}")
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def nvcc_path() -> str:

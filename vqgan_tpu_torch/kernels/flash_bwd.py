@@ -15,13 +15,8 @@ import ctypes
 
 import torch
 
-from .build import CudaKernel
-from .flash_fwd import (
-    DTYPE_NAMES,
-    DTYPES,
-    check_attention_inputs,
-    raise_on_error,
-)
+from .build import CudaKernel, raise_on_error
+from .flash_fwd import DTYPE_NAMES, DTYPES, check_attention_inputs
 
 __all__ = ["FLASH_BWD_DQ", "FLASH_BWD_DKV", "flash_bwd_dq", "flash_bwd_dkv"]
 

@@ -12,18 +12,15 @@ import ctypes
 
 import torch
 
-from .build import CudaKernel
+from .build import CudaKernel, raise_on_error
 
 __all__ = ["FLASH_FWD", "flash_fwd", "check_attention_inputs",
-           "raise_on_error", "MAX_HEAD_DIM", "DTYPES", "DTYPE_NAMES"]
+           "MAX_HEAD_DIM", "DTYPES", "DTYPE_NAMES"]
 
 MAX_HEAD_DIM = 512
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 _MAX_GRID_Y = 65535
-# what the tensor-core entry points return, launching nothing, when an
-# input row does not start on 16 bytes (`kMisaligned` in csrc/flash_tc.cuh)
-_MISALIGNED = -1
 
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 FLASH_FWD = CudaKernel(
@@ -66,17 +63,6 @@ def check_attention_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{name}: the head_dim axis of every input must be "
                          f"contiguous")
     return b, s_q, s_kv, h, d
-
-
-def raise_on_error(name: str, err: int, *inputs: torch.Tensor) -> None:
-    """Raise unless `err`, an entry point's return code, says launched."""
-    if err == _MISALIGNED:
-        raise ValueError(
-            f"{name}: every row of every input must start on a 16-byte "
-            f"boundary, got bases {[t.data_ptr() % 16 for t in inputs]} "
-            f"bytes past 16 and strides {[t.stride() for t in inputs]}")
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

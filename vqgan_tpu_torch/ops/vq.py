@@ -16,9 +16,12 @@ Counterpart of vqgan_tpu/ops/vq.py. z is [N, D] and the codebook [K, D].
   package has no backward kernel, so neither has the port. The gather
   z_q = E[idx] stays outside the kernel (`index_select`), as in JAX.
   `use_kernel` "auto" and "fp32" take the exact mode, True the bf16 mode.
-  The JAX package's TPU dispatch thresholds are not carried over: on the
-  card the exact fp32 search is a few microseconds of a training step, and
-  it picks the codes the CPU picks.
+  The JAX package's TPU dispatch thresholds are not carried over. "auto"
+  stays exact: it picks the codes the CPU picks, and at the VQ-GAN's
+  [8192,256]x[128,256] it takes 0.0175 ms of device time against 0.0123
+  for the bf16 mode and 0.0461 for addmm + argmin + index_select; at
+  K = 8192, 0.694 / 0.201 / 1.385 ms (CUDA graphs, chip_smoke.py, NVIDIA
+  H100 80GB HBM3, 700.00 W): 0.017 ms of a 115 ms G step either way.
 - `codebook_usage`, `revive_dead_codes`: the non-kernel parts of the JAX
   module that the trainer uses.
 """
@@ -70,8 +73,7 @@ def vq_nearest_indices(z, codebook, mode: str = "fp32"):
     the plain version for a CPU tensor."""
     if z.device.type == "cuda":
         e32 = codebook.float()
-        return vq_nearest(z.float().contiguous(), e32.contiguous(),
-                          (e32 * e32).sum(1), mode)
+        return vq_nearest(z.float(), e32, (e32 * e32).sum(1), mode)
     if z.device.type != "cpu":
         raise ValueError(f"vq_lookup runs on CUDA or CPU tensors, not "
                          f"{z.device}")
