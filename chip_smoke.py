@@ -14,9 +14,9 @@ Phases, in order; any failure exits non-zero:
    off): the flash forward at the main paths' shapes and at ragged shapes
    (Sq not a multiple of the q tile, head_dim padded to 16, Skv shorter
    than a K/V tile, strided q, every head-width instance); the backward
-   kernels (dQ; dK and dV) at the LDM training shape, the KL-VAE shape,
-   the VQ-VAE's bf16 d = 512 shape, the same ragged shapes and with
-   strided dO; at the VQ-VAE shape every backward output within 2e-3 of
+   kernels (dQ; dK and dV) at the LDM training shape, the KL-VAE
+   training shape (fp32 d = 512 at batch 8), the VQ-VAE's bf16 d = 512
+   shape, the same ragged shapes and with strided dO; at the VQ-VAE shape every backward output within 2e-3 of
    its largest plain value, or, where the plain version is itself farther
    than that from an fp64 evaluation, no farther from it than the plain
    version, and dK/dV equal bit for bit in two runs; a view whose rows are
@@ -43,6 +43,12 @@ Phases, in order; any failure exits non-zero:
    indices, losses, first G step's gradients, BatchNorm statistics and
    parameter moves against each other; one VQ launch per step and five of
    each flash kernel per G step.
+4d. Run three KL-VAE training steps of a small fp32 config whose mid
+   blocks keep the main path's d = 512 attention (ch 128, mults 1-4, 64
+   px) on the card and on the CPU from the same weights, images and
+   injected posterior noise; hold the loss parts, the first step's
+   gradients and the parameter moves against each other; two launches of
+   each flash kernel per step.
 5. Drive generation, `python -m vqgan_tpu_torch.generate`, at full width
    with seeded random weights: LDMConfig defaults (dim 96, mults 1-2-4-4,
    8 heads x 64, T=1000, DDIM-150, pred_v, cosine, bf16 U-Net) and the
@@ -71,6 +77,18 @@ Phases, in order; any failure exits non-zero:
    reconstruction grid; the discriminator unchanged after the first call
    and moved after the second; checkpoints and the latest pointer load
    back; the grids exist. Prints images/s.
+5d. Drive the stage-1 KL-VAE slice at full width on 31 users x 8 seeded
+   JPGs, entry point by entry point: `create_data_split`, then
+   `train_kl_vae` at its defaults (AutoencoderConfig(), batch 8 at 256
+   px, fp32) for 20 steps with milestones at 10 and 20, then
+   `preprocess_latents` from the last milestone, `vae_reconstruction`,
+   and `train_latent_cfg` for 2 steps on the split and cache just
+   written. Every loss finite; per KL-VAE step two launches of each flash
+   kernel at [8, 1024, 1, 512] fp32, one forward per encode batch, two per
+   reconstruction report, one of each per LDM step, and no other launch;
+   the milestone loads into `generate.load_vae`; a finite [32, 32, 4]
+   latent for every image; a finite PSNR in metrics.json. Prints KL-VAE
+   training images/s and the peak of allocated device memory.
 6. Print the kernels' JSON line, then the card line, then the device line.
 """
 
@@ -207,6 +225,7 @@ def attention_cases():
         ("unet_mid", 16, 16, 16, 8, 64, "bfloat16", True),
         ("unet_mid_cfg", 32, 16, 16, 8, 64, "bfloat16", True),
         ("vae_mid", 16, 1024, 1024, 1, 512, "float32", True),
+        ("kl_vae_mid_train", 8, 1024, 1024, 1, 512, "float32", True),
         ("vqvae_mid_train", 8, 1024, 1024, 1, 512, "bfloat16", True),
         ("ragged_d512", 2, 100, 100, 1, 512, "float32", False),
         ("ragged_cross", 2, 64, 17, 4, 32, "float32", False),
@@ -334,15 +353,15 @@ def check_layout_refused(torch):
 
 def bwd_cases():
     """(label, B, Sq, Skv, H, D, dtype, timed, strided dO, main_path).
-    The fp32 KL-VAE shape is timed for stage-1 KL-VAE training, which is
-    not this script's main path: it gets no row in the kernels line. The
-    VQ-VAE's mid-block attention in VQ-GAN training is the bf16 d = 512
-    shape."""
+    The KL-VAE's mid-block attention in stage-1 KL-VAE training is the
+    fp32 d = 512 shape at batch 8, the VQ-VAE's in VQ-GAN training the
+    bf16 one."""
     return [
         ("unet_mid_train", 8, 16, 16, 8, 64, "bfloat16", True, False, True),
         ("unet_mid_train_strided_do", 8, 16, 16, 8, 64, "bfloat16", False,
          True, False),
-        ("vae_mid", 16, 1024, 1024, 1, 512, "float32", True, False, False),
+        ("kl_vae_mid_train", 8, 1024, 1024, 1, 512, "float32", True, False,
+         True),
         ("vqvae_mid_train", 8, 1024, 1024, 1, 512, "bfloat16", True, False,
          True),
         ("ragged_d512", 2, 100, 100, 1, 512, "float32", False, True, False),
@@ -997,6 +1016,90 @@ def check_small_vqgan(torch, kernels, seed: int):
              f"{gpu['launches']}")
 
 
+def check_small_kl_vae(torch, kernels, seed: int):
+    """Three KL-VAE training steps of a small fp32 config on the card and
+    on the CPU from the same weights, images and injected posterior noise
+    (TF32 off), at the CLI's learning rate and KL weight. The config (ch
+    128, mults 1-4, 1 res block, 64 px) keeps the main path's attention:
+    its mid blocks run at 32x32 with 512 channels, so each flash kernel
+    runs its fp32 d = 512 instance at [2, 1024, 1, 512]. Tolerances, of
+    phase 4c's kind:
+    - loss parts, rtol 1e-4;
+    - the first step's gradients, 1e-3 of the largest;
+    - parameter moves from the initial weights: the card's differs from
+      the CPU's by at most 5% in norm and by over lr / 2 in at most 1% of
+      the elements (Adam's first steps are sign-like, and conv biases under
+      GroupNorm have a gradient of exactly 0 in exact arithmetic, rounding
+      noise in practice: such an element moves by about lr either way).
+    Two launches of each flash kernel per step (the encoder's and the
+    decoder's mid block) and no VQ launch."""
+    import copy
+
+    from vqgan_tpu_torch.models.autoencoder import AutoencoderConfig, KLVAE
+    from vqgan_tpu_torch.training import (
+        make_kl_vae_optimizer,
+        make_kl_vae_train_step,
+    )
+
+    n_steps, b, lr = 3, 2, 4.5e-6
+    torch.manual_seed(seed)
+    init = KLVAE(AutoencoderConfig(ch=128, ch_mult=(1, 4), num_res_blocks=1,
+                                   resolution=64))
+    rng = np.random.default_rng(seed + 5)
+    images = rng.random((n_steps, b, 64, 64, 3)).astype(np.float32)
+    noise = rng.standard_normal((n_steps, b, 4, 32, 32)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        vae = copy.deepcopy(init).to(dev)
+        opt = make_kl_vae_optimizer(vae.parameters(), lr, "constant", 50000)
+        grads, update = [], opt.step
+
+        def record(g, norm=None, update=update, grads=grads):
+            if not grads:  # the first step's gradients, before clipping
+                grads.append(torch.cat([t.detach().flatten().cpu()
+                                        for t in g]))
+            return update(g, norm)
+
+        opt.step = record
+        step = make_kl_vae_train_step(vae, opt)
+        reset_counts(kernels)
+        logs = []
+        for i in range(n_steps):
+            parts = step(torch.from_numpy(images[i]).to(dev),
+                         noise=noise[i])
+            logs.append({k: v.item() for k, v in parts.items()})
+        out[dev] = dict(logs=logs, grads=grads[0], params=_flat(torch, vae),
+                        launches=read_counts(kernels))
+
+    cpu, gpu = out["cpu"], out["cuda"]
+    loss_err = max(abs(g[k] - c[k]) / max(abs(c[k]), 1e-12)
+                   for g, c in zip(gpu["logs"], cpu["logs"])
+                   for k in ("loss", "rec_loss", "kl_loss"))
+    grad_err = (gpu["grads"] - cpu["grads"]).abs().max().item()
+    grad_size = cpu["grads"].abs().max().item()
+    cpu_move = cpu["params"] - _flat(torch, init)
+    diff = gpu["params"] - cpu["params"]
+    if cpu_move.norm().item() == 0.0:
+        fail("the CPU's KL-VAE parameters did not move")
+    move_norm = diff.norm().item() / cpu_move.norm().item()
+    move_miss = (diff.abs() > lr / 2).float().mean().item()
+    key = (b, 1024, 1, 512, "float32")
+    expected = {(name, key): 2 * n_steps for name in FLASH}
+    print(f"small KL-VAE training, card vs CPU: losses card "
+          f"{[g['loss'] for g in gpu['logs']]} cpu "
+          f"{[c['loss'] for c in cpu['logs']]} (max rel diff of the parts "
+          f"{loss_err:.3e}); max|grad diff|={grad_err:.3e} (max|grad| "
+          f"{grad_size:.3e}); moves: |diff|/|cpu move|={move_norm:.3e}, "
+          f"{move_miss:.2%} over lr/2; launches on the card "
+          f"{gpu['launches']}")
+    if loss_err > 1e-4 or grad_err > 1e-3 * grad_size or move_norm > 0.05 \
+            or move_miss > 0.01:
+        fail("KL-VAE training on the card disagrees with the CPU")
+    if gpu["launches"] != expected:
+        fail(f"expected launches {expected} in {n_steps} KL-VAE steps, got "
+             f"{gpu['launches']}")
+
+
 def run_generate(torch, argv):
     """generate.main(argv) -> (its result, host seconds of the whole call)."""
     from vqgan_tpu_torch import generate
@@ -1280,10 +1383,137 @@ def drive_vqgan_training(torch, kernels, seed: int, work: Path):
     return counts, rates
 
 
+def drive_kl_vae_slice(torch, kernels, seed: int, work: Path):
+    """The stage-1 KL-VAE slice at full width through its entry points, on
+    31 users x 8 seeded JPGs (`write_image_data`), in order:
+    `create_data_split` (6 training images per user, 2 for test);
+    `train_kl_vae` at its defaults (AutoencoderConfig(), 256 px, batch 8,
+    fp32, lr 4.5e-6) for 20 steps, saving milestones at steps 10 and 20;
+    `preprocess_latents` from the last milestone (every train and test
+    image, batches of 56: four full, one of 24); `vae_reconstruction` of
+    10 images; `train_latent_cfg` for 2 steps on the split and cache just
+    written. Gates: every loss finite; per KL-VAE step 2 launches of each
+    flash kernel at [8, 1024, 1, 512] fp32, per encode batch one forward
+    launch and no backward, per report 2 forwards, 1 of each flash kernel
+    per LDM step at [8, 16, 8, 64] bf16, and no other launch; the milestone
+    loads into `generate.load_vae` equal to the trained weights; the cache
+    holds a finite [32, 32, 4] latent for every image of the split;
+    metrics.json a finite PSNR. Returns ({(kernel, shape): launches},
+    KL-VAE training images/s)."""
+    from vqgan_tpu_torch import (
+        create_data_split,
+        generate,
+        preprocess_latents,
+        train_kl_vae,
+        train_latent_cfg,
+        vae_reconstruction,
+    )
+    from vqgan_tpu_torch.checkpoint import CheckpointManager
+    from vqgan_tpu_torch.data import LatentCache, load_split
+
+    _, images = write_image_data(work, seed)
+    split_path, results = work / "kl_split.json", work / "kl_vae"
+    kl_key = (8, 1024, 1, 512, "float32")
+    counts = {}
+
+    def run(label, fn, expected):
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = read_counts(kernels)
+        print(f"{label}: whole call {secs:.3f} s; launches {got}")
+        if got != expected:
+            fail(f"{label}: expected launches {expected}, got {got}")
+        for key, n in got.items():
+            counts[key] = counts.get(key, 0) + n
+        return result
+
+    split = run("create_data_split", lambda: create_data_split.main([
+        "--data_path", str(images), "--output", str(split_path),
+        "--images_per_user_train", "6", "--seed", str(seed)]), {})
+    trained = run("train_kl_vae", lambda: train_kl_vae.main([
+        "--data_path", str(images), "--split", str(split_path),
+        "--results_folder", str(results), "--train_steps", "20",
+        "--save_every", "10", "--seed", str(seed)]),
+        {(name, kl_key): 40 for name in FLASH})
+    losses, rate = trained["losses"], trained["images_per_s"]
+    print(f"train_kl_vae: 20 steps at batch 8, {trained['timed_steps']} "
+          f"after a warm-up of 5 in {trained['timed_seconds']:.3f} s = "
+          f"{rate:.4f} images/s; peak device memory "
+          f"{trained['peak_memory_bytes'] / 2**30:.2f} GiB; losses {losses}; "
+          f"rec {trained['rec_losses']}; kl {trained['kl_losses']}")
+    if len(losses) != 20 or not all(np.isfinite(losses)):
+        fail(f"expected 20 finite KL-VAE losses, got {losses}")
+    ckpt = CheckpointManager(results, prefix="kl_vae")
+    if ckpt.all_milestones() != [1, 2] or ckpt.latest_milestone() != 2:
+        fail(f"KL-VAE milestones {ckpt.all_milestones()}, expected [1, 2]")
+    loaded = generate.load_vae(ckpt.path(2), device="cuda").state_dict()
+    final = trained.pop("vae").state_dict()
+    if any(not torch.equal(loaded[k], v) for k, v in final.items()):
+        fail("the last KL-VAE milestone does not load back into load_vae")
+    print(f"checkpoint {ckpt.path(2).name} ({ckpt.path(2).stat().st_size} "
+          f"bytes) loads into generate.load_vae")
+    del trained, loaded, final
+    torch.cuda.empty_cache()
+
+    latent_split, cache_dir = work / "latent_split.json", work / "latents"
+    n_images = sum(len(u["train_images"]) + len(u["test_images"])
+                   for u in split["users"].values())
+    full, rest = divmod(n_images, 56)
+    encoded = run("preprocess_latents", lambda: preprocess_latents.main([
+        "--vae_path", str(ckpt.path(2)), "--data_path", str(images),
+        "--output_split", str(latent_split), "--cache_folder",
+        str(cache_dir), "--images_per_user_train", "6", "--seed",
+        str(seed)]),
+        {("flash_fwd", (56, 1024, 1, 512, "float32")): full,
+         **({("flash_fwd", (rest, 1024, 1, 512, "float32")): 1}
+            if rest else {})})
+    cache = LatentCache(cache_dir)
+    latents = [cache.load(int(user.split("_")[1]) - 1, name)
+               for user, info in load_split(latent_split)["users"].items()
+               for name in info["train_images"] + info["test_images"]]
+    if load_split(latent_split) != split or encoded["encoded"] != n_images \
+            or len(latents) != n_images or any(
+                z.shape != (32, 32, 4) or not np.isfinite(z).all()
+                for z in latents):
+        fail("preprocess_latents did not write the split and a finite "
+             "[32, 32, 4] latent for every image")
+    print(f"preprocess_latents: {n_images} latents in "
+          f"{encoded['seconds']:.3f} s, |z| up to "
+          f"{max(float(np.abs(z).max()) for z in latents):.3f}")
+
+    report = run("vae_reconstruction", lambda: vae_reconstruction.main([
+        "--vae_path", str(ckpt.path(2)), "--data_path", str(images),
+        "--output_dir", str(OUT / "vae_reconstruction"), "--seed",
+        str(seed)]),
+        {("flash_fwd", (10, 1024, 1, 512, "float32")): 2})
+    saved = json.loads((OUT / "vae_reconstruction" / "metrics.json"
+                        ).read_text())
+    if not np.isfinite(saved["mean_psnr"]) or saved != report:
+        fail(f"metrics.json holds no finite PSNR: {saved}")
+    print(f"vae_reconstruction: mean PSNR {saved['mean_psnr']:.4f} dB, "
+          f"mean SSIM {saved['mean_ssim']:.4f} ({saved['verdict']})")
+
+    ldm = run("train_latent_cfg", lambda: train_latent_cfg.main([
+        "--split", str(latent_split), "--latents_cache_folder",
+        str(cache_dir), "--data_path", str(images), "--results_folder",
+        str(work / "ldm"), "--train_num_steps", "2", "--seed", str(seed)]),
+        {(name, (8, 16, 8, 64, "bfloat16")): 2 for name in FLASH})
+    del ldm["trainer"]
+    if len(ldm["losses"]) != 2 or not all(np.isfinite(ldm["losses"])):
+        fail(f"LDM training on the new cache: losses {ldm['losses']}")
+    print(f"train_latent_cfg on the new cache: losses {ldm['losses']}")
+    return counts, rate
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="build and check the kernels; skip generation")
+                    help="build and check the kernels and the small "
+                         "chains; skip the full-width drives")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1319,6 +1549,7 @@ def main():
     check_small_pipeline(torch, KERNELS, args.seed)
     check_small_training(torch, KERNELS, args.seed)
     check_small_vqgan(torch, KERNELS, args.seed)
+    check_small_kl_vae(torch, KERNELS, args.seed)
 
     if not args.kernels_only:
         counts, rates = drive_main_path(torch, KERNELS, args.seed)
@@ -1331,7 +1562,12 @@ def main():
             vq_counts, vq_rates = drive_vqgan_training(
                 torch, KERNELS, args.seed, Path(work))
         print("images/s: " + json.dumps(vq_rates))
-        for key, n in [*train_counts.items(), *vq_counts.items()]:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_kl_") as work:
+            kl_counts, kl_rate = drive_kl_vae_slice(torch, KERNELS,
+                                                    args.seed, Path(work))
+        print(f"KL-VAE training images/s: {kl_rate}")
+        for key, n in [*train_counts.items(), *vq_counts.items(),
+                       *kl_counts.items()]:
             counts[key] = counts.get(key, 0) + n
         for row in rows.values():
             row["launches"] = counts.get((row["name"], row["key"]), 0)

@@ -6,8 +6,8 @@ port's own `state_dict()` files and the reference checkpoints load:
 - a CFG U-Net state dict, raw, or inside a reference diffusion trainer
   checkpoint ({'ema': ...} preferred, else {'model': ...}; the
   'ema_model.' and 'model.' prefixes are stripped).
-Orbax checkpoints of the JAX package need JAX to read; the port does not
-read them.
+Orbax checkpoints of the JAX package (directories) need JAX to read; the
+port refuses them with a message.
 """
 
 from __future__ import annotations
@@ -26,7 +26,12 @@ _PREFIXES = ("ema_model.", "model.")
 def read_state_dict(path) -> dict:
     """Tensors of a .pt file, unwrapped from the reference's containers,
     preferring EMA weights."""
-    state = torch.load(Path(path), map_location="cpu", weights_only=True)
+    path = Path(path)
+    if path.is_dir():
+        raise ValueError(
+            f"{path} is a directory, such as an Orbax checkpoint of the JAX "
+            f"package; the port reads PyTorch state-dict files (.pt)")
+    state = torch.load(path, map_location="cpu", weights_only=True)
     for key in _CONTAINERS:
         if isinstance(state.get(key), dict):
             state = state[key]

@@ -1,4 +1,4 @@
-from .autoencoder import AutoencoderConfig, DiagonalGaussian, KLVAE
+from .autoencoder import AutoencoderConfig, DiagonalGaussian, KLVAE, kl_vae_loss
 from .discriminator import MultiScaleDiscriminator, PatchGANDiscriminator
 from .lpips import LPIPS
 from .unet_cfg import CFGUnet
@@ -6,4 +6,4 @@ from .vq_vae import VQVAE, VectorQuantizer
 
 __all__ = ["AutoencoderConfig", "DiagonalGaussian", "KLVAE", "CFGUnet",
            "LPIPS", "MultiScaleDiscriminator", "PatchGANDiscriminator",
-           "VQVAE", "VectorQuantizer"]
+           "VQVAE", "VectorQuantizer", "kl_vae_loss"]

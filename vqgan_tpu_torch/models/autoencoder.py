@@ -5,7 +5,8 @@ image functions (`encode_images`, `encode_images_mean`, `decode_latents`)
 take and return NHWC like the JAX package; `encode`/`decode` are the NCHW
 module methods. Parameter names are the reference `KL_VAE`'s
 (`encoder.down.{i}.block.{j}.conv1`, `decoder.up.{i}.upsample`, ...).
-`kl_vae_loss` comes with the training slice.
+`kl_vae_loss` is the stage-1 training loss of the JAX package's
+`kl_vae_loss`, over NCHW tensors.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from .layers import (
 )
 
 __all__ = ["AutoencoderConfig", "Encoder", "Decoder", "DiagonalGaussian",
-           "KLVAE"]
+           "KLVAE", "kl_vae_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,9 +170,16 @@ class DiagonalGaussian:
         if deterministic:
             self.std = self.var = torch.zeros_like(self.mean)
 
-    def sample(self, generator: torch.Generator | None = None):
-        noise = torch.randn(self.mean.shape, generator=generator,
-                            device=self.mean.device, dtype=torch.float32)
+    def sample(self, generator: torch.Generator | None = None,
+               noise=None):
+        """mean + std * noise, the noise drawn from `generator` unless
+        given (a tensor or array of the mean's shape)."""
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator,
+                                device=self.mean.device, dtype=torch.float32)
+        else:
+            noise = torch.as_tensor(noise, dtype=torch.float32,
+                                    device=self.mean.device)
         return self.mean + self.std * noise
 
     def kl(self) -> torch.Tensor:
@@ -207,9 +215,13 @@ class KLVAE(nn.Module):
         """NCHW latents -> NCHW images."""
         return self.decoder(self.post_quant_conv(z.to(self.dtype)))
 
-    def forward(self, x, *, generator=None, sample_posterior: bool = True):
+    def forward(self, x, *, generator=None, noise=None,
+                sample_posterior: bool = True):
+        """NCHW images -> (NCHW reconstruction, posterior); the latent is
+        sampled with `noise` (NCHW) or from `generator`."""
         posterior = self.encode(x)
-        z = posterior.sample(generator) if sample_posterior else posterior.mean
+        z = (posterior.sample(generator, noise) if sample_posterior
+             else posterior.mean)
         return self.decode(z), posterior
 
     def encode_images(self, x, *, generator=None):
@@ -226,3 +238,22 @@ class KLVAE(nn.Module):
         """Scaled NHWC latents -> NHWC images clamped to [0, 1]."""
         x = self.decode(z.permute(0, 3, 1, 2) / self.scale_factor)
         return torch.clamp(x, 0.0, 1.0).permute(0, 2, 3, 1)
+
+
+def kl_vae_loss(recon, inputs, posterior: DiagonalGaussian,
+                kl_weight: float = 1e-6, perceptual_fn=None) -> dict:
+    """MSE (or the pluggable `perceptual_fn(recon, inputs)` -> {"total",
+    optional "perceptual"}) plus kl_weight * the batch mean of the KL, as
+    vqgan_tpu/models/autoencoder.py:kl_vae_loss. Returns 0-d tensors under
+    "loss", "rec_loss", "kl_loss" and "perceptual_loss"."""
+    zero = torch.zeros((), device=recon.device)
+    if perceptual_fn is not None:
+        parts = perceptual_fn(recon, inputs)
+        rec_loss = parts["total"]
+        perceptual = parts.get("perceptual", zero)
+    else:
+        rec_loss = torch.mean((inputs - recon) ** 2)
+        perceptual = zero
+    kl = torch.mean(posterior.kl())
+    return {"loss": rec_loss + kl_weight * kl, "rec_loss": rec_loss,
+            "kl_loss": kl, "perceptual_loss": perceptual}

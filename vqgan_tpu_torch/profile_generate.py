@@ -29,6 +29,13 @@ from .configs.ldm_config import LDMConfig
 from .core.diffusion_math import ddim_step
 from .device import resolve_device, set_full_fp32_precision
 from .generate import load_vae
+from .kernels import KERNELS
+
+# the device functions of the hand-written kernels, by KERNELS name
+KERNEL_FUNCTIONS = {"flash_fwd": "flash_fwd_kernel",
+                    "flash_bwd_dq": "flash_bwd_dq_kernel",
+                    "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                    "vq_nearest": "vq_nearest_kernel"}
 
 
 def _device_us(event) -> float:
@@ -80,6 +87,21 @@ def profiled(fn, reps: int, wall: float, top: int = 8,
             label: sum(_device_us(e) for e in kernels if part in e.key)
             / 1e3 / reps for label, part in named.items()}
     return out
+
+
+def counting(step_fn):
+    """(fn, tally): fn runs `step_fn` and adds to tally the call and each
+    hand-written kernel's launches in it."""
+    tally = {"calls": 0, "launches": dict.fromkeys(KERNELS, 0)}
+
+    def fn():
+        before = {name: k.launches for name, k in KERNELS.items()}
+        step_fn()
+        tally["calls"] += 1
+        for name, k in KERNELS.items():
+            tally["launches"][name] += k.launches - before[name]
+
+    return fn, tally
 
 
 def profile_steps(steps: dict, named: dict | None = None) -> dict:

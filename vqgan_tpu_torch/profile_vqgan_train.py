@@ -28,31 +28,8 @@ import torch
 
 from .configs.vqgan_config import VQGANConfig
 from .device import resolve_device, set_full_fp32_precision
-from .kernels import KERNELS
-from .profile_generate import profile_steps
+from .profile_generate import KERNEL_FUNCTIONS, counting, profile_steps
 from .training.vqgan_trainer import VQGANTrainer
-
-
-# the device functions of the hand-written kernels, by KERNELS name
-_KERNEL_FUNCTIONS = {"flash_fwd": "flash_fwd_kernel",
-                     "flash_bwd_dq": "flash_bwd_dq_kernel",
-                     "flash_bwd_dkv": "flash_bwd_dkv_kernel",
-                     "vq_nearest": "vq_nearest_kernel"}
-
-
-def _counting(step_fn):
-    """(fn, tally): fn runs `step_fn` and adds to tally the call and each
-    hand-written kernel's launches in it."""
-    tally = {"calls": 0, "launches": dict.fromkeys(KERNELS, 0)}
-
-    def fn():
-        before = {name: k.launches for name, k in KERNELS.items()}
-        step_fn()
-        tally["calls"] += 1
-        for name, k in KERNELS.items():
-            tally["launches"][name] += k.launches - before[name]
-
-    return fn, tally
 
 
 def main(argv=None):
@@ -79,14 +56,14 @@ def main(argv=None):
                 trainer.dispatch_step(images, step)
             return run
 
-        counted = {"g_step": _counting(step_at(0)),
-                   "g_and_d_step": _counting(step_at(cfg.disc_start))}
+        counted = {"g_step": counting(step_at(0)),
+                   "g_and_d_step": counting(step_at(cfg.disc_start))}
         out = {
             "device": torch.cuda.get_device_name(0),
             "batch_size": args.batch_size,
             **profile_steps({label: (fn, args.steps)
                              for label, (fn, _) in counted.items()},
-                            named=_KERNEL_FUNCTIONS),
+                            named=KERNEL_FUNCTIONS),
         }
         for label, (_, tally) in counted.items():
             out[label]["kernel_launches_per_step"] = {

@@ -14,7 +14,9 @@ parameters:
 - AdamW (decoupled weight decay, as `optax.adamw`) when weight_decay > 0,
   Adam otherwise; eps 1e-8;
 - the learning rate rises linearly from 0 at update 0 over `warmup_steps`
-  updates, as `optax.linear_schedule`;
+  updates, as `optax.linear_schedule`; or `schedule(count)` gives it, as
+  an optax schedule is read at the update count before its increment
+  (`warmup_cosine_decay_schedule`, the KL-VAE trainer's);
 - k > 1 accumulates as `optax.MultiSteps`: the running (Welford) mean of k
   gradients, then one update; the calls in between leave the parameters.
 Parameters that get no gradient (the single-token cross-attention's `to_q`
@@ -24,7 +26,8 @@ and `to_k`) take a zero gradient, as in JAX, so weight decay still applies.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+import math
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -33,7 +36,33 @@ from ..losses.contrastive import supcon_loss
 from .ema import ema_update
 
 __all__ = ["LDMOptimizer", "LDMTrainState", "global_norm",
-           "make_ldm_optimizer", "make_ldm_train_step"]
+           "make_ldm_optimizer", "make_ldm_train_step",
+           "warmup_cosine_decay_schedule"]
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0
+                                 ) -> Callable[[int], float]:
+    """count -> learning rate, as `optax.warmup_cosine_decay_schedule`:
+    linear from init_value at count 0 to peak_value at `warmup_steps`,
+    then a cosine over the remaining `decay_steps - warmup_steps` counts
+    down to end_value, which it keeps."""
+    cosine_steps = decay_steps - warmup_steps
+    if cosine_steps <= 0:
+        raise ValueError(f"the cosine needs decay_steps > warmup_steps, got "
+                         f"{decay_steps} and {warmup_steps}")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1.0 - max(count, 0) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        t = min(count - warmup_steps, cosine_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / cosine_steps))
+        return peak_value * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -45,9 +74,11 @@ class LDMOptimizer:
     def __init__(self, params, learning_rate: float = 1e-4,
                  weight_decay: float = 1e-4, betas=(0.9, 0.999),
                  max_grad_norm: Optional[float] = 1.0, warmup_steps: int = 0,
-                 gradient_accumulate_every: int = 1):
+                 gradient_accumulate_every: int = 1,
+                 schedule: Optional[Callable[[int], float]] = None):
         self.params = [p for p in params if p.requires_grad]
         self.learning_rate = learning_rate
+        self.schedule = schedule
         self.max_grad_norm = max_grad_norm or None
         self.warmup_steps = warmup_steps
         self.every = gradient_accumulate_every
@@ -65,6 +96,9 @@ class LDMOptimizer:
         self._zeros = {}     # index -> zero gradient of an unused parameter
 
     def lr_at(self, count: int) -> float:
+        """The learning rate of the update that follows `count` updates."""
+        if self.schedule is not None:
+            return self.schedule(count)
         if self.warmup_steps > 0:
             return (self.learning_rate * min(count, self.warmup_steps)
                     / self.warmup_steps)
