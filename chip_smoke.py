@@ -89,6 +89,34 @@ Phases, in order; any failure exits non-zero:
    the milestone loads into `generate.load_vae`; a finite [32, 32, 4]
    latent for every image; a finite PSNR in metrics.json. Prints KL-VAE
    training images/s and the peak of allocated device memory.
+4e. The GMM split, the classifier and FID on small inputs, card against
+   CPU: `gmm_fit` with the same initial indices on one user's projected
+   latents (60 x 4096, PCA to 95%: the diagonal fallback) and on a
+   well-conditioned set (full covariances): labels equal up to the order
+   of the components, covariance type equal, means within 1e-4 of the
+   largest, log-likelihood 1e-4 relative;
+   three ResNet18 `ClassifierExperiment` steps at 64 px, batch 8, lr 1e-5,
+   same weights and batches: losses rtol 1e-4, first gradients 1e-3 of the
+   largest; Inception features of 2 images within 1e-4 of the largest; no
+   hand-written kernel launched.
+5e. Drive the GMM split, the cluster validation, the classifier and FID at
+   full width on 31 users x 60 seeded JPGs (256 px) with a random default
+   KL-VAE saved as a checkpoint: `preprocess_latents_with_gmm` (one flash
+   forward per padded encode batch at [16, 1024, 1, 512] fp32: 4 per
+   user; a sound split; each cluster's gen and class counts its
+   largest-remainder quotas; exactly the 930 gen-train latents cached),
+   `validate_cluster_number` for 2 users and k 2-4 (its JSON report),
+   `generate --random_init` for 4 users x 4 images (151 forwards each),
+   `classifier_experiment` on the real class-train images and those 16
+   synthetic ones for 2 epochs (finite losses, 310 test samples, the
+   results JSON, no hand-written kernel), and FID with a random-init
+   Inception: test images against the generated ones (finite, >= 0) and
+   against themselves (under 2 x 2048 x sqrt(eps) x the covariance's
+   largest eigenvalue, the square root's rounding). Prints
+   encode and PCA + GMM seconds per user, the users that fell back to
+   diagonal covariances, classifier training images/s over epoch 2 (and
+   the loader's alone, and the step's on a batch resident on the card),
+   Inception images/s, the FIDs and the phase's seconds.
 6. Print the kernels' JSON line, then the card line, then the device line.
 """
 
@@ -1417,19 +1445,7 @@ def drive_kl_vae_slice(torch, kernels, seed: int, work: Path):
     counts = {}
 
     def run(label, fn, expected):
-        reset_counts(kernels)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        got = read_counts(kernels)
-        print(f"{label}: whole call {secs:.3f} s; launches {got}")
-        if got != expected:
-            fail(f"{label}: expected launches {expected}, got {got}")
-        for key, n in got.items():
-            counts[key] = counts.get(key, 0) + n
-        return result
+        return run_gated(torch, kernels, label, fn, expected, counts)[0]
 
     split = run("create_data_split", lambda: create_data_split.main([
         "--data_path", str(images), "--output", str(split_path),
@@ -1509,6 +1525,435 @@ def drive_kl_vae_slice(torch, kernels, seed: int, work: Path):
     return counts, rate
 
 
+def check_small_gmm_classifier_fid(torch, kernels, seed: int):
+    """Phase 4e, the GMM split, the classifier and FID on small inputs,
+    card against CPU (TF32 off), the kind of 4c and 4d:
+    - `gmm_fit` with the same `init_idx` on the same projected features:
+      one user's (60 images in 4096 latent features, 4 clusters,
+      standardized, PCA to 95% of the variance: ~15 points per component
+      in more dims, so both sides fall back to diagonal covariances) and a
+      well-conditioned set (2 clusters of 40 points in 3 dims, full
+      covariances; no restart ends with a component of a few points,
+      whose singular covariance would leave the outcome to rounding).
+      Labels equal up to the order of the components (restarts that
+      reach one solution in another order tie up to rounding), covariance
+      type equal, means within 1e-4 of the largest |mean|, the mean
+      log-likelihood within 1e-4 relative.
+    - Three `ClassifierExperiment` train steps of ResNet18 at 64 px, batch
+      8, from the same weights on the same batches, at lr 1e-5: losses
+      rtol 1e-4, the first step's gradients within 1e-3 of the largest.
+      (Adam's sign-like first steps move all 11M parameters by about lr
+      and amplify fp32 rounding step by step, faster the larger lr; the
+      CPU parity against the JAX package, tests/test_torch_port_
+      classifier.py, runs at lr 1e-5 for that reason.)
+    - Inception features of 2 images, weights from the seed: within 1e-4
+      of the largest |feature|.
+    No flash or VQ kernel runs in any of them."""
+    from vqgan_tpu_torch.data import BatchLoader
+    from vqgan_tpu_torch.data.gmm import (
+        draw_init_idx,
+        gmm_fit,
+        gmm_predict,
+        pca_fit,
+        standardize,
+    )
+    from vqgan_tpu_torch.eval.classifier import ClassifierExperiment
+    from vqgan_tpu_torch.eval.fid import make_inception_feature_fn
+
+    reset_counts(kernels)
+    rng = np.random.default_rng(seed + 8)
+    centers = rng.standard_normal((4, 4096)).astype(np.float32)
+    latents = np.concatenate([c + 0.5 * rng.standard_normal((15, 4096))
+                              for c in centers]).astype(np.float32)
+    x = torch.from_numpy(latents)
+    xs, _, _ = standardize(x)
+    comps, k_pca, _ = pca_fit(xs)
+    cases = {"one user, PCA to 95%": ((xs @ comps).contiguous(), 4)}
+    small = rng.standard_normal((2, 3)) * 5
+    cases["2 x 40 points in 3 dims"] = (torch.from_numpy(np.concatenate(
+        [c + rng.standard_normal((40, 3)) for c in small]).astype(
+            np.float32)), 2)
+    for label, (feats, k) in cases.items():
+        idx = draw_init_idx(torch.Generator().manual_seed(seed), len(feats),
+                            k, 10)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            f = feats.to(dev)
+            params, ll = gmm_fit(None, f, k, init_idx=idx)
+            out[dev] = (params, ll, gmm_predict(params, f).cpu())
+        (pc, llc, lc), (pg, llg, lg) = out["cpu"], out["cuda"]
+        # restarts that reach one solution with its components in another
+        # order tie in likelihood up to rounding, and either may win: the
+        # labels must be equal up to that renumbering, the means in it
+        pairs = set(zip(lg.tolist(), lc.tolist()))
+        order = dict(pairs)
+        same = len(pairs) == len(order) == len(set(order.values()))
+        mean_err = mean_size = 0.0
+        if same:
+            perm = [order.get(j, j) for j in range(k)]
+            means = torch.empty_like(pc.means)
+            means[perm] = pg.means.cpu()
+            mean_err = (means - pc.means).abs().max().item()
+            mean_size = pc.means.abs().max().item()
+        ll_err = abs(llg - llc) / abs(llc)
+        print(f"small GMM ({label}, {feats.shape[1]} dims), card vs CPU: "
+              f"{pg.covariance_type} / {pc.covariance_type} covariances, "
+              f"labels equal {bool(torch.equal(lg, lc))} (up to the "
+              f"components' order {same}), max|mean diff| {mean_err:.3e} "
+              f"(max|mean| {mean_size:.3e}), ll {llg:.6f} / {llc:.6f} (rel "
+              f"diff {ll_err:.3e})")
+        if not same or pg.covariance_type != pc.covariance_type \
+                or mean_err > 1e-4 * mean_size or not ll_err <= 1e-4:
+            fail(f"the GMM on the card disagrees with the CPU ({label})")
+    if out["cpu"][0].covariance_type != "full":
+        fail("the well-conditioned GMM case fell back to diagonal "
+             "covariances")
+
+    n_steps, batch, size, lr = 3, 8, 64, 1e-5
+    images = rng.standard_normal((n_steps * batch + 2, size, size, 3))
+    items = [(img.astype(np.float32), i % 31) for i, img in
+             enumerate(images)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        exp = ClassifierExperiment(num_classes=31, lr=lr, epochs=1,
+                                   batch_size=batch, seed=seed, device=dev)
+        losses, grads = [], None
+        for xb, yb in BatchLoader(items, batch, shuffle=True, seed=seed,
+                                  drop_last=True):
+            loss, _ = exp.train_step(xb, yb)
+            losses.append(loss.item())
+            if grads is None:
+                grads = torch.cat([p.grad.flatten().cpu()
+                                   for p in exp.model.parameters()])
+        out[dev] = losses, grads
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    loss_err = max(abs(g - c) / abs(c) for g, c in zip(lg, lc))
+    grad_err = (gg - gc).abs().max().item()
+    grad_size = gc.abs().max().item()
+    print(f"small classifier training, card vs CPU: losses card {lg} cpu "
+          f"{lc} (max rel diff {loss_err:.3e}); max|grad diff| "
+          f"{grad_err:.3e} (max|grad| {grad_size:.3e})")
+    if len(lg) != n_steps or loss_err > 1e-4 or grad_err > 1e-3 * grad_size:
+        fail("classifier training on the card disagrees with the CPU")
+
+    pics = rng.random((2, 256, 256, 3)).astype(np.float32)
+    feats = {dev: make_inception_feature_fn(seed=seed, device=dev)(
+        pics).cpu() for dev in ("cpu", "cuda")}
+    err = (feats["cuda"] - feats["cpu"]).abs().max().item()
+    size = feats["cpu"].abs().max().item()
+    print(f"small Inception features, card vs CPU: max|diff| {err:.3e} "
+          f"(max|feature| {size:.3e})")
+    if not torch.isfinite(feats["cuda"]).all() or err > 1e-4 * size:
+        fail("Inception features on the card disagree with the CPU")
+    if read_counts(kernels):
+        fail(f"phase 4e launched a hand-written kernel: "
+             f"{read_counts(kernels)}")
+
+
+def write_user_images(root: Path, seed: int, n_users: int, per_user: int,
+                      size: int):
+    """`ID_1`..`ID_{n_users}` folders of `per_user` seeded JPGs each: a
+    per-user grating (frequency and orientation fixed by the user, phase
+    and colour per image) under three random blobs and a little noise,
+    after cli/e2e_demo.py's `make_user_image`, so users differ and images
+    of a user vary. Users are written on 8 threads, each from its own
+    generator (seed, user)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    axis = np.arange(size, dtype=np.float32) / size
+    yy, xx = np.meshgrid(axis, axis, indexing="ij")
+
+    def write(user):
+        rng = np.random.default_rng([seed, user])
+        folder = root / f"ID_{user}"
+        folder.mkdir(parents=True)
+        f, theta = 3.0 + user % 8, (user * 0.37) % (np.pi / 2)
+        carrier = 2 * np.pi * f * (np.cos(theta) * xx + np.sin(theta) * yy)
+        for i in range(per_user):
+            grating = 0.5 + 0.5 * np.sin(carrier + rng.uniform(0, 2 * np.pi))
+            img = grating[..., None] * rng.uniform(0.2, 0.5, 3).astype(
+                np.float32)
+            for bx, by, s in rng.uniform((0, 0, 0.04), (1, 1, 0.16), (3, 3)):
+                # a Gaussian blob, the outer product of its two profiles
+                blob = np.outer(np.exp(-(axis - by) ** 2 / (2 * s * s)),
+                                np.exp(-(axis - bx) ** 2 / (2 * s * s)))
+                img += blob[..., None] * (0.6 * rng.random(3, np.float32))
+            img += 0.05 * rng.random((size, size, 3), np.float32)
+            img *= 255 / img.max()
+            Image.fromarray(img.astype(np.uint8)).save(
+                folder / f"frame_{i:03d}.jpg", quality=90)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(1, n_users + 1)))
+    return root
+
+
+def run_gated(torch, kernels, label, fn, expected, counts):
+    """fn() with the launch counts reset just before and read just after;
+    fails unless they equal `expected`; adds them to `counts`. Returns
+    (fn's result, host seconds of the call, the device synchronised at
+    both ends)."""
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = read_counts(kernels)
+    print(f"{label}: whole call {secs:.3f} s; launches {got}")
+    if got != expected:
+        fail(f"{label}: expected launches {expected}, got {got}")
+    for key, n in got.items():
+        counts[key] = counts.get(key, 0) + n
+    return result, secs
+
+
+def drive_gmm_classifier_slice(torch, kernels, seed: int, work: Path,
+                               n_users: int = 31, per_user: int = 60,
+                               size: int = 256):
+    """Phase 5e, the GMM split, the cluster validation, the classifier and
+    FID at full width through their entry points, on `n_users` x
+    `per_user` seeded JPGs (`write_user_images`; the reference has ~150
+    per user), with a random `AutoencoderConfig()` KL-VAE from the seed
+    saved as a port checkpoint:
+    - `preprocess_latents_with_gmm` at its defaults (30 gen-train, 20
+      class-train per user; batches of 16, the last zero-padded): one
+      flash forward per encode batch at [16, 1024, 1, 512] fp32 and no
+      other launch; the split passes `verify_split`; each cluster's gen
+      and class counts are `largest_remainder_quotas` of its members; the
+      cache holds exactly the 930 gen-train latents, finite [32, 32, 4];
+    - `validate_cluster_number --num_users 2 --k_min 2 --k_max 4`: its
+      JSON report, 4 forwards per user;
+    - `generate --random_init --user_ids 1 2 3 4 --num_images 4` into
+      `ID_x` folders: 151 forwards per user (150 U-Net steps at [4, 16,
+      8, 64] bf16, 1 decode at [4, 1024, 1, 512] fp32);
+    - `classifier_experiment` on the real class-train images and that
+      synthetic folder (ResNet18 at 256 px, batch 64, Adam 1e-4, ImageNet
+      normalisation), one seed, 2 epochs of 15: finite losses, 310 test
+      samples, the results JSON; no hand-written kernel; then, untimed by
+      the CLI, the loader alone over the real class-train images and 5
+      train steps on one batch resident on the card;
+    - FID with the port's Inception (random init from the seed: not
+      calibrated) of the 310 test images against the 16 generated ones
+      (finite, >= 0), and of the test images against themselves, which
+      is 0 but for the square root's rounding: the covariance has rank
+      309 of 2048, so ~1700 eigenvalues of its square are float64
+      rounding noise of order eps x lambda_max^2, each of whose roots
+      can leave sqrt(eps) x lambda_max in the trace. Bound: 2 x 2048 x
+      sqrt(eps) x lambda_max.
+    Returns ({(kernel, shape): launches}, {metric: value})."""
+    from vqgan_tpu_torch import (
+        classifier_experiment,
+        generate,
+        preprocess_latents_with_gmm,
+        validate_cluster_number,
+    )
+    from vqgan_tpu_torch.data import (
+        BatchLoader,
+        ImageFolderDataset,
+        LatentCache,
+        SyntheticDataset,
+        largest_remainder_quotas,
+        load_split,
+        verify_split,
+    )
+    from vqgan_tpu_torch.eval.fid import (
+        FIDEvaluation,
+        frechet_distance,
+        make_inception_feature_fn,
+    )
+    from vqgan_tpu_torch.models import KLVAE, AutoencoderConfig
+
+    t_phase = time.perf_counter()
+    images = write_user_images(work / "images", seed, n_users, per_user,
+                               size)
+    torch.manual_seed(seed)
+    vae_path = work / "kl_vae.pt"
+    torch.save(KLVAE(AutoencoderConfig(resolution=size)).state_dict(),
+               vae_path)
+    print(f"phase 5e set-up ({n_users} x {per_user} JPGs, KL-VAE "
+          f"checkpoint): {time.perf_counter() - t_phase:.3f} s")
+    counts, metrics = {}, {}
+    latent = size // 8
+    batches = -(-per_user // 16)
+    enc_key = ("flash_fwd", (16, latent * latent, 1, 512, "float32"))
+
+    split_path, cache_dir = work / "gmm_split.json", work / "latents"
+    result, secs = run_gated(
+        torch, kernels, "preprocess_latents_with_gmm",
+        lambda: preprocess_latents_with_gmm.main([
+            "--vae_path", str(vae_path), "--data_path", str(images),
+            "--output_split", str(split_path), "--cache_folder",
+            str(cache_dir), "--num_users", str(n_users), "--image_size",
+            str(size), "--seed", str(seed)]),
+        {enc_key: n_users * batches}, counts)
+    split = load_split(split_path)
+    problems = verify_split(split)
+    if problems or split != result["split"] or len(split["users"]) != \
+            n_users:
+        fail(f"the GMM split is not sound: {problems}")
+    for user, info in split["users"].items():
+        labels = np.asarray(info["cluster_labels"])
+        names = [f"frame_{i:03d}.jpg" for i in range(per_user)]
+        uniq = np.unique(labels)
+        members = [set(np.flatnonzero(labels == c)) for c in uniq]
+        gen = {names.index(n) for n in info["gen_train_images"]}
+        cls = {names.index(n) for n in info["class_train_images"]}
+        gen_q = largest_remainder_quotas([len(m) for m in members], 30)
+        cls_q = largest_remainder_quotas(
+            [len(m - gen) for m in members], 20)
+        if [len(m & gen) for m in members] != gen_q.tolist() or \
+                [len(m & cls) for m in members] != cls_q.tolist():
+            fail(f"{user}: gen / class counts per cluster are not the "
+                 f"largest-remainder quotas of {[len(m) for m in members]}")
+    cache = LatentCache(cache_dir)
+    cached = sorted(cache_dir.glob("*.npy"))
+    n_gen = sum(len(u["gen_train_images"]) for u in split["users"].values())
+    latents = [cache.load(int(user.split("_")[1]) - 1, name)
+               for user, info in split["users"].items()
+               for name in info["gen_train_images"]]
+    if len(cached) != n_gen or n_gen != 30 * n_users or any(
+            z.shape != (latent, latent, 4) or not np.isfinite(z).all()
+            for z in latents):
+        fail(f"the latent cache holds {len(cached)} files for {n_gen} "
+             f"gen-train images")
+    stats = result["users"].values()
+    enc = [u["encode_seconds"] for u in stats]
+    gmm = [u["gmm_seconds"] for u in stats]
+    n_diag = sum(u["covariance_type"] == "diag" for u in stats)
+    metrics.update(gmm_encode_seconds_per_user=float(np.mean(enc)),
+                   gmm_pca_gmm_seconds_per_user=float(np.mean(gmm)),
+                   gmm_seconds_per_user=secs / n_users,
+                   gmm_diag_fallback_users=n_diag)
+    print(f"preprocess_latents_with_gmm: {n_users} users in {secs:.3f} s "
+          f"({secs / n_users:.4f} s per user); encode {np.mean(enc):.4f} s "
+          f"per user (max {max(enc):.4f}), PCA + GMM + predict "
+          f"{np.mean(gmm):.4f} s per user (max {max(gmm):.4f}); "
+          f"{n_diag} of {n_users} users fell back to diagonal covariances; "
+          f"PCA dims {[u['pca_dims'] for u in stats]}; {len(cached)} "
+          f"latents cached")
+
+    out_dir = work / "cluster_validation"
+    report, _ = run_gated(
+        torch, kernels, "validate_cluster_number",
+        lambda: validate_cluster_number.main([
+            "--vae_path", str(vae_path), "--data_path", str(images),
+            "--output_dir", str(out_dir), "--num_users", "2", "--k_min", "2",
+            "--k_max", "4", "--image_size", str(size), "--seed",
+            str(seed)]),
+        {enc_key: 2 * batches}, counts)
+    saved = json.loads((out_dir / "cluster_validation.json").read_text())
+    if sorted(saved) != ["ID_1", "ID_2", "summary"] or not all(
+            np.isfinite(v).all() for u in ("ID_1", "ID_2")
+            for v in saved[u]["metrics"].values()):
+        fail(f"cluster_validation.json is not complete: {sorted(saved)}")
+    print(f"validate_cluster_number: majority k "
+          f"{[saved[u]['majority_vote'] for u in ('ID_1', 'ID_2')]}, "
+          f"summary {saved['summary']}")
+
+    synth = work / "synthetic"
+    gen_users = (1, 2, 3, 4)
+    run_gated(
+        torch, kernels, "generate (synthetic folder)",
+        lambda: generate.main([
+            "--random_init", "--seed", str(seed), "--user_ids",
+            *map(str, gen_users), "--num_images", "4", "--output_dir",
+            str(synth)]),
+        {("flash_fwd", (4, 16, 8, 64, "bfloat16")): 150 * len(gen_users),
+         ("flash_fwd", (4, latent * latent, 1, 512, "float32")):
+             len(gen_users)},
+        counts)
+    n_synth = len(SyntheticDataset(synth, size))
+    if n_synth != 4 * len(gen_users):
+        fail(f"generate wrote {n_synth} images, expected "
+             f"{4 * len(gen_users)}")
+
+    out = work / "classifier" / "results.json"
+    result, secs = run_gated(
+        torch, kernels, "classifier_experiment",
+        lambda: classifier_experiment.main([
+            "--data_root", str(images), "--split", str(split_path),
+            "--synthetic_folder", str(synth), "--num_classes", "31",
+            "--epochs", "2", "--image_size", str(size), "--seed",
+            str(seed), "--output", str(out)]),
+        {}, counts)
+    history = result["experiment"].history
+    saved = json.loads(out.read_text())
+    n_test = sum(len(u["test_images"]) for u in split["users"].values())
+    losses = [x for h in history for x in h["losses"]]
+    if not losses or not np.isfinite(losses).all() or len(history) != 2 \
+            or saved["n_samples"] != n_test or n_test != 10 * n_users:
+        fail(f"classifier: losses {losses}, {saved['n_samples']} test "
+             f"samples of {n_test}")
+    rate = history[1]["images"] / history[1]["seconds"]
+    # what bounds the epoch: the loader alone (decode, normalise, stack on
+    # its thread) over the real class-train images, and the train step on
+    # one batch already on the card
+    real_train = ImageFolderDataset(images, split, "class_train", size,
+                                    imagenet_norm=True)
+    t0 = time.perf_counter()
+    n_loaded = sum(len(y) for _, y in BatchLoader(
+        real_train, 64, shuffle=True, seed=seed, drop_last=True))
+    load_rate = n_loaded / (time.perf_counter() - t0)
+    exp = result["experiment"]
+    xb, yb = (torch.from_numpy(np.stack(v)).cuda()
+              for v in zip(*(real_train[i] for i in range(64))))
+    exp.train_step(xb, yb)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        exp.train_step(xb, yb)
+    torch.cuda.synchronize()
+    step_rate = 5 * 64 / (time.perf_counter() - t0)
+    metrics.update(classifier_images_per_s=rate,
+                   classifier_loader_images_per_s=load_rate,
+                   classifier_resident_step_images_per_s=step_rate,
+                   classifier_accuracy=saved["accuracy"])
+    print(f"classifier_experiment: {len(history[0]['losses'])} steps per "
+          f"epoch at batch 64; epoch 2: {history[1]['images']} images in "
+          f"{history[1]['seconds']:.3f} s = {rate:.4f} images/s; losses "
+          f"{losses}; test accuracy {saved['accuracy']:.4f} on "
+          f"{saved['n_samples']} images (random-weight data path, 2 "
+          f"epochs); the loader alone {load_rate:.4f} images/s, the step "
+          f"on a resident batch {step_rate:.4f} images/s")
+
+    features = make_inception_feature_fn(seed=seed)
+    test_set = ImageFolderDataset(images, split, "test", size)
+    real = [np.stack([test_set[i][0] for i in range(s, min(s + 64, n_test))])
+            for s in range(0, n_test, 64)]
+    features(real[0])  # warm-up: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = FIDEvaluation(features, batch_size=64, num_fid_samples=n_synth)
+    mu, cov = ev.load_or_precalc_real_stats(iter(real))
+    torch.cuda.synchronize()
+    inception_rate = n_test / (time.perf_counter() - t0)
+    fake = SyntheticDataset(synth, size)
+    fake = np.stack([fake[i][0] for i in range(n_synth)])
+    t0 = time.perf_counter()
+    score = ev.fid_score(lambda gen, n: fake[:n])
+    fid_secs = time.perf_counter() - t0
+    itself = frechet_distance(mu, cov, mu, cov)
+    lam = float(np.linalg.eigvalsh(cov).max())
+    bound = 2 * len(cov) * np.sqrt(np.finfo(np.float64).eps) * lam
+    metrics.update(inception_images_per_s=inception_rate, fid=score,
+                   fid_real_vs_itself=itself)
+    print(f"FID (random-init Inception, not calibrated): test images vs "
+          f"{n_synth} generated {score:.6e} ({fid_secs:.3f} s); test "
+          f"images vs themselves {itself:.6e} (bound {bound:.6e} = 2 x "
+          f"2048 x sqrt(eps) x the largest eigenvalue {lam:.6e}; trace "
+          f"{np.trace(cov):.6e}); Inception features of {n_test} "
+          f"test images at {inception_rate:.4f} images/s (host batches "
+          f"included; statistics on the host)")
+    if not np.isfinite(score) or score < 0 or not abs(itself) <= bound:
+        fail(f"FID {score}, against itself {itself} (bound {bound})")
+    metrics["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"phase 5e: {metrics['phase_seconds']:.3f} s")
+    return counts, metrics
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1550,6 +1995,7 @@ def main():
     check_small_training(torch, KERNELS, args.seed)
     check_small_vqgan(torch, KERNELS, args.seed)
     check_small_kl_vae(torch, KERNELS, args.seed)
+    check_small_gmm_classifier_fid(torch, KERNELS, args.seed)
 
     if not args.kernels_only:
         counts, rates = drive_main_path(torch, KERNELS, args.seed)
@@ -1566,8 +2012,12 @@ def main():
             kl_counts, kl_rate = drive_kl_vae_slice(torch, KERNELS,
                                                     args.seed, Path(work))
         print(f"KL-VAE training images/s: {kl_rate}")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_gmm_") as work:
+            gmm_counts, gmm_metrics = drive_gmm_classifier_slice(
+                torch, KERNELS, args.seed, Path(work))
+        print("GMM / classifier / FID slice: " + json.dumps(gmm_metrics))
         for key, n in [*train_counts.items(), *vq_counts.items(),
-                       *kl_counts.items()]:
+                       *kl_counts.items(), *gmm_counts.items()]:
             counts[key] = counts.get(key, 0) + n
         for row in rows.values():
             row["launches"] = counts.get((row["name"], row["key"]), 0)

@@ -1,11 +1,12 @@
 """The JAX package's parameter trees as the port's state dicts.
 
 `klvae_state_from_jax`, `cfg_unet_state_from_jax`, `vqvae_state_from_jax`,
-`patchgan_state_from_jax` and `lpips_state_from_jax` take the variables of
-vqgan_tpu's KLVAE / CFGUnet / VQVAE / PatchGANDiscriminator / LPIPS as
-nested dicts of numpy arrays (`{"params": ...}` or the inner dict; the
-discriminator's with its `batch_stats` or `actnorm_stats`) and return a
-`state_dict` for the port's module. The port's names and shapes are the
+`patchgan_state_from_jax`, `lpips_state_from_jax`, `resnet_state_from_jax`
+and `inception_state_from_jax` take the variables of vqgan_tpu's KLVAE /
+CFGUnet / VQVAE / PatchGANDiscriminator / LPIPS / ResNet /
+InceptionV3Features as nested dicts of numpy arrays (`{"params": ...}` or
+the inner dict; the discriminator's, the ResNet's and Inception's with
+their `batch_stats`) and return a `state_dict` for the port's module. The port's names and shapes are the
 reference PyTorch models', so this is the inverse of the JAX package's
 checkpoint/torch_import.py (`load_torch_klvae`, `load_torch_cfg_unet`,
 `load_torch_vqvae`, `load_torch_patchgan`, and the LPIPS module's
@@ -14,6 +15,8 @@ checkpoint/torch_import.py (`load_torch_klvae`, `load_torch_cfg_unet`,
 - flax ConvTranspose HWIO -> torch [in, out, kh, kw] with the taps flipped;
 - flax Dense [in, out] -> Linear [out, in];
 - GroupNorm scale/bias -> weight/bias; RMSNorm g [C] -> [1, C, 1, 1].
+- BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
+  running_mean/running_var.
 The JAX tree's autonames (LinearAttention_{i}, CrossAttentionCond_{i},
 Attention_0, Dense_0..3) are mapped as torch_import maps them.
 """
@@ -27,7 +30,8 @@ import torch
 
 __all__ = ["klvae_state_from_jax", "cfg_unet_state_from_jax",
            "vqvae_state_from_jax", "patchgan_state_from_jax",
-           "lpips_state_from_jax"]
+           "lpips_state_from_jax", "resnet_state_from_jax",
+           "inception_state_from_jax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -289,4 +293,66 @@ def lpips_state_from_jax(tree) -> Dict[str, torch.Tensor]:
     for i in range(5):
         out[f"lin{i}.model.1.weight"] = _t(
             np.asarray(p[f"lin_{i}"]).reshape(1, -1, 1, 1))
+    return out
+
+
+# --- classifier and FID networks: ResNet, InceptionV3 -----------------------
+
+
+def _batchnorm(out, key, p, stats):
+    out[f"{key}.weight"] = _t(p["scale"])
+    out[f"{key}.bias"] = _t(p["bias"])
+    out[f"{key}.running_mean"] = _t(stats["mean"])
+    out[f"{key}.running_var"] = _t(stats["var"])
+
+
+# (JAX conv, JAX norm, torch conv, torch norm) of a BasicBlock
+_RESNET_BLOCK_LAYERS = (
+    ("conv1", "bn1", "conv1", "bn1"),
+    ("conv2", "bn2", "conv2", "bn2"),
+    ("downsample_conv", "downsample_bn", "downsample.0", "downsample.1"),
+)
+
+
+def resnet_state_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """vqgan_tpu ResNet variables ({"params", "batch_stats"}) -> state dict
+    of the port's ResNet (torchvision's names: `layer{i}_block{j}` ->
+    `layer{i}.{j}`, `downsample_conv` / `downsample_bn` ->
+    `downsample.0` / `.1`)."""
+    p, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+    _conv(out, "conv1", p["conv1"])
+    _batchnorm(out, "bn1", p["bn1"], stats["bn1"])
+    for name, block in p.items():
+        if "_block" not in name:
+            continue
+        layer, j = name.split("_block")
+        prefix = f"{layer}.{j}"
+        for conv, bn, torch_conv, torch_bn in _RESNET_BLOCK_LAYERS:
+            if conv in block:
+                _conv(out, f"{prefix}.{torch_conv}", block[conv])
+                _batchnorm(out, f"{prefix}.{torch_bn}", block[bn],
+                           stats[name][bn])
+    _dense(out, "fc", p["fc"])
+    return out
+
+
+def inception_state_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """vqgan_tpu InceptionV3Features variables ({"params",
+    "batch_stats"}) -> state dict of the port's InceptionV3Features; the
+    names are the same (torchvision's / pytorch-fid's), every BasicConv2d
+    a `conv` and a `bn` (its `num_batches_tracked` 0)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(p, stats, path):
+        if "conv" in p and "bn" in p:
+            key = ".".join(path)
+            _conv(out, f"{key}.conv", p["conv"])
+            _batchnorm(out, f"{key}.bn", p["bn"], stats["bn"])
+            out[f"{key}.bn.num_batches_tracked"] = torch.tensor(0)
+            return
+        for name, child in p.items():
+            walk(child, stats[name], [*path, name])
+
+    walk(variables["params"], variables["batch_stats"], [])
     return out

@@ -1,4 +1,22 @@
-from .datasets import BatchLoader, ImageFolderDataset, load_image
+from .datasets import (
+    BatchLoader,
+    ImageFolderDataset,
+    SyntheticDataset,
+    load_image,
+)
+from .gmm import (
+    calinski_harabasz_score,
+    davies_bouldin_score,
+    gmm_aic,
+    gmm_bic,
+    gmm_fit,
+    gmm_predict,
+    largest_remainder_quotas,
+    pca_fit,
+    silhouette_score,
+    standardize,
+    stratified_sample_from_clusters,
+)
 from .latent_cache import LatentCache, LatentDataset, cache_filename
 from .splits import (
     IMAGE_EXTENSIONS,
@@ -11,6 +29,10 @@ from .splits import (
 )
 
 __all__ = ["BatchLoader", "IMAGE_EXTENSIONS", "ImageFolderDataset",
-           "LatentCache", "LatentDataset", "cache_filename",
-           "create_data_split", "load_image", "load_split", "save_split",
+           "LatentCache", "LatentDataset", "SyntheticDataset",
+           "cache_filename", "calinski_harabasz_score", "create_data_split",
+           "davies_bouldin_score", "gmm_aic", "gmm_bic", "gmm_fit",
+           "gmm_predict", "largest_remainder_quotas", "load_image",
+           "load_split", "pca_fit", "save_split", "silhouette_score",
+           "standardize", "stratified_sample_from_clusters",
            "train_images_for_user", "uniform_indices", "verify_split"]

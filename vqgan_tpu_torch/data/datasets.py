@@ -2,10 +2,17 @@
 vqgan_tpu/data/datasets.py.
 
 - `load_image`: Resize(shorter side) + CenterCrop + [0, 1] float32 HWC,
-  with PIL (the reference's torchvision transform).
+  with PIL (the reference's torchvision transform); with
+  `imagenet_norm`, then normalised by `IMAGENET_MEAN` / `IMAGENET_STD`
+  (the classifier's input).
 - `ImageFolderDataset`: the split's images of each `ID_x` user folder,
   (image, 0-based label) items, decoded with PIL (the JAX package's
   native C++ decoder is not ported).
+- `SyntheticDataset`: every image of the `ID_x` folders of generated
+  images, label x - 1, optionally only the 0-based labels of
+  `user_filter`.
+- `pad_to_batch`: zero rows up to a whole batch, so an encoder runs at one
+  shape; callers slice the real rows back out.
 - `BatchLoader`: a shuffling batch iterator that assembles batches on a
   background thread, double-buffered, so the device does not wait on the
   host. Same seed, same batches as the JAX package's.
@@ -16,17 +23,32 @@ from __future__ import annotations
 import queue
 import threading
 from pathlib import Path
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .splits import train_images_for_user
+from .splits import IMAGE_EXTENSIONS, train_images_for_user
 
-__all__ = ["load_image", "ImageFolderDataset", "BatchLoader"]
+__all__ = ["load_image", "ImageFolderDataset", "SyntheticDataset",
+           "BatchLoader", "IMAGENET_MEAN", "IMAGENET_STD", "pad_to_batch"]
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
-def load_image(path: str | Path, image_size: int) -> np.ndarray:
-    """[image_size, image_size, 3] float32 in [0, 1]."""
+def pad_to_batch(imgs: np.ndarray, batch_size: int) -> np.ndarray:
+    """Zero-pad a partial batch up to `batch_size` rows."""
+    pad = batch_size - len(imgs)
+    if pad <= 0:
+        return imgs
+    return np.concatenate(
+        [imgs, np.zeros((pad,) + imgs.shape[1:], imgs.dtype)])
+
+
+def load_image(path: str | Path, image_size: int,
+               imagenet_norm: bool = False) -> np.ndarray:
+    """[image_size, image_size, 3] float32 in [0, 1], or ImageNet-normalised
+    after the resize and crop."""
     from PIL import Image
 
     img = Image.open(path).convert("RGB")
@@ -37,7 +59,10 @@ def load_image(path: str | Path, image_size: int) -> np.ndarray:
     w, h = img.size
     left, top = (w - image_size) // 2, (h - image_size) // 2
     img = img.crop((left, top, left + image_size, top + image_size))
-    return np.asarray(img, np.float32) / 255.0
+    arr = np.asarray(img, np.float32) / 255.0
+    if imagenet_norm:
+        arr = (arr - IMAGENET_MEAN) / IMAGENET_STD
+    return arr
 
 
 class ImageFolderDataset:
@@ -46,9 +71,11 @@ class ImageFolderDataset:
     (gen/class fall back to train_images when absent)."""
 
     def __init__(self, data_path: str | Path, split: Dict,
-                 subset: str = "train", image_size: int = 256):
+                 subset: str = "train", image_size: int = 256,
+                 imagenet_norm: bool = False):
         self.data_path = Path(data_path)
         self.image_size = image_size
+        self.imagenet_norm = imagenet_norm
         self.items: List[Tuple[Path, int]] = []  # (path, 0-based label)
         for user, info in split["users"].items():
             label = int(user.split("_")[1]) - 1
@@ -72,7 +99,34 @@ class ImageFolderDataset:
 
     def __getitem__(self, i: int) -> Tuple[np.ndarray, int]:
         path, label = self.items[i]
-        return load_image(path, self.image_size), label
+        return load_image(path, self.image_size, self.imagenet_norm), label
+
+
+class SyntheticDataset:
+    """Generated images in `ID_x/*.{png,jpg,jpeg}` folders, label x - 1;
+    `user_filter`: the 0-based labels to keep (default all)."""
+
+    def __init__(self, synthetic_folder: str | Path, image_size: int = 256,
+                 imagenet_norm: bool = False,
+                 user_filter: Optional[Sequence[int]] = None):
+        self.image_size = image_size
+        self.imagenet_norm = imagenet_norm
+        self.items: List[Tuple[Path, int]] = []
+        for d in sorted(Path(synthetic_folder).glob("ID_*")):
+            if not d.is_dir():
+                continue
+            label = int(d.name.split("_")[1]) - 1
+            if user_filter is not None and label not in user_filter:
+                continue
+            self.items += [(p, label) for p in sorted(d.iterdir())
+                           if p.suffix.lower() in IMAGE_EXTENSIONS]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i: int) -> Tuple[np.ndarray, int]:
+        path, label = self.items[i]
+        return load_image(path, self.image_size, self.imagenet_norm), label
 
 
 class BatchLoader:

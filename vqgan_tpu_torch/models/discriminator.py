@@ -8,11 +8,8 @@ output conv at 3 * n_layers + 2; reference state dicts load directly.
 Convolutions compute in `dtype`; norms and the output conv in fp32.
 
 Norms (`norm`):
-- "batch": `BatchNorm`, flax's BatchNorm semantics, which the JAX package
-  holds: momentum 0.1 (flax 0.9), eps 1e-5, normalisation by the biased
-  batch variance, and the running variance averaging that biased variance.
-  torch's BatchNorm2d averages the unbiased one (n / (n - 1)), so it is not
-  used. Train or eval mode follows `module.train()` / `.eval()`.
+- "batch": `BatchNorm` (models/layers.py, shared with the ResNet), flax's
+  BatchNorm semantics, which the JAX package holds.
 - "act": `ActNorm`, an affine whose scale and shift live in buffers, set
   from the first batch only when called with init_actnorm=True (the
   discriminator never asks, as in the JAX package).
@@ -27,38 +24,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv2d
+from .layers import BatchNorm, Conv2d
 
 __all__ = ["BatchNorm", "ActNorm", "PatchGANDiscriminator",
            "MultiScaleDiscriminator"]
-
-
-class BatchNorm(nn.Module):
-    """BatchNorm over NCHW channels with flax's statistics (module doc)."""
-
-    def __init__(self, channels: int, momentum: float = 0.1,
-                 eps: float = 1e-5):
-        super().__init__()
-        self.momentum = momentum
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
-
-    def forward(self, x):
-        x = x.float()
-        if self.training:
-            with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-                m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(m * mean)
-                self.running_var.mul_(1.0 - m).add_(m * var)
-            return F.batch_norm(x, None, None, self.weight, self.bias,
-                                training=True, eps=self.eps)
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False,
-                            eps=self.eps)
 
 
 class ActNorm(nn.Module):

@@ -17,6 +17,8 @@ from torch import nn
 from ..ops.attention import sdpa
 
 __all__ = [
+    "lecun_normal_init_",
+    "BatchNorm",
     "Conv2d",
     "Linear",
     "GroupNorm",
@@ -56,6 +58,53 @@ class Linear(nn.Linear):
     def forward(self, x):
         d = self.compute_dtype
         return F.linear(x.to(d), self.weight.to(d), _cast(self.bias, d))
+
+
+def lecun_normal_init_(module: nn.Module, generator=None) -> nn.Module:
+    """flax's default initialisation of every Conv2d and Linear in
+    `module`: weights from lecun_normal (a normal truncated at two standard
+    deviations, scaled so that the variance is 1 / fan_in), zero biases."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            std = (1.0 / m.weight[0].numel()) ** 0.5 / .87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+    return module
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over NCHW channels with flax's semantics, which the JAX
+    package holds: momentum 0.1 (flax 0.9), eps 1e-5, normalisation by the
+    biased batch variance, and the running variance averaging that biased
+    variance. torch's BatchNorm2d averages the unbiased one (n / (n - 1)),
+    so it is not used. Train or eval mode follows `module.train()` /
+    `.eval()`; computes in fp32."""
+
+    def __init__(self, channels: int, momentum: float = 0.1,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x):
+        x = x.float()
+        if self.training:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(m * mean)
+                self.running_var.mul_(1.0 - m).add_(m * var)
+            return F.batch_norm(x, None, None, self.weight, self.bias,
+                                training=True, eps=self.eps)
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, training=False,
+                            eps=self.eps)
 
 
 def group_count(channels: int, num_groups: int = 32) -> int:
