@@ -65,7 +65,7 @@ Phases, in order; any failure exits non-zero:
    flash kernel must launch once per step at [8, 16, 8, 64] bf16; the EMA
    must equal the online weights after step 40 (the last warm copy:
    update_every 10, update_after_step 100) and differ from the final ones;
-   the checkpoint and its latest pointer must load back. Then generate 4
+   the checkpoint and its latest pointer must load back. Then generate 16
    images from that checkpoint (EMA weights) with a seeded random KL-VAE
    state dict: 151 forward launches, no backward launch.
 5c. Drive stage-1 VQ-GAN training, `python -m vqgan_tpu_torch.train_vqgan`,
@@ -97,8 +97,10 @@ Phases, in order; any failure exits non-zero:
    largest, log-likelihood 1e-4 relative;
    three ResNet18 `ClassifierExperiment` steps at 64 px, batch 8, lr 1e-5,
    same weights and batches: losses rtol 1e-4, first gradients 1e-3 of the
-   largest; Inception features of 2 images within 1e-4 of the largest; no
-   hand-written kernel launched.
+   largest, parameters after the steps within 2% of the CPU's move in norm
+   (over lr / 2 apart in at most 0.1% of the elements), running statistics
+   1e-4 of the largest; Inception features of 2 images within 1e-4 of the
+   largest; no hand-written kernel launched.
 5e. Drive the GMM split, the cluster validation, the classifier and FID at
    full width on 31 users x 60 seeded JPGs (256 px) with a random default
    KL-VAE saved as a checkpoint: `preprocess_latents_with_gmm` (one flash
@@ -106,10 +108,11 @@ Phases, in order; any failure exits non-zero:
    user; a sound split; each cluster's gen and class counts its
    largest-remainder quotas; exactly the 930 gen-train latents cached),
    `validate_cluster_number` for 2 users and k 2-4 (its JSON report),
-   `generate --random_init` for 4 users x 4 images (151 forwards each),
-   `classifier_experiment` on the real class-train images and those 16
-   synthetic ones for 2 epochs (finite losses, 310 test samples, the
-   results JSON, no hand-written kernel), and FID with a random-init
+   `generate --random_init` for 4 users x 16 images (151 forwards each, at
+   phase 3's unet_mid and vae_mid shapes), `classifier_experiment` on the
+   real class-train images and those 64 synthetic ones for 2 epochs
+   (finite losses, 310 test samples, the results JSON, no hand-written
+   kernel), and FID with a random-init
    Inception: test images against the generated ones (finite, >= 0) and
    against themselves (under 2 x 2048 x sqrt(eps) x the covariance's
    largest eigenvalue, the square root's rounding). Prints
@@ -1222,7 +1225,8 @@ def write_latent_data(work: Path, seed: int):
 def drive_training(torch, kernels, seed: int, work: Path):
     """Full-width training through `train_latent_cfg.main`: 41 steps, then a
     resume to step 50; then generation from its checkpoint. Returns
-    ({(kernel, shape): launches} of the training steps, latents/s)."""
+    ({(kernel, shape): launches} of the training steps and of that
+    generation, latents/s)."""
     from vqgan_tpu_torch import generate, train_latent_cfg
     from vqgan_tpu_torch.checkpoint import CheckpointManager
     from vqgan_tpu_torch.models import KLVAE
@@ -1289,16 +1293,18 @@ def drive_training(torch, kernels, seed: int, work: Path):
     reset_counts(kernels)
     result, gen_secs = run_generate(torch, [
         "--checkpoint", str(results), "--vae_weights", str(vae_pt),
-        "--num_images", "4", "--batch_size", "4", "--user_ids", "1",
+        "--num_images", "16", "--batch_size", "16", "--user_ids", "1",
         "--seed", str(seed), "--output_dir", str(OUT / "from_checkpoint")])
     gen_counts = read_counts(kernels)
-    check_images(result["images"], 4)
-    print(f"generate --checkpoint: 4 images in {gen_secs:.3f} s; launches "
+    check_images(result["images"], 16)
+    print(f"generate --checkpoint: 16 images in {gen_secs:.3f} s; launches "
           f"{gen_counts}")
     if kernels["flash_fwd"].launches != 151 or any(
             k.launches for name, k in kernels.items() if name != "flash_fwd"):
         fail(f"generation from the checkpoint: expected 151 forward "
              f"launches and no backward launch, got {gen_counts}")
+    for key, n in gen_counts.items():
+        counts[key] = counts.get(key, 0) + n
     return counts, rate
 
 
@@ -1541,7 +1547,10 @@ def check_small_gmm_classifier_fid(torch, kernels, seed: int):
       log-likelihood within 1e-4 relative.
     - Three `ClassifierExperiment` train steps of ResNet18 at 64 px, batch
       8, from the same weights on the same batches, at lr 1e-5: losses
-      rtol 1e-4, the first step's gradients within 1e-3 of the largest.
+      rtol 1e-4, the first step's gradients within 1e-3 of the largest,
+      the parameters after the steps within 2% of the CPU's move in norm
+      and off by over lr / 2 in at most 0.1% of the elements, the running
+      statistics within 1e-4 of the largest.
       (Adam's sign-like first steps move all 11M parameters by about lr
       and amplify fp32 rounding step by step, faster the larger lr; the
       CPU parity against the JAX package, tests/test_torch_port_
@@ -1587,10 +1596,11 @@ def check_small_gmm_classifier_fid(torch, kernels, seed: int):
         # labels must be equal up to that renumbering, the means in it
         pairs = set(zip(lg.tolist(), lc.tolist()))
         order = dict(pairs)
-        same = len(pairs) == len(order) == len(set(order.values()))
+        # every component holds points on both sides, one to one
+        same = len(pairs) == len(order) == len(set(order.values())) == k
         mean_err = mean_size = 0.0
         if same:
-            perm = [order.get(j, j) for j in range(k)]
+            perm = [order[j] for j in range(k)]
             means = torch.empty_like(pc.means)
             means[perm] = pg.means.cpu()
             mean_err = (means - pc.means).abs().max().item()
@@ -1617,6 +1627,8 @@ def check_small_gmm_classifier_fid(torch, kernels, seed: int):
     for dev in ("cpu", "cuda"):
         exp = ClassifierExperiment(num_classes=31, lr=lr, epochs=1,
                                    batch_size=batch, seed=seed, device=dev)
+        start = {k: v.detach().cpu().clone()
+                 for k, v in exp.model.named_parameters()}
         losses, grads = [], None
         for xb, yb in BatchLoader(items, batch, shuffle=True, seed=seed,
                                   drop_last=True):
@@ -1625,15 +1637,39 @@ def check_small_gmm_classifier_fid(torch, kernels, seed: int):
             if grads is None:
                 grads = torch.cat([p.grad.flatten().cpu()
                                    for p in exp.model.parameters()])
-        out[dev] = losses, grads
-    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+        state = {k: v.detach().cpu() for k, v in
+                 exp.model.state_dict().items()}
+        out[dev] = losses, grads, start, state
+    (lc, gc, p0, sc), (lg, gg, _, sg) = out["cpu"], out["cuda"]
     loss_err = max(abs(g - c) / abs(c) for g, c in zip(lg, lc))
     grad_err = (gg - gc).abs().max().item()
     grad_size = gc.abs().max().item()
+    # the parameters after the steps, by the rule of the CPU parity test
+    # (tests/test_torch_port_classifier.py): the card's differ from the
+    # CPU's by at most 2% of the CPU's move in norm, and by over lr / 2 in
+    # at most 0.1% of the elements; the running statistics within 1e-4 of
+    # each tensor's largest
+    diff = move = 0.0
+    miss = n = 0
+    for key, start in p0.items():
+        gap = sg[key] - sc[key]
+        diff += gap.double().square().sum().item()
+        move += (sc[key] - start).double().square().sum().item()
+        miss += int((gap.abs() > lr / 2).sum())
+        n += gap.numel()
+    move_rel = (diff / move) ** 0.5 if move > 0 else float("inf")
+    stat_err = max(
+        ((sg[k] - sc[k]).abs().max() / sc[k].abs().max()).item()
+        for k in sc if "running" in k)
     print(f"small classifier training, card vs CPU: losses card {lg} cpu "
           f"{lc} (max rel diff {loss_err:.3e}); max|grad diff| "
-          f"{grad_err:.3e} (max|grad| {grad_size:.3e})")
-    if len(lg) != n_steps or loss_err > 1e-4 or grad_err > 1e-3 * grad_size:
+          f"{grad_err:.3e} (max|grad| {grad_size:.3e}); parameters after "
+          f"{n_steps} steps: |card - cpu| / |cpu move| {move_rel:.3e}, "
+          f"{miss} of {n} elements over lr / 2; running statistics "
+          f"{stat_err:.3e} of the largest")
+    if len(lg) != n_steps or loss_err > 1e-4 or grad_err > 1e-3 * grad_size \
+            or not move_rel <= 0.02 or miss > 1e-3 * n \
+            or not stat_err <= 1e-4:
         fail("classifier training on the card disagrees with the CPU")
 
     pics = rng.random((2, 256, 256, 3)).astype(np.float32)
@@ -1726,9 +1762,10 @@ def drive_gmm_classifier_slice(torch, kernels, seed: int, work: Path,
       cache holds exactly the 930 gen-train latents, finite [32, 32, 4];
     - `validate_cluster_number --num_users 2 --k_min 2 --k_max 4`: its
       JSON report, 4 forwards per user;
-    - `generate --random_init --user_ids 1 2 3 4 --num_images 4` into
-      `ID_x` folders: 151 forwards per user (150 U-Net steps at [4, 16,
-      8, 64] bf16, 1 decode at [4, 1024, 1, 512] fp32);
+    - `generate --random_init --user_ids 1 2 3 4 --num_images 16` into
+      `ID_x` folders: 151 forwards per user (150 U-Net steps at [16, 16,
+      8, 64] bf16, 1 decode at [16, 1024, 1, 512] fp32, phase 3's
+      unet_mid and vae_mid rows);
     - `classifier_experiment` on the real class-train images and that
       synthetic folder (ResNet18 at 256 px, batch 64, Adam 1e-4, ImageNet
       normalisation), one seed, 2 epochs of 15: finite losses, 310 test
@@ -1853,22 +1890,25 @@ def drive_gmm_classifier_slice(torch, kernels, seed: int, work: Path,
           f"{[saved[u]['majority_vote'] for u in ('ID_1', 'ID_2')]}, "
           f"summary {saved['summary']}")
 
+    # one DDIM batch of 16 per user: the shapes of phase 3's unet_mid and
+    # vae_mid rows
     synth = work / "synthetic"
-    gen_users = (1, 2, 3, 4)
+    gen_users, per_gen = (1, 2, 3, 4), 16
     run_gated(
         torch, kernels, "generate (synthetic folder)",
         lambda: generate.main([
             "--random_init", "--seed", str(seed), "--user_ids",
-            *map(str, gen_users), "--num_images", "4", "--output_dir",
-            str(synth)]),
-        {("flash_fwd", (4, 16, 8, 64, "bfloat16")): 150 * len(gen_users),
-         ("flash_fwd", (4, latent * latent, 1, 512, "float32")):
+            *map(str, gen_users), "--num_images", str(per_gen),
+            "--output_dir", str(synth)]),
+        {("flash_fwd", (per_gen, 16, 8, 64, "bfloat16")):
+             150 * len(gen_users),
+         ("flash_fwd", (per_gen, latent * latent, 1, 512, "float32")):
              len(gen_users)},
         counts)
     n_synth = len(SyntheticDataset(synth, size))
-    if n_synth != 4 * len(gen_users):
+    if n_synth != per_gen * len(gen_users):
         fail(f"generate wrote {n_synth} images, expected "
-             f"{4 * len(gen_users)}")
+             f"{per_gen * len(gen_users)}")
 
     out = work / "classifier" / "results.json"
     result, secs = run_gated(

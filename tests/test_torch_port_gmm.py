@@ -9,7 +9,9 @@ JAX package.
   `jax.random.choice` draws them inside vqgan_tpu's `gmm_fit` and passed
   to the port as `init_idx`).
 - The diagonal fallback on degenerate inputs where JAX's full fit is NaN,
-  and the NaN semantics it rests on (a failed Cholesky, `jnp.argmax`).
+  and the NaN semantics it rests on (a failed Cholesky, `jnp.argmax`);
+  restarts that isolate about d points, where the packages may part: each
+  side's fit is finite and falls back exactly when its own full fit is NaN.
 - `gmm_predict`, `gmm_bic`, `gmm_aic`; the cluster metrics, the quotas and
   the stratified split, exactly equal on the same labels;
   `find_elbow_point`.
@@ -73,7 +75,8 @@ def clustered(seed, k=4, per=25, d=3, spread=5.0):
     few points as dims + 1: such a covariance is singular but for reg
     1e-6, its likelihood the largest of the restarts, and both its
     Cholesky's success and its log-likelihood are decided by fp32
-    rounding, which differs between the packages."""
+    rounding, which differs between the packages (`with_tight_group`
+    makes that case)."""
     rng = np.random.default_rng(seed)
     centers = rng.standard_normal((k, d)) * spread
     x = np.concatenate([c + rng.standard_normal((per, d)) for c in centers])
@@ -192,6 +195,57 @@ def test_degenerate_input_takes_the_diagonal_fallback_as_jax(case):
         np.asarray(jgmm.gmm_predict(want, jnp.asarray(x))))
     assert_rel(got.means.numpy(), want.means, FIT_RTOL, "means")
     assert ll == pytest.approx(float(want_ll), rel=LL_RTOL)
+
+
+def with_tight_group(seed, d=3):
+    """Three clusters of 25 points in d dims and a tight group of d + 1
+    points: restarts end with a component of d or d + 1 points, whose
+    covariance is singular but for reg 1e-6."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((3, d)) * 5
+    x = np.concatenate(
+        [c + rng.standard_normal((25, d)) for c in centers]
+        + [rng.standard_normal(d) * 5 + 0.01 * rng.standard_normal(
+            (d + 1, d))])
+    return x[rng.permutation(len(x))].astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_near_singular_restarts_keep_each_side_sound(seed):
+    """Where a restart isolates about d points, each package decides that
+    component's Cholesky, and so the fallback and the split, by its own
+    fp32 rounding: the two may part. What each must still do: a finite
+    fit, diagonal covariances exactly when its own best full-covariance
+    log-likelihood is NaN, and labels in range."""
+    x = with_tight_group(seed)
+    key, k = jax.random.PRNGKey(seed), 4
+    idx = jax_init_idx(key, len(x), k, 10)
+    params = gmm._init_params(_t(x), torch.from_numpy(idx))
+    for _ in range(100):
+        params, _ = gmm._em_step(_t(x), params, 1e-6, False)
+    smallest = (params.weights * len(x)).min(dim=1).values
+    # the case is there: some restart ends with <= d points or fails
+    assert ((smallest < x.shape[1] + 0.5) | smallest.isnan()).any()
+    for side in ("jax", "port"):
+        if side == "jax":
+            _, full_ll = jgmm._gmm_fit_impl(key, jnp.asarray(x), k, 10, 100,
+                                            jnp.float32(1e-6), False)
+            fit, ll = jgmm.gmm_fit(key, jnp.asarray(x), k, n_init=10)
+            labels = np.asarray(jgmm.gmm_predict(fit, jnp.asarray(x)))
+            covs = np.asarray(fit.covs)
+        else:
+            _, full_ll = gmm._gmm_fit_impl(_t(x), torch.from_numpy(idx),
+                                           100, 1e-6, False)
+            fit, ll = gmm.gmm_fit(None, _t(x), k, n_init=10, init_idx=idx)
+            labels = gmm.gmm_predict(fit, _t(x)).numpy()
+            covs = fit.covs.numpy()
+            assert fit.covariance_type == (
+                "full" if np.isfinite(full_ll) else "diag")
+        diag = bool((covs == covs * np.eye(x.shape[1])).all())
+        assert diag == (not np.isfinite(float(full_ll))), side
+        assert np.isfinite(float(ll)) and np.isfinite(covs).all(), side
+        assert labels.shape == (len(x),) and labels.min() >= 0 \
+            and labels.max() < k, side
 
 
 def test_failed_cholesky_and_argmax_are_nan_as_in_jax():

@@ -90,14 +90,14 @@ def _numpy(feats) -> np.ndarray:
     return np.asarray(feats)
 
 
-def make_inception_feature_fn(state_dict=None, dtype=torch.float32,
-                              seed: int = 0, device="cuda") -> Callable:
+def make_inception_feature_fn(state_dict=None, seed: int = 0,
+                              device="cuda") -> Callable:
     """images [B, H, W, 3] in [0, 1] (numpy or tensor) -> [B, 2048] fp32
     features on `device`. `state_dict`: torchvision / pytorch-fid
     InceptionV3 weights; None for flax's default init from `seed`."""
     device = resolve_device(device)
     model = InceptionV3Features(
-        dtype=dtype, generator=torch.Generator().manual_seed(seed))
+        generator=torch.Generator().manual_seed(seed))
     if state_dict is not None:
         load_inception_weights(model, state_dict)
     model = model.to(device).eval()

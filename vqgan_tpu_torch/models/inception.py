@@ -37,15 +37,15 @@ __all__ = ["BasicConv2d", "InceptionA", "InceptionB", "InceptionC",
 
 class BasicConv2d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
-                 stride=1, padding=0, dtype=torch.float32):
+                 stride=1, padding=0):
         super().__init__()
         self.conv = Conv2d(in_channels, out_channels, kernel_size, stride,
-                           padding, bias=False, dtype=dtype)
+                           padding, bias=False)
         self.bn = nn.BatchNorm2d(out_channels, eps=1e-3)
 
     def forward(self, x):
         bn = self.bn
-        x = F.batch_norm(self.conv(x).float(), bn.running_mean,
+        x = F.batch_norm(self.conv(x), bn.running_mean,
                          bn.running_var, bn.weight, bn.bias, training=False,
                          eps=bn.eps)
         return F.relu(x)
@@ -58,16 +58,15 @@ def _avg_pool_nopad(x):
 
 
 class InceptionA(nn.Module):
-    def __init__(self, in_channels: int, pool_features: int, dtype):
+    def __init__(self, in_channels: int, pool_features: int):
         super().__init__()
-        self.branch1x1 = BasicConv2d(in_channels, 64, 1, dtype=dtype)
-        self.branch5x5_1 = BasicConv2d(in_channels, 48, 1, dtype=dtype)
-        self.branch5x5_2 = BasicConv2d(48, 64, 5, padding=2, dtype=dtype)
-        self.branch3x3dbl_1 = BasicConv2d(in_channels, 64, 1, dtype=dtype)
-        self.branch3x3dbl_2 = BasicConv2d(64, 96, 3, padding=1, dtype=dtype)
-        self.branch3x3dbl_3 = BasicConv2d(96, 96, 3, padding=1, dtype=dtype)
-        self.branch_pool = BasicConv2d(in_channels, pool_features, 1,
-                                       dtype=dtype)
+        self.branch1x1 = BasicConv2d(in_channels, 64, 1)
+        self.branch5x5_1 = BasicConv2d(in_channels, 48, 1)
+        self.branch5x5_2 = BasicConv2d(48, 64, 5, padding=2)
+        self.branch3x3dbl_1 = BasicConv2d(in_channels, 64, 1)
+        self.branch3x3dbl_2 = BasicConv2d(64, 96, 3, padding=1)
+        self.branch3x3dbl_3 = BasicConv2d(96, 96, 3, padding=1)
+        self.branch_pool = BasicConv2d(in_channels, pool_features, 1)
 
     def forward(self, x):
         b1 = self.branch1x1(x)
@@ -78,13 +77,12 @@ class InceptionA(nn.Module):
 
 
 class InceptionB(nn.Module):
-    def __init__(self, in_channels: int, dtype):
+    def __init__(self, in_channels: int):
         super().__init__()
-        self.branch3x3 = BasicConv2d(in_channels, 384, 3, stride=2,
-                                     dtype=dtype)
-        self.branch3x3dbl_1 = BasicConv2d(in_channels, 64, 1, dtype=dtype)
-        self.branch3x3dbl_2 = BasicConv2d(64, 96, 3, padding=1, dtype=dtype)
-        self.branch3x3dbl_3 = BasicConv2d(96, 96, 3, stride=2, dtype=dtype)
+        self.branch3x3 = BasicConv2d(in_channels, 384, 3, stride=2)
+        self.branch3x3dbl_1 = BasicConv2d(in_channels, 64, 1)
+        self.branch3x3dbl_2 = BasicConv2d(64, 96, 3, padding=1)
+        self.branch3x3dbl_3 = BasicConv2d(96, 96, 3, stride=2)
 
     def forward(self, x):
         b3 = self.branch3x3(x)
@@ -94,25 +92,19 @@ class InceptionB(nn.Module):
 
 
 class InceptionC(nn.Module):
-    def __init__(self, in_channels: int, channels_7x7: int, dtype):
+    def __init__(self, in_channels: int, channels_7x7: int):
         super().__init__()
         c7 = channels_7x7
-        self.branch1x1 = BasicConv2d(in_channels, 192, 1, dtype=dtype)
-        self.branch7x7_1 = BasicConv2d(in_channels, c7, 1, dtype=dtype)
-        self.branch7x7_2 = BasicConv2d(c7, c7, (1, 7), padding=(0, 3),
-                                       dtype=dtype)
-        self.branch7x7_3 = BasicConv2d(c7, 192, (7, 1), padding=(3, 0),
-                                       dtype=dtype)
-        self.branch7x7dbl_1 = BasicConv2d(in_channels, c7, 1, dtype=dtype)
-        self.branch7x7dbl_2 = BasicConv2d(c7, c7, (7, 1), padding=(3, 0),
-                                          dtype=dtype)
-        self.branch7x7dbl_3 = BasicConv2d(c7, c7, (1, 7), padding=(0, 3),
-                                          dtype=dtype)
-        self.branch7x7dbl_4 = BasicConv2d(c7, c7, (7, 1), padding=(3, 0),
-                                          dtype=dtype)
-        self.branch7x7dbl_5 = BasicConv2d(c7, 192, (1, 7), padding=(0, 3),
-                                          dtype=dtype)
-        self.branch_pool = BasicConv2d(in_channels, 192, 1, dtype=dtype)
+        self.branch1x1 = BasicConv2d(in_channels, 192, 1)
+        self.branch7x7_1 = BasicConv2d(in_channels, c7, 1)
+        self.branch7x7_2 = BasicConv2d(c7, c7, (1, 7), padding=(0, 3))
+        self.branch7x7_3 = BasicConv2d(c7, 192, (7, 1), padding=(3, 0))
+        self.branch7x7dbl_1 = BasicConv2d(in_channels, c7, 1)
+        self.branch7x7dbl_2 = BasicConv2d(c7, c7, (7, 1), padding=(3, 0))
+        self.branch7x7dbl_3 = BasicConv2d(c7, c7, (1, 7), padding=(0, 3))
+        self.branch7x7dbl_4 = BasicConv2d(c7, c7, (7, 1), padding=(3, 0))
+        self.branch7x7dbl_5 = BasicConv2d(c7, 192, (1, 7), padding=(0, 3))
+        self.branch_pool = BasicConv2d(in_channels, 192, 1)
 
     def forward(self, x):
         b1 = self.branch1x1(x)
@@ -125,16 +117,14 @@ class InceptionC(nn.Module):
 
 
 class InceptionD(nn.Module):
-    def __init__(self, in_channels: int, dtype):
+    def __init__(self, in_channels: int):
         super().__init__()
-        self.branch3x3_1 = BasicConv2d(in_channels, 192, 1, dtype=dtype)
-        self.branch3x3_2 = BasicConv2d(192, 320, 3, stride=2, dtype=dtype)
-        self.branch7x7x3_1 = BasicConv2d(in_channels, 192, 1, dtype=dtype)
-        self.branch7x7x3_2 = BasicConv2d(192, 192, (1, 7), padding=(0, 3),
-                                         dtype=dtype)
-        self.branch7x7x3_3 = BasicConv2d(192, 192, (7, 1), padding=(3, 0),
-                                         dtype=dtype)
-        self.branch7x7x3_4 = BasicConv2d(192, 192, 3, stride=2, dtype=dtype)
+        self.branch3x3_1 = BasicConv2d(in_channels, 192, 1)
+        self.branch3x3_2 = BasicConv2d(192, 320, 3, stride=2)
+        self.branch7x7x3_1 = BasicConv2d(in_channels, 192, 1)
+        self.branch7x7x3_2 = BasicConv2d(192, 192, (1, 7), padding=(0, 3))
+        self.branch7x7x3_3 = BasicConv2d(192, 192, (7, 1), padding=(3, 0))
+        self.branch7x7x3_4 = BasicConv2d(192, 192, 3, stride=2)
 
     def forward(self, x):
         b3 = self.branch3x3_2(self.branch3x3_1(x))
@@ -149,23 +139,18 @@ class InceptionE(nn.Module):
     """pool_mode "avg" (Mixed_7b) or "max" (Mixed_7c, pytorch-fid's
     patch)."""
 
-    def __init__(self, in_channels: int, pool_mode: str, dtype):
+    def __init__(self, in_channels: int, pool_mode: str):
         super().__init__()
         self.pool_mode = pool_mode
-        self.branch1x1 = BasicConv2d(in_channels, 320, 1, dtype=dtype)
-        self.branch3x3_1 = BasicConv2d(in_channels, 384, 1, dtype=dtype)
-        self.branch3x3_2a = BasicConv2d(384, 384, (1, 3), padding=(0, 1),
-                                        dtype=dtype)
-        self.branch3x3_2b = BasicConv2d(384, 384, (3, 1), padding=(1, 0),
-                                        dtype=dtype)
-        self.branch3x3dbl_1 = BasicConv2d(in_channels, 448, 1, dtype=dtype)
-        self.branch3x3dbl_2 = BasicConv2d(448, 384, 3, padding=1,
-                                          dtype=dtype)
-        self.branch3x3dbl_3a = BasicConv2d(384, 384, (1, 3), padding=(0, 1),
-                                           dtype=dtype)
-        self.branch3x3dbl_3b = BasicConv2d(384, 384, (3, 1), padding=(1, 0),
-                                           dtype=dtype)
-        self.branch_pool = BasicConv2d(in_channels, 192, 1, dtype=dtype)
+        self.branch1x1 = BasicConv2d(in_channels, 320, 1)
+        self.branch3x3_1 = BasicConv2d(in_channels, 384, 1)
+        self.branch3x3_2a = BasicConv2d(384, 384, (1, 3), padding=(0, 1))
+        self.branch3x3_2b = BasicConv2d(384, 384, (3, 1), padding=(1, 0))
+        self.branch3x3dbl_1 = BasicConv2d(in_channels, 448, 1)
+        self.branch3x3dbl_2 = BasicConv2d(448, 384, 3, padding=1)
+        self.branch3x3dbl_3a = BasicConv2d(384, 384, (1, 3), padding=(0, 1))
+        self.branch3x3dbl_3b = BasicConv2d(384, 384, (3, 1), padding=(1, 0))
+        self.branch_pool = BasicConv2d(in_channels, 192, 1)
 
     def forward(self, x):
         b1 = self.branch1x1(x)
@@ -185,37 +170,30 @@ class InceptionE(nn.Module):
 class InceptionV3Features(nn.Module):
     """Pool-2048 FID features: [B, 3, H, W] in [0, 1] -> [B, 2048] fp32."""
 
-    def __init__(self, dtype=torch.float32, resize_input: bool = True,
-                 normalize_input: bool = True, generator=None):
+    def __init__(self, generator=None):
         super().__init__()
-        self.dtype = dtype
-        self.resize_input = resize_input
-        self.normalize_input = normalize_input
-        self.Conv2d_1a_3x3 = BasicConv2d(3, 32, 3, stride=2, dtype=dtype)
-        self.Conv2d_2a_3x3 = BasicConv2d(32, 32, 3, dtype=dtype)
-        self.Conv2d_2b_3x3 = BasicConv2d(32, 64, 3, padding=1, dtype=dtype)
-        self.Conv2d_3b_1x1 = BasicConv2d(64, 80, 1, dtype=dtype)
-        self.Conv2d_4a_3x3 = BasicConv2d(80, 192, 3, dtype=dtype)
-        self.Mixed_5b = InceptionA(192, 32, dtype)
-        self.Mixed_5c = InceptionA(256, 64, dtype)
-        self.Mixed_5d = InceptionA(288, 64, dtype)
-        self.Mixed_6a = InceptionB(288, dtype)
-        self.Mixed_6b = InceptionC(768, 128, dtype)
-        self.Mixed_6c = InceptionC(768, 160, dtype)
-        self.Mixed_6d = InceptionC(768, 160, dtype)
-        self.Mixed_6e = InceptionC(768, 192, dtype)
-        self.Mixed_7a = InceptionD(768, dtype)
-        self.Mixed_7b = InceptionE(1280, "avg", dtype)
-        self.Mixed_7c = InceptionE(2048, "max", dtype)
+        self.Conv2d_1a_3x3 = BasicConv2d(3, 32, 3, stride=2)
+        self.Conv2d_2a_3x3 = BasicConv2d(32, 32, 3)
+        self.Conv2d_2b_3x3 = BasicConv2d(32, 64, 3, padding=1)
+        self.Conv2d_3b_1x1 = BasicConv2d(64, 80, 1)
+        self.Conv2d_4a_3x3 = BasicConv2d(80, 192, 3)
+        self.Mixed_5b = InceptionA(192, 32)
+        self.Mixed_5c = InceptionA(256, 64)
+        self.Mixed_5d = InceptionA(288, 64)
+        self.Mixed_6a = InceptionB(288)
+        self.Mixed_6b = InceptionC(768, 128)
+        self.Mixed_6c = InceptionC(768, 160)
+        self.Mixed_6d = InceptionC(768, 160)
+        self.Mixed_6e = InceptionC(768, 192)
+        self.Mixed_7a = InceptionD(768)
+        self.Mixed_7b = InceptionE(1280, "avg")
+        self.Mixed_7c = InceptionE(2048, "max")
         lecun_normal_init_(self, generator)
 
     def forward(self, x):
-        if self.resize_input:
-            x = F.interpolate(x.float(), size=(299, 299), mode="bilinear",
-                              align_corners=False, antialias=True)
-        if self.normalize_input:
-            x = x * 2.0 - 1.0
-        x = x.to(self.dtype)
+        x = F.interpolate(x.float(), size=(299, 299), mode="bilinear",
+                          align_corners=False, antialias=True)
+        x = x * 2.0 - 1.0
         x = self.Conv2d_2b_3x3(self.Conv2d_2a_3x3(self.Conv2d_1a_3x3(x)))
         x = F.max_pool2d(x, 3, 2)
         x = self.Conv2d_4a_3x3(self.Conv2d_3b_1x1(x))
@@ -223,7 +201,7 @@ class InceptionV3Features(nn.Module):
         for name in ("5b", "5c", "5d", "6a", "6b", "6c", "6d", "6e", "7a",
                      "7b", "7c"):
             x = getattr(self, f"Mixed_{name}")(x)
-        return x.float().mean(dim=(2, 3))
+        return x.mean(dim=(2, 3))
 
 
 def load_inception_weights(model: InceptionV3Features, state) -> \

@@ -14,14 +14,13 @@ biased running variance). Parameter names are torchvision's (`conv1`,
 `layer{i}_block{j}` / `downsample_conv` / `downsample_bn` onto them.
 A fresh model takes flax's default initialisation (`lecun_normal_init_`,
 from `generator`), which the JAX package's ResNet keeps: it sets no
-kernel_init. Convolutions compute in `dtype`; norms and the head in fp32.
+kernel_init. Everything computes in fp32.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
-import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -31,20 +30,17 @@ __all__ = ["BasicBlock", "ResNet", "ResNet18"]
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, in_channels: int, filters: int, stride: int = 1,
-                 dtype=torch.float32):
+    def __init__(self, in_channels: int, filters: int, stride: int = 1):
         super().__init__()
         self.conv1 = Conv2d(in_channels, filters, 3, stride, padding=1,
-                            bias=False, dtype=dtype)
+                            bias=False)
         self.bn1 = BatchNorm(filters)
-        self.conv2 = Conv2d(filters, filters, 3, padding=1, bias=False,
-                            dtype=dtype)
+        self.conv2 = Conv2d(filters, filters, 3, padding=1, bias=False)
         self.bn2 = BatchNorm(filters)
         self.downsample = None
         if stride != 1 or in_channels != filters:
             self.downsample = nn.Sequential(
-                Conv2d(in_channels, filters, 1, stride, bias=False,
-                       dtype=dtype),
+                Conv2d(in_channels, filters, 1, stride, bias=False),
                 BatchNorm(filters))
 
     def forward(self, x):
@@ -59,11 +55,9 @@ class ResNet(nn.Module):
     features [B, width * 8]) with return_features."""
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int,
-                 width: int = 64, dtype=torch.float32, generator=None):
+                 width: int = 64, generator=None):
         super().__init__()
-        self.dtype = dtype
-        self.conv1 = Conv2d(3, width, 7, 2, padding=3, bias=False,
-                            dtype=dtype)
+        self.conv1 = Conv2d(3, width, 7, 2, padding=3, bias=False)
         self.bn1 = BatchNorm(width)
         channels = width
         for i, n_blocks in enumerate(stage_sizes):
@@ -71,7 +65,7 @@ class ResNet(nn.Module):
             for j in range(n_blocks):
                 filters = width * 2**i
                 stride = 2 if i > 0 and j == 0 else 1
-                blocks.append(BasicBlock(channels, filters, stride, dtype))
+                blocks.append(BasicBlock(channels, filters, stride))
                 channels = filters
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.n_stages = len(stage_sizes)
@@ -79,17 +73,17 @@ class ResNet(nn.Module):
         lecun_normal_init_(self, generator)
 
     def forward(self, x, return_features: bool = False):
-        x = F.relu(self.bn1(self.conv1(x.to(self.dtype))))
+        x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1)
         for i in range(self.n_stages):
             x = getattr(self, f"layer{i + 1}")(x)
-        feats = x.float().mean(dim=(2, 3))
+        feats = x.mean(dim=(2, 3))
         logits = self.fc(feats)
         if return_features:
             return logits, feats
         return logits
 
 
-def ResNet18(num_classes: int, dtype=torch.float32, generator=None) -> ResNet:
+def ResNet18(num_classes: int, generator=None) -> ResNet:
     return ResNet(stage_sizes=(2, 2, 2, 2), num_classes=num_classes,
-                  dtype=dtype, generator=generator)
+                  generator=generator)
