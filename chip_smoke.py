@@ -25,11 +25,16 @@ Phases, in order; any failure exits non-zero:
    [8192,256]x[128,256], at K = 8192, at ragged shapes (D = 40; D = 33,
    which the wrapper pads; D = 300, past the kernel's 256 resident
    columns) and on a codebook of repeated rows, with its fused usage
-   histogram against bincount. Time
-   each kernel, its plain version and one PyTorch library call at the main
-   paths' shapes (and a few others), the kernel and the library call also
-   as device time (in a CUDA graph), and compute the bound. For bf16,
-   print the share of elements that differ from the plain version's.
+   histogram against bincount; and every other shape the end-to-end demo
+   launches (the VQ-GAN at 128 px: flash forward and backward at
+   [8,256,1,512] bf16, forward at [16,256,1,512], VQ at [2048,256] and
+   [4096,256] x [128,256]; serving at batch 4). Time each kernel through
+   its operator (the host time every path pays; the flash forward also
+   through its ctypes wrapper alone), its plain version and one PyTorch
+   library call at the main paths' shapes (and a few others), the kernel
+   and the library call also as device time (in a CUDA graph), and
+   compute the bound. For bf16, print the share of elements that differ
+   from the plain version's.
 4. Run the generation slice on a small input (tiny U-Net and KL-VAE in
    fp32, 5 DDIM steps at cond_scale 3.0 with injected noise, then the
    decode) on the card and on the CPU, where attention takes the plain
@@ -120,6 +125,27 @@ Phases, in order; any failure exits non-zero:
    diagonal covariances, classifier training images/s over epoch 2 (and
    the loader's alone, and the step's on a batch resident on the card),
    Inception images/s, the FIDs and the phase's seconds.
+5f. Drive the serving path at full width through its entry points, from
+   the checkpoints of 5b (LDM, with its seeded KL-VAE), 5c (VQ-GAN) and
+   5d (KL-VAE): `export_serving --selftest` at batch 16, cond_scale 1.0
+   and 3.0 / rescaled_phi 0.7 (artifact vs live pipeline within rtol
+   1e-4, atol 1e-5; 151 flash forwards per generated batch, counted
+   through the operators, and no other launch); one DDIM step timed in
+   turns as the live module, as the served program and as the program
+   with the no-op nodes `torch.export` keeps (one forward launch each);
+   two live decodes of one batch, which must agree bit for bit with cuDNN
+   held to deterministic algorithms (the selftests run so);
+   `serve_generate` of 2 users x 16 (the JPG layout, finite images); `serve_http --port 0` in a
+   subprocess (/healthz warm, POSTs of 2 images returning 256 x 256 JPEGs,
+   user_id 0 answered 400); the VQ codec of 5c's milestone at batch 8
+   (`--mode vq_codec --selftest`: indices equal to the live codec's; 1 VQ
+   launch at [8192,256]x[128,256] and 1 forward at [8,1024,1,512] bf16 per
+   encode, 1 forward per decode), its encode and decode timed; and
+   `diagnose_latent_range` of 5d's KL-VAE and 5c's VQ-GAN over 100 images
+   (finite statistics). Prints, each beside the card's name and power
+   limit, the export seconds and bytes of each program, the step's host
+   ms, serve_generate's samples/s beside phase 5's, the HTTP latency per
+   request and the codec's ms per batch.
 6. Print the kernels' JSON line, then the card line, then the device line.
 """
 
@@ -274,6 +300,13 @@ def attention_cases():
         ("ragged_d128_bf16", 2, 70, 50, 2, 128, "bfloat16", False),
         ("ragged_d256", 1, 80, 90, 2, 256, "float32", False),
         ("ragged_d256_bf16", 1, 80, 90, 2, 256, "bfloat16", False),
+        # the end-to-end demo's other shapes: the VQ-GAN at 128 px
+        # (training and grids; the latent audit's batches of 16) and the
+        # serving stage's batch of 4 (U-Net, decode)
+        ("vqvae128_mid_train", 8, 256, 256, 1, 512, "bfloat16", False),
+        ("vqvae128_mid", 16, 256, 256, 1, 512, "bfloat16", False),
+        ("unet_mid_b4", 4, 16, 16, 8, 64, "bfloat16", False),
+        ("vae_mid_b4", 4, 1024, 1024, 1, 512, "float32", False),
     ]
 
 
@@ -281,6 +314,7 @@ def check_flash_fwd(torch, peaks, seed: int):
     import torch.nn.functional as F
 
     from vqgan_tpu_torch.kernels.flash_fwd import flash_fwd
+    from vqgan_tpu_torch.kernels.ops import flash_fwd_op
     from vqgan_tpu_torch.ops.attention import flash_forward_reference
 
     rows = {}
@@ -315,8 +349,13 @@ def check_flash_fwd(torch, peaks, seed: int):
             continue
 
         iters = 20 if s_q >= 1024 else 200
-        kernel_ms = cuda_ms(torch, lambda: flash_fwd(q, k, v, scale), iters)
-        dev_ms = device_ms(torch, lambda: flash_fwd(q, k, v, scale), iters)
+        # the kernel as every path reaches it, through its operator; and
+        # the ctypes wrapper under it, called directly
+        kernel_ms = cuda_ms(torch, lambda: flash_fwd_op(q, k, v, scale),
+                            iters)
+        wrapper_ms = cuda_ms(torch, lambda: flash_fwd(q, k, v, scale), iters)
+        dev_ms = device_ms(torch, lambda: flash_fwd_op(q, k, v, scale),
+                           iters)
         plain_ms = cuda_ms(
             torch, lambda: flash_forward_reference(q, k, v, scale), iters)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -347,7 +386,8 @@ def check_flash_fwd(torch, peaks, seed: int):
             "library_ms": library_ms,
         }
         print(f"flash_fwd {label}: kernel_ms={kernel_ms:.4f} "
-              f"(device {dev_ms:.4f}) plain_ms={plain_ms:.4f} "
+              f"(device {dev_ms:.4f}; the wrapper without the operator "
+              f"{wrapper_ms:.4f}) plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} (device {lib_dev_ms:.4f}) "
               f"bound_ms={bound_ms:.6f} ({bound_by})")
     check_layout_refused(torch)
@@ -412,6 +452,9 @@ def bwd_cases():
         ("ragged_d256", 1, 80, 90, 2, 256, "float32", False, False, False),
         ("ragged_d256_bf16", 1, 80, 90, 2, 256, "bfloat16", False, True,
          False),
+        # the end-to-end demo's VQ-GAN at 128 px
+        ("vqvae128_mid_train", 8, 256, 256, 1, 512, "bfloat16", False,
+         False, False),
     ]
 
 
@@ -457,6 +500,7 @@ def check_flash_bwd(torch, peaks, seed: int):
 
     from vqgan_tpu_torch.kernels.flash_bwd import flash_bwd_dkv, flash_bwd_dq
     from vqgan_tpu_torch.kernels.flash_fwd import flash_fwd
+    from vqgan_tpu_torch.kernels.ops import flash_bwd_dkv_op, flash_bwd_dq_op
     from vqgan_tpu_torch.ops.attention import (
         flash_bwd_dkv_reference,
         flash_bwd_dq_reference,
@@ -532,15 +576,15 @@ def check_flash_bwd(torch, peaks, seed: int):
 
         iters = 20 if s_q >= 1024 else 200
         ms = {
-            "flash_bwd_dq": cuda_ms(torch, lambda: flash_bwd_dq(
+            "flash_bwd_dq": cuda_ms(torch, lambda: flash_bwd_dq_op(
                 q, k, v, do, lse, delta, scale), iters),
-            "flash_bwd_dkv": cuda_ms(torch, lambda: flash_bwd_dkv(
+            "flash_bwd_dkv": cuda_ms(torch, lambda: flash_bwd_dkv_op(
                 q, k, v, do, lse, delta, scale), iters),
         }
         dev = {
-            "flash_bwd_dq": device_ms(torch, lambda: flash_bwd_dq(
+            "flash_bwd_dq": device_ms(torch, lambda: flash_bwd_dq_op(
                 q, k, v, do, lse, delta, scale), iters),
-            "flash_bwd_dkv": device_ms(torch, lambda: flash_bwd_dkv(
+            "flash_bwd_dkv": device_ms(torch, lambda: flash_bwd_dkv_op(
                 q, k, v, do, lse, delta, scale), iters),
         }
         plain = {
@@ -647,6 +691,10 @@ def vq_cases():
         ("ties", 777, 130, 40, True, False),
         ("ragged_d33", 777, 130, 33, False, False),
         ("wide_d300", 300, 70, 300, False, False),
+        # the end-to-end demo's VQ-GAN at 128 px: training (batch 8) and
+        # the latent audit (batch 16)
+        ("vqgan128_train", 2048, 128, 256, False, False),
+        ("vqgan128_audit", 4096, 128, 256, False, False),
     ]
 
 
@@ -663,6 +711,7 @@ def check_vq(torch, peaks, seed: int):
     indices agree, the fused usage histogram against `bincount`. Times the
     kernel, the plain version and the reference's own route (addmm,
     argmin, index_select) at the timed shapes."""
+    from vqgan_tpu_torch.kernels.ops import vq_nearest_op
     from vqgan_tpu_torch.kernels.vq import vq_nearest
     from vqgan_tpu_torch.ops.vq import (
         codebook_usage,
@@ -709,8 +758,10 @@ def check_vq(torch, peaks, seed: int):
                 continue
 
             iters = 20 if k >= 8192 else 200
+            # the host time through the operator (which also computes
+            # |e|^2), the device time of the kernel alone
             kernel_ms = cuda_ms(
-                torch, lambda: vq_nearest(z, cb, e_sq, mode), iters)
+                torch, lambda: vq_nearest_op(z, cb, mode), iters)
             dev_ms = device_ms(
                 torch, lambda: vq_nearest(z, cb, e_sq, mode), iters)
             plain_ms = cuda_ms(
@@ -1994,6 +2045,312 @@ def drive_gmm_classifier_slice(torch, kernels, seed: int, work: Path,
     return counts, metrics
 
 
+def wait_for_port(proc, timeout: float) -> int:
+    """The port a `serve_http` subprocess announces on its startup line;
+    fails if it exits or stays silent for `timeout` seconds."""
+    import re
+
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        line = proc.stdout.readline()
+        if not line and proc.poll() is not None:
+            fail(f"serve_http exited ({proc.returncode}) before it served")
+        print(f"  serve_http: {line.rstrip()}")
+        m = re.search(r"serving on http://[\d.]+:(\d+)", line)
+        if m:
+            return int(m.group(1))
+    fail(f"serve_http announced no port within {timeout} s")
+
+
+def http_json(url: str, body: dict | None = None, timeout: float = 300):
+    """(status, JSON reply) of a GET, or of a POST of `body`."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def time_served_step(torch, kernels, counts, card: str, ldm_results: Path,
+                     artifact: Path, unet_key) -> dict:
+    """Host ms of one DDIM step at batch 16, cond_scale 1.0, in turns in
+    this process: the live `DDIMStep` of the checkpoint, the artifact's
+    step program as `load_program` gives it, and the same program with the
+    no-op nodes that `torch.export` keeps. One flash forward per step, and
+    no other launch. Returns {variant: [ms per step of each turn]}."""
+    import torch.export as export
+
+    from vqgan_tpu_torch import generate
+    from vqgan_tpu_torch.diffusion.gaussian import DDIMStep
+    from vqgan_tpu_torch.serving import load_program
+
+    config, weights = generate.load_checkpoint(ldm_results)
+    diffusion, _ = generate.load_model(config, weights, "cuda")
+    variants = {"live": DDIMStep(diffusion, 1.0, 0.0),
+                "served": load_program(artifact / "step.pt2"),
+                "served, no-op nodes kept":
+                    export.load(str(artifact / "step.pt2")).module()}
+    g = torch.Generator("cuda").manual_seed(0)
+    img = torch.randn((16, 4, 32, 32), generator=g, device="cuda")
+    noise = torch.randn((16, 4, 32, 32), generator=g, device="cuda")
+    t = torch.full((16,), 999, dtype=torch.long, device="cuda")
+    t_next = torch.full((16,), 992, dtype=torch.long, device="cuda")
+    classes = torch.zeros((16,), dtype=torch.long, device="cuda")
+    steps, turns = 20, 3
+    times = {name: [] for name in variants}
+
+    def run():
+        with torch.inference_mode():
+            for _ in range(turns):
+                for name, step in variants.items():
+                    step(img, t, t_next, classes, noise)  # warm
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(steps):
+                        step(img, t, t_next, classes, noise)
+                    torch.cuda.synchronize()
+                    times[name].append(
+                        (time.perf_counter() - t0) / steps * 1e3)
+
+    run_gated(torch, kernels, "DDIM step timing", run,
+              {("flash_fwd", unet_key): turns * len(variants) * (steps + 1)},
+              counts)
+    print(f"[{card}] one DDIM step at batch 16, cond_scale 1.0, host ms in "
+          f"{turns} turns of {steps}: " + "; ".join(
+              f"{name} {', '.join(f'{v:.3f}' for v in vals)}"
+              for name, vals in times.items()))
+    return times
+
+
+def decode_repeatability(torch, kernels, counts, card: str, vae_pt: Path,
+                         vae_key) -> dict:
+    """max |difference| of two decodes of the same latents (batch 16,
+    256 px, fp32) by the live KL-VAE, with cuDNN's default algorithms and
+    with deterministic ones; the second must be 0, since the selftests
+    compare the artifact and the live pipeline under it. One flash
+    forward per decode."""
+    from vqgan_tpu_torch import generate
+
+    vae = generate.load_vae(vae_pt, device="cuda")
+    z = torch.randn((16, 32, 32, 4), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    out = {}
+
+    def run():
+        with torch.inference_mode():
+            for deterministic in (False, True):
+                torch.backends.cudnn.deterministic = deterministic
+                first, second = vae.decode_latents(z), vae.decode_latents(z)
+                out[deterministic] = (first - second).abs().max().item()
+        torch.backends.cudnn.deterministic = False
+
+    run_gated(torch, kernels, "decode twice", run, {("flash_fwd", vae_key): 4},
+              counts)
+    print(f"[{card}] two live decodes of one batch of 16: max|d| "
+          f"{out[False]:.3e} with cuDNN's default algorithms, "
+          f"{out[True]:.3e} with deterministic ones")
+    if out[True] != 0.0:
+        fail("two deterministic decodes differ: the selftests' premise")
+    return {"default": out[False], "deterministic": out[True]}
+
+
+def drive_serving(torch, kernels, seed: int, work: Path, card: str,
+                  ldm_results: Path, vae_pt: Path, vqgan_ckpt: Path,
+                  kl_ckpt: Path, images: Path, generate_rates: dict):
+    """Phase 5f, the serving path at full width through its entry points:
+    - `export_serving --selftest` of phase 5b's LDM checkpoint with its
+      seeded KL-VAE at batch 16, at cond_scale 1.0 and at 3.0 / rescaled_phi
+      0.7: the artifact against the live pipeline within rtol 1e-4, atol
+      1e-5; 151 flash forwards per generated batch (the artifact's and the
+      live one): 150 at [16 or 32, 16, 8, 64] bf16 and 1 at [16, 1024, 1,
+      512] fp32, and no other launch;
+    - one DDIM step timed live and served, in turns (`time_served_step`);
+    - two live decodes of one batch, with cuDNN's default algorithms and
+      with deterministic ones, which must agree bit for bit;
+    - `serve_generate` of 2 users x 16 images from the cond_scale 1.0
+      artifact: the JPG layout, finite images, 151 forwards per batch;
+    - `serve_http --port 0` in a subprocess: /healthz warm, one POST of 2
+      images (two decodable 256 x 256 JPEGs), user_id 0 answered 400;
+    - `export_serving --mode vq_codec --selftest` of phase 5c's last VQ-GAN
+      milestone at batch 8, 256 px: indices equal to the live codec's, the
+      reconstruction within rtol 1e-4, atol 1e-5; per encode 1 VQ launch
+      at [8192,256]x[128,256] and 1 flash forward at [8, 1024, 1, 512]
+      bf16, per decode 1 forward; then encode and decode timed;
+    - `diagnose_latent_range` of phase 5d's KL-VAE milestone (batches of
+      16: [16, 1024, 1, 512] fp32) and of the VQ-GAN (batches of 8) over
+      100 of 5d's images: finite statistics.
+    Returns ({(kernel, shape): launches}, {metric: value})."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    from vqgan_tpu_torch import (
+        diagnose_latent_range,
+        export_serving,
+        serve_generate,
+    )
+    from vqgan_tpu_torch.serving import load_vq_codec
+
+    t_phase = time.perf_counter()
+    counts, metrics = {}, {}
+    unet_key = {1.0: (16, 16, 8, 64, "bfloat16"),
+                3.0: (32, 16, 8, 64, "bfloat16")}
+    vae_key = (16, 1024, 1, 512, "float32")
+    vq_key, codec_key = (8192, 128, 256, "fp32"), (8, 1024, 1, 512,
+                                                   "bfloat16")
+
+    def gated(label, fn, expected):
+        return run_gated(torch, kernels, label, fn, expected, counts)
+
+    def per_batch(cond_scale, n_batches):
+        return {("flash_fwd", unet_key[cond_scale]): 150 * n_batches,
+                ("flash_fwd", vae_key): n_batches}
+
+    artifacts = {}
+    for cond_scale, phi in ((1.0, 0.0), (3.0, 0.7)):
+        out = artifacts[cond_scale] = work / f"cfg_sampler_{cond_scale}"
+        # the selftest generates one batch from the artifact and one from
+        # the live pipeline
+        result, secs = gated(
+            f"export_serving cond_scale {cond_scale} --selftest",
+            lambda: export_serving.main([
+                "--checkpoint", str(ldm_results), "--vae_path", str(vae_pt),
+                "--out", str(out), "--batch_size", "16", "--cond_scale",
+                str(cond_scale), "--rescaled_phi", str(phi), "--selftest"]),
+            per_batch(cond_scale, 2))
+        programs = result["meta"]["programs"]
+        err = result["selftest"]["max_abs_diff"]
+        metrics[f"export cond_scale {cond_scale}"] = {
+            "programs": programs, "selftest_max_abs_diff": err,
+            "whole_call_s": secs}
+        print(f"[{card}] export_serving cond_scale {cond_scale}: "
+              + ", ".join(f"{k}.pt2 exported and saved in "
+                          f"{v['seconds']:.3f} s, {v['bytes']} bytes"
+                          for k, v in programs.items())
+              + f"; selftest max|artifact - live| {err:.3e}")
+
+    metrics["step_ms"] = time_served_step(torch, kernels, counts, card,
+                                          ldm_results, artifacts[1.0],
+                                          unet_key[1.0])
+    metrics["decode_repeat"] = decode_repeatability(
+        torch, kernels, counts, card, vae_pt, vae_key)
+
+    result, secs = gated(
+        "serve_generate 2 users x 16",
+        lambda: serve_generate.main([
+            "--artifact", str(artifacts[1.0]), "--output_dir",
+            str(OUT / "served"), "--user_ids", "1", "2", "--num_images",
+            "16", "--seed", str(seed)]),
+        per_batch(1.0, 2))
+    check_images(result["images"], 32)
+    rate = 32 / sum(result["batch_seconds"])
+    metrics["serve_generate_samples_per_s"] = rate
+    print(f"[{card}] serve_generate: {rate:.4f} samples/s at batch 16, "
+          f"cond_scale 1.0 (phase 5's generate: "
+          f"{generate_rates['cond_scale 1.0']:.4f}); whole call "
+          f"{secs:.3f} s")
+
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "vqgan_tpu_torch.serve_http",
+         "--artifact", str(artifacts[1.0]), "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT)
+    try:
+        port = wait_for_port(proc, 300)
+        base = f"http://127.0.0.1:{port}"
+        status, health = http_json(f"{base}/healthz")
+        if status != 200 or health.get("warm") is not True:
+            fail(f"/healthz: {status} {health}")
+        latencies = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            status, reply = http_json(f"{base}/generate", {
+                "user_id": 2, "num_images": 2, "seed": seed + i})
+            latencies.append(time.perf_counter() - t0)
+            if status != 200 or len(reply.get("images", [])) != 2:
+                fail(f"/generate: {status} {str(reply)[:200]}")
+        for b64 in reply["images"]:
+            with Image.open(io.BytesIO(base64.b64decode(b64))) as img:
+                if img.size != (256, 256) or img.mode != "RGB":
+                    fail(f"/generate returned a {img.size} {img.mode} image")
+        status, bad = http_json(f"{base}/generate", {"user_id": 0})
+        if status != 400:
+            fail(f"/generate with user_id 0 answered {status}, not 400")
+        metrics["http_latency_s"] = latencies
+        print(f"[{card}] serve_http: /healthz warm; 3 requests of 2 images "
+              f"(a batch of 16 each) in {latencies} s (the daemon's own: "
+              f"{reply['latency_s']:.4f} s for the last); user_id 0 -> 400")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+    codec = work / "vq_codec"
+    result, secs = gated(
+        "export_serving vq_codec --selftest",
+        lambda: export_serving.main([
+            "--mode", "vq_codec", "--vqgan_path", str(vqgan_ckpt), "--out",
+            str(codec), "--batch_size", "8", "--image_size", "256",
+            "--selftest"]),
+        # the artifact's encode and decode, then the live codec's
+        {("vq_nearest", vq_key): 2, ("flash_fwd", codec_key): 4})
+    programs = result["meta"]["programs"]
+    print(f"[{card}] export_serving vq_codec: "
+          + ", ".join(f"{k}.pt2 exported and saved in {v['seconds']:.3f} s, "
+                      f"{v['bytes']} bytes" for k, v in programs.items())
+          + f"; selftest: indices equal, recon max|d| "
+            f"{result['selftest']['recon_max_abs_diff']:.3e}, "
+            f"{result['selftest']['codes_used']} codes used")
+    metrics["codec_export"] = programs
+    enc, dec = load_vq_codec(codec)
+    x = torch.rand((8, 256, 256, 3), device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(seed))
+    idx = enc(x)
+    dec(idx)  # warm
+    reps = 5
+    _, enc_s = gated("codec encode x5", lambda: [enc(x) for _ in range(reps)],
+                     {("vq_nearest", vq_key): reps,
+                      ("flash_fwd", codec_key): reps})
+    _, dec_s = gated("codec decode x5",
+                     lambda: [dec(idx) for _ in range(reps)],
+                     {("flash_fwd", codec_key): reps})
+    metrics["codec_encode_ms"] = enc_s / reps * 1e3
+    metrics["codec_decode_ms"] = dec_s / reps * 1e3
+    print(f"[{card}] VQ codec at batch 8, 256 px: encode "
+          f"{metrics['codec_encode_ms']:.3f} ms, decode "
+          f"{metrics['codec_decode_ms']:.3f} ms per batch (host, the card "
+          f"synchronised at both ends of 5 batches)")
+
+    for label, flag, ckpt, batch, expected in (
+            ("KL-VAE", "--vae_path", kl_ckpt, 16,
+             {("flash_fwd", vae_key): 7}),
+            ("VQ-GAN", "--vqgan_path", vqgan_ckpt, 8,
+             {("flash_fwd", codec_key): 13, ("vq_nearest", vq_key): 13})):
+        audit, secs = gated(
+            f"diagnose_latent_range {label}",
+            lambda: diagnose_latent_range.main([
+                flag, str(ckpt), "--data_path", str(images), "--num_images",
+                "100", "--batch_size", str(batch)]), expected)
+        stats = audit["latents"]
+        if audit["images"] != 100 or not all(
+                np.isfinite(v) for v in stats.values()):
+            fail(f"diagnose_latent_range {label}: {audit}")
+        metrics[f"diagnose {label}"] = stats
+    metrics["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"phase 5f: {metrics['phase_seconds']:.3f} s")
+    return counts, metrics
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2040,24 +2397,35 @@ def main():
     if not args.kernels_only:
         counts, rates = drive_main_path(torch, KERNELS, args.seed)
         print("samples/s: " + json.dumps(rates))
+        # one directory for phases 5b-5f: 5f serves 5b's, 5c's and 5d's
+        # checkpoints
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+            work = Path(work)
+            for phase in ("ldm", "vqgan", "kl_vae", "gmm", "serving"):
+                (work / phase).mkdir()
             train_counts, rate = drive_training(torch, KERNELS, args.seed,
-                                                Path(work))
-        print(f"latents/s: {rate}")
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_vq_") as work:
+                                                work / "ldm")
+            print(f"latents/s: {rate}")
             vq_counts, vq_rates = drive_vqgan_training(
-                torch, KERNELS, args.seed, Path(work))
-        print("images/s: " + json.dumps(vq_rates))
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_kl_") as work:
+                torch, KERNELS, args.seed, work / "vqgan")
+            print("images/s: " + json.dumps(vq_rates))
             kl_counts, kl_rate = drive_kl_vae_slice(torch, KERNELS,
-                                                    args.seed, Path(work))
-        print(f"KL-VAE training images/s: {kl_rate}")
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_gmm_") as work:
+                                                    args.seed, work / "kl_vae")
+            print(f"KL-VAE training images/s: {kl_rate}")
             gmm_counts, gmm_metrics = drive_gmm_classifier_slice(
-                torch, KERNELS, args.seed, Path(work))
-        print("GMM / classifier / FID slice: " + json.dumps(gmm_metrics))
+                torch, KERNELS, args.seed, work / "gmm")
+            print("GMM / classifier / FID slice: " + json.dumps(gmm_metrics))
+            serving_counts, serving_metrics = drive_serving(
+                torch, KERNELS, args.seed, work / "serving", card,
+                ldm_results=work / "ldm" / "results",
+                vae_pt=work / "ldm" / "kl_vae.pt",
+                vqgan_ckpt=work / "vqgan" / "vqgan" / "vqgan-2.pt",
+                kl_ckpt=work / "kl_vae" / "kl_vae" / "kl_vae-2.pt",
+                images=work / "kl_vae" / "images", generate_rates=rates)
+            print("serving slice: " + json.dumps(serving_metrics))
         for key, n in [*train_counts.items(), *vq_counts.items(),
-                       *kl_counts.items(), *gmm_counts.items()]:
+                       *kl_counts.items(), *gmm_counts.items(),
+                       *serving_counts.items()]:
             counts[key] = counts.get(key, 0) + n
         for row in rows.values():
             row["launches"] = counts.get((row["name"], row["key"]), 0)

@@ -78,15 +78,27 @@ def q_posterior(sched, x_start, x_t, t):
     return mean, variance, log_variance
 
 
-def ddim_step(sched: DiffusionSchedule, img, x_start, pred_noise,
-              time: int, time_next: int, noise, eta: float):
-    """One DDIM update for Python-int `time`/`time_next`. At `time_next < 0`
-    (the final step) the result is `x_start`."""
-    if time_next < 0:
-        return x_start
-    alpha = sched.alphas_cumprod[time]
-    alpha_next = sched.alphas_cumprod[time_next]
+def _batch_times(t, x: torch.Tensor) -> torch.Tensor:
+    """`t` as an int64 tensor [B] on x's device: a [B] tensor as it is, a
+    Python int or a 0-d tensor repeated over x's batch."""
+    t = torch.as_tensor(t, device=x.device)
+    return t.expand(x.shape[0]) if t.ndim == 0 else t
+
+
+def ddim_step(sched: DiffusionSchedule, img, x_start, pred_noise, time,
+              time_next, noise, eta: float):
+    """One DDIM update. `time` and `time_next` are int64 tensors [B] (or
+    Python ints for the whole batch); alpha and alpha_next are read from the
+    schedule by index, inside a traced graph too. Where `time_next < 0`
+    (the final step) the result is `x_start`, chosen by a select rather
+    than a Python branch, so one traced step serves every pair."""
+    time, time_next = _batch_times(time, img), _batch_times(time_next, img)
+    alpha = extract(sched.alphas_cumprod, time, img.ndim)
+    alpha_next = extract(sched.alphas_cumprod, time_next.clamp(min=0),
+                         img.ndim)
     sigma = eta * torch.sqrt((1 - alpha / alpha_next) * (1 - alpha_next)
                              / (1 - alpha))
     c = torch.sqrt(torch.clamp(1.0 - alpha_next - sigma**2, min=0.0))
-    return x_start * torch.sqrt(alpha_next) + c * pred_noise + sigma * noise
+    out = x_start * torch.sqrt(alpha_next) + c * pred_noise + sigma * noise
+    last = (time_next < 0).reshape(-1, *((1,) * (img.ndim - 1)))
+    return torch.where(last, x_start, out)

@@ -4,7 +4,9 @@ the DDIM sampler.
 Counterpart of vqgan_tpu/diffusion/gaussian.py for training and generation:
 `p_losses` and `loss` (Min-SNR weighted, offset noise, cond-drop; t, noise
 and the cond-drop mask can be injected), `model_predictions` (with the CFG
-[cond; null] pair as one 2B-batch forward), `ddim_sample` (a Python loop
+[cond; null] pair as one 2B-batch forward), `ddim_step` (one CFG DDIM step
+with t, t_next and the noise as tensors, traceable by `torch.export`;
+`DDIMStep` is it as a module), `ddim_sample` (a Python loop of that step
 over the (time, time_next) pairs, with injectable noise) and `sample`. NCHW
 inside; the public functions take and return NHWC latents, like the JAX
 package. The ancestral sampler, `interpolate`, immiscible noise,
@@ -18,12 +20,13 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..core import diffusion_math as dm
 from ..core.guidance import apply_cfg
 from ..core.schedules import DiffusionSchedule, make_schedule
 
-__all__ = ["GaussianDiffusion"]
+__all__ = ["GaussianDiffusion", "DDIMStep"]
 
 
 def _nchw(x):
@@ -202,15 +205,29 @@ class GaussianDiffusion:
             step_noise = torch.as_tensor(step_noise, dtype=torch.float32,
                                          device=dev).permute(0, 1, 4, 2, 3)
         classes = torch.as_tensor(classes, device=dev)
-        for i, (time, time_next) in enumerate(self.ddim_time_pairs()):
-            tb = torch.full((b,), time, dtype=torch.long, device=dev)
-            pred_noise, x_start = self.model_predictions(
-                img, tb, classes, cond_scale=cond_scale,
-                rescaled_phi=rescaled_phi, clip_x_start=clip_denoised)
+        pairs = torch.tensor(self.ddim_time_pairs(), dtype=torch.long,
+                             device=dev)[:, :, None].expand(-1, -1, b)
+        for i, (tb, tnb) in enumerate(pairs):
             noise = step_noise[i] if step_noise is not None else randn()
-            img = dm.ddim_step(self.schedule, img, x_start, pred_noise, time,
-                               time_next, noise, self.ddim_sampling_eta)
+            img = self.ddim_step(img, tb, tnb, classes, noise,
+                                 cond_scale=cond_scale,
+                                 rescaled_phi=rescaled_phi,
+                                 clip_denoised=clip_denoised)
         return self.unnormalize(_nhwc(img))
+
+    def ddim_step(self, img, time, time_next, classes, noise, *,
+                  cond_scale: float = 6.0, rescaled_phi: float = 0.7,
+                  clip_denoised: bool = True):
+        """One CFG DDIM step, NCHW: the model's prediction at `time` [B],
+        then the update to `time_next` [B] with `noise`; at time_next < 0
+        the prediction of x_0. `ddim_sample` loops over it and `DDIMStep`
+        exports it, so the live pipeline and a served artifact run one
+        code path."""
+        pred_noise, x_start = self.model_predictions(
+            img, time, classes, cond_scale=cond_scale,
+            rescaled_phi=rescaled_phi, clip_x_start=clip_denoised)
+        return dm.ddim_step(self.schedule, img, x_start, pred_noise, time,
+                            time_next, noise, self.ddim_sampling_eta)
 
     def sample(self, batch_size: Optional[int] = None, classes=None, *,
                cond_scale: float = 6.0, rescaled_phi: float = 0.7,
@@ -225,3 +242,26 @@ class GaussianDiffusion:
         shape = (batch_size, self.image_size, self.image_size, self.channels)
         return self.ddim_sample(shape, classes, cond_scale=cond_scale,
                                 rescaled_phi=rescaled_phi, generator=generator)
+
+
+class DDIMStep(nn.Module):
+    """`GaussianDiffusion.ddim_step` at a fixed cond_scale and rescaled_phi,
+    as a module: forward(img [B,C,H,W], time [B], time_next [B], classes
+    [B], noise [B,C,H,W]) -> the next img. The model is a submodule, so
+    `torch.export` keeps its weights as the program's parameters; the
+    schedule's tensors become the program's constants."""
+
+    def __init__(self, diffusion: GaussianDiffusion, cond_scale: float,
+                 rescaled_phi: float, clip_denoised: bool = True):
+        super().__init__()
+        self.diffusion = diffusion
+        self.model = diffusion.model
+        self.cond_scale = cond_scale
+        self.rescaled_phi = rescaled_phi
+        self.clip_denoised = clip_denoised
+
+    def forward(self, img, time, time_next, classes, noise):
+        return self.diffusion.ddim_step(
+            img, time, time_next, classes, noise,
+            cond_scale=self.cond_scale, rescaled_phi=self.rescaled_phi,
+            clip_denoised=self.clip_denoised)

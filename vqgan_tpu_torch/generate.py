@@ -37,7 +37,8 @@ from .configs.ldm_config import LDMConfig
 from .device import resolve_device, set_full_fp32_precision
 from .models.autoencoder import AutoencoderConfig, KLVAE
 
-__all__ = ["load_model", "load_vae", "generate_samples", "main"]
+__all__ = ["load_model", "load_checkpoint", "load_vae", "generate_samples",
+           "main"]
 
 
 def load_model(config: LDMConfig, unet_weights=None, device="cuda"):
@@ -47,6 +48,16 @@ def load_model(config: LDMConfig, unet_weights=None, device="cuda"):
     if unet_weights is not None:
         load_weights(model, unet_weights)
     return diffusion, model
+
+
+def load_checkpoint(checkpoint, milestone=None):
+    """(LDMConfig, weights file) of a results folder of the port's trainer:
+    the config saved with `milestone` (the latest when None) and the file
+    whose EMA weights `load_weights` reads."""
+    ckpt = CheckpointManager(checkpoint, prefix="model")
+    weights = ckpt.checked_path(milestone)
+    milestone = int(weights.stem.rsplit("-", 1)[-1])
+    return LDMConfig.from_dict(ckpt.load_config(milestone) or {}), weights
 
 
 def load_vae(vae_weights=None, latent_channels: int = 4,
@@ -113,11 +124,7 @@ def main(argv=None):
     set_full_fp32_precision()
     unet_weights = args.unet_weights
     if args.checkpoint is not None:
-        # the config saved with the milestone, the EMA weights of its file
-        ckpt = CheckpointManager(args.checkpoint, prefix="model")
-        unet_weights = ckpt.checked_path(args.milestone)
-        milestone = int(unet_weights.stem.rsplit("-", 1)[-1])
-        config = LDMConfig.from_dict(ckpt.load_config(milestone) or {})
+        config, unet_weights = load_checkpoint(args.checkpoint, args.milestone)
     elif args.config:
         config = LDMConfig.from_dict(json.loads(Path(args.config).read_text()))
     else:

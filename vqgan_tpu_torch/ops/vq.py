@@ -1,15 +1,18 @@
 """Vector-quantization lookup for the port: a hand-written nearest-code
-kernel on CUDA tensors, its plain PyTorch version on CPU tensors.
+kernel on CUDA tensors, its plain PyTorch version on CPU tensors, both
+reached through the operator `torch.ops.vqgan_tpu_torch.vq_nearest`
+(`kernels/ops.py`).
 
 Counterpart of vqgan_tpu/ops/vq.py. z is [N, D] and the codebook [K, D].
 
-- `vq_lookup_reference`: the plain version, (z_q, indices int32), in either
-  of the kernel's modes. "fp32" scores (|z|^2 + |e|^2) - 2 z.e exactly as
-  the JAX package's plain version; "bf16" scores |e|^2 - 2 z.e with the
-  cross term over bf16-rounded inputs, as its fast kernel.
-- `vq_nearest_indices`: (indices, usage [K] int32): the kernel
-  (csrc/vq.cu, usage counted in the kernel) for a CUDA tensor, the plain
-  version and `codebook_usage` for a CPU tensor, an error otherwise.
+- `vq_lookup_reference`: the plain version (`kernels/reference.py`),
+  (z_q, indices int32), in either of the kernel's modes. "fp32" scores
+  (|z|^2 + |e|^2) - 2 z.e exactly as the JAX package's plain version;
+  "bf16" scores |e|^2 - 2 z.e with the cross term over bf16-rounded
+  inputs, as its fast kernel.
+- `vq_nearest_indices`: (indices, usage [K] int32) from the operator: the
+  kernel (csrc/vq.cu, usage counted in the kernel) for a CUDA tensor, the
+  plain version and `codebook_usage` for a CPU tensor, an error otherwise.
 - `vq_lookup`: the differentiable op the quantizer calls, with the JAX
   package's custom VJP: zero gradient to z, the cotangent of z_q
   scatter-added (`index_add_`) into the selected codebook rows. The JAX
@@ -32,7 +35,9 @@ from typing import Optional
 
 import torch
 
-from ..kernels.vq import vq_nearest
+from ..kernels.ops import vq_nearest_op
+from ..kernels.reference import codebook_usage, vq_lookup_reference, vq_scores
+from .attention import check_device
 
 __all__ = ["vq_lookup", "vq_lookup_reference", "vq_nearest_indices",
            "codebook_usage", "revive_dead_codes", "vq_scores",
@@ -41,44 +46,11 @@ __all__ = ["vq_lookup", "vq_lookup_reference", "vq_nearest_indices",
 _MODES = {"auto": "fp32", "fp32": "fp32", True: "bf16"}
 
 
-def vq_scores(z, codebook, mode: str = "fp32"):
-    """[N, K] fp32 scores of the plain version, whose row argmin is the
-    nearest code."""
-    z32, e32 = z.float(), codebook.float()
-    e_sq = (e32 * e32).sum(1)
-    if mode == "bf16":
-        cross = (z32.to(torch.bfloat16).float()
-                 @ e32.to(torch.bfloat16).float().T)
-        return e_sq - 2.0 * cross
-    return ((z32 * z32).sum(1, keepdim=True) + e_sq) - 2.0 * (z32 @ e32.T)
-
-
-def vq_lookup_reference(z, codebook, mode: str = "fp32"):
-    """What the kernel computes, in plain PyTorch: (z_q [N, D] in the
-    codebook's dtype, indices [N] int32), ties to the lowest index."""
-    if mode not in ("fp32", "bf16"):
-        raise ValueError(f"mode must be 'fp32' or 'bf16', got {mode!r}")
-    idx = torch.argmin(vq_scores(z, codebook, mode), dim=1).to(torch.int32)
-    return codebook.index_select(0, idx), idx
-
-
-def codebook_usage(indices, num_embeddings: int):
-    """Per-code use counts [K] int32 (a bincount of fixed length)."""
-    return torch.bincount(indices.reshape(-1).long(),
-                          minlength=num_embeddings).to(torch.int32)
-
-
 def vq_nearest_indices(z, codebook, mode: str = "fp32"):
     """(indices [N] int32, usage [K] int32): the kernel for a CUDA tensor,
     the plain version for a CPU tensor."""
-    if z.device.type == "cuda":
-        e32 = codebook.float()
-        return vq_nearest(z.float(), e32, (e32 * e32).sum(1), mode)
-    if z.device.type != "cpu":
-        raise ValueError(f"vq_lookup runs on CUDA or CPU tensors, not "
-                         f"{z.device}")
-    _, idx = vq_lookup_reference(z, codebook, mode)
-    return idx, codebook_usage(idx, codebook.shape[0])
+    check_device("vq_lookup", z)
+    return vq_nearest_op(z, codebook, mode)
 
 
 class VQLookupFunction(torch.autograd.Function):
