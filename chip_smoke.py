@@ -28,12 +28,16 @@ Phases, in order; any failure exits non-zero:
    histogram against bincount; and every other shape the end-to-end demo
    launches (the VQ-GAN at 128 px: flash forward and backward at
    [8,256,1,512] bf16, forward at [16,256,1,512], VQ at [2048,256] and
-   [4096,256] x [128,256]; serving at batch 4). Time each kernel through
-   its operator (the host time every path pays; the flash forward also
-   through its ctypes wrapper alone), its plain version and one PyTorch
-   library call at the main paths' shapes (and a few others), the kernel
-   and the library call also as device time (in a CUDA graph), and
-   compute the bound. For bf16, print the share of elements that differ
+   [4096,256] x [128,256]; serving at batch 4); phase 5g's: the DiT's
+   multi-tile S = 256 at d = 64, forward at [8, 16 and 32,256,8,64] and
+   backward at [8,256,8,64] bf16, q, k and v as views of one projection as
+   the model makes them, and the Diffusers-style trainer's U-Net, forward
+   and backward at [24,16,8,32] and forward at [16,16,8,32]. Time each
+   kernel through its operator (the host time every path pays; the flash
+   forward also through its ctypes wrapper alone), its plain version and
+   one PyTorch library call at the main paths' shapes (and a few others),
+   the kernel and the library call also as device time (in a CUDA graph),
+   and compute the bound. For bf16, print the share of elements that differ
    from the plain version's.
 4. Run the generation slice on a small input (tiny U-Net and KL-VAE in
    fp32, 5 DDIM steps at cond_scale 3.0 with injected noise, then the
@@ -54,6 +58,12 @@ Phases, in order; any failure exits non-zero:
    injected posterior noise; hold the loss parts, the first step's
    gradients and the parameter moves against each other; two launches of
    each flash kernel per step.
+4f. Run three training steps of a small fp32 DiT (dim 64, depth 2, 2
+   heads x 32, 8 x 8 latents) and three of phase 4b's U-Net with gradient
+   checkpointing, each on the card and on the CPU from the same weights,
+   with injected t, noise and cond-drop mask; hold them as 4b does; per
+   step `depth` launches of each flash kernel for the DiT, and 2 forward,
+   1 dQ and 1 dK/dV for the recomputed U-Net.
 5. Drive generation, `python -m vqgan_tpu_torch.generate`, at full width
    with seeded random weights: LDMConfig defaults (dim 96, mults 1-2-4-4,
    8 heads x 64, T=1000, DDIM-150, pred_v, cosine, bf16 U-Net) and the
@@ -146,6 +156,24 @@ Phases, in order; any failure exits non-zero:
    limit, the export seconds and bytes of each program, the step's host
    ms, serve_generate's samples/s beside phase 5's, the HTTP latency per
    request and the codec's ms per batch.
+5g. Drive the rest of stage 2 at full width through its entry points, on
+   5b's data, checkpoint and KL-VAE: `train_latent_cfg --model_type dit`
+   (LDMConfig defaults: dim 384, depth 8, 8 heads x 64, patch 2, bf16,
+   batch 8; 11 steps and a resume to 16; 8 launches of each flash kernel
+   per step at [8,256,8,64]); `generate` of 16 images from that checkpoint
+   at cond_scale 1.0 and 3.0 (1200 + 1 forwards per batch);
+   `export_serving --selftest` of it (5f's gate); `train_stage1_diffusers
+   --gradient_checkpointing` (batch 24, DDIM-100 grids, head dim 32: at
+   its default of 64 it refuses, as the JAX CLI does) for 10 steps with
+   milestones at 5 and 10 and a resume from "latest" to 12 (2 forward, 1
+   dQ and 1 dK/dV launches per step at [24,16,8,32]; 100 forwards and a
+   decode per grid; every grid written); 12 steps at batch 24 with and
+   without gradient checkpointing for the peak of allocated memory and
+   latents/s; and
+   one ancestral batch of 16 (1000 steps) from 5b's checkpoint (1000 + 1
+   forwards, finite images). Prints DiT latents/s and samples/s, the
+   Diffusers trainer's latents/s, both peaks and the ancestral samples/s,
+   each beside the card's name and power limit.
 6. Print the kernels' JSON line, then the card line, then the device line.
 """
 
@@ -307,7 +335,26 @@ def attention_cases():
         ("vqvae128_mid", 16, 256, 256, 1, 512, "bfloat16", False),
         ("unet_mid_b4", 4, 16, 16, 8, 64, "bfloat16", False),
         ("vae_mid_b4", 4, 1024, 1024, 1, 512, "float32", False),
+        # the DiT (LDMConfig defaults: 16 x 16 patches, 8 heads x 64), q, k
+        # and v as views of one qkv projection: training at batch 8, DDIM
+        # generation and serving at 16, CFG generation at 2 x 16
+        ("dit_train", 8, 256, 256, 8, 64, "bfloat16", True),
+        ("dit_gen", 16, 256, 256, 8, 64, "bfloat16", True),
+        ("dit_cfg", 32, 256, 256, 8, 64, "bfloat16", True),
+        # the Diffusers-style trainer's U-Net (head dim 32, the one change
+        # from its refused defaults): training at batch 24, its DDIM-100
+        # grids at 16
+        ("unet32_mid_train_b24", 24, 16, 16, 8, 32, "bfloat16", True),
+        ("unet32_mid", 16, 16, 16, 8, 32, "bfloat16", True),
     ]
+
+
+def packed_qkv(torch, rng, b, s, h, d, dtype):
+    """q, k and v [B, S, H, D] as the DiT makes them: views of one
+    [B, S, 3 * H * D] projection, row stride 3 * H * D."""
+    x = rng.standard_normal((b, s, 3 * h * d)).astype(np.float32)
+    packed = torch.from_numpy(x).to("cuda", dtype)
+    return tuple(t.reshape(b, s, h, d) for t in packed.chunk(3, dim=-1))
 
 
 def check_flash_fwd(torch, peaks, seed: int):
@@ -327,6 +374,8 @@ def check_flash_fwd(torch, peaks, seed: int):
             return torch.from_numpy(x).to("cuda", dtype)
 
         q, k, v = make(s_q), make(s_kv), make(s_kv)
+        if label.startswith("dit"):
+            q, k, v = packed_qkv(torch, rng, b, s_q, h, d, dtype)
         if label in ("ragged_cross", "ragged_d512_bf16"):
             # strided views: the kernel reads BSHD in place
             q = torch.cat([q, q], dim=-1)[..., :d]
@@ -455,6 +504,11 @@ def bwd_cases():
         # the end-to-end demo's VQ-GAN at 128 px
         ("vqvae128_mid_train", 8, 256, 256, 1, 512, "bfloat16", False,
          False, False),
+        # the DiT's training shape (q, k, v as views of one projection) and
+        # the Diffusers-style trainer's U-Net at batch 24
+        ("dit_train", 8, 256, 256, 8, 64, "bfloat16", True, False, True),
+        ("unet32_mid_train_b24", 24, 16, 16, 8, 32, "bfloat16", True, False,
+         True),
     ]
 
 
@@ -517,6 +571,8 @@ def check_flash_bwd(torch, peaks, seed: int):
             return torch.from_numpy(x).to("cuda", dtype)
 
         q, k, v, do = make(s_q), make(s_kv), make(s_kv), make(s_q)
+        if label.startswith("dit"):
+            q, k, v = packed_qkv(torch, rng, b, s_q, h, d, dtype)
         if strided:
             # batch/sequence/head strides the kernels read in place
             do = torch.cat([do, do], dim=-1)[..., :d]
@@ -859,9 +915,55 @@ def read_counts(kernels) -> dict:
 
 
 def check_small_training(torch, kernels, seed: int):
-    """Three training steps of a tiny fp32 U-Net on the card and on the CPU
-    from the same weights, with injected t, noise and cond-drop mask (TF32
-    off). Tolerances:
+    """Phase 4b: three training steps of a tiny fp32 U-Net, card against
+    CPU (`card_vs_cpu_training`); one launch of each flash kernel per
+    step."""
+    from vqgan_tpu_torch.models import CFGUnet
+
+    torch.manual_seed(seed)
+    init = CFGUnet(dim=16, num_classes=3, cond_drop_prob=0.0,
+                   dim_mults=(1, 2), channels=4, attn_dim_head=16,
+                   attn_heads=2)
+    card_vs_cpu_training(torch, kernels, "small training", init, seed,
+                         remat=False, per_step={name: 1 for name in FLASH})
+
+
+def check_small_dit_and_remat(torch, kernels, seed: int):
+    """Phase 4f: three training steps, card against CPU
+    (`card_vs_cpu_training`), of a small fp32 DiT (dim 64, depth 2, 2 heads
+    x 32, 8 x 8 latents: 16 tokens), `depth` launches of each flash kernel
+    per step; and of phase 4b's tiny U-Net with gradient checkpointing,
+    whose recomputed forward launches the forward kernel a second time:
+    2 forward, 1 dQ and 1 dK/dV launches per step."""
+    from vqgan_tpu_torch.models import CFGUnet, DiT
+
+    torch.manual_seed(seed + 6)
+    dit = DiT(dim=64, depth=2, heads=2, dim_head=32, patch_size=2,
+              image_size=8, channels=4, num_classes=3, cond_drop_prob=0.0)
+    # past the adaLN-zero initialisation, so that every block carries a
+    # gradient from the first step
+    with torch.no_grad():
+        for name, p in dit.named_parameters():
+            if "ada_mod" in name or "final_" in name:
+                p.normal_(0.0, 0.02)
+    card_vs_cpu_training(torch, kernels, "small DiT training", dit, seed,
+                         remat=False, per_step={name: 2 for name in FLASH})
+    torch.manual_seed(seed)
+    unet = CFGUnet(dim=16, num_classes=3, cond_drop_prob=0.0,
+                   dim_mults=(1, 2), channels=4, attn_dim_head=16,
+                   attn_heads=2)
+    card_vs_cpu_training(torch, kernels, "small U-Net training, remat",
+                         unet, seed, remat=True,
+                         per_step={"flash_fwd": 2, "flash_bwd_dq": 1,
+                                   "flash_bwd_dkv": 1})
+
+
+def card_vs_cpu_training(torch, kernels, label, init, seed: int, *,
+                         remat: bool, per_step: dict):
+    """Three training steps of the small fp32 denoiser `init` on the card
+    and on the CPU from the same weights, with injected t, noise and
+    cond-drop mask (TF32 off), through `Rematerialized` with `remat`.
+    Tolerances:
     - first-step gradients, 1e-3 of the largest: the same fp32 math through
       ~40 layers forward and back, summed in other orders (cuDNN, the
       kernels) on the two devices;
@@ -874,11 +976,13 @@ def check_small_training(torch, kernels, seed: int):
       so a gradient element near zero whose sign differs between the
       devices moves its weight by about lr one way on one and the other
       way on the other; every other element agrees to rounding (2.4e-6 at
-      lr 1e-4 in the runs so far)."""
+      lr 1e-4 in the runs so far).
+    The card's launches of each flash kernel in the 3 steps must be 3 x
+    `per_step`."""
     import copy
 
+    from vqgan_tpu_torch.build import Rematerialized
     from vqgan_tpu_torch.diffusion import GaussianDiffusion
-    from vqgan_tpu_torch.models import CFGUnet
     from vqgan_tpu_torch.training.ldm_step import (
         LDMTrainState,
         make_ldm_optimizer,
@@ -886,10 +990,6 @@ def check_small_training(torch, kernels, seed: int):
     )
 
     n_steps, b, lr = 3, 4, 1e-4
-    torch.manual_seed(seed)
-    init = CFGUnet(dim=16, num_classes=3, cond_drop_prob=0.0,
-                   dim_mults=(1, 2), channels=4, attn_dim_head=16,
-                   attn_heads=2)
     rng = np.random.default_rng(seed + 2)
     lat = rng.standard_normal((n_steps, b, 8, 8, 4)).astype(np.float32)
     noise = rng.standard_normal((n_steps, b, 8, 8, 4)).astype(np.float32)
@@ -900,9 +1000,10 @@ def check_small_training(torch, kernels, seed: int):
     for dev in ("cpu", "cuda"):
         model = copy.deepcopy(init).to(dev).train()
         diffusion = GaussianDiffusion(
-            model, image_size=8, channels=4, timesteps=20,
-            objective="pred_v", min_snr_loss_weight=True,
-            auto_normalize=False, device=torch.device(dev))
+            Rematerialized(model) if remat else model, image_size=8,
+            channels=4, timesteps=20, objective="pred_v",
+            min_snr_loss_weight=True, auto_normalize=False,
+            device=torch.device(dev))
 
         def inputs(i):
             return dict(latents=torch.from_numpy(lat[i]).to(dev),
@@ -952,10 +1053,11 @@ def check_small_training(torch, kernels, seed: int):
         diff = on_card - on_cpu
         cpu_move = (on_cpu - p_init).norm().item()
         if cpu_move == 0.0:
-            fail(f"the CPU's {name}s did not move in {n_steps} steps")
+            fail(f"{label}: the CPU's {name}s did not move in {n_steps} "
+                 f"steps")
         moves[name] = (diff.abs().max().item(), diff.norm().item() / cpu_move,
                        int((diff.abs() > lr / 2).sum()))
-    print(f"small training, card vs CPU: max|grad diff|={grad_err:.3e} "
+    print(f"{label}, card vs CPU: max|grad diff|={grad_err:.3e} "
           f"(max|grad| {grad_size:.3e}), losses card {l_gpu} cpu {l_cpu} "
           f"(max rel diff {loss_err:.3e}); "
           + ", ".join(f"{n}s: max|diff|={m:.3e}, |move diff|/|cpu move|="
@@ -965,10 +1067,11 @@ def check_small_training(torch, kernels, seed: int):
     if grad_err > 1e-3 * grad_size or loss_err > 1e-3 \
             or any(r > 0.05 or k > 10 for _, r, k in moves.values()) \
             or not all(np.isfinite(l_gpu)):
-        fail("training on the card disagrees with the CPU")
-    if any(n != n_steps for n in launches.values()):
-        fail(f"expected {n_steps} launches of each flash kernel in "
-             f"{n_steps} training steps, got {launches}")
+        fail(f"{label} on the card disagrees with the CPU")
+    expected = {name: n_steps * n for name, n in per_step.items()}
+    if launches != expected:
+        fail(f"{label}: expected {expected} flash launches in {n_steps} "
+             f"steps, got {launches}")
 
 
 def _flat(torch, module, params_only=True):
@@ -2351,6 +2454,260 @@ def drive_serving(torch, kernels, seed: int, work: Path, card: str,
     return counts, metrics
 
 
+def drive_stage2_rest(torch, kernels, seed: int, work: Path, ldm: Path,
+                      card: str):
+    """Phase 5g, the rest of stage-2 latent diffusion at full width through
+    its entry points, on phase 5b's split, latent cache, checkpoint and
+    seeded KL-VAE (`ldm`):
+    - DiT training, `train_latent_cfg --model_type dit` (LDMConfig
+      defaults: dim 384, depth 8, 8 heads x 64, patch 2, bf16, batch 8): 11
+      steps, then a resume from the latest milestone to step 16; finite
+      losses, 8 launches of each flash kernel per step at [8, 256, 8, 64]
+      bf16, the step restored;
+    - DiT generation, `generate` from that checkpoint, 16 images at
+      cond_scale 1.0 and 16 at 3.0: per batch 1200 forwards (150 steps x 8
+      blocks) at [16 or 32, 256, 8, 64] bf16 and 1 decode;
+    - DiT serving, `export_serving --selftest` of that checkpoint at
+      cond_scale 1.0 (the gate of 5f), 1200 + 1 forwards per batch;
+    - the Diffusers-style trainer, `train_stage1_diffusers
+      --gradient_checkpointing` at its defaults but for the head dim of 32
+      (batch 24, warm-up 500, EMA 0.9999, DDIM-100 grids; at head dim 64
+      it refuses, as the JAX CLI does) with `--pretrained_vae_path`: 10
+      steps with milestones at 5 and 10, then a resume from "latest" to
+      step 12; per step 2 forwards (the recomputation) and 1 of each
+      backward at [24, 16, 8, 32] bf16, per grid 100 forwards at [16, 16,
+      8, 32] and 1 decode; every grid written;
+    - the peak of allocated device memory, and latents/s after a warm-up
+      of 5, over 12 steps at batch 24 with and without gradient
+      checkpointing (no VAE, so no grid);
+    - the trainer's latent loader alone at batch 24, latents/s;
+    - one ancestral batch (sampling_timesteps = timesteps = 1000) of 16
+      from 5b's checkpoint: 1000 forwards at [16, 16, 8, 64] and 1 decode,
+      finite images.
+    Returns ({(kernel, shape): launches}, {metric: value})."""
+    import dataclasses
+
+    from vqgan_tpu_torch import (
+        export_serving,
+        generate,
+        train_latent_cfg,
+        train_stage1_diffusers,
+    )
+    from vqgan_tpu_torch.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    counts, metrics = {}, {}
+    split, cache = ldm / "data_split.json", ldm / "latents_cache"
+    vae_pt = ldm / "kl_vae.pt"
+    vae_key = (16, 1024, 1, 512, "float32")
+    dit_train = (8, 256, 8, 64, "bfloat16")
+    dit_gen = {1.0: (16, 256, 8, 64, "bfloat16"),
+               3.0: (32, 256, 8, 64, "bfloat16")}
+    unet_b24 = (24, 16, 8, 32, "bfloat16")
+    unet_grid = (16, 16, 8, 32, "bfloat16")
+
+    def gated(label, fn, expected):
+        return run_gated(torch, kernels, label, fn, expected, counts)
+
+    # --- DiT training, with a resume -----------------------------------
+    dit_results = work / "dit"
+    common = ["--model_type", "dit", "--split", str(split),
+              "--latents_cache_folder", str(cache), "--data_path",
+              str(work / "images"), "--results_folder", str(dit_results),
+              "--seed", str(seed)]
+    runs = {}
+    for label, extra, n in (("first", ["--train_num_steps", "11"], 11),
+                            ("resumed", ["--train_num_steps", "16",
+                                         "--resume", "-1"], 5)):
+        result, secs = gated(
+            f"train_latent_cfg --model_type dit ({label})",
+            lambda extra=extra: train_latent_cfg.main([*common, *extra]),
+            {(name, dit_train): 8 * n for name in FLASH})
+        trainer = result.pop("trainer")
+        runs[label] = result
+        if type(trainer.model).__name__ != "DiT" or trainer.state.step != (
+                11 if label == "first" else 16):
+            fail(f"DiT training ({label}): a {type(trainer.model).__name__} "
+                 f"at step {trainer.state.step}")
+        del trainer
+    losses = runs["first"]["losses"] + runs["resumed"]["losses"]
+    if len(losses) != 16 or not all(np.isfinite(losses)):
+        fail(f"DiT training: expected 16 finite losses, got {losses}")
+    ckpt = CheckpointManager(dit_results, prefix="model")
+    if ckpt.restore()["step"] != 16:
+        fail(f"DiT checkpoint {ckpt.all_milestones()} does not load back")
+    metrics["dit_latents_per_s"] = runs["first"]["latents_per_s"]
+    print(f"[{card}] DiT training: {runs['first']['timed_steps']} steps "
+          f"after a warm-up of 5 in {runs['first']['timed_seconds']:.3f} s "
+          f"= {metrics['dit_latents_per_s']:.4f} latents/s at batch 8; "
+          f"losses {losses}")
+
+    # --- DiT generation and serving ------------------------------------
+    for cond_scale in (1.0, 3.0):
+        out = OUT / f"dit_generated_{cond_scale}"
+        result, secs = gated(
+            f"generate DiT cond_scale {cond_scale}",
+            lambda out=out, cond_scale=cond_scale: generate.main([
+                "--checkpoint", str(dit_results), "--vae_weights",
+                str(vae_pt), "--num_images", "16", "--batch_size", "16",
+                "--user_ids", "1", "--cond_scale", str(cond_scale),
+                "--rescaled_phi", "0.7", "--seed", str(seed),
+                "--output_dir", str(out)]),
+            {("flash_fwd", dit_gen[cond_scale]): 1200,
+             ("flash_fwd", vae_key): 1})
+        check_images(result["images"], 16)
+        rate = metrics[f"dit_samples_per_s {cond_scale}"] = \
+            16 / sum(result["batch_seconds"])
+        print(f"[{card}] generate DiT cond_scale {cond_scale}: {rate:.4f} "
+              f"samples/s (batch 16, DDIM-150, JPGs written)")
+    result, secs = gated(
+        "export_serving DiT cond_scale 1.0 --selftest",
+        lambda: export_serving.main([
+            "--checkpoint", str(dit_results), "--vae_path", str(vae_pt),
+            "--out", str(work / "dit_artifact"), "--batch_size", "16",
+            "--cond_scale", "1.0", "--selftest"]),
+        {("flash_fwd", dit_gen[1.0]): 2400, ("flash_fwd", vae_key): 2})
+    programs = result["meta"]["programs"]
+    metrics["dit_export"] = {
+        "programs": programs,
+        "selftest_max_abs_diff": result["selftest"]["max_abs_diff"]}
+    print(f"[{card}] export_serving DiT: "
+          + ", ".join(f"{k}.pt2 {v['bytes']} bytes in {v['seconds']:.3f} s"
+                      for k, v in programs.items())
+          + f"; selftest max|artifact - live| "
+            f"{result['selftest']['max_abs_diff']:.3e}")
+
+    # --- the Diffusers-style trainer -----------------------------------
+    diffusers_out = work / "diffusers"
+    common = ["--split", str(split), "--latents_cache_folder", str(cache),
+              "--output_dir", str(diffusers_out), "--attention_head_dim",
+              "32", "--gradient_checkpointing", "--pretrained_vae_path",
+              str(vae_pt), "--checkpointing_steps", "5", "--seed", str(seed)]
+
+    def remat_steps(n, grids):
+        return {("flash_fwd", unet_b24): 2 * n,
+                ("flash_bwd_dq", unet_b24): n,
+                ("flash_bwd_dkv", unet_b24): n,
+                ("flash_fwd", unet_grid): 100 * grids,
+                ("flash_fwd", vae_key): grids}
+
+    first, _ = gated("train_stage1_diffusers --gradient_checkpointing",
+                     lambda: train_stage1_diffusers.main(
+                         [*common, "--max_train_steps", "10"]),
+                     remat_steps(10, 2))
+    first.pop("trainer")
+    second, _ = gated("train_stage1_diffusers --resume_from_checkpoint "
+                      "latest",
+                      lambda: train_stage1_diffusers.main(
+                          [*common, "--max_train_steps", "12",
+                           "--resume_from_checkpoint", "latest"]),
+                      remat_steps(2, 1))
+    trainer = second.pop("trainer")
+    losses = first["losses"] + second["losses"]
+    grids = [diffusers_out / f"sample-{m}.png" for m in (1, 2, 3)]
+    ckpt = CheckpointManager(diffusers_out, prefix="model")
+    if len(losses) != 12 or not all(np.isfinite(losses)) \
+            or trainer.state.step != 12 or ckpt.restore()["step"] != 12 \
+            or not all(g.exists() for g in grids):
+        fail(f"train_stage1_diffusers: losses {losses}, step "
+             f"{trainer.state.step}, milestones {ckpt.all_milestones()}, "
+             f"grids {[g.exists() for g in grids]}")
+    for g in grids:
+        shutil.copy(g, OUT / f"diffusers_{g.name}")
+    del trainer
+    metrics["diffusers_latents_per_s"] = first["latents_per_s"]
+    print(f"[{card}] train_stage1_diffusers --gradient_checkpointing: "
+          f"{first['timed_steps']} steps after a warm-up of 5 in "
+          f"{first['timed_seconds']:.3f} s (milestone saves and their "
+          f"DDIM-100 grids excluded) = "
+          f"{metrics['diffusers_latents_per_s']:.4f} latents/s at batch 24; "
+          f"losses {losses}")
+
+    peaks, rates = {}, {}
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = work / f"diffusers_peak_{remat}"
+        result, _ = gated(
+            f"train_stage1_diffusers 12 steps, remat {remat}",
+            lambda out=out, remat=remat: train_stage1_diffusers.main([
+                "--split", str(split), "--latents_cache_folder", str(cache),
+                "--output_dir", str(out), "--attention_head_dim", "32",
+                "--max_train_steps", "12", "--seed", str(seed),
+                *(["--gradient_checkpointing"] if remat else [])]),
+            {("flash_fwd", unet_b24): 12 * (2 if remat else 1),
+             ("flash_bwd_dq", unet_b24): 12,
+             ("flash_bwd_dkv", unet_b24): 12})
+        peaks[remat] = torch.cuda.max_memory_allocated() - before
+        rates[remat] = result["latents_per_s"]
+        del result["trainer"], result
+    metrics["peak_bytes_b24"] = {"plain": peaks[False], "remat": peaks[True]}
+    metrics["diffusers_latents_per_s_no_grids"] = {"plain": rates[False],
+                                                   "remat": rates[True]}
+    print(f"[{card}] train_stage1_diffusers at batch 24 without a VAE, 12 "
+          f"steps: peak allocated memory above what was allocated before "
+          f"{peaks[False]} B without, {peaks[True]} B with gradient "
+          f"checkpointing ({peaks[True] / peaks[False]:.4f} of it); "
+          f"{rates[False]:.4f} / {rates[True]:.4f} latents/s over the 7 "
+          f"steps after a warm-up of 5")
+
+    # the trainer's latent loader alone at batch 24 (the step waits on it
+    # when it falls behind)
+    from vqgan_tpu_torch.data import (
+        BatchLoader,
+        LatentCache,
+        LatentDataset,
+        load_split,
+    )
+
+    batches = iter(BatchLoader(
+        LatentDataset("", load_split(split), LatentCache(cache),
+                      images_per_user=50, seed=seed),
+        24, shuffle=True, seed=seed, repeat=True))
+    try:
+        next(batches)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            next(batches)
+        loader_rate = 20 * 24 / (time.perf_counter() - t0)
+    finally:
+        batches.close()
+    metrics["latent_loader_per_s_b24"] = loader_rate
+    print(f"the latent loader alone at batch 24: {loader_rate:.4f} latents/s "
+          f"(20 batches after the first)")
+
+    # --- one ancestral batch -------------------------------------------
+    config, weights = generate.load_checkpoint(ldm / "results")
+    config = dataclasses.replace(config, sampling_timesteps=config.timesteps)
+    diffusion, _ = generate.load_model(config, weights, "cuda")
+    vae = generate.load_vae(vae_pt, config.latent_channels, config.image_size,
+                            device="cuda")
+
+    def ancestral():
+        latents = generate.generate_samples(
+            diffusion, 0, 16, 1.0, 0.0,
+            torch.Generator("cuda").manual_seed(seed))
+        with torch.inference_mode():
+            return vae.decode_latents(latents)
+
+    images, secs = gated("ancestral sample, 1000 steps x 16",
+                         ancestral,
+                         {("flash_fwd", (16, 16, 8, 64, "bfloat16")): 1000,
+                          ("flash_fwd", vae_key): 1})
+    if tuple(images.shape) != (16, 256, 256, 3) \
+            or not bool(torch.isfinite(images).all()):
+        fail(f"ancestral sample: {tuple(images.shape)}, finite "
+             f"{bool(torch.isfinite(images).all())}")
+    metrics["ancestral_samples_per_s"] = 16 / secs
+    print(f"[{card}] ancestral sampler: 16 samples in {secs:.3f} s = "
+          f"{metrics['ancestral_samples_per_s']:.4f} samples/s (1000 U-Net "
+          f"steps and the decode)")
+    metrics["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"phase 5g: {metrics['phase_seconds']:.3f} s")
+    return counts, metrics
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2393,6 +2750,7 @@ def main():
     check_small_vqgan(torch, KERNELS, args.seed)
     check_small_kl_vae(torch, KERNELS, args.seed)
     check_small_gmm_classifier_fid(torch, KERNELS, args.seed)
+    check_small_dit_and_remat(torch, KERNELS, args.seed)
 
     if not args.kernels_only:
         counts, rates = drive_main_path(torch, KERNELS, args.seed)
@@ -2401,7 +2759,8 @@ def main():
         # checkpoints
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
             work = Path(work)
-            for phase in ("ldm", "vqgan", "kl_vae", "gmm", "serving"):
+            for phase in ("ldm", "vqgan", "kl_vae", "gmm", "serving",
+                          "stage2"):
                 (work / phase).mkdir()
             train_counts, rate = drive_training(torch, KERNELS, args.seed,
                                                 work / "ldm")
@@ -2423,9 +2782,13 @@ def main():
                 kl_ckpt=work / "kl_vae" / "kl_vae" / "kl_vae-2.pt",
                 images=work / "kl_vae" / "images", generate_rates=rates)
             print("serving slice: " + json.dumps(serving_metrics))
+            stage2_counts, stage2_metrics = drive_stage2_rest(
+                torch, KERNELS, args.seed, work / "stage2", work / "ldm",
+                card)
+            print("stage-2 rest: " + json.dumps(stage2_metrics))
         for key, n in [*train_counts.items(), *vq_counts.items(),
                        *kl_counts.items(), *gmm_counts.items(),
-                       *serving_counts.items()]:
+                       *serving_counts.items(), *stage2_counts.items()]:
             counts[key] = counts.get(key, 0) + n
         for row in rows.values():
             row["launches"] = counts.get((row["name"], row["key"]), 0)

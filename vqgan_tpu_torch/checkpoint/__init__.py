@@ -1,5 +1,6 @@
 from .from_jax import (
     cfg_unet_state_from_jax,
+    dit_state_from_jax,
     inception_state_from_jax,
     klvae_state_from_jax,
     lpips_state_from_jax,
@@ -11,6 +12,7 @@ from .load import load_weights, read_state_dict
 from .manager import CheckpointManager
 
 __all__ = ["CheckpointManager", "cfg_unet_state_from_jax",
+           "dit_state_from_jax",
            "inception_state_from_jax", "klvae_state_from_jax",
            "load_weights", "lpips_state_from_jax", "patchgan_state_from_jax",
            "read_state_dict", "resnet_state_from_jax",

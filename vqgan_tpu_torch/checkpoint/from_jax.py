@@ -1,10 +1,10 @@
 """The JAX package's parameter trees as the port's state dicts.
 
-`klvae_state_from_jax`, `cfg_unet_state_from_jax`, `vqvae_state_from_jax`,
-`patchgan_state_from_jax`, `lpips_state_from_jax`, `resnet_state_from_jax`
-and `inception_state_from_jax` take the variables of vqgan_tpu's KLVAE /
-CFGUnet / VQVAE / PatchGANDiscriminator / LPIPS / ResNet /
-InceptionV3Features as nested dicts of numpy arrays (`{"params": ...}` or
+`klvae_state_from_jax`, `cfg_unet_state_from_jax`, `dit_state_from_jax`,
+`vqvae_state_from_jax`, `patchgan_state_from_jax`, `lpips_state_from_jax`,
+`resnet_state_from_jax` and `inception_state_from_jax` take the variables
+of vqgan_tpu's KLVAE / CFGUnet / DiT / VQVAE / PatchGANDiscriminator /
+LPIPS / ResNet / InceptionV3Features as nested dicts of numpy arrays (`{"params": ...}` or
 the inner dict; the discriminator's, the ResNet's and Inception's with
 their `batch_stats`) and return a `state_dict` for the port's module. The port's names and shapes are the
 reference PyTorch models', so this is the inverse of the JAX package's
@@ -18,7 +18,9 @@ checkpoint/torch_import.py (`load_torch_klvae`, `load_torch_cfg_unet`,
 - BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
   running_mean/running_var.
 The JAX tree's autonames (LinearAttention_{i}, CrossAttentionCond_{i},
-Attention_0, Dense_0..3) are mapped as torch_import maps them.
+Attention_0, Dense_0..3) are mapped as torch_import maps them. The JAX
+package has no PyTorch reader for the DiT, so `dit_state_from_jax` defines
+its names (models/dit.py); every tensor is copied, never shared.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 __all__ = ["klvae_state_from_jax", "cfg_unet_state_from_jax",
+           "dit_state_from_jax",
            "vqvae_state_from_jax", "patchgan_state_from_jax",
            "lpips_state_from_jax", "resnet_state_from_jax",
            "inception_state_from_jax"]
@@ -232,6 +235,24 @@ def cfg_unet_state_from_jax(tree) -> Dict[str, torch.Tensor]:
 
 
 # --- VQ-GAN: VQ-VAE, PatchGAN, LPIPS ----------------------------------------
+
+
+def dit_state_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """vqgan_tpu DiT params -> state dict of the port's DiT: the patch
+    convolution HWIO -> OIHW, every Dense [in, out] -> Linear [out, in],
+    `blocks_{i}` -> `blocks.{i}`."""
+    p = _params(tree)
+    out = {"pos_emb": _t(p["pos_emb"]),
+           "classes_emb.weight": _t(p["classes_emb"]["embedding"]),
+           "null_classes_emb": _t(p["null_classes_emb"])}
+    _conv(out, "patch_embed", p["patch_embed"])
+    for name in ("time_mlp_in", "time_mlp_out", "final_mod", "final_proj"):
+        _dense(out, name, p[name])
+    depth = sum(key.startswith("blocks_") for key in p)
+    for i in range(depth):
+        for name in ("ada_mod", "to_qkv", "to_out", "mlp_in", "mlp_out"):
+            _dense(out, f"blocks.{i}.{name}", p[f"blocks_{i}"][name])
+    return out
 
 
 def vqvae_state_from_jax(tree) -> Dict[str, torch.Tensor]:

@@ -32,12 +32,13 @@ class LDMConfig:
     latent_channels: int = 4
 
     # --- model (about 44M parameters) ---
-    model_type: str = "unet"  # "unet" | "dit" (not ported yet)
+    model_type: str = "unet"  # "unet" (the CFG U-Net) | "dit"
     dim: int = 96
     dim_mults: Tuple[int, ...] = (1, 2, 4, 4)
     attn_dim_head: int = 64
     attn_heads: int = 8
     cond_drop_prob: float = 0.0
+    # DiT only (ignored for the U-Net)
     dit_depth: int = 8
     dit_patch_size: int = 2
 

@@ -1,16 +1,19 @@
 """Gaussian diffusion with classifier-free guidance: the training loss and
-the DDIM sampler.
+the samplers.
 
-Counterpart of vqgan_tpu/diffusion/gaussian.py for training and generation:
-`p_losses` and `loss` (Min-SNR weighted, offset noise, cond-drop; t, noise
-and the cond-drop mask can be injected), `model_predictions` (with the CFG
-[cond; null] pair as one 2B-batch forward), `ddim_step` (one CFG DDIM step
-with t, t_next and the noise as tensors, traceable by `torch.export`;
-`DDIMStep` is it as a module), `ddim_sample` (a Python loop of that step
-over the (time, time_next) pairs, with injectable noise) and `sample`. NCHW
-inside; the public functions take and return NHWC latents, like the JAX
-package. The ancestral sampler, `interpolate`, immiscible noise,
-self-conditioning, CFG++ and `return_all_timesteps` come with later slices.
+Counterpart of vqgan_tpu/diffusion/gaussian.py for class-conditional
+models: `p_losses` and `loss` (Min-SNR weighted, offset noise, cond-drop;
+t, noise and the cond-drop mask can be injected), `model_predictions` (with
+the CFG [cond; null] pair as one 2B-batch forward, and CFG++), `ddim_step`
+(one CFG DDIM step with t, t_next and the noise as tensors, traceable by
+`torch.export`; `DDIMStep` is it as a module), `ddim_sample` (a Python loop
+of that step over the (time, time_next) pairs), `p_sample_loop` (the
+ancestral sampler), `sample` (DDIM when sampling_timesteps < T, else
+ancestral) and `interpolate`. Every random draw can be passed in as a
+tensor, or comes from an explicit `torch.Generator`. NCHW inside; the
+public functions take and return NHWC latents, like the JAX package.
+Immiscible noise, self-conditioning and unconditional models come with a
+later slice.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ class GaussianDiffusion:
     offset_noise_strength: float = 0.0
     min_snr_loss_weight: bool = False
     min_snr_gamma: float = 5.0
+    use_cfg_plus_plus: bool = False
     auto_normalize: bool = True
     device: torch.device = torch.device("cpu")
     schedule: DiffusionSchedule = None
@@ -142,9 +146,12 @@ class GaussianDiffusion:
     def model_predictions(self, x, t, classes, *, cond_scale: float = 6.0,
                           rescaled_phi: float = 0.7,
                           clip_x_start: bool = False):
-        """NCHW x, t [B], classes [B] -> (pred_noise, pred_x_start)."""
+        """NCHW x, t [B], classes [B] -> (pred_noise, pred_x_start). Under
+        CFG++ (`use_cfg_plus_plus`, cond_scale != 1) the noise comes from
+        the null branch's prediction, x_start from the guided one."""
         sched = self.schedule
         b = x.shape[0]
+        model_output_null = None
         if cond_scale == 1.0:
             # one conditional forward
             model_output = self.model(
@@ -160,21 +167,29 @@ class GaussianDiffusion:
                               cond_drop_mask=mask)
             model_output = apply_cfg(both[:b], both[b:], cond_scale,
                                      rescaled_phi)
+            if self.use_cfg_plus_plus:
+                model_output_null = both[b:]
 
         def maybe_clip(z):
             return torch.clamp(z, -1.0, 1.0) if clip_x_start else z
 
         if self.objective == "pred_noise":
-            pred_noise = model_output
+            pred_noise = (model_output if model_output_null is None
+                          else model_output_null)
             x_start = maybe_clip(
                 dm.predict_start_from_noise(sched, x, t, model_output))
         elif self.objective == "pred_x0":
             x_start = maybe_clip(model_output)
-            pred_noise = dm.predict_noise_from_start(sched, x, t, x_start)
+            x_for_noise = (x_start if model_output_null is None
+                           else maybe_clip(model_output_null))
+            pred_noise = dm.predict_noise_from_start(sched, x, t, x_for_noise)
         else:  # pred_v
             x_start = maybe_clip(
                 dm.predict_start_from_v(sched, x, t, model_output))
-            pred_noise = dm.predict_noise_from_start(sched, x, t, x_start)
+            x_for_noise = (x_start if model_output_null is None
+                           else maybe_clip(dm.predict_start_from_v(
+                               sched, x, t, model_output_null)))
+            pred_noise = dm.predict_noise_from_start(sched, x, t, x_for_noise)
         return pred_noise, x_start
 
     def ddim_time_pairs(self):
@@ -183,37 +198,103 @@ class GaussianDiffusion:
                             num=self.sampling_timesteps + 1).astype(int)[::-1]
         return [(int(a), int(b)) for a, b in zip(times[:-1], times[1:])]
 
+    def _step_noise(self, shape, step_noise, generator):
+        """step i -> NCHW noise for an NHWC `shape`: row i of the given
+        step_noise ([steps, *shape], NHWC), else a draw from `generator`."""
+        b, h, w, c = shape
+        if step_noise is None:
+            return lambda i: torch.randn((b, c, h, w), generator=generator,
+                                         device=self.device)
+        steps = torch.as_tensor(step_noise, dtype=torch.float32,
+                                device=self.device).permute(0, 1, 4, 2, 3)
+        return lambda i: steps[i]
+
+    def _noise_source(self, shape, init_noise, step_noise, generator):
+        """(initial NCHW noise, step i -> NCHW noise) for an NHWC `shape`:
+        the given tensors (init_noise [*shape], NHWC), else draws from
+        `generator`, the initial one first."""
+        b, h, w, c = shape
+        img = (_nchw(torch.as_tensor(init_noise, dtype=torch.float32,
+                                     device=self.device))
+               if init_noise is not None else
+               torch.randn((b, c, h, w), generator=generator,
+                           device=self.device))
+        return img, self._step_noise(shape, step_noise, generator)
+
+    def _finish(self, img, trajectory, return_all_timesteps: bool):
+        """NHWC result, unnormalised: the final latents, or with
+        `return_all_timesteps` the initial noise and every step's latents
+        stacked on axis 1 ([B, steps + 1, H, W, C])."""
+        if return_all_timesteps:
+            return self.unnormalize(torch.stack(
+                [_nhwc(x) for x in trajectory], dim=1))
+        return self.unnormalize(_nhwc(img))
+
     @torch.inference_mode()
     def ddim_sample(self, shape, classes, *, cond_scale: float = 6.0,
                     rescaled_phi: float = 0.7, clip_denoised: bool = True,
+                    return_all_timesteps: bool = False,
                     init_noise=None, step_noise=None,
                     generator: torch.Generator = None):
         """DDIM sampler. `shape` is NHWC. init_noise ([*shape]) and step_noise
         ([sampling_timesteps, *shape]), NHWC, replace the drawn noise; the
         tests drive the port and the JAX package with the same numbers.
         Otherwise noise comes from `generator`."""
-        b, h, w, c = shape
-        dev = self.device
-
-        def randn():
-            return torch.randn((b, c, h, w), generator=generator, device=dev)
-
-        img = (_nchw(torch.as_tensor(init_noise, dtype=torch.float32,
-                                     device=dev))
-               if init_noise is not None else randn())
-        if step_noise is not None:
-            step_noise = torch.as_tensor(step_noise, dtype=torch.float32,
-                                         device=dev).permute(0, 1, 4, 2, 3)
-        classes = torch.as_tensor(classes, device=dev)
+        img, noise_at = self._noise_source(shape, init_noise, step_noise,
+                                           generator)
+        trajectory = [img]
+        classes = torch.as_tensor(classes, device=self.device)
         pairs = torch.tensor(self.ddim_time_pairs(), dtype=torch.long,
-                             device=dev)[:, :, None].expand(-1, -1, b)
+                             device=self.device)[:, :, None].expand(
+                                 -1, -1, shape[0])
         for i, (tb, tnb) in enumerate(pairs):
-            noise = step_noise[i] if step_noise is not None else randn()
-            img = self.ddim_step(img, tb, tnb, classes, noise,
+            img = self.ddim_step(img, tb, tnb, classes, noise_at(i),
                                  cond_scale=cond_scale,
                                  rescaled_phi=rescaled_phi,
                                  clip_denoised=clip_denoised)
-        return self.unnormalize(_nhwc(img))
+            if return_all_timesteps:
+                trajectory.append(img)
+        return self._finish(img, trajectory, return_all_timesteps)
+
+    def p_sample(self, img, t: int, classes, noise, *, cond_scale: float,
+                 rescaled_phi: float, clip_denoised: bool = True):
+        """One ancestral step from x_t (NCHW) at time `t` (a Python int):
+        the model's x_0, clipped after `model_predictions`, the posterior
+        mean and clipped log variance, plus `noise` except at t = 0."""
+        tb = torch.full((img.shape[0],), t, dtype=torch.long,
+                        device=img.device)
+        _, x_start = self.model_predictions(
+            img, tb, classes, cond_scale=cond_scale,
+            rescaled_phi=rescaled_phi)
+        if clip_denoised:
+            x_start = torch.clamp(x_start, -1.0, 1.0)
+        mean, _, log_var = dm.q_posterior(self.schedule, x_start, img, tb)
+        if t == 0:
+            return mean
+        return mean + torch.exp(0.5 * log_var) * noise
+
+    @torch.inference_mode()
+    def p_sample_loop(self, shape, classes, *, cond_scale: float = 6.0,
+                      rescaled_phi: float = 0.7, clip_denoised: bool = True,
+                      return_all_timesteps: bool = False, init_noise=None,
+                      step_noise=None, generator: torch.Generator = None):
+        """Ancestral (DDPM) sampler over every t from T-1 down to 0. `shape`
+        is NHWC; init_noise ([*shape]) and step_noise ([timesteps, *shape],
+        row i for t = T-1-i; the row for t = 0 is unused), NHWC, replace the
+        draws from `generator` (one per step, t = 0 included, as the JAX
+        package draws)."""
+        img, noise_at = self._noise_source(shape, init_noise, step_noise,
+                                           generator)
+        trajectory = [img]
+        classes = torch.as_tensor(classes, device=self.device)
+        for i, t in enumerate(range(self.timesteps - 1, -1, -1)):
+            img = self.p_sample(img, t, classes, noise_at(i),
+                                cond_scale=cond_scale,
+                                rescaled_phi=rescaled_phi,
+                                clip_denoised=clip_denoised)
+            if return_all_timesteps:
+                trajectory.append(img)
+        return self._finish(img, trajectory, return_all_timesteps)
 
     def ddim_step(self, img, time, time_next, classes, noise, *,
                   cond_scale: float = 6.0, rescaled_phi: float = 0.7,
@@ -231,17 +312,51 @@ class GaussianDiffusion:
 
     def sample(self, batch_size: Optional[int] = None, classes=None, *,
                cond_scale: float = 6.0, rescaled_phi: float = 0.7,
+               return_all_timesteps: bool = False,
                generator: torch.Generator = None):
-        """NHWC samples for `classes`; DDIM when sampling_timesteps < T."""
+        """NHWC samples for `classes`: DDIM when sampling_timesteps < T, the
+        ancestral sampler when they are equal."""
         if batch_size is None:
             batch_size = len(classes)
-        if not self.is_ddim_sampling:
-            raise NotImplementedError(
-                "the ancestral (DDPM) sampler is not ported yet; set "
-                "sampling_timesteps below timesteps for DDIM")
         shape = (batch_size, self.image_size, self.image_size, self.channels)
-        return self.ddim_sample(shape, classes, cond_scale=cond_scale,
-                                rescaled_phi=rescaled_phi, generator=generator)
+        fn = self.ddim_sample if self.is_ddim_sampling else self.p_sample_loop
+        return fn(shape, classes, cond_scale=cond_scale,
+                  rescaled_phi=rescaled_phi,
+                  return_all_timesteps=return_all_timesteps,
+                  generator=generator)
+
+    @torch.inference_mode()
+    def interpolate(self, x1, x2, classes, t: Optional[int] = None,
+                    lam: float = 0.5, *, noise1=None, noise2=None,
+                    step_noise=None, generator: torch.Generator = None):
+        """Diffuse NHWC x1 and x2 to time t (default T-1), mix them as
+        (1 - lam) x1_t + lam x2_t, then denoise ancestrally from t-1 down
+        to 0 at cond_scale 1.0. noise1 / noise2 (the two q_sample draws,
+        NHWC) and step_noise ([t, *shape]) replace the draws from
+        `generator`, in that order."""
+        t = self.timesteps - 1 if t is None else t
+        dev = self.device
+        x1 = _nchw(torch.as_tensor(x1, dtype=torch.float32, device=dev))
+        x2 = _nchw(torch.as_tensor(x2, dtype=torch.float32, device=dev))
+
+        def given_or_drawn(noise):
+            if noise is not None:
+                return _nchw(torch.as_tensor(noise, dtype=torch.float32,
+                                             device=dev))
+            return torch.randn(x1.shape, generator=generator, device=dev)
+
+        tb = torch.full((x1.shape[0],), t, dtype=torch.long, device=dev)
+        xt1 = dm.q_sample(self.schedule, self.normalize(x1), tb,
+                          given_or_drawn(noise1))
+        xt2 = dm.q_sample(self.schedule, self.normalize(x2), tb,
+                          given_or_drawn(noise2))
+        img = (1 - lam) * xt1 + lam * xt2
+        noise_at = self._step_noise(_nhwc(img).shape, step_noise, generator)
+        classes = torch.as_tensor(classes, device=dev)
+        for i, tcur in enumerate(range(t - 1, -1, -1)):
+            img = self.p_sample(img, tcur, classes, noise_at(i),
+                                cond_scale=1.0, rescaled_phi=0.0)
+        return self.unnormalize(_nhwc(img))
 
 
 class DDIMStep(nn.Module):

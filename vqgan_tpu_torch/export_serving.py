@@ -9,8 +9,8 @@
         [--selftest]
 
 Counterpart of cli/export_serving.py. Mode `cfg_sampler` packages the
-generate.py hot path, the CFG DDIM sampler (U-Net checkpoint of the port's
-trainer) and the KL-VAE decode, as a `torch.export` directory
+generate.py hot path, the CFG DDIM sampler (a U-Net or DiT checkpoint of
+the port's trainer, rebuilt from its config) and the KL-VAE decode, as a `torch.export` directory
 (`serving/export.py`: one step program that the loader loops over, and a
 decode program); `serve_generate` and `serve_http` run it with no model
 code. Mode `vq_codec` packages the VQ-VAE index codec (images -> int

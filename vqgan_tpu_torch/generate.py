@@ -7,12 +7,12 @@
 Counterpart of cli/generate.py, with its flags and its output layout:
 per user, batches of at most `--batch_size` DDIM samples, decoded by the
 KL-VAE and written as `ID_{user}/generated_{i:03d}.jpg` at quality 95.
-U-Net weights come from a results folder of the port's trainer
-(`--checkpoint DIR [--milestone M]`: its config and its EMA weights, as the
-JAX CLI reads its checkpoints; the JAX package's Orbax checkpoints are
-refused with a message), or from a PyTorch state-dict file (the port's or
-the reference models'), or are drawn at random from `--seed` with
-`--random_init`.
+Denoiser weights come from a results folder of the port's trainer
+(`--checkpoint DIR [--milestone M]`: its config, which names the backbone,
+the CFG U-Net or the DiT, and its EMA weights, as the JAX CLI reads its
+checkpoints; the JAX package's Orbax checkpoints are refused with a
+message), or from a PyTorch state-dict file (the port's or the reference
+models'), or are drawn at random from `--seed` with `--random_init`.
 
 Runs on the GPU by default (`--device cpu` to run on the CPU). fp32 matmuls
 and convolutions run in full fp32 (TF32 off), as the JAX package's "highest"

@@ -1,9 +1,11 @@
 from .autoencoder import AutoencoderConfig, DiagonalGaussian, KLVAE, kl_vae_loss
 from .discriminator import MultiScaleDiscriminator, PatchGANDiscriminator
+from .dit import DiT, DiTBlock
 from .lpips import LPIPS
 from .unet_cfg import CFGUnet
 from .vq_vae import VQVAE, VectorQuantizer
 
 __all__ = ["AutoencoderConfig", "DiagonalGaussian", "KLVAE", "CFGUnet",
+           "DiT", "DiTBlock",
            "LPIPS", "MultiScaleDiscriminator", "PatchGANDiscriminator",
            "VQVAE", "VectorQuantizer", "kl_vae_loss"]

@@ -26,7 +26,17 @@ from torch import nn
 from ..ops.attention import sdpa
 from .layers import Conv2d, Linear, RMSNorm, UpsampleNearest, from_heads, to_heads
 
-__all__ = ["CFGUnet", "SinusoidalPosEmb"]
+__all__ = ["CFGUnet", "SinusoidalPosEmb", "draw_cond_drop_mask"]
+
+
+def draw_cond_drop_mask(b: int, p: float,
+                        generator: Optional[torch.Generator], device):
+    """The training-time class dropout: bool [B], True with probability p,
+    drawn from `generator`; None when p is 0. The denoisers draw it here,
+    and so does the rematerialised forward before its checkpoint."""
+    if p > 0.0:
+        return torch.rand(b, generator=generator, device=device) < p
+    return None
 
 
 class SinusoidalPosEmb(nn.Module):
@@ -297,9 +307,7 @@ class CFGUnet(nn.Module):
         classes_emb = self.classes_emb(classes)
         if cond_drop_mask is None:
             p = self.cond_drop_prob if cond_drop_prob is None else cond_drop_prob
-            if p > 0.0:
-                cond_drop_mask = torch.rand(b, generator=generator,
-                                            device=x.device) < p
+            cond_drop_mask = draw_cond_drop_mask(b, p, generator, x.device)
         if cond_drop_mask is not None:
             classes_emb = torch.where(cond_drop_mask[:, None],
                                       self.null_classes_emb[None, :],

@@ -1,18 +1,24 @@
 """Where a training step's time goes on the GPU.
 
-    python -m vqgan_tpu_torch.profile_train [--batch_size 8] [--steps 10]
+    python -m vqgan_tpu_torch.profile_train [--batch_size 8] [--steps 10] \
+        [--config fields.json] [--gradient_checkpointing]
 
-Builds the full-width LDMConfig U-Net (bf16 compute), its AdamW optimizer
-with clipping and its EMA copy with random weights from `--seed`, and a
-batch of random [B, 32, 32, 4] latents with classes. Then measures one whole
-training step (forward, backward, clipping, AdamW, EMA update) after a
-warm-up, with `profile_generate.profile_steps`: host wall ms per step (read
-first, with no profiler run yet in the process), then device kernel ms per
-step, the device's idle share, launches per step and the top kernels. The
-EMA step counter starts past the warm-copy regime with the LDMConfig
-cadence, so one step in `ema_update_every` updates the EMA, as in a long
-run. Also counts the flash kernels' launches per step. Prints one JSON
-object. Needs a CUDA device.
+Builds the full-width denoiser of LDMConfig (the CFG U-Net, or with a
+`--config` JSON of further LDMConfig fields another one, such as
+{"model_type": "dit"}; bf16 compute), optionally with gradient
+checkpointing, its AdamW optimizer with clipping and its EMA copy with
+random weights from `--seed`, and a batch of random [B, 32, 32, 4] latents
+with classes. Then measures one whole training step (forward, backward,
+clipping, AdamW, EMA update) after a warm-up, with
+`profile_generate.profile_steps`: host wall ms per step (read first, with
+no profiler run yet in the process), then device kernel ms per step, the
+device's idle share, launches per step and the top kernels. The EMA step
+counter starts past the warm-copy regime with the LDMConfig cadence, so
+one step in `ema_update_every` updates the EMA, as in a long run. Also
+counts the flash kernels' launches per step, and reads the peak of
+allocated memory above what is allocated before a step, over one whole
+step and over its forward and backward alone (what gradient checkpointing
+acts on). Prints one JSON object. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+from pathlib import Path
 
 import torch
 
@@ -40,13 +47,19 @@ def main(argv=None):
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--config", default=None,
+                    help="JSON of further LDMConfig fields")
+    ap.add_argument("--gradient_checkpointing", action="store_true")
     args = ap.parse_args(argv)
 
     device = resolve_device("cuda")
     set_full_fp32_precision()
     torch.manual_seed(args.seed)
-    cfg = LDMConfig()
-    model, diffusion = build_cfg_unet_diffusion(cfg, device=device)
+    cfg = LDMConfig.from_dict(
+        json.loads(Path(args.config).read_text()) if args.config else {})
+    model, diffusion = build_cfg_unet_diffusion(
+        cfg, device=device,
+        gradient_checkpointing=args.gradient_checkpointing)
     model.train()
     optimizer = make_ldm_optimizer(
         model.parameters(), learning_rate=cfg.train_lr,
@@ -66,19 +79,39 @@ def main(argv=None):
     def step():
         return train_step(state, latents, classes, generator=gen)
 
+    def forward_backward():
+        diffusion.loss(latents, classes, generator=gen).backward()
+
     for k in KERNELS.values():
         k.launches = 0
     n_before = state.step
     out = {
         "device": torch.cuda.get_device_name(0),
+        "model_type": cfg.model_type,
+        "gradient_checkpointing": args.gradient_checkpointing,
         "batch_size": b,
         **profile_steps({"train_step": (step, args.steps)}),
     }
     n_steps = state.step - n_before
     out["flash_launches_per_step"] = {
         name: k.launches / n_steps for name, k in KERNELS.items()}
+    out["step_peak_bytes"] = peak_above_start(step)
+    optimizer.zero_grad()
+    forward_backward()  # the gradients' storage, as a step finds it
+    out["forward_backward_peak_bytes"] = peak_above_start(forward_backward)
     print(json.dumps(out))
     return out
+
+
+def peak_above_start(fn) -> int:
+    """Bytes of device memory allocated at the peak of one `fn()` call
+    above what was allocated when it began."""
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - start
 
 
 if __name__ == "__main__":

@@ -7,8 +7,9 @@
 
 Counterpart of cli/train_latent_cfg.py: LDMConfig (or, with `--baseline`,
 the all-optimizations-off BaselineLDMConfig) with the flags' overrides, and
-a JSON of further LDMConfig fields with `--config`; the CFG U-Net trained on
-the cached latents, with resume. `--vae_path` is a KL-VAE state dict
+a JSON of further LDMConfig fields with `--config`; the CFG U-Net (or,
+with `--model_type dit`, the DiT) trained on the cached latents, with
+resume. `--vae_path` is a KL-VAE state dict
 (`.pt`); with it, latents missing from the cache are encoded and every
 checkpoint comes with a sample grid. The JAX package's mesh, sharding and
 scan dispatch have no counterpart here.
@@ -41,6 +42,9 @@ def parse_args(argv=None):
     ap.add_argument("--train_batch_size", type=int, default=None)
     ap.add_argument("--resume", type=int, default=None,
                     help="milestone to resume from; -1 for the latest")
+    ap.add_argument("--model_type", choices=("unet", "dit"), default=None,
+                    help="denoiser backbone: the CFG U-Net (default) or the "
+                         "DiT transformer (models/dit.py)")
     ap.add_argument("--baseline", action="store_true",
                     help="ablation baseline config (all optimizations off)")
     ap.add_argument("--config", default=None,

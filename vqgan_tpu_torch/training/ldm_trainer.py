@@ -1,7 +1,10 @@
 """Stage-2 latent-diffusion trainer.
 
 Counterpart of vqgan_tpu/training/ldm_trainer.py with its per-step loop:
-the CFG U-Net and GaussianDiffusion from an LDMConfig, `LatentDataset` over
+the denoiser (the CFG U-Net, or the DiT with model_type "dit") and
+GaussianDiffusion from an LDMConfig, optionally with gradient checkpointing
+(the whole denoiser forward recomputed in the backward pass, as the JAX
+package's Diffusers-style trainer rebuilds its step), `LatentDataset` over
 the cached latents, Adam(W) with clipping and warmup, an EMA copy, the
 loss-health watchdog, `sample-{m}.png` grids and milestone + latest
 checkpoints every `save_and_sample_every` steps, and `load(milestone)` to
@@ -40,18 +43,23 @@ __all__ = ["LatentDiffusionTrainer"]
 
 class LatentDiffusionTrainer:
     def __init__(self, config: LDMConfig, split_path: Optional[str] = None,
-                 vae=None, device="cuda"):
+                 vae=None, device="cuda",
+                 gradient_checkpointing: bool = False):
         """`vae`: the port's KLVAE on `device`, for sample grids and for
         encoding latents missing from the cache; None trains from a full
-        cache and saves checkpoints without grids."""
+        cache and saves checkpoints without grids. `gradient_checkpointing`
+        trades a second denoiser forward per step for the activations it
+        would keep."""
         self.config = cfg = config
         self.device = resolve_device(device)
         torch.manual_seed(cfg.seed)  # initial weights
         self.model, self.diffusion = build_cfg_unet_diffusion(
-            cfg, device=self.device)
+            cfg, device=self.device,
+            gradient_checkpointing=gradient_checkpointing)
         self.model.train()
         n_params = sum(p.numel() for p in self.model.parameters())
-        print(f"CFG U-Net parameters: {n_params / 1e6:.1f}M")
+        name = "DiT" if cfg.model_type == "dit" else "CFG U-Net"
+        print(f"{name} parameters: {n_params / 1e6:.1f}M")
         self.ema_model = copy.deepcopy(self.model).eval().requires_grad_(False)
 
         self.optimizer = make_ldm_optimizer(
