@@ -32,7 +32,13 @@ Phases, in order; any failure exits non-zero:
    multi-tile S = 256 at d = 64, forward at [8, 16 and 32,256,8,64] and
    backward at [8,256,8,64] bf16, q, k and v as views of one projection as
    the model makes them, and the Diffusers-style trainer's U-Net, forward
-   and backward at [24,16,8,32] and forward at [16,16,8,32]. Time each
+   and backward at [24,16,8,32] and forward at [16,16,8,32]; phase 5h's:
+   the pixel-space U-Nets' attention with 4 memory key/value tokens in
+   front of the keys (Skv = Sq + 4 = 260: five K/V tiles, the last with 4
+   rows), forward at the DDPM's [16, 25 and 2,256,4,32] and the Karras
+   U-Net's [16,256,4,64] bf16, backward at [16,256,4,32], built as the
+   models build them (q a view of one projection, k and v concatenated
+   behind the memory tokens; the Karras U-Net's pixel-normed). Time each
    kernel through its operator (the host time every path pays; the flash
    forward also through its ctypes wrapper alone), its plain version and
    one PyTorch library call at the main paths' shapes (and a few others),
@@ -64,6 +70,13 @@ Phases, in order; any failure exits non-zero:
    with injected t, noise and cond-drop mask; hold them as 4b does; per
    step `depth` launches of each flash kernel for the DiT, and 2 forward,
    1 dQ and 1 dK/dV for the recomputed U-Net.
+4g. Pixel-space diffusion on small inputs, card against CPU: three
+   training steps of a tiny fp32 DDPM U-Net through the DDPM trainer's
+   step, self-conditioned, with immiscible noise by the on-device auction,
+   t, noise and coin injected, held as 4b is held (6 forward, 3 dQ and 3
+   dK/dV launches per step; the auction's permutations equal on both
+   devices); and Heun-4 with a tiny KarrasUnet from injected noise (images
+   within 1e-3, 88 forward launches).
 5. Drive generation, `python -m vqgan_tpu_torch.generate`, at full width
    with seeded random weights: LDMConfig defaults (dim 96, mults 1-2-4-4,
    8 heads x 64, T=1000, DDIM-150, pred_v, cosine, bf16 U-Net) and the
@@ -174,6 +187,23 @@ Phases, in order; any failure exits non-zero:
    forwards, finite images). Prints DiT latents/s and samples/s, the
    Diffusers trainer's latents/s, both peaks and the ancestral samples/s,
    each beside the card's name and power limit.
+5h. Drive pixel-space diffusion at full width through its entry points on
+   31 users x 8 seeded JPGs (128 px): `train_ddpm` at the JAX CLI's
+   defaults (dim 64, mults 1-2-4-8, bf16, batch 16, pred_v, sigmoid
+   betas) for 20 steps with one DDIM-250 grid of 25 (3 forward, 3 dQ and
+   3 dK/dV launches per step at [16,256,4,32]; 750 forwards per grid at
+   [25,256,4,32]), then the grid alone, timed; the auction at batch 16
+   (ms per call, its cost within its bound of scipy's exact assignment);
+   `train_ddpm --self_condition --immiscible --sampling_timesteps 50
+   --calculate_fid --num_fid_samples 50 --save_best_and_latest_only` for
+   10 steps with one milestone and a resume to 12 (6 / 3 / 3 launches per
+   step; a finite FID >= 0, the "best" and "latest" checkpoints); and
+   `bench_edm` at its defaults (KarrasUnet dim 64 at 64 px, bf16, batch
+   16: 8 forward launches per network forward at [16,256,4,64], 512 per
+   Heun-32 batch and 256 per DPM++(2M) batch, 4 batches of each; finite
+   images). Prints DDPM images/s, the grid's samples/s, the auction's ms
+   and the EDM samplers' samples/s, each beside the card's name and power
+   limit.
 6. Print the kernels' JSON line, then the card line, then the device line.
 """
 
@@ -346,7 +376,47 @@ def attention_cases():
         # grids at 16
         ("unet32_mid_train_b24", 24, 16, 16, 8, 32, "bfloat16", True),
         ("unet32_mid", 16, 16, 16, 8, 32, "bfloat16", True),
+        # the pixel-space U-Nets at 16 x 16, 4 memory key/value tokens in
+        # front of the keys (Skv = 260), built as the models build them:
+        # the DDPM's (4 heads x 32) in training at batch 16 (and its FID
+        # batches of 16), its grids of 25 and the last FID batch of 2;
+        # the Karras U-Net's (4 heads x 64, q, k and v pixel-normed) in
+        # EDM sampling at batch 16
+        ("ddpm_mid_train", 16, 256, 260, 4, 32, "bfloat16", True),
+        ("ddpm_mid_grid", 25, 256, 260, 4, 32, "bfloat16", True),
+        ("ddpm_mid_fid_tail", 2, 256, 260, 4, 32, "bfloat16", True),
+        ("karras_mid", 16, 256, 260, 4, 64, "bfloat16", True),
     ]
+
+
+def memory_qkv(torch, rng, b, s, h, d, dtype, pixel_normed: bool):
+    """q [B, S, H, D] and k, v [B, 4 + S, H, D] as the pixel-space U-Nets
+    make them: q a view of one [B, S, 3 * H * D] projection, k and v new
+    tensors with 4 memory tokens in front (`with_memory_tokens`); the
+    Karras U-Net's then pixel-normed along D."""
+    from vqgan_tpu_torch.models.karras_unet import pixel_norm
+    from vqgan_tpu_torch.models.layers import with_memory_tokens
+
+    x = rng.standard_normal((b, s, 3 * h * d)).astype(np.float32)
+    q, k, v = torch.from_numpy(x).to("cuda", dtype).view(
+        b, s, 3, h, d).unbind(2)
+    mem = torch.from_numpy(rng.standard_normal((2, h, 4, d)).astype(
+        np.float32)).to("cuda")
+    k, v = with_memory_tokens(mem, k, v)
+    if pixel_normed:
+        q, k, v = (pixel_norm(t, dim=-1) for t in (q, k, v))
+    return q, k, v
+
+
+def model_qkv(torch, rng, label, b, s_q, h, d, dtype):
+    """The main paths' q, k and v for `label`, or None for a case whose
+    inputs are plain random [B, S, H, D] tensors."""
+    if label.startswith("dit"):
+        return packed_qkv(torch, rng, b, s_q, h, d, dtype)
+    if label.startswith(("ddpm", "karras")):
+        return memory_qkv(torch, rng, b, s_q, h, d, dtype,
+                          pixel_normed=label.startswith("karras"))
+    return None
 
 
 def packed_qkv(torch, rng, b, s, h, d, dtype):
@@ -374,8 +444,8 @@ def check_flash_fwd(torch, peaks, seed: int):
             return torch.from_numpy(x).to("cuda", dtype)
 
         q, k, v = make(s_q), make(s_kv), make(s_kv)
-        if label.startswith("dit"):
-            q, k, v = packed_qkv(torch, rng, b, s_q, h, d, dtype)
+        q, k, v = model_qkv(torch, rng, label, b, s_q, h, d, dtype) or (
+            q, k, v)
         if label in ("ragged_cross", "ragged_d512_bf16"):
             # strided views: the kernel reads BSHD in place
             q = torch.cat([q, q], dim=-1)[..., :d]
@@ -509,6 +579,10 @@ def bwd_cases():
         ("dit_train", 8, 256, 256, 8, 64, "bfloat16", True, False, True),
         ("unet32_mid_train_b24", 24, 16, 16, 8, 32, "bfloat16", True, False,
          True),
+        # the DDPM U-Net's training shape, 4 memory tokens in front of the
+        # keys: the last 64-row K/V tile holds 4 rows
+        ("ddpm_mid_train", 16, 256, 260, 4, 32, "bfloat16", True, False,
+         True),
     ]
 
 
@@ -571,8 +645,8 @@ def check_flash_bwd(torch, peaks, seed: int):
             return torch.from_numpy(x).to("cuda", dtype)
 
         q, k, v, do = make(s_q), make(s_kv), make(s_kv), make(s_q)
-        if label.startswith("dit"):
-            q, k, v = packed_qkv(torch, rng, b, s_q, h, d, dtype)
+        q, k, v = model_qkv(torch, rng, label, b, s_q, h, d, dtype) or (
+            q, k, v)
         if strided:
             # batch/sequence/head strides the kernels read in place
             do = torch.cat([do, do], dim=-1)[..., :d]
@@ -1040,7 +1114,14 @@ def card_vs_cpu_training(torch, kernels, label, init, seed: int, *,
                               for p in m.parameters()])
         out[dev] = (grads, losses, flat(model), flat(state.ema_model),
                     launches)
+    hold_card_to_cpu(torch, label, init, out, n_steps, lr, per_step)
 
+
+def hold_card_to_cpu(torch, label, init, out, n_steps: int, lr: float,
+                     per_step: dict):
+    """The gates of `card_vs_cpu_training` on out = {"cpu": ..., "cuda":
+    ...}, each (first-step gradients, losses, parameters, EMA parameters,
+    flash launches of the card's steps), from the weights of `init`."""
     (g_cpu, l_cpu, p_cpu, e_cpu, _), (g_gpu, l_gpu, p_gpu, e_gpu, launches) \
         = out["cpu"], out["cuda"]
     p_init = torch.cat([p.detach().flatten() for p in init.parameters()])
@@ -2708,6 +2789,288 @@ def drive_stage2_rest(torch, kernels, seed: int, work: Path, ldm: Path,
     return counts, metrics
 
 
+def check_small_ddpm_and_karras(torch, kernels, seed: int):
+    """Phase 4g, pixel-space diffusion on small inputs, card against CPU:
+    - three training steps of a tiny fp32 DDPM U-Net (dim 16, mults 1-2,
+      full attention on the inner stage, 16 px, batch 4) through the
+      DDPM trainer's step, with self-conditioning and immiscible noise by
+      the on-device auction, t, noise and the coin injected; held as 4b
+      is held (`hold_card_to_cpu`). The EMA after 3 steps is the copy made
+      at step 0. Each step launches 2 forwards (one of them the
+      self-conditioning pass without a graph), 1 dQ and 1 dK/dV per
+      full-attention block (3: down, mid, up): 6 / 3 / 3. The auction's
+      permutation of each step's noise must be the same on both devices.
+    - Heun-4 with a tiny KarrasUnet (dim 16 at 16 px, 3 classes, eval
+      mode, the gains set past their zero initialisation), initial and
+      step noise injected; the images within 1e-3 (phase 4's rule: cuDNN
+      and the kernel sum in other orders). 8 forwards of 11 attention
+      blocks each (2 at 8 px and 2 at 4 px in the encoder, 2 in the
+      middle, 2 at 4 px and 3 at 8 px in the decoder): 88 launches."""
+    import copy
+
+    from vqgan_tpu_torch.diffusion import ElucidatedDiffusion, GaussianDiffusion
+    from vqgan_tpu_torch.diffusion.gaussian import immiscible_permutation
+    from vqgan_tpu_torch.models import KarrasUnet, Unet
+    from vqgan_tpu_torch.training.ddpm_trainer import Trainer
+
+    n_steps, b, lr = 3, 4, 8e-5
+    torch.manual_seed(seed + 7)
+    init = Unet(dim=16, dim_mults=(1, 2), full_attn=(False, True),
+                self_condition=True)
+    rng = np.random.default_rng(seed + 8)
+    images = rng.random((n_steps, b, 16, 16, 3)).astype(np.float32)
+    noise = rng.standard_normal((n_steps, b, 16, 16, 3)).astype(np.float32)
+    ts = rng.integers(0, 1000, (n_steps, b))
+    coins = (True, False, True)
+    out, perms = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(init).to(dev)
+        diffusion = GaussianDiffusion(
+            model, image_size=16, timesteps=1000, sampling_timesteps=250,
+            objective="pred_v", beta_schedule="sigmoid",
+            ddim_sampling_eta=0.0, self_condition=True, immiscible=True,
+            immiscible_method="auction", device=torch.device(dev))
+
+        def inputs(i):
+            return (torch.from_numpy(images[i]).to(dev),
+                    dict(t=torch.from_numpy(ts[i]).to(dev), noise=noise[i],
+                         self_cond_coin=coins[i]))
+
+        x, kw = inputs(0)
+        diffusion.loss(x, **kw).backward()
+        grads = torch.cat([p.grad.flatten().cpu() for p in model.parameters()
+                           if p.grad is not None])
+        model.zero_grad(set_to_none=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = Trainer(diffusion, model, train_batch_size=b,
+                              train_lr=lr, results_folder=tmp)
+            perms[dev] = []
+            reset_counts(kernels)
+            losses = []
+            for i in range(n_steps):
+                x, kw = inputs(i)
+                perms[dev].append(immiscible_permutation(
+                    diffusion.normalize(x).permute(0, 3, 1, 2),
+                    torch.from_numpy(noise[i]).to(dev).permute(0, 3, 1, 2),
+                    "auction").cpu().tolist())
+                losses.append(float(trainer.train_step(x, **kw)))
+            launches = {name: kernels[name].launches for name in FLASH}
+        out[dev] = (grads, losses, _flat(torch, model),
+                    _flat(torch, trainer.ema_model), launches)
+    print(f"small DDPM training: the auction's permutations card "
+          f"{perms['cuda']} cpu {perms['cpu']}")
+    if perms["cuda"] != perms["cpu"]:
+        fail("small DDPM training: the auction permuted the noise "
+             "differently on the card")
+    hold_card_to_cpu(torch, "small DDPM training, self-conditioned, "
+                     "immiscible", init, out, n_steps, lr,
+                     {"flash_fwd": 6, "flash_bwd_dq": 3, "flash_bwd_dkv": 3})
+
+    torch.manual_seed(seed + 9)
+    net = KarrasUnet(image_size=16, dim=16, dim_max=64, num_classes=3,
+                     channels=3, num_downsamples=2, num_blocks_per_stage=1,
+                     attn_res=(8, 4), attn_dim_head=16).eval()
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith("gain"):
+                p.fill_(0.5)
+    init_noise = rng.standard_normal((b, 16, 16, 3)).astype(np.float32)
+    step_noise = rng.standard_normal((4, b, 16, 16, 3)).astype(np.float32)
+    sampled = {}
+    for dev in ("cpu", "cuda"):
+        m = net.to(dev)
+        classes = torch.tensor([0, 1, 2, 0], device=dev)
+        ed = ElucidatedDiffusion(
+            lambda x, t, self_cond=None: m(x, t, class_labels=classes),
+            image_size=16, num_sample_steps=4, device=torch.device(dev))
+        reset_counts(kernels)
+        sampled[dev] = ed.sample(batch_size=b, init_noise=init_noise,
+                                 step_noise=step_noise).cpu()
+        launches = {name: kernels[name].launches for name in FLASH}
+    err = (sampled["cuda"] - sampled["cpu"]).abs().max().item()
+    print(f"small EDM Heun-4 with a KarrasUnet, card vs CPU: max|image "
+          f"diff|={err:.3e}; launches on the card {launches}")
+    if not bool(torch.isfinite(sampled["cuda"]).all()) or err > 1e-3:
+        fail("small EDM sampling on the card disagrees with the CPU")
+    if launches != {"flash_fwd": 88, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        fail(f"small EDM sampling: expected 88 forward launches, got "
+             f"{launches}")
+
+
+def drive_pixel_diffusion(torch, kernels, seed: int, work: Path, card: str):
+    """Phase 5h, pixel-space diffusion at full width through its entry
+    points, on 31 x 8 seeded JPGs (128 px):
+    - `train_ddpm` at the JAX CLI's defaults (128 px, dim 64, mults
+      1-2-4-8, bf16, batch 16, T 1000, pred_v, sigmoid betas): 20 steps
+      and one sample grid of 25 at DDIM-250. Full attention sits at
+      16 x 16 in the down, mid and up blocks: per step 3 forward, 3 dQ and
+      3 dK/dV launches at [16, 256, 4, 32] (Skv 260); per grid 750
+      forwards (250 x 3) at [25, 256, 4, 32]. Finite losses, the grid and
+      the checkpoint written; then the grid alone, timed.
+    - the auction at batch 16 on the card (128 px images against noise),
+      ms per call, against scipy's exact assignment's cost.
+    - `train_ddpm --self_condition --immiscible --sampling_timesteps 50
+      --calculate_fid --num_fid_samples 50 --save_best_and_latest_only`:
+      10 steps with one milestone, then `--resume -1` to step 12; per
+      step 6 / 3 / 3 launches; the milestone's grid 150 forwards at
+      [25, ...], the FID's 50 samples in batches of 16, 16, 16 and 2
+      (450 at [16, ...], 150 at [2, ...]); a finite FID >= 0, milestones
+      0 ("best") and 1 ("latest").
+    - `bench_edm` at its defaults (KarrasUnet dim 64, dim_max 256, 31
+      classes, 64 px, bf16, batch 16): 8 attention blocks per forward at
+      16 x 16 ([16, 256, 4, 64], Skv 260: 3 in the encoder, 2 in the
+      middle, 3 in the decoder), 64 forwards per Heun-32 batch (512
+      launches) and 32 per DPM++(2M) batch (256), 4 batches of each (one
+      untimed): 3072; finite images in [0, 1].
+    Returns ({(kernel, shape): launches}, {metric: value})."""
+    from vqgan_tpu_torch import bench_edm, train_ddpm
+    from vqgan_tpu_torch.checkpoint import CheckpointManager
+    from vqgan_tpu_torch.diffusion.gaussian import immiscible_permutation
+    from vqgan_tpu_torch.training.ddpm_trainer import FolderDataset
+
+    t_phase = time.perf_counter()
+    counts, metrics = {}, {}
+    images = write_user_images(work / "images", seed, 31, 8, 128)
+    train = (16, 256, 4, 32, "bfloat16")
+    grid = (25, 256, 4, 32, "bfloat16")
+    fid_tail = (2, 256, 4, 32, "bfloat16")
+    karras = (16, 256, 4, 64, "bfloat16")
+
+    def gated(label, fn, expected):
+        return run_gated(torch, kernels, label, fn, expected, counts)
+
+    def steps(n, forwards):
+        return {("flash_fwd", train): forwards * n,
+                ("flash_bwd_dq", train): 3 * n,
+                ("flash_bwd_dkv", train): 3 * n}
+
+    # --- DDPM training at the CLI's defaults ---------------------------
+    res = work / "ddpm"
+    common = ["--folder", str(images), "--seed", str(seed)]
+    first, _ = gated(
+        "train_ddpm (defaults, 20 steps, one DDIM-250 grid of 25)",
+        lambda: train_ddpm.main([*common, "--results_folder", str(res),
+                                 "--train_num_steps", "20",
+                                 "--save_and_sample_every", "20"]),
+        {**steps(20, 3), ("flash_fwd", grid): 750})
+    trainer = first.pop("trainer")
+    png = res / "sample-1.png"
+    if len(first["losses"]) != 20 or not all(np.isfinite(first["losses"])) \
+            or not png.exists() \
+            or CheckpointManager(res, prefix="model").restore()["step"] != 20:
+        fail(f"train_ddpm: losses {first['losses']}, grid {png.exists()}, "
+             f"milestones {trainer.ckpt.all_milestones()}")
+    from PIL import Image
+
+    if np.asarray(Image.open(png)).shape != (640, 640, 3):
+        fail(f"train_ddpm: the grid is {np.asarray(Image.open(png)).shape}")
+    shutil.copy(png, OUT / "ddpm_sample-1.png")
+    metrics["ddpm_images_per_s"] = first["images_per_s"]
+    print(f"[{card}] train_ddpm: {first['timed_steps']} steps after a "
+          f"warm-up of 5 in {first['timed_seconds']:.3f} s = "
+          f"{first['images_per_s']:.4f} images/s at batch 16, 128 px; "
+          f"losses {first['losses']}")
+    samples, secs = gated(
+        "DDIM-250 grid of 25 (the EMA U-Net)",
+        lambda: trainer.ema_diffusion.sample(
+            batch_size=25, generator=torch.Generator("cuda").manual_seed(seed)),
+        {("flash_fwd", grid): 750})
+    if tuple(samples.shape) != (25, 128, 128, 3) \
+            or not bool(torch.isfinite(samples).all()):
+        fail(f"DDIM-250 grid: {tuple(samples.shape)}")
+    metrics["ddpm_grid_samples_per_s"] = 25 / secs
+    print(f"[{card}] DDIM-250 grid of 25: {secs:.3f} s = "
+          f"{metrics['ddpm_grid_samples_per_s']:.4f} samples/s")
+    del trainer, samples
+
+    # --- the auction at batch 16 ---------------------------------------
+    ds = FolderDataset(images, 128)
+    x = torch.from_numpy(np.stack([ds[i][0] for i in range(16)])).to(
+        "cuda").permute(0, 3, 1, 2) * 2 - 1
+    z = torch.randn(x.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(seed))
+    perm = immiscible_permutation(x, z, "auction")
+    exact = immiscible_permutation(x, z, "host")
+    dist = ((x.flatten(1)[:, None] - z.flatten(1)[None]) ** 2).sum(-1)
+    rows = torch.arange(16, device="cuda")
+    got, best = dist[rows, perm].sum().item(), dist[rows, exact].sum().item()
+    bound = (dist.max() - dist.min()).item() / 2  # the auction's b * eps
+    auction_ms = cuda_ms(
+        torch, lambda: immiscible_permutation(x, z, "auction"), 20)
+    host_ms = cuda_ms(torch, lambda: immiscible_permutation(x, z, "host"), 20)
+    metrics["auction_ms_b16"] = auction_ms
+    metrics["host_assignment_ms_b16"] = host_ms
+    print(f"[{card}] immiscible assignment at batch 16, 128 px: auction "
+          f"{auction_ms:.4f} ms per call, scipy on the host {host_ms:.4f} "
+          f"ms; cost {got:.1f} against the exact {best:.1f} (bound "
+          f"+{bound:.1f}), permutations {'equal' if torch.equal(perm, exact) else 'differ'}")
+    if sorted(perm.tolist()) != list(range(16)) or got > best + bound:
+        fail("the auction at batch 16 is no permutation, or costs more "
+             "than its bound")
+
+    # --- self-conditioned, immiscible, FID, best / latest, resume -------
+    res = work / "ddpm_sc"
+    common = [*common, "--results_folder", str(res), "--self_condition",
+              "--immiscible", "--sampling_timesteps", "50",
+              "--calculate_fid", "--num_fid_samples", "50",
+              "--save_best_and_latest_only", "--save_and_sample_every", "10"]
+    expected = steps(10, 6)
+    expected[("flash_fwd", train)] += 3 * 50 * 3
+    expected[("flash_fwd", grid)] = 150
+    expected[("flash_fwd", fid_tail)] = 150
+    second, secs = gated(
+        "train_ddpm --self_condition --immiscible --calculate_fid "
+        "--save_best_and_latest_only (10 steps, one milestone)",
+        lambda: train_ddpm.main([*common, "--train_num_steps", "10"]),
+        expected)
+    trainer = second.pop("trainer")
+    fid = trainer.last_fid
+    tags = {m: json.loads((res / f"model-{m}.config.json").read_text())
+            for m in trainer.ckpt.all_milestones()}
+    if fid is None or not np.isfinite(fid) or fid < 0 \
+            or sorted(tags) != [0, 1] or tags[0]["tag"] != "best" \
+            or tags[1]["tag"] != "latest" \
+            or not all(np.isfinite(second["losses"])):
+        fail(f"train_ddpm with FID: FID {fid}, checkpoints {tags}, losses "
+             f"{second['losses']}")
+    metrics["ddpm_sc_fid"] = fid
+    metrics["ddpm_sc_images_per_s"] = second["images_per_s"]
+    del trainer
+    third, _ = gated("train_ddpm --resume -1 (to step 12)",
+                     lambda: train_ddpm.main([*common, "--train_num_steps",
+                                              "12", "--resume", "-1"]),
+                     steps(2, 6))
+    trainer = third.pop("trainer")
+    if trainer.state.step != 12 or len(third["losses"]) != 2 \
+            or not all(np.isfinite(third["losses"])):
+        fail(f"train_ddpm --resume: step {trainer.state.step}, losses "
+             f"{third['losses']}")
+    del trainer
+    print(f"[{card}] train_ddpm self-conditioned, immiscible: "
+          f"{second['images_per_s']:.4f} images/s after a warm-up of 5; "
+          f"FID of 50 DDIM-50 samples {fid:.4f} (random-init Inception); "
+          f"losses {second['losses'] + third['losses']}")
+
+    # --- EDM sampling ---------------------------------------------------
+    edm, _ = gated("bench_edm (defaults)", lambda: bench_edm.main([]),
+                   {("flash_fwd", karras): 4 * 64 * 8 + 4 * 32 * 8})
+    for name in ("heun", "dpmpp"):
+        imgs = edm[name]["images"]
+        if tuple(imgs.shape) != (16, 64, 64, 3) \
+                or not bool(torch.isfinite(imgs).all()) \
+                or imgs.min() < 0 or imgs.max() > 1:
+            fail(f"bench_edm {name}: {tuple(imgs.shape)}")
+        metrics[f"edm_{name}_samples_per_s"] = edm[name]["samples_per_s"]
+    print(f"[{card}] bench_edm: Heun-32 "
+          f"{metrics['edm_heun_samples_per_s']:.4f}, DPM++(2M) "
+          f"{metrics['edm_dpmpp_samples_per_s']:.4f} samples/s at batch 16, "
+          f"64 px (first batches {edm['heun']['first_s']:.3f} / "
+          f"{edm['dpmpp']['first_s']:.3f} s)")
+    metrics["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"phase 5h: {metrics['phase_seconds']:.3f} s")
+    return counts, metrics
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2751,6 +3114,7 @@ def main():
     check_small_kl_vae(torch, KERNELS, args.seed)
     check_small_gmm_classifier_fid(torch, KERNELS, args.seed)
     check_small_dit_and_remat(torch, KERNELS, args.seed)
+    check_small_ddpm_and_karras(torch, KERNELS, args.seed)
 
     if not args.kernels_only:
         counts, rates = drive_main_path(torch, KERNELS, args.seed)
@@ -2760,7 +3124,7 @@ def main():
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
             work = Path(work)
             for phase in ("ldm", "vqgan", "kl_vae", "gmm", "serving",
-                          "stage2"):
+                          "stage2", "pixel"):
                 (work / phase).mkdir()
             train_counts, rate = drive_training(torch, KERNELS, args.seed,
                                                 work / "ldm")
@@ -2786,9 +3150,13 @@ def main():
                 torch, KERNELS, args.seed, work / "stage2", work / "ldm",
                 card)
             print("stage-2 rest: " + json.dumps(stage2_metrics))
+            pixel_counts, pixel_metrics = drive_pixel_diffusion(
+                torch, KERNELS, args.seed, work / "pixel", card)
+            print("pixel-space diffusion: " + json.dumps(pixel_metrics))
         for key, n in [*train_counts.items(), *vq_counts.items(),
                        *kl_counts.items(), *gmm_counts.items(),
-                       *serving_counts.items(), *stage2_counts.items()]:
+                       *serving_counts.items(), *stage2_counts.items(),
+                       *pixel_counts.items()]:
             counts[key] = counts.get(key, 0) + n
         for row in rows.values():
             row["launches"] = counts.get((row["name"], row["key"]), 0)

@@ -228,6 +228,33 @@ def test_entry_points_default_to_gpu_and_raise_without_one(monkeypatch,
         profile_vqgan_train.main([])
 
 
+def test_time_sampling_times_each_sampler_and_raises_without_a_gpu(
+        monkeypatch):
+    from vqgan_tpu_torch import time_sampling
+    from vqgan_tpu_torch.configs import LDMConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        time_sampling.main([])
+
+    # the same loops on the CPU at a tiny width
+    tiny = dict(dim=16, dim_mults=(1, 2), attn_heads=2, attn_dim_head=16,
+                latent_size=4, image_size=32, timesteps=20,
+                sampling_timesteps=3, dit_depth=2, num_users=3)
+    monkeypatch.setattr(time_sampling, "LDMConfig",
+                        lambda **kw: LDMConfig(**{**tiny, **kw}))
+    monkeypatch.setattr(time_sampling, "resolve_device",
+                        lambda device: torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *args: "cpu")
+    out = time_sampling.main(["--batch_size", "2", "--dit_batches", "2"])
+    assert len(out["dit_generate_s"]) == 2 and len(out["ddim_step_ms"]) == 3
+    assert all(v > 0 for v in [*out["dit_generate_s"], out["ancestral_s"],
+                               *out["ddim_step_ms"]])
+    # launches are counted on the card only
+    assert out["dit_generate_launches"] == out["ancestral_launches"] == {}
+
+
 def test_profile_steps_reads_every_wall_time_before_any_profiled_run(
         monkeypatch):
     # once torch.profiler has run in a process, every later launch costs

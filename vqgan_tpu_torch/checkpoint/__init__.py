@@ -1,7 +1,9 @@
 from .from_jax import (
     cfg_unet_state_from_jax,
+    ddpm_unet_state_from_jax,
     dit_state_from_jax,
     inception_state_from_jax,
+    karras_unet_state_from_jax,
     klvae_state_from_jax,
     lpips_state_from_jax,
     patchgan_state_from_jax,
@@ -12,7 +14,8 @@ from .load import load_weights, read_state_dict
 from .manager import CheckpointManager
 
 __all__ = ["CheckpointManager", "cfg_unet_state_from_jax",
-           "dit_state_from_jax",
+           "ddpm_unet_state_from_jax", "dit_state_from_jax",
+           "karras_unet_state_from_jax",
            "inception_state_from_jax", "klvae_state_from_jax",
            "load_weights", "lpips_state_from_jax", "patchgan_state_from_jax",
            "read_state_dict", "resnet_state_from_jax",

@@ -1,10 +1,11 @@
 """The JAX package's parameter trees as the port's state dicts.
 
 `klvae_state_from_jax`, `cfg_unet_state_from_jax`, `dit_state_from_jax`,
+`ddpm_unet_state_from_jax`, `karras_unet_state_from_jax`,
 `vqvae_state_from_jax`, `patchgan_state_from_jax`, `lpips_state_from_jax`,
 `resnet_state_from_jax` and `inception_state_from_jax` take the variables
-of vqgan_tpu's KLVAE / CFGUnet / DiT / VQVAE / PatchGANDiscriminator /
-LPIPS / ResNet / InceptionV3Features as nested dicts of numpy arrays (`{"params": ...}` or
+of vqgan_tpu's KLVAE / CFGUnet / DiT / Unet / KarrasUnet / VQVAE /
+PatchGANDiscriminator / LPIPS / ResNet / InceptionV3Features as nested dicts of numpy arrays (`{"params": ...}` or
 the inner dict; the discriminator's, the ResNet's and Inception's with
 their `batch_stats`) and return a `state_dict` for the port's module. The port's names and shapes are the
 reference PyTorch models', so this is the inverse of the JAX package's
@@ -19,8 +20,10 @@ checkpoint/torch_import.py (`load_torch_klvae`, `load_torch_cfg_unet`,
   running_mean/running_var.
 The JAX tree's autonames (LinearAttention_{i}, CrossAttentionCond_{i},
 Attention_0, Dense_0..3) are mapped as torch_import maps them. The JAX
-package has no PyTorch reader for the DiT, so `dit_state_from_jax` defines
-its names (models/dit.py); every tensor is copied, never shared.
+package has no PyTorch reader for the DiT, the DDPM `Unet` or the
+`KarrasUnet`, so their converters define the names (models/dit.py,
+models/unet.py, models/karras_unet.py); every tensor is copied, never
+shared.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ import numpy as np
 import torch
 
 __all__ = ["klvae_state_from_jax", "cfg_unet_state_from_jax",
-           "dit_state_from_jax",
+           "dit_state_from_jax", "ddpm_unet_state_from_jax",
+           "karras_unet_state_from_jax",
            "vqvae_state_from_jax", "patchgan_state_from_jax",
            "lpips_state_from_jax", "resnet_state_from_jax",
            "inception_state_from_jax"]
@@ -231,6 +235,101 @@ def cfg_unet_state_from_jax(tree) -> Dict[str, torch.Tensor]:
 
     _film_resblock(out, "final_res_block", p["final_res_block"])
     _conv(out, "final_conv", p["final_conv"])
+    return out
+
+
+# --- pixel-space denoisers: the DDPM U-Net and the Karras U-Net -------------
+
+
+def _ddpm_attention(out, prefix, p):
+    """`_LinearAttention` (with `out_norm`) or `_FullAttention`; mem_kv
+    keeps its layout ([2, heads, dh, M] and [2, heads, M, dh])."""
+    _rms(out, f"{prefix}.norm.g", p["norm"])
+    _conv(out, f"{prefix}.to_qkv", p["to_qkv"])
+    out[f"{prefix}.mem_kv"] = _t(p["mem_kv"])
+    if "out_norm" in p:
+        _conv(out, f"{prefix}.to_out.0", p["to_out"])
+        _rms(out, f"{prefix}.to_out.1.g", p["out_norm"])
+    else:
+        _conv(out, f"{prefix}.to_out", p["to_out"])
+
+
+def _conv_or_sequential(out, key, p):
+    """A plain conv, or one behind a reshape or resize (`Conv_0` -> `.1`)."""
+    if "Conv_0" in p:
+        _conv(out, f"{key}.1", p["Conv_0"])
+    else:
+        _conv(out, key, p)
+
+
+def ddpm_unet_state_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """vqgan_tpu Unet params -> state dict of the port's Unet:
+    `down_{i}_block1` -> `downs.{i}.0`, `_block2` -> `.1`, `_attn` -> `.2`,
+    `_downsample` -> `.3` (`.3.1` behind the space-to-depth), the same for
+    `up_{i}` and `ups.{i}`; `Dense_0` / `Dense_1` -> `time_mlp.1` / `.3`."""
+    p = _params(tree)
+    out: Dict[str, torch.Tensor] = {}
+    _conv(out, "init_conv", p["init_conv"])
+    if "sinu_pos_emb" in p:
+        out["time_mlp.0.weights"] = _t(p["sinu_pos_emb"]["weights"])
+    # the time MLP's Dense layers are built in the Unet's scope, so flax
+    # names them there
+    _dense(out, "time_mlp.1", p["Dense_0"])
+    _dense(out, "time_mlp.3", p["Dense_1"])
+    n_stages = sum(key.endswith("_block1") and key.startswith("down_")
+                   for key in p)
+    for side, torch_side in (("down", "downs"), ("up", "ups")):
+        for i in range(n_stages):
+            prefix = f"{torch_side}.{i}"
+            _film_resblock(out, f"{prefix}.0", p[f"{side}_{i}_block1"])
+            _film_resblock(out, f"{prefix}.1", p[f"{side}_{i}_block2"])
+            _ddpm_attention(out, f"{prefix}.2", p[f"{side}_{i}_attn"])
+            resample = "downsample" if side == "down" else "upsample"
+            _conv_or_sequential(out, f"{prefix}.3",
+                                p[f"{side}_{i}_{resample}"])
+    _film_resblock(out, "mid_block1", p["mid_block1"])
+    _ddpm_attention(out, "mid_attn", p["mid_attn"])
+    _film_resblock(out, "mid_block2", p["mid_block2"])
+    _film_resblock(out, "final_res_block", p["final_res_block"])
+    _conv(out, "final_conv", p["final_conv"])
+    return out
+
+
+def _mp_weight(a) -> torch.Tensor:
+    """An MPConv kernel HWIO -> OIHW, or an MPLinear kernel [in, out] ->
+    [out, in]."""
+    a = np.asarray(a)
+    return _t(np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T)
+
+
+def _karras_tree(out, prefix, p):
+    for name, child in p.items():
+        key = f"{prefix}{name}"
+        if name == "mp_kernel":
+            out[f"{prefix}weight"] = _mp_weight(child)
+        elif name in ("gain", "mem_kv", "weights"):
+            out[key] = _t(child)
+        else:
+            _karras_tree(out, f"{key}.", child)
+
+
+def karras_unet_state_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """vqgan_tpu KarrasUnet params (or those of an MPTransformer) -> state
+    dict of the port's module: `mp_kernel` -> `weight` (HWIO -> OIHW,
+    [in, out] -> [out, in]); `down_{i}` / `mid_{i}` / `up_{i}` / `attn_{i}`
+    / `ff_{i}` -> `downs.{i}` / `mids.{i}` / `ups.{i}` / `attns.{i}` /
+    `ffs.{i}`; every other name is kept."""
+    flat: Dict[str, torch.Tensor] = {}
+    _karras_tree(flat, "", _params(tree))
+    plural = {"down": "downs", "mid": "mids", "up": "ups", "attn": "attns",
+              "ff": "ffs"}
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        head, _, rest = key.partition(".")
+        side, _, index = head.rpartition("_")
+        if side in plural and index.isdigit():
+            key = f"{plural[side]}.{index}.{rest}"
+        out[key] = value
     return out
 
 

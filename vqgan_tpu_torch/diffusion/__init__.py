@@ -1,3 +1,4 @@
+from .elucidated import ElucidatedDiffusion
 from .gaussian import GaussianDiffusion
 
-__all__ = ["GaussianDiffusion"]
+__all__ = ["ElucidatedDiffusion", "GaussianDiffusion"]

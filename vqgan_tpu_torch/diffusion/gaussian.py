@@ -1,9 +1,9 @@
-"""Gaussian diffusion with classifier-free guidance: the training loss and
-the samplers.
+"""Gaussian diffusion, class-conditional with classifier-free guidance or
+unconditional: the training loss and the samplers.
 
-Counterpart of vqgan_tpu/diffusion/gaussian.py for class-conditional
-models: `p_losses` and `loss` (Min-SNR weighted, offset noise, cond-drop;
-t, noise and the cond-drop mask can be injected), `model_predictions` (with
+Counterpart of vqgan_tpu/diffusion/gaussian.py: `p_losses` and `loss`
+(Min-SNR weighted, offset noise, cond-drop; t, noise, the cond-drop mask
+and the self-conditioning coin can be injected), `model_predictions` (with
 the CFG [cond; null] pair as one 2B-batch forward, and CFG++), `ddim_step`
 (one CFG DDIM step with t, t_next and the noise as tensors, traceable by
 `torch.export`; `DDIMStep` is it as a module), `ddim_sample` (a Python loop
@@ -12,8 +12,17 @@ ancestral sampler), `sample` (DDIM when sampling_timesteps < T, else
 ancestral) and `interpolate`. Every random draw can be passed in as a
 tensor, or comes from an explicit `torch.Generator`. NCHW inside; the
 public functions take and return NHWC latents, like the JAX package.
-Immiscible noise, self-conditioning and unconditional models come with a
-later slice.
+
+With `classes=None` the model is unconditional: model(x, t) or, with
+`self_condition`, model(x, t, x_self_cond). Self-conditioning feeds, on
+half of the training steps (one coin per batch), the model's own x_0
+estimate from a first forward under `torch.no_grad()` (JAX's
+`stop_gradient`; no graph is kept, so that forward launches no backward
+kernel), and in the samplers the previous step's x_0. `immiscible` permutes
+each batch's noise to the assignment of least total squared distance to the
+images: `immiscible_method` "host" is scipy's `linear_sum_assignment` on
+the fp32 distances (a host sync per step, as JAX's `pure_callback` is),
+"auction" the port's `ops/assignment.auction_assignment` on the device.
 """
 
 from __future__ import annotations
@@ -28,8 +37,9 @@ from torch import nn
 from ..core import diffusion_math as dm
 from ..core.guidance import apply_cfg
 from ..core.schedules import DiffusionSchedule, make_schedule
+from ..ops.assignment import auction_assignment
 
-__all__ = ["GaussianDiffusion", "DDIMStep"]
+__all__ = ["GaussianDiffusion", "DDIMStep", "immiscible_permutation"]
 
 
 def _nchw(x):
@@ -40,12 +50,35 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+def immiscible_permutation(x_start, noise, method: str = "host"):
+    """[B] int64 on x_start's device: row i of the batch gets noise row
+    perm[i], the assignment of least total squared distance between the
+    flattened images and noise draws. "host": scipy's exact Hungarian
+    solver on the fp32 distance matrix, copied to the host; "auction": the
+    on-device epsilon-auction, within B * eps of the least cost."""
+    b = x_start.shape[0]
+    xf = x_start.reshape(b, -1).float()
+    nf = noise.reshape(b, -1).float()
+    dist = ((xf * xf).sum(1, keepdim=True) - 2.0 * (xf @ nf.T)
+            + (nf * nf).sum(1)[None, :])
+    if method == "auction":
+        return auction_assignment(dist)
+    if method != "host":
+        raise ValueError(f"unknown immiscible_method {method!r}")
+    from scipy.optimize import linear_sum_assignment
+
+    _, cols = linear_sum_assignment(dist.detach().cpu().numpy())
+    return torch.from_numpy(cols.astype(np.int64)).to(x_start.device)
+
+
 @dataclasses.dataclass
 class GaussianDiffusion:
     """Diffusion wrapper around a denoiser.
 
-    model(x [B,C,H,W], t [B], classes [B], *, cond_drop_mask) -> prediction.
-    Defaults as in the JAX package: DDIM eta 1.0, cosine betas.
+    model(x [B,C,H,W], t [B], classes [B], *, cond_drop_mask) -> prediction
+    for a class-conditional denoiser; model(x, t[, x_self_cond]) for an
+    unconditional one (`classes=None` throughout). Defaults as in the JAX
+    package: DDIM eta 1.0, cosine betas.
     """
 
     model: Callable[..., torch.Tensor]
@@ -61,12 +94,18 @@ class GaussianDiffusion:
     min_snr_gamma: float = 5.0
     use_cfg_plus_plus: bool = False
     auto_normalize: bool = True
+    immiscible: bool = False
+    immiscible_method: str = "host"
+    self_condition: bool = False  # unconditional models only
     device: torch.device = torch.device("cpu")
     schedule: DiffusionSchedule = None
 
     def __post_init__(self):
         if self.objective not in ("pred_noise", "pred_x0", "pred_v"):
             raise ValueError(f"unknown objective {self.objective!r}")
+        if self.immiscible_method not in ("host", "auction"):
+            raise ValueError(
+                f"unknown immiscible_method {self.immiscible_method!r}")
         if self.schedule is None:
             self.schedule = make_schedule(
                 self.beta_schedule, self.timesteps, objective=self.objective,
@@ -88,15 +127,17 @@ class GaussianDiffusion:
     # training
     # ------------------------------------------------------------------
 
-    def p_losses(self, x_start, t, classes, *, noise=None,
+    def p_losses(self, x_start, t, classes=None, *, noise=None,
                  cond_drop_mask=None, cond_drop_prob: Optional[float] = None,
-                 generator: torch.Generator = None,
+                 self_cond_coin=None, generator: torch.Generator = None,
                  return_features: bool = False):
         """Min-SNR-weighted MSE of the model's prediction at times `t` [B].
         x_start and `noise` are NHWC; noise is drawn from `generator` when
-        not given, as are the offset noise and, without `cond_drop_mask`,
-        the model's random class dropout. Returns the scalar loss, and the
-        model's mid-block features with `return_features`."""
+        not given (then permuted under `immiscible`), as are the offset
+        noise and, without `cond_drop_mask`, the model's random class
+        dropout, and without `self_cond_coin` (a bool, True feeds the x_0
+        estimate) the self-conditioning coin. Returns the scalar loss, and
+        the model's mid-block features with `return_features`."""
         x_start = _nchw(torch.as_tensor(x_start, device=self.device))
         b, c = x_start.shape[:2]
         if noise is None:
@@ -105,6 +146,9 @@ class GaussianDiffusion:
         else:
             noise = _nchw(torch.as_tensor(noise, dtype=torch.float32,
                                           device=x_start.device))
+        if self.immiscible:
+            noise = noise[immiscible_permutation(x_start, noise,
+                                                 self.immiscible_method)]
         if self.offset_noise_strength > 0.0:
             # per-(sample, channel) constant offset
             offset = torch.randn((b, c), generator=generator,
@@ -113,10 +157,25 @@ class GaussianDiffusion:
                                                                 None]
         t = torch.as_tensor(t, device=x_start.device)
         x = dm.q_sample(self.schedule, x_start, t, noise)
-        model_out = self.model(x, t, classes, cond_drop_mask=cond_drop_mask,
-                               cond_drop_prob=cond_drop_prob,
-                               generator=generator,
-                               return_features=return_features)
+        if classes is not None:
+            model_out = self.model(x, t, classes,
+                                   cond_drop_mask=cond_drop_mask,
+                                   cond_drop_prob=cond_drop_prob,
+                                   generator=generator,
+                                   return_features=return_features)
+        elif self.self_condition:
+            with torch.no_grad():
+                x0_est = self._x_start_from_output(
+                    x, t, self.model(x, t, torch.zeros_like(x)))
+            if self_cond_coin is None:
+                self_cond_coin = torch.rand((), generator=generator,
+                                            device=x.device) < 0.5
+            coin = torch.as_tensor(self_cond_coin, device=x.device)
+            model_out = self.model(
+                x, t, torch.where(coin, x0_est, torch.zeros_like(x0_est)),
+                return_features=return_features)
+        else:
+            model_out = self.model(x, t, return_features=return_features)
         features = None
         if return_features:
             model_out, features = model_out
@@ -132,8 +191,16 @@ class GaussianDiffusion:
         loss = (loss * self.schedule.loss_weight[t]).mean()
         return (loss, features) if return_features else loss
 
-    def loss(self, img, classes, *, t=None, generator: torch.Generator = None,
-             **kwargs):
+    def _x_start_from_output(self, x, t, model_output):
+        if self.objective == "pred_noise":
+            return dm.predict_start_from_noise(self.schedule, x, t,
+                                               model_output)
+        if self.objective == "pred_x0":
+            return model_output
+        return dm.predict_start_from_v(self.schedule, x, t, model_output)
+
+    def loss(self, img, classes=None, *, t=None,
+             generator: torch.Generator = None, **kwargs):
         """The training objective: t uniform in [0, T) from `generator`
         (unless given), normalize, then `p_losses`. `img` is NHWC."""
         img = torch.as_tensor(img, device=self.device)
@@ -143,16 +210,25 @@ class GaussianDiffusion:
         return self.p_losses(self.normalize(img), t, classes,
                              generator=generator, **kwargs)
 
-    def model_predictions(self, x, t, classes, *, cond_scale: float = 6.0,
-                          rescaled_phi: float = 0.7,
-                          clip_x_start: bool = False):
+    def model_predictions(self, x, t, classes=None, *,
+                          cond_scale: float = 6.0, rescaled_phi: float = 0.7,
+                          clip_x_start: bool = False, x_self_cond=None):
         """NCHW x, t [B], classes [B] -> (pred_noise, pred_x_start). Under
         CFG++ (`use_cfg_plus_plus`, cond_scale != 1) the noise comes from
-        the null branch's prediction, x_start from the guided one."""
+        the null branch's prediction, x_start from the guided one. With
+        classes None, one unconditional forward (given x_self_cond, or
+        zeros, under `self_condition`)."""
         sched = self.schedule
         b = x.shape[0]
         model_output_null = None
-        if cond_scale == 1.0:
+        if classes is None:
+            if self.self_condition:
+                model_output = self.model(
+                    x, t, torch.zeros_like(x) if x_self_cond is None
+                    else x_self_cond)
+            else:
+                model_output = self.model(x, t)
+        elif cond_scale == 1.0:
             # one conditional forward
             model_output = self.model(
                 x, t, classes,
@@ -243,35 +319,42 @@ class GaussianDiffusion:
         img, noise_at = self._noise_source(shape, init_noise, step_noise,
                                            generator)
         trajectory = [img]
-        classes = torch.as_tensor(classes, device=self.device)
+        classes = self._classes(classes)
         pairs = torch.tensor(self.ddim_time_pairs(), dtype=torch.long,
                              device=self.device)[:, :, None].expand(
                                  -1, -1, shape[0])
+        x_start = None
         for i, (tb, tnb) in enumerate(pairs):
-            img = self.ddim_step(img, tb, tnb, classes, noise_at(i),
-                                 cond_scale=cond_scale,
-                                 rescaled_phi=rescaled_phi,
-                                 clip_denoised=clip_denoised)
+            img, x_start = self._ddim_update(
+                img, tb, tnb, classes, noise_at(i), cond_scale=cond_scale,
+                rescaled_phi=rescaled_phi, clip_denoised=clip_denoised,
+                x_self_cond=x_start if self.self_condition else None)
             if return_all_timesteps:
                 trajectory.append(img)
         return self._finish(img, trajectory, return_all_timesteps)
 
+    def _classes(self, classes):
+        return (None if classes is None
+                else torch.as_tensor(classes, device=self.device))
+
     def p_sample(self, img, t: int, classes, noise, *, cond_scale: float,
-                 rescaled_phi: float, clip_denoised: bool = True):
+                 rescaled_phi: float, clip_denoised: bool = True,
+                 x_self_cond=None):
         """One ancestral step from x_t (NCHW) at time `t` (a Python int):
         the model's x_0, clipped after `model_predictions`, the posterior
-        mean and clipped log variance, plus `noise` except at t = 0."""
+        mean and clipped log variance, plus `noise` except at t = 0.
+        Returns (x_{t-1}, the x_0 estimate)."""
         tb = torch.full((img.shape[0],), t, dtype=torch.long,
                         device=img.device)
         _, x_start = self.model_predictions(
             img, tb, classes, cond_scale=cond_scale,
-            rescaled_phi=rescaled_phi)
+            rescaled_phi=rescaled_phi, x_self_cond=x_self_cond)
         if clip_denoised:
             x_start = torch.clamp(x_start, -1.0, 1.0)
         mean, _, log_var = dm.q_posterior(self.schedule, x_start, img, tb)
         if t == 0:
-            return mean
-        return mean + torch.exp(0.5 * log_var) * noise
+            return mean, x_start
+        return mean + torch.exp(0.5 * log_var) * noise, x_start
 
     @torch.inference_mode()
     def p_sample_loop(self, shape, classes, *, cond_scale: float = 6.0,
@@ -286,12 +369,13 @@ class GaussianDiffusion:
         img, noise_at = self._noise_source(shape, init_noise, step_noise,
                                            generator)
         trajectory = [img]
-        classes = torch.as_tensor(classes, device=self.device)
+        classes = self._classes(classes)
+        x_start = None
         for i, t in enumerate(range(self.timesteps - 1, -1, -1)):
-            img = self.p_sample(img, t, classes, noise_at(i),
-                                cond_scale=cond_scale,
-                                rescaled_phi=rescaled_phi,
-                                clip_denoised=clip_denoised)
+            img, x_start = self.p_sample(
+                img, t, classes, noise_at(i), cond_scale=cond_scale,
+                rescaled_phi=rescaled_phi, clip_denoised=clip_denoised,
+                x_self_cond=x_start if self.self_condition else None)
             if return_all_timesteps:
                 trajectory.append(img)
         return self._finish(img, trajectory, return_all_timesteps)
@@ -301,22 +385,35 @@ class GaussianDiffusion:
                   clip_denoised: bool = True):
         """One CFG DDIM step, NCHW: the model's prediction at `time` [B],
         then the update to `time_next` [B] with `noise`; at time_next < 0
-        the prediction of x_0. `ddim_sample` loops over it and `DDIMStep`
-        exports it, so the live pipeline and a served artifact run one
-        code path."""
+        the prediction of x_0. `ddim_sample` runs it (`_ddim_update`) and
+        `DDIMStep` exports it, so the live pipeline and a served artifact
+        run one code path."""
+        return self._ddim_update(img, time, time_next, classes, noise,
+                                 cond_scale=cond_scale,
+                                 rescaled_phi=rescaled_phi,
+                                 clip_denoised=clip_denoised)[0]
+
+    def _ddim_update(self, img, time, time_next, classes, noise, *,
+                     cond_scale: float, rescaled_phi: float,
+                     clip_denoised: bool, x_self_cond=None):
+        """`ddim_step`, returning (the next img, the x_0 estimate)."""
         pred_noise, x_start = self.model_predictions(
             img, time, classes, cond_scale=cond_scale,
-            rescaled_phi=rescaled_phi, clip_x_start=clip_denoised)
+            rescaled_phi=rescaled_phi, clip_x_start=clip_denoised,
+            x_self_cond=x_self_cond)
         return dm.ddim_step(self.schedule, img, x_start, pred_noise, time,
-                            time_next, noise, self.ddim_sampling_eta)
+                            time_next, noise, self.ddim_sampling_eta), x_start
 
     def sample(self, batch_size: Optional[int] = None, classes=None, *,
                cond_scale: float = 6.0, rescaled_phi: float = 0.7,
                return_all_timesteps: bool = False,
                generator: torch.Generator = None):
-        """NHWC samples for `classes`: DDIM when sampling_timesteps < T, the
-        ancestral sampler when they are equal."""
+        """NHWC samples for `classes` (unconditional with classes None):
+        DDIM when sampling_timesteps < T, the ancestral sampler when they
+        are equal."""
         if batch_size is None:
+            if classes is None:
+                raise ValueError("sample needs batch_size or classes")
             batch_size = len(classes)
         shape = (batch_size, self.image_size, self.image_size, self.channels)
         fn = self.ddim_sample if self.is_ddim_sampling else self.p_sample_loop
@@ -352,10 +449,10 @@ class GaussianDiffusion:
                           given_or_drawn(noise2))
         img = (1 - lam) * xt1 + lam * xt2
         noise_at = self._step_noise(_nhwc(img).shape, step_noise, generator)
-        classes = torch.as_tensor(classes, device=dev)
+        classes = self._classes(classes)
         for i, tcur in enumerate(range(t - 1, -1, -1)):
-            img = self.p_sample(img, tcur, classes, noise_at(i),
-                                cond_scale=1.0, rescaled_phi=0.0)
+            img, _ = self.p_sample(img, tcur, classes, noise_at(i),
+                                   cond_scale=1.0, rescaled_phi=0.0)
         return self.unnormalize(_nhwc(img))
 
 

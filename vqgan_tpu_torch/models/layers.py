@@ -26,6 +26,7 @@ __all__ = [
     "ResnetBlock",
     "check_no_dropout",
     "AttnBlock",
+    "with_memory_tokens",
     "Downsample",
     "UpsampleTranspose",
     "UpsampleNearest",
@@ -191,6 +192,17 @@ def from_heads(t: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """[B, H*W, heads, dh] -> [B, heads*dh, H, W]."""
     b = t.shape[0]
     return t.reshape(b, h, w, -1).permute(0, 3, 1, 2)
+
+
+def with_memory_tokens(mem_kv: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor):
+    """k, v [B, S, heads, dh] with the learned memory tokens (mem_kv
+    [2, heads, M, dh]) in front: [B, M + S, heads, dh] each, new
+    contiguous tensors in k's dtype."""
+    b = k.shape[0]
+    mk, mv = (m.transpose(0, 1)[None].expand(b, -1, -1, -1).to(k.dtype)
+              for m in mem_kv)
+    return torch.cat([mk, k], dim=1), torch.cat([mv, v], dim=1)
 
 
 class AttnBlock(nn.Module):

@@ -87,8 +87,9 @@ class Block(nn.Module):
 
 
 class ResnetBlock(nn.Module):
-    """Two conv blocks with time+class FiLM conditioning and a 1x1 residual
-    conv when the channel count changes."""
+    """Two conv blocks with FiLM from one conditioning vector (the CFG U-Net
+    passes time and class embeddings concatenated, the DDPM U-Net the time
+    embedding) and a 1x1 residual conv when the channel count changes."""
 
     def __init__(self, dim: int, dim_out: int, cond_dim: int, dtype):
         super().__init__()
@@ -99,9 +100,8 @@ class ResnetBlock(nn.Module):
         self.res_conv = (Conv2d(dim, dim_out, 1, dtype=dtype)
                          if dim != dim_out else None)
 
-    def forward(self, x, time_emb, class_emb):
-        cond = self.mlp(torch.cat([time_emb, class_emb], dim=-1))
-        scale_shift = cond[:, :, None, None].chunk(2, dim=1)
+    def forward(self, x, cond):
+        scale_shift = self.mlp(cond)[:, :, None, None].chunk(2, dim=1)
         h = self.block2(self.block1(x, scale_shift=scale_shift))
         return h + (self.res_conv(x) if self.res_conv is not None else x)
 
@@ -313,20 +313,20 @@ class CFGUnet(nn.Module):
                                       self.null_classes_emb[None, :],
                                       classes_emb)
         c = self.classes_mlp(classes_emb)
-        t = self.time_mlp(time)
+        tc = torch.cat([self.time_mlp(time), c], dim=-1)
 
         x = self.init_conv(x.to(self.dtype))
         r = x
         hs = []
         for block1, block2, attn, cross_attn, downsample in self.downs:
-            x = block1(x, t, c)
+            x = block1(x, tc)
             hs.append(x)
-            x = block2(x, t, c)
+            x = block2(x, tc)
             x = cross_attn(attn(x), c)
             hs.append(x)
             x = downsample(x)
 
-        x = self.mid_block1(x, t, c)
+        x = self.mid_block1(x, tc)
         x = self.mid_attn(x)
         features = None
         if return_features:
@@ -334,15 +334,15 @@ class CFGUnet(nn.Module):
             features = pooled / torch.clamp(
                 torch.linalg.norm(pooled, dim=-1, keepdim=True), min=1e-12)
         x = self.mid_cross_attn(x, c)
-        x = self.mid_block2(x, t, c)
+        x = self.mid_block2(x, tc)
 
         for block1, block2, attn, cross_attn, upsample in self.ups:
-            x = block1(torch.cat([x, hs.pop()], dim=1), t, c)
-            x = block2(torch.cat([x, hs.pop()], dim=1), t, c)
+            x = block1(torch.cat([x, hs.pop()], dim=1), tc)
+            x = block2(torch.cat([x, hs.pop()], dim=1), tc)
             x = cross_attn(attn(x), c)
             x = upsample(x)
 
-        x = self.final_res_block(torch.cat([x, r], dim=1), t, c)
+        x = self.final_res_block(torch.cat([x, r], dim=1), tc)
         out = self.final_conv(x)
         if return_features:
             return out, features

@@ -1,3 +1,4 @@
+from .assignment import auction_assignment
 from .attention import (
     FlashAttentionFunction,
     flash_attention,
@@ -19,7 +20,7 @@ from .vq import (
     vq_nearest_indices,
 )
 
-__all__ = ["FlashAttentionFunction", "flash_attention", "flash_bwd_dkv",
+__all__ = ["auction_assignment", "FlashAttentionFunction", "flash_attention", "flash_bwd_dkv",
            "flash_bwd_dkv_reference", "flash_bwd_dq", "flash_bwd_dq_reference",
            "flash_forward", "flash_forward_reference", "sdpa",
            "sdpa_reference", "VQLookupFunction", "codebook_usage",

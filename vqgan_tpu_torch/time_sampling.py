@@ -1,0 +1,116 @@
+"""Host seconds of the latent-diffusion samplers at full width.
+
+    python -m vqgan_tpu_torch.time_sampling [--dit_batches 4] [--label NAME]
+
+With random weights from `--seed` (LDMConfig's defaults, the fp32 KL-VAE):
+- the DiT (`model_type` "dit") through `generate.generate_samples`, a
+  DDIM-150 batch of 16 at cond_scale 1.0, then the decode, `--dit_batches`
+  times (the first one warms up);
+- one ancestral batch of 16 of the CFG U-Net (sampling_timesteps =
+  timesteps = 1000), then the decode;
+- the live `DDIMStep` (the function `export_serving` exports) at batch 16
+  and cond_scale 1.0: host ms per step over 20 steps, three times.
+Each is timed on the host with the device synchronised at both ends, JPEG
+writing left out, and reports the hand-written kernels' launches. It
+reaches the package only through `generate`, `diffusion.gaussian.DDIMStep`
+and `kernels.KERNELS`, so a copy of this file placed in another checkout
+of the package times that checkout's samplers: run both in turns in one
+process tree on one card to compare them. Prints one JSON object. Needs a
+CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import torch
+
+from . import generate
+from .configs.ldm_config import LDMConfig
+from .device import resolve_device, set_full_fp32_precision
+from .diffusion.gaussian import DDIMStep
+from .kernels import KERNELS
+
+
+def timed(fn):
+    """(seconds, {kernel: launches}) of one call of `fn`."""
+    before = {name: k.launches for name, k in KERNELS.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not bool(torch.isfinite(out).all()):
+        raise FloatingPointError("non-finite output")
+    return secs, {name: k.launches - before[name]
+                  for name, k in KERNELS.items()
+                  if k.launches != before[name]}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dit_batches", type=int, default=4)
+    ap.add_argument("--batch_size", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--label", default="")
+    args = ap.parse_args(argv)
+
+    device = resolve_device("cuda")
+    set_full_fp32_precision()
+    b = args.batch_size
+    config = LDMConfig()
+    vae = generate.load_vae(None, config.latent_channels, config.image_size,
+                            device=device)
+    out = {"device": torch.cuda.get_device_name(0), "label": args.label,
+           "batch_size": b}
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+
+    def sample_and_decode(diffusion):
+        def run():
+            latents = generate.generate_samples(diffusion, 0, b, 1.0, 0.0,
+                                                gen)
+            with torch.inference_mode():
+                return vae.decode_latents(latents)
+        return run
+
+    torch.manual_seed(args.seed)
+    dit, _ = generate.load_model(
+        dataclasses.replace(config, model_type="dit"), None, device)
+    runs = [timed(sample_and_decode(dit)) for _ in range(args.dit_batches)]
+    out["dit_generate_s"] = [secs for secs, _ in runs]
+    out["dit_generate_launches"] = runs[-1][1]
+    del dit
+
+    torch.manual_seed(args.seed)
+    unet, _ = generate.load_model(
+        dataclasses.replace(config, sampling_timesteps=config.timesteps),
+        None, device)
+    out["ancestral_s"], out["ancestral_launches"] = timed(
+        sample_and_decode(unet))
+
+    step = DDIMStep(unet, 1.0, 0.0)
+    s, c = config.latent_size, config.latent_channels
+    img = torch.randn((b, c, s, s), generator=gen, device=device)
+    noise = torch.randn((b, c, s, s), generator=gen, device=device)
+    t = torch.full((b,), config.timesteps - 1, dtype=torch.long,
+                   device=device)
+    t_next = t - 7
+    classes = torch.zeros((b,), dtype=torch.long, device=device)
+
+    def steps():
+        with torch.inference_mode():
+            for _ in range(20):
+                x = step(img, t, t_next, classes, noise)
+        return x
+
+    steps()  # warm-up
+    out["ddim_step_ms"] = [timed(steps)[0] / 20 * 1e3 for _ in range(3)]
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

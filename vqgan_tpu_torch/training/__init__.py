@@ -1,3 +1,4 @@
+from .ddpm_trainer import FolderDataset, Trainer
 from .ema import ema_decay_at_step, ema_update
 from .kl_vae_step import (
     lpips_perceptual_fn,
@@ -20,7 +21,7 @@ from .vqgan_step import (
 )
 from .watchdog import TrainingDiverged, TrainingWatchdog, check_sample_range
 
-__all__ = ["LDMOptimizer", "LDMTrainState", "TrainingDiverged",
+__all__ = ["FolderDataset", "Trainer", "LDMOptimizer", "LDMTrainState", "TrainingDiverged",
            "TrainingWatchdog", "check_sample_range", "ema_decay_at_step",
            "ema_update", "global_norm", "make_ldm_optimizer",
            "make_ldm_train_step", "VQGANTrainState", "make_gan_optimizers",

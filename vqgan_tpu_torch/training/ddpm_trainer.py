@@ -1,0 +1,239 @@
+"""Unconditional DDPM trainer.
+
+Counterpart of vqgan_tpu/training/ddpm_trainer.py: an image-folder dataset,
+Adam with clipping, an EMA copy, periodic sample grids, optional FID at
+each milestone with best/latest-only checkpoint retention
+(`save_best_and_latest_only`), milestone save and load.
+
+- The optimizer is `make_ldm_optimizer` (weight decay 0, so Adam), the EMA
+  the port's `ema_update` every `ema_update_every` steps after step 100.
+- The loader is the port's threaded `BatchLoader`, repeating epochs; the
+  JAX package's native C++ decoder is not ported.
+- Losses stay on the device until a log line or the end of the run reads
+  them, so the loop does not wait for each step.
+- Errors propagate: the JAX package prints a warning when a sample grid
+  fails and goes on; here a failed grid (a kernel that does not launch,
+  say) stops the run.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import math
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..checkpoint.manager import CheckpointManager
+from ..data.datasets import BatchLoader, load_image
+from ..data.splits import IMAGE_EXTENSIONS
+from .ema import ema_update
+from .ldm_step import LDMTrainState, global_norm, make_ldm_optimizer
+
+__all__ = ["FolderDataset", "Trainer"]
+
+
+class FolderDataset:
+    """Every image under `folder` (recursively, sorted), resized and
+    centre-cropped to `image_size`, as (image [H, W, 3] in [0, 1], 0)."""
+
+    def __init__(self, folder: str | Path, image_size: int):
+        self.image_size = image_size
+        self.paths = sorted(p for p in Path(folder).rglob("*")
+                            if p.suffix.lower() in IMAGE_EXTENSIONS)
+        if not self.paths:
+            raise ValueError(f"no images under {folder}")
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, i):
+        return load_image(self.paths[i], self.image_size), 0
+
+
+def _with_denoiser(diffusion, model):
+    """A copy of `diffusion` (GaussianDiffusion's `model`, or
+    ElucidatedDiffusion's `net`) over `model`."""
+    field = "model" if hasattr(diffusion, "model") else "net"
+    return dataclasses.replace(diffusion, **{field: model})
+
+
+class Trainer:
+    """Trains `model` through `diffusion` (an unconditional
+    GaussianDiffusion, or any object with `.loss(images, generator=)`, a
+    `.sample(batch_size=, generator=)` returning NHWC images in [0, 1], a
+    `device` and the model as `model` or `net`)."""
+
+    def __init__(
+        self,
+        diffusion,
+        model: torch.nn.Module,
+        folder: Optional[str] = None,
+        *,
+        train_batch_size: int = 16,
+        train_lr: float = 8e-5,
+        train_num_steps: int = 100_000,
+        adam_betas=(0.9, 0.99),
+        max_grad_norm: float = 1.0,
+        ema_decay: float = 0.995,
+        ema_update_every: int = 10,
+        save_and_sample_every: int = 1000,
+        num_samples: int = 25,
+        results_folder: str = "./results",
+        calculate_fid: bool = False,
+        fid_evaluator=None,  # eval.fid.FIDEvaluation with the real stats
+        save_best_and_latest_only: bool = False,
+        seed: int = 0,
+        dataset=None,  # any indexable dataset of (image, label) instead
+    ):
+        if math.isqrt(num_samples) ** 2 != num_samples:
+            raise ValueError(f"num_samples must be a square, got "
+                             f"{num_samples}")
+        self.diffusion = diffusion
+        self.device = diffusion.device
+        self.batch_size = train_batch_size
+        self.train_num_steps = train_num_steps
+        self.save_and_sample_every = save_and_sample_every
+        self.num_samples = num_samples
+        self.results_folder = Path(results_folder)
+        self.results_folder.mkdir(parents=True, exist_ok=True)
+        self.calculate_fid = calculate_fid
+        self.fid_evaluator = fid_evaluator
+        self.save_best_and_latest_only = save_best_and_latest_only
+        self.best_fid = float("inf")
+        self.last_fid = None  # the last milestone's FID
+        self.ema_decay = ema_decay
+        self.ema_update_every = ema_update_every
+
+        self.model = model.train()
+        self.ema_model = copy.deepcopy(model).eval().requires_grad_(False)
+        self.ema_diffusion = _with_denoiser(diffusion, self.ema_model)
+        self.optimizer = make_ldm_optimizer(
+            model.parameters(), learning_rate=train_lr, weight_decay=0.0,
+            betas=adam_betas, max_grad_norm=max_grad_norm)
+        self.state = LDMTrainState(0, model, self.ema_model, self.optimizer)
+        self.generator = torch.Generator(self.device).manual_seed(seed)
+
+        self.loader = None
+        if dataset is None and folder is not None:
+            dataset = FolderDataset(folder, diffusion.image_size)
+        if dataset is not None:
+            self.loader = BatchLoader(dataset, train_batch_size,
+                                      shuffle=True, seed=seed, repeat=True)
+        self.ckpt = CheckpointManager(self.results_folder, prefix="model")
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def train_step(self, images, **loss_kwargs) -> torch.Tensor:
+        """One optimizer step on NHWC images in [0, 1] (`loss_kwargs` go to
+        the diffusion's loss: t, noise, self_cond_coin, ...); the loss,
+        detached, on the device."""
+        self.optimizer.zero_grad()
+        loss = self.diffusion.loss(images, generator=self.generator,
+                                   **loss_kwargs)
+        loss.backward()
+        grads = self.optimizer.grads()
+        self.optimizer.step(grads, norm=global_norm(grads))
+        ema_update(list(self.ema_model.parameters()),
+                   list(self.model.parameters()), self.state.step,
+                   decay=self.ema_decay, update_every=self.ema_update_every,
+                   update_after_step=100)
+        self.state.step += 1
+        return loss.detach()
+
+    def train(self, log_every: int = 100, timing_warmup: int = 5) -> dict:
+        """Train up to `train_num_steps`. Returns {"losses": every step's
+        loss, "timed_steps", "timed_seconds", "images_per_s"}: host seconds
+        of the steps after the first `timing_warmup`, the device
+        synchronised at both ends, milestones (grids, FID, saves)
+        excluded."""
+        if self.loader is None:
+            raise RuntimeError("no dataset: pass a folder or a dataset")
+        start = self.state.step
+        losses = []
+        timed_from, timed_seconds = None, 0.0
+        t_log = time.perf_counter()
+        batches = iter(self.loader)
+        try:
+            for step in range(start, self.train_num_steps):
+                if step - start == timing_warmup:
+                    self._sync()
+                    timed_from = time.perf_counter()
+                images, _ = next(batches)
+                losses.append(self.train_step(
+                    torch.from_numpy(images).to(self.device)))
+                if (step + 1) % log_every == 0:
+                    ips = log_every * self.batch_size / (
+                        time.perf_counter() - t_log)
+                    print(f"step {step + 1}: loss={float(losses[-1]):.4f} "
+                          f"({ips:.1f} img/s)")
+                    t_log = time.perf_counter()
+                if (step + 1) % self.save_and_sample_every == 0:
+                    if timed_from is not None:
+                        self._sync()
+                        timed_seconds += time.perf_counter() - timed_from
+                    self.save_and_sample(
+                        (step + 1) // self.save_and_sample_every)
+                    if timed_from is not None:
+                        timed_from = time.perf_counter()
+        finally:
+            batches.close()  # stops the loader's thread
+        self._sync()
+        if timed_from is not None:
+            timed_seconds += time.perf_counter() - timed_from
+        timed_steps = max(self.train_num_steps - start - timing_warmup, 0)
+        return {"losses": [float(x) for x in losses],
+                "timed_steps": timed_steps, "timed_seconds": timed_seconds,
+                "images_per_s": (timed_steps * self.batch_size / timed_seconds
+                                 if timed_seconds else None)}
+
+    def sample_grid(self, milestone: int):
+        """`num_samples` EMA samples as a square grid,
+        sample-{milestone}.png; returns the NHWC samples."""
+        from PIL import Image
+
+        n = self.num_samples
+        gen = torch.Generator(self.device).manual_seed(milestone)
+        out = self.ema_diffusion.sample(batch_size=n, generator=gen)
+        imgs = out.float().cpu().numpy()
+        side = math.isqrt(n)
+        h, w, c = imgs.shape[1:]
+        grid = imgs.reshape(side, side, h, w, c).transpose(
+            0, 2, 1, 3, 4).reshape(side * h, side * w, c)
+        Image.fromarray((np.clip(grid, 0, 1) * 255).astype(np.uint8)).save(
+            self.results_folder / f"sample-{milestone}.png")
+        return out
+
+    def save_and_sample(self, milestone: int):
+        self.sample_grid(milestone)
+        fid = None
+        if self.calculate_fid and self.fid_evaluator is not None:
+            def sampler(generator, n):
+                return self.ema_diffusion.sample(batch_size=n,
+                                                 generator=generator)
+
+            fid = self.fid_evaluator.fid_score(
+                sampler, torch.Generator(self.device).manual_seed(0))
+            print(f"milestone {milestone}: FID {fid:.2f}")
+        self.last_fid = fid
+        state = self.state.state_dict()
+        if self.save_best_and_latest_only:
+            # keep only "best" (by FID) and "latest"
+            if fid is not None and fid < self.best_fid:
+                self.best_fid = fid
+                self.ckpt.save(0, state, config={"tag": "best", "fid": fid})
+            self.ckpt.save(1, state, config={"tag": "latest"})
+        else:
+            self.ckpt.save(milestone, state)
+
+    def load(self, milestone: Optional[int] = None) -> int:
+        """Resume from `milestone` (the latest when None); returns the
+        step."""
+        self.state.load_state_dict(self.ckpt.restore(milestone))
+        return self.state.step
