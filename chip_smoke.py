@@ -38,7 +38,17 @@ Phases, in order; any failure exits non-zero:
    rows), forward at the DDPM's [16, 25 and 2,256,4,32] and the Karras
    U-Net's [16,256,4,64] bf16, backward at [16,256,4,32], built as the
    models build them (q a view of one projection, k and v concatenated
-   behind the memory tokens; the Karras U-Net's pixel-normed). Time each
+   behind the memory tokens; the Karras U-Net's pixel-normed); phase 5i's:
+   the DDPM U-Net's RePaint batch, forward at [4,256,4,32] against 260
+   keys; the UViT's ViT middle at [16,256,4,32] (q, k and v views of one
+   projection; its launches counted apart from the DDPM's at that shape),
+   the Unet1D's mid attention in fp32 at [32,16,4,32] and, forward only,
+   [16,16,4,32], and the Karras N-D U-Nets' (4 memory tokens, pixel-
+   normed): 1-D [2,16,12,64] against 20 keys and [2,8,12,64] against 12,
+   3-D full [2,2048,6,64] against 2052 and [2,256,12,64] against 260, 3-D
+   factorised into space [16,256,6,64] against 260 and [8,64,12,64]
+   against 68 and time [512,8,6,64] against 12 and [128,4,12,64] against
+   8, forward and backward, bf16. Time each
    kernel through its operator (the host time every path pays; the flash
    forward also through its ctypes wrapper alone), its plain version and
    one PyTorch library call at the main paths' shapes (and a few others),
@@ -77,6 +87,14 @@ Phases, in order; any failure exits non-zero:
    dK/dV launches per step; the auction's permutations equal on both
    devices); and Heun-4 with a tiny KarrasUnet from injected noise (images
    within 1e-3, 88 forward launches).
+4h. The rest of the diffusion library on small inputs, card against CPU,
+   each held as 4b is held: three DDPM-trainer steps each of a tiny
+   learned-variance U-Net (t and noise injected; 3 forward, 3 dQ and 3
+   dK/dV launches per step), a tiny UViT under simple diffusion (times and
+   noise; 2 / 2 / 2) and a tiny Unet1D under 1-D diffusion (1 / 1 / 1);
+   one forward and backward of a tiny KarrasUnet3D with factorised
+   attention (output 1e-4, gradients 1e-3 of the largest CPU value; 12
+   launches of each kernel).
 5. Drive generation, `python -m vqgan_tpu_torch.generate`, at full width
    with seeded random weights: LDMConfig defaults (dim 96, mults 1-2-4-4,
    8 heads x 64, T=1000, DDIM-150, pred_v, cosine, bf16 U-Net) and the
@@ -204,12 +222,37 @@ Phases, in order; any failure exits non-zero:
    images). Prints DDPM images/s, the grid's samples/s, the auction's ms
    and the EDM samplers' samples/s, each beside the card's name and power
    limit.
+5i. Drive the rest of the diffusion library at full width through the
+   DDPM `Trainer` and the samplers (random weights from a seed; only steps
+   cut, each cut listed): train_ddpm's U-Net (dim 64, mults 1-2-4-8, bf16,
+   batch 16) on 31 x 8 seeded 128 px JPGs with learned variance and with
+   the weighted objective, 10 + 2 timed steps each (3 / 3 / 3 launches
+   per step at [16,256,4,32]) and an ancestral batch of 16 (T cut from
+   1000 to 100: 300 forwards); RePaint of 4 with the left half known (T
+   100, 160 denoise ops, 480 forwards at [4,256,4,32]; the known half
+   equal to the image); classifier guidance by a seeded ResNet18 over
+   DDIM-50 and the ancestral sampler (150 and 300 forwards); simple
+   diffusion (v) over the UViT at its defaults at 256 px, 10 + 2 steps at
+   batch 16 (6 / 6 / 6 at [16,256,4,32]) and a grid of 16 (100 of 500
+   steps: 600 forwards); continuous time with the learned log-SNR
+   schedule and the v variant over the U-Net with learned sinusoidal time,
+   10 + 2 steps each and a batch of 16 (100 of 500 steps: 300 forwards);
+   the upstream 1-D example (Unet1D dim 64, 32 channels, seq 128, pred_v)
+   on a seeded Dataset1D, 10 + 2 steps at batch 32 (1 / 1 / 1 at
+   [32,16,4,32] fp32) and DDIM-250 of 16 (250 forwards); the Karras 1-D (L
+   = 64) and 3-D (16 x 32 x 32 x 4, full and factorised attention) U-Nets
+   at their defaults in bf16, forward + backward at batch 2, one untimed
+   and three timed (per pass 11 + 12 launches of each kernel in 1-D, 11 +
+   11 in 3-D, 4 x 11 factorised). Every loss and sample finite. Prints
+   each path's images/s, samples/s, sequences/s or ms per forward +
+   backward beside the card's name and power limit.
 6. Print the kernels' JSON line, then the card line, then the device line.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -236,6 +279,7 @@ _PEAKS = {
 
 # tolerance of kernel vs plain version, both fp32 math on the card: they
 # differ only in summation order (fp32) or in one final bf16 rounding step
+# (1e-2 covers one step under |value| 2; `outside_rounding` above it)
 _ATOL = {"float32": {"out": 2e-5, "lse": 1e-4},
          "bfloat16": {"out": 1e-2, "lse": 1e-4}}
 
@@ -325,6 +369,25 @@ def bound(peaks: dict, n_bytes: int, flops: int, dtype: str):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def outside_rounding(torch, got, ref, atol: float):
+    """(elements of `got` off `ref` by more than `atol`, and for bf16 also
+    by more than one rounding step of the plain value, a note). `_ATOL`'s
+    bf16 1e-2 is one final rounding step for values under 2; at |value| in
+    [2, 4) one step is 2^-6 (pixel-normed q, k, v put outputs there), so a
+    bf16 element may differ by one step of its own magnitude and no more."""
+    diff = (got.float() - ref.float()).abs()
+    over = diff > atol
+    if got.dtype != torch.bfloat16 or not bool(over.any()):
+        return int(over.sum()), ""
+    r = ref.float().abs()
+    step = torch.exp2(torch.floor(torch.log2(r.clamp(min=2.0 ** -126))) - 7)
+    outside = int((over & (diff > step)).sum())
+    return outside, (
+        f", {int(over.sum())} over {atol} at |plain| >= "
+        f"{r[over].min().item():.3e}, {outside} of them more than one "
+        f"rounding step")
+
+
 def differ(got, ref) -> str:
     """For bf16 outputs, ", x% differ": the share of elements where the
     kernel's rounded value is not the plain version's."""
@@ -386,7 +449,42 @@ def attention_cases():
         ("ddpm_mid_grid", 25, 256, 260, 4, 32, "bfloat16", True),
         ("ddpm_mid_fid_tail", 2, 256, 260, 4, 32, "bfloat16", True),
         ("karras_mid", 16, 256, 260, 4, 64, "bfloat16", True),
+    ] + library_attention_cases()
+
+
+def library_attention_cases():
+    """Phase 5i's shapes (the rest of the diffusion library), built as the
+    models build them: the DDPM U-Net's RePaint batch of 4 (Skv 260); the
+    UViT's ViT middle (16 x 16 tokens, 4 heads x 32, q, k and v views of
+    one projection; its launches are counted apart from the DDPM's at the
+    same shape, `row_key`); the Unet1D's mid attention (seq 128 / 8 = 16
+    positions, fp32, views of one projection) in training at batch 32 and
+    sampling at 16; the Karras 1-D U-Net at L = 64 (attention at 16 and 8
+    positions, 12 heads x 64) and the 3-D one at 16 x 32 x 32 (6 heads at
+    16 x 16 px, 12 at 8 x 8), full or factorised into space (per frame)
+    and time (per pixel), all with 4 memory tokens and pixel-normed."""
+    return [
+        ("ddpm_mid_repaint", 4, 256, 260, 4, 32, "bfloat16", True),
+        ("uvit_vit", 16, 256, 256, 4, 32, "bfloat16", True),
+        ("unet1d_mid_train", 32, 16, 16, 4, 32, "float32", True),
+        ("unet1d_mid_gen", 16, 16, 16, 4, 32, "float32", True),
+        ("karras1d_16", 2, 16, 20, 12, 64, "bfloat16", True),
+        ("karras1d_8", 2, 8, 12, 12, 64, "bfloat16", True),
+        ("karras3d_16", 2, 2048, 2052, 6, 64, "bfloat16", True),
+        ("karras3d_8", 2, 256, 260, 12, 64, "bfloat16", True),
+        ("karras3d_space_16", 16, 256, 260, 6, 64, "bfloat16", True),
+        ("karras3d_time_16", 512, 8, 12, 6, 64, "bfloat16", True),
+        ("karras3d_space_8", 8, 64, 68, 12, 64, "bfloat16", True),
+        ("karras3d_time_8", 128, 4, 8, 12, 64, "bfloat16", True),
     ]
+
+
+def row_key(label, b, s_q, h, d, dt):
+    """The launch-count key of a phase-3 row: (B, Sq, H, D, dtype) as the
+    wrappers count, tagged "uvit" for the UViT's rows, whose shape the
+    DDPM U-Net shares (phase 5i counts the UViT's launches apart)."""
+    key = (b, s_q, h, d, dt)
+    return key + ("uvit",) if label.startswith("uvit") else key
 
 
 def memory_qkv(torch, rng, b, s, h, d, dtype, pixel_normed: bool):
@@ -411,7 +509,7 @@ def memory_qkv(torch, rng, b, s, h, d, dtype, pixel_normed: bool):
 def model_qkv(torch, rng, label, b, s_q, h, d, dtype):
     """The main paths' q, k and v for `label`, or None for a case whose
     inputs are plain random [B, S, H, D] tensors."""
-    if label.startswith("dit"):
+    if label.startswith(("dit", "uvit", "unet1d")):
         return packed_qkv(torch, rng, b, s_q, h, d, dtype)
     if label.startswith(("ddpm", "karras")):
         return memory_qkv(torch, rng, b, s_q, h, d, dtype,
@@ -456,12 +554,13 @@ def check_flash_fwd(torch, peaks, seed: int):
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
         finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+        over, steps = outside_rounding(torch, out, ref_out, _ATOL[dt]["out"])
         print(f"flash_fwd {label} [{b},{s_q},{h},{d}] kv={s_kv} {dt}: "
               f"max|out-plain|={err_out:.3e} (max|plain| "
               f"{ref_out.float().abs().max().item():.3e}"
-              f"{differ(out, ref_out)}) max|lse-plain|={err_lse:.3e}")
-        if (not finite or err_out > _ATOL[dt]["out"]
-                or err_lse > _ATOL[dt]["lse"]):
+              f"{differ(out, ref_out)}{steps}) max|lse-plain|="
+              f"{err_lse:.3e}")
+        if not finite or over or err_lse > _ATOL[dt]["lse"]:
             fail(f"flash_fwd disagrees with its plain version at {label} "
                  f"(tolerance {_ATOL[dt]})")
         if not main:
@@ -491,7 +590,7 @@ def check_flash_fwd(torch, peaks, seed: int):
                                    4 * b * h * s_q * s_kv * d, dt)
         row = rows[("flash_fwd", label)] = {
             "name": "flash_fwd",
-            "key": (b, s_q, h, d, dt),
+            "key": row_key(label, b, s_q, h, d, dt),
             "shape": f"[{b},{s_q},{h},{d}] {dt}",
             "route": "cuda",
             "source": "vqgan_tpu_torch/csrc/flash_fwd.cu",
@@ -583,7 +682,10 @@ def bwd_cases():
         # keys: the last 64-row K/V tile holds 4 rows
         ("ddpm_mid_train", 16, 256, 260, 4, 32, "bfloat16", True, False,
          True),
-    ]
+    ] + [  # phase 5i's training and forward + backward shapes
+        (label, b, s_q, s_kv, h, d, dt, True, False, True)
+        for label, b, s_q, s_kv, h, d, dt, _ in library_attention_cases()
+        if label not in ("ddpm_mid_repaint", "unet1d_mid_gen")]
 
 
 def backward_work(b, s_q, s_kv, h, d, itemsize) -> dict:
@@ -751,7 +853,7 @@ def check_flash_bwd(torch, peaks, seed: int):
                 errs["dk"], errs["dv"])
             row = {
                 "name": name,
-                "key": (b, s_q, h, d, dt),
+                "key": row_key(label, b, s_q, h, d, dt),
                 "shape": f"[{b},{s_q},{h},{d}] {dt}",
                 "route": "cuda",
                 "source": f"vqgan_tpu_torch/csrc/{name}.cu",
@@ -2566,8 +2668,6 @@ def drive_stage2_rest(torch, kernels, seed: int, work: Path, ldm: Path,
       from 5b's checkpoint: 1000 forwards at [16, 16, 8, 64] and 1 decode,
       finite images.
     Returns ({(kernel, shape): launches}, {metric: value})."""
-    import dataclasses
-
     from vqgan_tpu_torch import (
         export_serving,
         generate,
@@ -3071,6 +3171,418 @@ def drive_pixel_diffusion(torch, kernels, seed: int, work: Path, card: str):
     return counts, metrics
 
 
+def card_vs_cpu_trainer(torch, kernels, label, init, make_diffusion,
+                        batches, per_step, lr: float = 8e-5):
+    """Three steps of the DDPM `Trainer` over `make_diffusion(model,
+    device)` on the card and on the CPU from the weights of `init`, each
+    step's (images, loss kwargs) from `batches` (numpy, the draws
+    injected), held as 4b is held (`hold_card_to_cpu`, `per_step` flash
+    launches per step)."""
+    import copy
+
+    from vqgan_tpu_torch.training.ddpm_trainer import Trainer
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(init).to(dev)
+        diffusion = make_diffusion(model, torch.device(dev))
+        x, kw = batches[0]
+        diffusion.loss(torch.from_numpy(x).to(dev), **kw).backward()
+        grads = torch.cat([p.grad.flatten().cpu() for p in model.parameters()
+                           if p.grad is not None])
+        model.zero_grad(set_to_none=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = Trainer(diffusion, model, train_batch_size=len(x),
+                              train_lr=lr, results_folder=tmp)
+            reset_counts(kernels)
+            losses = [float(trainer.train_step(
+                torch.from_numpy(x).to(dev), **kw)) for x, kw in batches]
+            launches = {name: kernels[name].launches for name in FLASH}
+        out[dev] = (grads, losses, _flat(torch, model),
+                    _flat(torch, trainer.ema_model), launches)
+    hold_card_to_cpu(torch, label, init, out, len(batches), lr, per_step)
+
+
+def check_small_diffusion_library(torch, kernels, seed: int):
+    """Phase 4h, the rest of the diffusion library on small inputs, card
+    against CPU, each held as 4b is held (`card_vs_cpu_trainer`), the
+    draws injected:
+    - three DDPM-trainer steps of a tiny learned-variance U-Net (dim 16,
+      mults 1-2, full attention on the inner stage, 16 px, batch 4; t and
+      noise): 3 forward, 3 dQ and 3 dK/dV launches per step (down, mid,
+      up);
+    - three of a tiny UViT (dim 16, mults 1-2, a ViT middle of depth 2, 2
+      heads x 32 over 4 x 4 tokens) under `SimpleDiffusion` (times and
+      noise): 2 / 2 / 2 per step;
+    - three of a tiny Unet1D (dim 16, mults 1-2, 4 channels, L = 32)
+      under `GaussianDiffusion1D` (pred_v; t and noise): 1 / 1 / 1;
+    - one forward and backward of a tiny KarrasUnet3D with factorised
+      attention (dim 16, dim_max 32, 4 x 8 x 8 x 2, attention at 4 px: 2
+      encoder, 2 middle and 2 decoder blocks, a space and a time pass
+      each), the gains set past their zero initialisation: output within
+      1e-4 and gradients within 1e-3 of the largest CPU value (4b's rule),
+      12 launches of each flash kernel."""
+    from vqgan_tpu_torch.diffusion import (
+        GaussianDiffusion1D,
+        LearnedVarianceGaussianDiffusion,
+        SimpleDiffusion,
+    )
+    from vqgan_tpu_torch.models import KarrasUnet3D, Unet, Unet1D, UViT
+
+    rng = np.random.default_rng(seed + 10)
+
+    def batches(shape, **draws):
+        return [(rng.random(shape).astype(np.float32),
+                 {name: draw(shape) for name, draw in draws.items()})
+                for _ in range(3)]
+
+    def noise(shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    def steps_t(shape):
+        return rng.integers(0, 1000, shape[0])
+
+    torch.manual_seed(seed + 11)
+    card_vs_cpu_trainer(
+        torch, kernels, "small learned-variance DDPM training",
+        Unet(dim=16, dim_mults=(1, 2), full_attn=(False, True),
+             learned_variance=True),
+        lambda m, dev: LearnedVarianceGaussianDiffusion(
+            m, image_size=16, timesteps=1000, device=dev),
+        batches((4, 16, 16, 3), t=steps_t, noise=noise),
+        {name: 3 for name in FLASH})
+    torch.manual_seed(seed + 12)
+    card_vs_cpu_trainer(
+        torch, kernels, "small UViT simple-diffusion training",
+        UViT(dim=16, dim_mults=(1, 2), vit_depth=2, attn_heads=2),
+        lambda m, dev: SimpleDiffusion(m, image_size=16, device=dev),
+        batches((4, 16, 16, 3), times=lambda shape: rng.random(
+            shape[0]).astype(np.float32), noise=noise),
+        {name: 2 for name in FLASH})
+    torch.manual_seed(seed + 13)
+    card_vs_cpu_trainer(
+        torch, kernels, "small Unet1D training",
+        Unet1D(dim=16, dim_mults=(1, 2), channels=4),
+        lambda m, dev: GaussianDiffusion1D(
+            m, image_size=32, seq_length=32, channels=4, timesteps=1000,
+            objective="pred_v", device=dev),
+        batches((4, 32, 4), t=steps_t, noise=noise),
+        {name: 1 for name in FLASH})
+
+    torch.manual_seed(seed + 14)
+    net = KarrasUnet3D(spatial_size=(4, 8, 8), dim=16, dim_max=32,
+                       channels=2, num_downsamples=1, num_blocks_per_stage=1,
+                       attn_res=(4,), attn_dim_head=16,
+                       factorize_space_time_attn=True)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith("gain"):
+                p.fill_(0.5)
+    x = torch.from_numpy(noise((2, 2, 4, 8, 8)))
+    t = torch.tensor([0.3, -0.9])
+    got = {}
+    for dev in ("cpu", "cuda"):
+        net.to(dev).zero_grad(set_to_none=True)
+        reset_counts(kernels)
+        out = net(x.to(dev), t.to(dev))
+        out.pow(2).mean().backward()
+        launches = {name: kernels[name].launches for name in FLASH}
+        got[dev] = (out.detach().cpu(), torch.cat(
+            [p.grad.flatten().cpu() for p in net.parameters()]))
+    out_err = (got["cuda"][0] - got["cpu"][0]).abs().max().item()
+    out_size = got["cpu"][0].abs().max().item()
+    grad_err = (got["cuda"][1] - got["cpu"][1]).abs().max().item()
+    grad_size = got["cpu"][1].abs().max().item()
+    print(f"small KarrasUnet3D, factorised, forward + backward, card vs "
+          f"CPU: max|out diff|={out_err:.3e} (max|out| {out_size:.3e}), "
+          f"max|grad diff|={grad_err:.3e} (max|grad| {grad_size:.3e}); "
+          f"launches on the card {launches}")
+    if out_err > 1e-4 * out_size or grad_err > 1e-3 * grad_size \
+            or not bool(torch.isfinite(got["cuda"][1]).all()):
+        fail("small KarrasUnet3D on the card disagrees with the CPU")
+    if launches != {name: 12 for name in FLASH}:
+        fail(f"small KarrasUnet3D: expected 12 launches of each flash "
+             f"kernel, got {launches}")
+
+
+def drive_diffusion_library(torch, kernels, seed: int, work: Path,
+                            card: str):
+    """Phase 5i, the rest of the diffusion library at full width through
+    the DDPM `Trainer` and the samplers, random weights from a seed:
+    (a) train_ddpm's U-Net (dim 64, mults 1-2-4-8, bf16, batch 16) on 31 x
+        8 seeded 128 px JPGs, full attention at 16 x 16 (down, mid, up:
+        3 launches of each flash kernel per step at [16, 256, 4, 32], Skv
+        260), T cut from 1000 to 100 for the samplers that walk every t:
+        learned variance (pred_noise) and the weighted objective (out_dim
+        2C + 2) 10 + 2 timed steps each at T 1000, then one ancestral batch
+        of 16 from the EMA weights over a T 100 schedule (300 forwards);
+        RePaint of a batch of 4 with the left half known
+        (resampling at its defaults: 160 denoise ops, 480 forwards at
+        [4, 256, 4, 32]; the known half equal to the image); classifier
+        guidance by a seeded ResNet18 (31 classes, t ignored) over DDIM-50
+        (150 forwards) and the ancestral sampler (300).
+    (b) `SimpleDiffusion` (v) over the UViT (dim 64, mults 1-2-4-8, bf16;
+        ViT depth 6, 4 heads x 32) on 31 x 8 JPGs at 256 px: 10 + 2 timed
+        steps at batch 16 (6 / 6 / 6 per step at [16, 256, 4, 32], Skv
+        256), then one grid of 16 with 100 of its 500 sampling steps (600
+        forwards).
+    (c) continuous time over (a)'s U-Net with learned sinusoidal time
+        features: the learned log-SNR schedule (its MLP trained and
+        averaged with the U-Net) and the v-parameterised variant, 10 + 2
+        timed steps each, then a batch of 16 with 100 of 500 sampling
+        steps (300 forwards).
+    (d) the upstream README's 1-D example: Unet1D(dim 64, mults 1-2-4-8,
+        32 channels), GaussianDiffusion1D(seq_length 128, T 1000, pred_v)
+        on a seeded Dataset1D of 64 sequences: 10 + 2 timed steps at batch
+        32 (1 / 1 / 1 at [32, 16, 4, 32] fp32), then DDIM-250 of 16 (250
+        forwards at [16, 16, 4, 32]).
+    (e) the Karras N-D U-Nets at their defaults (dim 192, dim_max 768, 4
+        blocks a stage, attention at 16 and 8, bf16), the gains set past
+        their zero initialisation, forward + backward at batch 2, one
+        untimed and three timed: KarrasUnet1D at L = 64 (11 launches of
+        each kernel at [2, 16, 12, 64], 12 at [2, 8, 12, 64] per pass);
+        KarrasUnet3D at 16 x 32 x 32 x 4 with full attention (11 at [2,
+        2048, 6, 64] and 11 at [2, 256, 12, 64]) and factorised (11 at
+        each of [16, 256, 6, 64], [512, 8, 6, 64], [8, 64, 12, 64] and
+        [128, 4, 12, 64]).
+    Every loss and sample finite. Returns ({(kernel, shape): launches},
+    {metric: value})."""
+    from vqgan_tpu_torch.diffusion import (
+        ContinuousTimeGaussianDiffusion,
+        Dataset1D,
+        GaussianDiffusion1D,
+        GuidedGaussianDiffusion,
+        LearnedLogSNR,
+        LearnedScheduleDenoiser,
+        LearnedVarianceGaussianDiffusion,
+        RePaintDiffusion,
+        SimpleDiffusion,
+        VParamContinuousTimeGaussianDiffusion,
+        WeightedObjectiveGaussianDiffusion,
+        make_classifier_cond_fn,
+    )
+    from vqgan_tpu_torch.models import (
+        KarrasUnet1D,
+        KarrasUnet3D,
+        Unet,
+        Unet1D,
+        UViT,
+    )
+    from vqgan_tpu_torch.models.resnet import ResNet18
+    from vqgan_tpu_torch.training.ddpm_trainer import FolderDataset, Trainer
+
+    t_phase = time.perf_counter()
+    counts, metrics = {}, {}
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    ddpm = (16, 256, 4, 32, "bfloat16")
+    repaint = (4, 256, 4, 32, "bfloat16")
+    uvit = (16, 256, 4, 32, "bfloat16")
+    seq_train = (32, 16, 4, 32, "float32")
+    seq_gen = (16, 16, 4, 32, "float32")
+
+    def gated(label, fn, expected, tag=None):
+        """run_gated; a tagged path's launches go into `counts` under
+        (kernel, shape + (tag,)), as `row_key` keys its rows."""
+        mine = {}
+        result = run_gated(torch, kernels, label, fn, expected, mine)
+        for (name, shape), n in mine.items():
+            key = (name, shape + (tag,) if tag else shape)
+            counts[key] = counts.get(key, 0) + n
+        return result
+
+    def per_step(shapes, n):
+        return {(name, shape): k * n for shape, k in shapes.items()
+                for name in FLASH}
+
+    def unet(**kw):
+        return Unet(dim=64, dim_mults=(1, 2, 4, 8), channels=3, dtype=bf16,
+                    **kw).to(dev)
+
+    def train(label, diffusion, model, folder=None, dataset=None,
+              batch=16, shapes=None, tag=None, unit="images"):
+        """10 + 2 timed `Trainer` steps; returns the trainer."""
+        trainer = Trainer(diffusion, model, folder, dataset=dataset,
+                          train_batch_size=batch, train_num_steps=12,
+                          num_samples=16, results_folder=work / label)
+        log, _ = gated(f"{label}: 12 trainer steps",
+                       lambda: trainer.train(timing_warmup=10),
+                       per_step(shapes or {ddpm: 3}, 12), tag)
+        if not all(np.isfinite(log["losses"])):
+            fail(f"{label}: losses {log['losses']}")
+        metrics[f"{label}_{unit}_per_s"] = log["images_per_s"]
+        print(f"[{card}] {label}: {log['timed_steps']} steps after a warm-up "
+              f"of 10 in {log['timed_seconds']:.4f} s = "
+              f"{log['images_per_s']:.4f} {unit}/s at batch {batch}; losses "
+              f"{log['losses']}")
+        return trainer
+
+    def sampled(key, label, fn, expected, n, shape, tag=None):
+        out, secs = gated(label, fn, expected, tag)
+        if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+            fail(f"{label}: {tuple(out.shape)}, finite "
+                 f"{bool(torch.isfinite(out).all())}")
+        metrics[f"{key}_samples_per_s"] = n / secs
+        print(f"[{card}] {label}: {secs:.4f} s = {n / secs:.4f} samples/s")
+        return out
+
+    def gen(s):
+        return torch.Generator("cuda").manual_seed(seed + s)
+
+    # --- (a) the DDPM U-Net: learned variance, weighted objective ------
+    images = write_user_images(work / "images128", seed, 31, 8, 128)
+    for label, cls, kw in (
+            ("learned_variance", LearnedVarianceGaussianDiffusion,
+             dict(learned_variance=True)),
+            ("weighted_objective", WeightedObjectiveGaussianDiffusion,
+             dict(out_dim=8))):
+        torch.manual_seed(seed + 20)
+        model = unet(**kw)
+        diffusion = cls(model, image_size=128, device=dev)
+        trainer = train(label, diffusion, model, folder=images)
+        cut = dataclasses.replace(trainer.ema_diffusion, timesteps=100,
+                                  sampling_timesteps=None, schedule=None)
+        sampled(f"{label}_ancestral",
+                f"{label} ancestral batch of 16 (T 100)",
+                lambda: cut.sample(batch_size=16, generator=gen(1)),
+                {("flash_fwd", ddpm): 300}, 16, (16, 128, 128, 3))
+        del trainer, model, diffusion
+
+    # --- (a) RePaint and classifier guidance ----------------------------
+    torch.manual_seed(seed + 21)
+    model = unet().eval()
+    rp = RePaintDiffusion(model, image_size=128, timesteps=100,
+                          objective="pred_v", device=dev)
+    n_denoise = int((rp.schedule_ops()[:, 0] == 0).sum())
+    ds = FolderDataset(images, 128)
+    gt = torch.from_numpy(np.stack([ds[i][0] for i in range(4)])).to(dev)
+    mask = torch.zeros(4, 128, 128, 1, device=dev)
+    mask[:, :, :64] = 1.0
+    out = sampled("repaint", f"RePaint of 4 ({n_denoise} denoise ops)",
+                  lambda: rp.inpaint(gt, mask, generator=gen(2)),
+                  {("flash_fwd", repaint): 3 * n_denoise}, 4,
+                  (4, 128, 128, 3))
+    known = (out[:, :, :64] - gt[:, :, :64]).abs().max().item()
+    print(f"RePaint: max|known half - image| = {known:.3e}")
+    if n_denoise != 160 or known > 1e-5:
+        fail(f"RePaint: {n_denoise} denoise ops, known half off by {known}")
+    gd = GuidedGaussianDiffusion(model, image_size=128, timesteps=100,
+                                 sampling_timesteps=50, objective="pred_v",
+                                 device=dev)
+    torch.manual_seed(seed + 22)
+    classifier = ResNet18(31).to(dev).eval()
+    cond_fn = make_classifier_cond_fn(lambda x, t: classifier(x))
+    y = {"y": torch.arange(16, device=dev) % 31}
+    for key, label, fn, n_fwd in (
+            ("guided_ddim", "guided DDIM-50 of 16", gd.ddim_sample_guided,
+             150),
+            ("guided_ancestral", "guided ancestral of 16 (T 100)",
+             gd.p_sample_loop_guided, 300)):
+        sampled(key, label, lambda: fn((16, 128, 128, 3), cond_fn, y,
+                                       generator=gen(3)),
+                {("flash_fwd", ddpm): n_fwd}, 16, (16, 128, 128, 3))
+    del model, rp, gd, classifier
+
+    # --- (b) simple diffusion over the UViT at 256 px --------------------
+    images256 = write_user_images(work / "images256", seed, 31, 8, 256)
+    torch.manual_seed(seed + 23)
+    model = UViT(dim=64, dim_mults=(1, 2, 4, 8), dtype=bf16).to(dev)
+    sd = SimpleDiffusion(model, image_size=256, pred_objective="v",
+                         num_sample_steps=100, device=dev)
+    trainer = train("uvit_simple", sd, model, folder=images256,
+                    shapes={uvit: 6}, tag="uvit")
+    grid = sampled("uvit_grid", "UViT grid of 16 (100 of 500 steps)",
+                   lambda: trainer.sample_grid(1),
+                   {("flash_fwd", uvit): 600}, 16, (16, 256, 256, 3),
+                   tag="uvit")
+    shutil.copy(trainer.results_folder / "sample-1.png",
+                OUT / "uvit_sample-1.png")
+    del trainer, model, sd, grid
+
+    # --- (c) continuous time ---------------------------------------------
+    torch.manual_seed(seed + 24)
+    model = LearnedScheduleDenoiser(
+        unet(learned_sinusoidal_cond=True),
+        LearnedLogSNR(*ContinuousTimeGaussianDiffusion.learned_endpoints()
+                      ).to(dev))
+    for label, diffusion in (
+            ("continuous_learned", ContinuousTimeGaussianDiffusion(
+                model, image_size=128, noise_schedule="learned",
+                num_sample_steps=100, device=dev)),
+            ("continuous_v", VParamContinuousTimeGaussianDiffusion(
+                model.net, image_size=128, num_sample_steps=100,
+                device=dev))):
+        trainer = train(label, diffusion, diffusion.model, folder=images)
+        sampled(label, f"{label} batch of 16 (100 of 500 steps)",
+                lambda: trainer.ema_diffusion.sample(16, generator=gen(4)),
+                {("flash_fwd", ddpm): 300}, 16, (16, 128, 128, 3))
+        del trainer
+    del model
+
+    # --- (d) the 1-D example -------------------------------------------
+    torch.manual_seed(seed + 25)
+    model = Unet1D(dim=64, dim_mults=(1, 2, 4, 8), channels=32).to(dev)
+    d1 = GaussianDiffusion1D(model, image_size=128, seq_length=128,
+                             channels=32, timesteps=1000,
+                             sampling_timesteps=250, objective="pred_v",
+                             device=dev)
+    data = Dataset1D(np.random.default_rng(seed + 26).random(
+        (64, 128, 32)).astype(np.float32))
+    trainer = train("unet1d", d1, model, dataset=data, batch=32,
+                    shapes={seq_train: 1}, unit="sequences")
+    sampled("unet1d_ddim", "Unet1D DDIM-250 of 16",
+            lambda: trainer.ema_diffusion.sample(16, generator=gen(5)),
+            {("flash_fwd", seq_gen): 250}, 16, (16, 128, 32))
+    del trainer, model, d1
+
+    # --- (e) the Karras N-D U-Nets -----------------------------------------
+    for label, cls, x_shape, kw, shapes in (
+            ("karras_unet_1d", KarrasUnet1D, (2, 4, 64), {},
+             {(2, 16, 12, 64, "bfloat16"): 11,
+              (2, 8, 12, 64, "bfloat16"): 12}),
+            ("karras_unet_3d", KarrasUnet3D, (2, 4, 16, 32, 32), {},
+             {(2, 2048, 6, 64, "bfloat16"): 11,
+              (2, 256, 12, 64, "bfloat16"): 11}),
+            ("karras_unet_3d_factorized", KarrasUnet3D, (2, 4, 16, 32, 32),
+             dict(factorize_space_time_attn=True),
+             {(16, 256, 6, 64, "bfloat16"): 11,
+              (512, 8, 6, 64, "bfloat16"): 11,
+              (8, 64, 12, 64, "bfloat16"): 11,
+              (128, 4, 12, 64, "bfloat16"): 11})):
+        torch.manual_seed(seed + 27)
+        net = cls(dtype=bf16, **kw).to(dev)
+        with torch.no_grad():
+            for name, p in net.named_parameters():
+                if name.endswith("gain"):
+                    p.fill_(0.5)
+        x = torch.randn(x_shape, device=dev, generator=gen(6))
+        t = torch.randn(2, device=dev, generator=gen(7))
+
+        def step():
+            net.zero_grad(set_to_none=True)
+            out = net(x, t)
+            out.float().pow(2).mean().backward()
+            return out
+
+        out, _ = gated(f"{label} forward + backward (warm-up)", step,
+                       per_step(shapes, 1))
+        _, secs = gated(f"{label} forward + backward x 3", lambda: [
+            step() for _ in range(3)], per_step(shapes, 3))
+        grads = torch.cat([p.grad.flatten() for p in net.parameters()])
+        if not bool(torch.isfinite(out).all()) \
+                or not bool(torch.isfinite(grads).all()) \
+                or not grads.abs().max().item() > 0:
+            fail(f"{label}: output or gradients not finite, or all zero")
+        metrics[f"{label}_fwd_bwd_ms"] = secs / 3 * 1e3
+        print(f"[{card}] {label} at batch 2, bf16: "
+              f"{metrics[f'{label}_fwd_bwd_ms']:.4f} ms per forward + "
+              f"backward")
+        del net, out, grads
+    metrics["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"phase 5i: {metrics['phase_seconds']:.3f} s")
+    return counts, metrics
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3115,6 +3627,7 @@ def main():
     check_small_gmm_classifier_fid(torch, KERNELS, args.seed)
     check_small_dit_and_remat(torch, KERNELS, args.seed)
     check_small_ddpm_and_karras(torch, KERNELS, args.seed)
+    check_small_diffusion_library(torch, KERNELS, args.seed)
 
     if not args.kernels_only:
         counts, rates = drive_main_path(torch, KERNELS, args.seed)
@@ -3124,7 +3637,7 @@ def main():
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
             work = Path(work)
             for phase in ("ldm", "vqgan", "kl_vae", "gmm", "serving",
-                          "stage2", "pixel"):
+                          "stage2", "pixel", "library"):
                 (work / phase).mkdir()
             train_counts, rate = drive_training(torch, KERNELS, args.seed,
                                                 work / "ldm")
@@ -3153,10 +3666,13 @@ def main():
             pixel_counts, pixel_metrics = drive_pixel_diffusion(
                 torch, KERNELS, args.seed, work / "pixel", card)
             print("pixel-space diffusion: " + json.dumps(pixel_metrics))
+            library_counts, library_metrics = drive_diffusion_library(
+                torch, KERNELS, args.seed, work / "library", card)
+            print("diffusion library: " + json.dumps(library_metrics))
         for key, n in [*train_counts.items(), *vq_counts.items(),
                        *kl_counts.items(), *gmm_counts.items(),
                        *serving_counts.items(), *stage2_counts.items(),
-                       *pixel_counts.items()]:
+                       *pixel_counts.items(), *library_counts.items()]:
             counts[key] = counts.get(key, 0) + n
         for row in rows.values():
             row["launches"] = counts.get((row["name"], row["key"]), 0)

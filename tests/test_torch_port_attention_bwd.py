@@ -248,7 +248,8 @@ def test_no_gradient_wanted_saves_nothing(monkeypatch):
                   attn_heads=2)
     diffusion = GaussianDiffusion(net, image_size=8, channels=4,
                                   timesteps=20, sampling_timesteps=2,
-                                  objective="pred_v", auto_normalize=False)
+                                  objective="pred_v", auto_normalize=False,
+                                  device="cpu")
     z = diffusion.sample(classes=torch.tensor([0, 1]), cond_scale=3.0,
                          generator=torch.Generator().manual_seed(0))
     assert z.shape == (2, 8, 8, 4) and not z.requires_grad

@@ -89,7 +89,7 @@ def pair(models, **kw):
     self_condition, model_apply, params, net = models
     kw = {**DIFF, "self_condition": self_condition, **kw}
     return (JGaussianDiffusion(model_apply, **kw), params,
-            GaussianDiffusion(net, **kw))
+            GaussianDiffusion(net, **kw, device="cpu"))
 
 
 def cost(dist, perm):

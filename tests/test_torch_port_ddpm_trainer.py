@@ -147,7 +147,7 @@ def test_sampling_error_reaches_the_caller(folder, tmp_path):
     torch.manual_seed(0)
     model = Unet(dim=8, dim_mults=(1, 2))
     diffusion = GaussianDiffusion(model, image_size=16, timesteps=20,
-                                  sampling_timesteps=3)
+                                  sampling_timesteps=3, device="cpu")
     trainer = Trainer(diffusion, model, str(folder), train_batch_size=4,
                       train_num_steps=2, save_and_sample_every=2,
                       num_samples=4, results_folder=str(tmp_path))
@@ -165,7 +165,7 @@ def test_optimizer_and_ema(folder, tmp_path):
     torch.manual_seed(0)
     model = Unet(dim=8, dim_mults=(1, 2))
     diffusion = GaussianDiffusion(model, image_size=16, timesteps=20,
-                                  sampling_timesteps=3)
+                                  sampling_timesteps=3, device="cpu")
     trainer = Trainer(diffusion, model, str(folder), train_batch_size=4,
                       train_num_steps=12, save_and_sample_every=1000,
                       num_samples=4, results_folder=str(tmp_path))
@@ -200,7 +200,8 @@ def test_trains_edm_over_a_dataset(tmp_path):
     net = KarrasUnet(image_size=16, dim=16, dim_max=32, channels=3,
                      num_downsamples=1, num_blocks_per_stage=1,
                      attn_res=(8,), attn_dim_head=16, dropout=0.0)
-    ed = ElucidatedDiffusion(net, image_size=16, num_sample_steps=3)
+    ed = ElucidatedDiffusion(net, image_size=16, num_sample_steps=3,
+                             device="cpu")
     trainer = Trainer(ed, net, dataset=Squares(), train_batch_size=2,
                       train_num_steps=2, save_and_sample_every=2,
                       num_samples=1, results_folder=str(tmp_path))

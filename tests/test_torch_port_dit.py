@@ -174,7 +174,7 @@ def test_p_losses_and_gradients_match_jax(jax_dit):
 
     j_loss, j_grads = loss_and_grads(params)
     net = port_dit(params).train()
-    loss = GaussianDiffusion(net, **DIFF).p_losses(
+    loss = GaussianDiffusion(net, **DIFF, device="cpu").p_losses(
         d["x"], torch.from_numpy(d["t"]).long(),
         torch.from_numpy(d["classes"]).long(), noise=d["noise"],
         cond_drop_mask=torch.from_numpy(d["mask"]))
@@ -207,7 +207,7 @@ def test_ddim_chain_matches_jax(jax_dit, cond_scale, phi):
     j_z = jax.jit(lambda p: jdiff.ddim_sample(
         p, jax.random.PRNGKey(0), shape, classes, cond_scale=cond_scale,
         rescaled_phi=phi, init_noise=init, step_noise=steps))(params)
-    tdiff = GaussianDiffusion(port_dit(params).eval(), **DIFF)
+    tdiff = GaussianDiffusion(port_dit(params).eval(), **DIFF, device="cpu")
     t_z = tdiff.ddim_sample(shape, torch.from_numpy(classes).long(),
                             cond_scale=cond_scale, rescaled_phi=phi,
                             init_noise=init, step_noise=steps)

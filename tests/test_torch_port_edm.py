@@ -5,8 +5,8 @@ the JAX package's.
 The JAX samplers and loss draw from PRNG keys; the tests compute those
 draws and hand them to the port as tensors. The U-Net is tiny (dim 16,
 dim_max 64, 16 x 16 x 3 images, 2 downsamples, 1 block per stage,
-attention at 8 and 4 px, 3 classes), fp32, eval mode (dropout's bits cannot
-match JAX's), its JAX params filled from a numpy seed (the gains too, which
+attention at 8 and 4 px, 3 classes), fp32, dropout off (the default, as
+in JAX: its bits could not match), its JAX params filled from a numpy seed (the gains too, which
 JAX initialises to 0) and carried over with `karras_unet_state_from_jax`.
 
 - The preconditioners, c_noise and the loss weight; the sigma schedule.
@@ -142,16 +142,21 @@ def test_karras_unet_bf16_matches_jax_to_its_noise():
 
 
 def test_dropout_is_active_only_in_train_mode():
+    """Dropout follows the caller, as in the JAX package: off by default
+    (`deterministic=True`) in eval and in `nn.Module.train()` mode alike,
+    on only when a forward asks for it with deterministic=False, which is
+    the JAX package's train mode that the name means."""
     _, _, net = karras_pair(seed=6)
     x = torch.randn(B, 3, 16, 16)
     t = torch.tensor([0.1, 0.2])
     c = torch.from_numpy(CLASSES)
     with torch.no_grad():
-        a, b = net(x, t, class_labels=c), net(x, t, class_labels=c)
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        a = net(x, t, class_labels=c)
         net.train()
+        b = net(x, t, class_labels=c)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
         torch.manual_seed(0)
-        d = net(x, t, class_labels=c)
+        d = net(x, t, class_labels=c, deterministic=False)
     assert (d - a).abs().max() > 1e-3
 
 
@@ -269,7 +274,7 @@ def torch_oracle(x, t, self_cond=None):
 
 def edm_pair(net=torch_oracle, jnet=jax_oracle, **kw):
     kw = {"image_size": 16, "channels": 3, "num_sample_steps": 6, **kw}
-    return JEDM(jnet, **kw), ElucidatedDiffusion(net, **kw)
+    return JEDM(jnet, **kw), ElucidatedDiffusion(net, **kw, device="cpu")
 
 
 def heun_draws(key, n):

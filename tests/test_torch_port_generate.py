@@ -84,7 +84,7 @@ def pipelines():
     tnet.load_state_dict(cfg_unet_state_from_jax(uparams))
     tvae = KLVAE(AutoencoderConfig(**VAE)).eval()
     tvae.load_state_dict(klvae_state_from_jax(vparams))
-    tdiff = GaussianDiffusion(tnet, **DIFF)
+    tdiff = GaussianDiffusion(tnet, **DIFF, device="cpu")
     return (jdiff, uparams, jvae, vparams), (tdiff, tvae)
 
 
@@ -123,7 +123,7 @@ def test_model_predictions_match_jax(pipelines, objective):
     (jdiff, uparams, _, _), (tdiff, _) = pipelines
     kw = {**DIFF, "objective": objective}
     jd = JGaussianDiffusion(jdiff.model_apply, **kw)
-    td = GaussianDiffusion(tdiff.model, **kw)
+    td = GaussianDiffusion(tdiff.model, **kw, device="cpu")
     rng = np.random.default_rng(3)
     x = rng.standard_normal((B, 8, 8, 4)).astype(np.float32)
     t = np.array([19, 7, 0], np.int32)

@@ -74,7 +74,7 @@ def models():
 def pair(models, **kw):
     model_apply, params, tnet = models
     return (JGaussianDiffusion(model_apply, **{**DIFF, **kw}), params,
-            GaussianDiffusion(tnet, **{**DIFF, **kw}))
+            GaussianDiffusion(tnet, **{**DIFF, **kw}, device="cpu"))
 
 
 def ancestral_draws(key, shape, n_steps):

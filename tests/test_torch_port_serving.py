@@ -112,8 +112,8 @@ def pipelines():
     tnet.load_state_dict(cfg_unet_state_from_jax(uparams))
     tvae = KLVAE(AutoencoderConfig(**VAE)).eval()
     tvae.load_state_dict(klvae_state_from_jax(vparams))
-    return (jdiff, uparams, jvae, vparams), (GaussianDiffusion(tnet, **DIFF),
-                                             tvae)
+    tdiff = GaussianDiffusion(tnet, **DIFF, device="cpu")
+    return (jdiff, uparams, jvae, vparams), (tdiff, tvae)
 
 
 def noise(seed=2):

@@ -138,7 +138,7 @@ def test_p_losses_and_gradients_match_jax(jax_side):
     data = batch(1)
     j_loss, j_grads = jax_side.loss_and_grads(jax_side.params, **data)
     net = port_model(jax_side.params)
-    diffusion = GaussianDiffusion(net, **DIFF)
+    diffusion = GaussianDiffusion(net, **DIFF, device="cpu")
     loss = diffusion.p_losses(
         data["x"], torch.from_numpy(data["t"]).long(),
         torch.from_numpy(data["classes"]).long(), noise=data["noise"],
@@ -167,7 +167,8 @@ def test_loss_normalizes_and_matches_jax_p_losses(objective):
     net = port_model(side.params)
     diffusion = GaussianDiffusion(net, **{**DIFF, "objective": objective,
                                           "auto_normalize": True,
-                                          "min_snr_loss_weight": False})
+                                          "min_snr_loss_weight": False},
+                                  device="cpu")
     with torch.no_grad():
         loss = diffusion.loss(
             img, torch.from_numpy(data["classes"]).long(),
@@ -185,10 +186,10 @@ def test_offset_noise_adds_a_per_channel_constant(jax_side):
     with torch.no_grad():
         offset = torch.randn((B, 4), generator=torch.Generator().manual_seed(5))
         shifted = data["noise"] + 0.1 * offset.numpy()[:, None, None, :]
-        plain = GaussianDiffusion(net, **DIFF).p_losses(
+        plain = GaussianDiffusion(net, **DIFF, device="cpu").p_losses(
             *args, noise=shifted, cond_drop_mask=mask)
         with_offset = GaussianDiffusion(
-            net, **DIFF, offset_noise_strength=0.1).p_losses(
+            net, **DIFF, offset_noise_strength=0.1, device="cpu").p_losses(
             *args, noise=data["noise"], cond_drop_mask=mask,
             generator=torch.Generator().manual_seed(5))
     torch.testing.assert_close(with_offset, plain, rtol=1e-6, atol=0)
@@ -309,7 +310,7 @@ def test_train_steps_match_the_jax_composition(jax_side):
         j_logs.append((float(loss), float(norm)))
 
     net = port_model(jax_side.params)
-    diffusion = GaussianDiffusion(net, **DIFF)
+    diffusion = GaussianDiffusion(net, **DIFF, device="cpu")
     opt = make_ldm_optimizer(net.parameters(), **kw)
     state = LDMTrainState(0, net, copy.deepcopy(net).requires_grad_(False),
                           opt)

@@ -2,9 +2,12 @@
 
 `klvae_state_from_jax`, `cfg_unet_state_from_jax`, `dit_state_from_jax`,
 `ddpm_unet_state_from_jax`, `karras_unet_state_from_jax`,
+`uvit_state_from_jax`, `unet1d_state_from_jax`,
+`karras_unet_nd_state_from_jax`, `learned_log_snr_state_from_jax`,
 `vqvae_state_from_jax`, `patchgan_state_from_jax`, `lpips_state_from_jax`,
 `resnet_state_from_jax` and `inception_state_from_jax` take the variables
-of vqgan_tpu's KLVAE / CFGUnet / DiT / Unet / KarrasUnet / VQVAE /
+of vqgan_tpu's KLVAE / CFGUnet / DiT / Unet / KarrasUnet / UViT / Unet1D
+/ KarrasUnet1D and 3D / LearnedLogSNR / VQVAE /
 PatchGANDiscriminator / LPIPS / ResNet / InceptionV3Features as nested dicts of numpy arrays (`{"params": ...}` or
 the inner dict; the discriminator's, the ResNet's and Inception's with
 their `batch_stats`) and return a `state_dict` for the port's module. The port's names and shapes are the
@@ -20,10 +23,13 @@ checkpoint/torch_import.py (`load_torch_klvae`, `load_torch_cfg_unet`,
   running_mean/running_var.
 The JAX tree's autonames (LinearAttention_{i}, CrossAttentionCond_{i},
 Attention_0, Dense_0..3) are mapped as torch_import maps them. The JAX
-package has no PyTorch reader for the DiT, the DDPM `Unet` or the
-`KarrasUnet`, so their converters define the names (models/dit.py,
-models/unet.py, models/karras_unet.py); every tensor is copied, never
-shared.
+package has no PyTorch reader for the DiT, the DDPM `Unet`, the Karras
+U-Nets, the UViT, the `Unet1D` or the learned log-SNR schedule, so their
+converters define the names (models/dit.py, models/unet.py,
+models/karras_unet.py, models/karras_unet_nd.py, models/uvit.py,
+models/unet1d.py, diffusion/continuous_time.py); every tensor is copied,
+never shared. Convolutions of any rank go from flax's [*k, in, out] to
+[out, in, *k].
 """
 
 from __future__ import annotations
@@ -35,9 +41,10 @@ import torch
 
 __all__ = ["klvae_state_from_jax", "cfg_unet_state_from_jax",
            "dit_state_from_jax", "ddpm_unet_state_from_jax",
-           "karras_unet_state_from_jax",
-           "vqvae_state_from_jax", "patchgan_state_from_jax",
-           "lpips_state_from_jax", "resnet_state_from_jax",
+           "karras_unet_state_from_jax", "uvit_state_from_jax",
+           "unet1d_state_from_jax", "karras_unet_nd_state_from_jax",
+           "learned_log_snr_state_from_jax", "vqvae_state_from_jax",
+           "patchgan_state_from_jax", "lpips_state_from_jax", "resnet_state_from_jax",
            "inception_state_from_jax"]
 
 
@@ -50,8 +57,14 @@ def _params(tree) -> dict:
     return tree["params"] if "params" in tree else tree
 
 
+def _kernel(a) -> torch.Tensor:
+    """A flax conv kernel [*k, in, out] as torch's [out, in, *k]."""
+    a = np.asarray(a)
+    return _t(np.transpose(a, (a.ndim - 1, a.ndim - 2, *range(a.ndim - 2))))
+
+
 def _conv(out, key, p):
-    out[f"{key}.weight"] = _t(np.transpose(p["kernel"], (3, 2, 0, 1)))
+    out[f"{key}.weight"] = _kernel(p["kernel"])
     if "bias" in p:
         out[f"{key}.bias"] = _t(p["bias"])
 
@@ -73,8 +86,8 @@ def _groupnorm(out, key, p):
     out[f"{key}.bias"] = _t(p["GroupNorm_0"]["bias"])
 
 
-def _rms(out, key, p):
-    out[key] = _t(np.asarray(p["g"]).reshape(1, -1, 1, 1))
+def _rms(out, key, p, spatial_dims: int = 2):
+    out[key] = _t(np.asarray(p["g"]).reshape(1, -1, *((1,) * spatial_dims)))
 
 
 # --- KL-VAE ---------------------------------------------------------------
@@ -295,18 +308,12 @@ def ddpm_unet_state_from_jax(tree) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _mp_weight(a) -> torch.Tensor:
-    """An MPConv kernel HWIO -> OIHW, or an MPLinear kernel [in, out] ->
-    [out, in]."""
-    a = np.asarray(a)
-    return _t(np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T)
-
-
 def _karras_tree(out, prefix, p):
     for name, child in p.items():
         key = f"{prefix}{name}"
         if name == "mp_kernel":
-            out[f"{prefix}weight"] = _mp_weight(child)
+            # MPConv [*k, in, out] or MPLinear [in, out] kernels
+            out[f"{prefix}weight"] = _kernel(child)
         elif name in ("gain", "mem_kv", "weights"):
             out[key] = _t(child)
         else:
@@ -330,6 +337,142 @@ def karras_unet_state_from_jax(tree) -> Dict[str, torch.Tensor]:
         if side in plural and index.isdigit():
             key = f"{plural[side]}.{index}.{rest}"
         out[key] = value
+    return out
+
+
+def karras_unet_nd_state_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """vqgan_tpu KarrasUnet1D / KarrasUnet3D params -> state dict of the
+    port's: `mp_kernel` -> `weight` ([*k, in, out] -> [out, in, *k]),
+    `down_{i}` / `mid_{i}` / `up_{i}` -> `downs.{i}` / `mids.{i}` /
+    `ups.{i}`, a block's `attn` (or `attn_space`, `attn_time`) ->
+    `attns.0` (`attns.0`, `attns.1`)."""
+    attn = {"attn": "attns.0", "attn_space": "attns.0",
+            "attn_time": "attns.1"}
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in karras_unet_state_from_jax(tree).items():
+        parts = key.split(".")
+        if len(parts) > 2 and parts[2] in attn:
+            parts[2] = attn[parts[2]]
+        out[".".join(parts)] = value
+    return out
+
+
+def learned_log_snr_state_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """vqgan_tpu LearnedLogSNR params -> state dict of the port's
+    (`lin{i}.kernel` [in, out] -> `lin{i}.weight` [out, in])."""
+    p = _params(tree)
+    out: Dict[str, torch.Tensor] = {}
+    for name in ("lin1", "lin2", "lin3"):
+        _dense(out, name, p[name])
+    return out
+
+
+def _time_mlp(out, p):
+    """The learned-sinusoidal / sinusoidal embedding and the time MLP's
+    Dense layers, which flax names in the model's own scope."""
+    if "sinu_pos_emb" in p:
+        out["time_mlp.0.weights"] = _t(p["sinu_pos_emb"]["weights"])
+    _dense(out, "time_mlp.1", p["Dense_0"])
+    _dense(out, "time_mlp.3", p["Dense_1"])
+
+
+def _n_stages(p) -> int:
+    return sum(key.startswith("down_") and key.endswith("_block1")
+               for key in p)
+
+
+def _uvit_resblock(out, prefix, p):
+    _dense(out, f"{prefix}.mlp", p["mlp"])
+    for i in (1, 2):
+        _conv(out, f"{prefix}.proj{i}", p[f"proj{i}"])
+        _rms(out, f"{prefix}.norm{i}.g", p[f"norm{i}"])
+    if "res_conv" in p:
+        _conv(out, f"{prefix}.res_conv", p["res_conv"])
+
+
+def _plain_linear_attention(out, prefix, p, spatial_dims=2):
+    _rms(out, f"{prefix}.norm.g", p["norm"], spatial_dims)
+    _conv(out, f"{prefix}.to_qkv", p["to_qkv"])
+    _conv(out, f"{prefix}.to_out", p["to_out"])
+
+
+def _layernorm(out, key, p):
+    out[f"{key}.weight"] = _t(p["scale"])
+    out[f"{key}.bias"] = _t(p["bias"])
+
+
+def uvit_state_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """vqgan_tpu UViT params -> state dict of the port's UViT:
+    `down_{i}_{block1,block2,attn,downsample}` -> `downs.{i}.{0-3}`,
+    `up_{i}_{upsample,block1,block2,attn}` -> `ups.{i}.{0-3}`,
+    `vit_{d}_attn` / `_ff` -> `vit_attns.{d}` / `vit_ffs.{d}`, the
+    patch norms' scale -> weight, `unpatchify` with its taps flipped."""
+    p = _params(tree)
+    out: Dict[str, torch.Tensor] = {}
+    if "init_conv" in p:
+        _conv(out, "init_conv", p["init_conv"])
+    else:
+        _layernorm(out, "patch_norm_in", p["patch_norm_in"])
+        _dense(out, "patch_proj", p["patch_proj"])
+        _layernorm(out, "patch_norm_out", p["patch_norm_out"])
+    _time_mlp(out, p)
+    for i in range(_n_stages(p)):
+        _uvit_resblock(out, f"downs.{i}.0", p[f"down_{i}_block1"])
+        _uvit_resblock(out, f"downs.{i}.1", p[f"down_{i}_block2"])
+        _plain_linear_attention(out, f"downs.{i}.2", p[f"down_{i}_attn"])
+        _conv(out, f"downs.{i}.3", p[f"down_{i}_downsample"])
+        _conv(out, f"ups.{i}.0", p[f"up_{i}_upsample"])
+        _uvit_resblock(out, f"ups.{i}.1", p[f"up_{i}_block1"])
+        _uvit_resblock(out, f"ups.{i}.2", p[f"up_{i}_block2"])
+        _plain_linear_attention(out, f"ups.{i}.3", p[f"up_{i}_attn"])
+    depth = sum(key.startswith("vit_") and key.endswith("_attn")
+                for key in p)
+    for d in range(depth):
+        attn, ff = p[f"vit_{d}_attn"], p[f"vit_{d}_ff"]
+        out[f"vit_attns.{d}.norm.g"] = _t(attn["norm"]["g"])
+        _dense(out, f"vit_attns.{d}.to_qkv", attn["to_qkv"])
+        _dense(out, f"vit_attns.{d}.to_out", attn["to_out"])
+        out[f"vit_ffs.{d}.norm.g"] = _t(ff["norm"]["g"])
+        for name in ("proj_in", "to_scale_shift", "proj_out"):
+            _dense(out, f"vit_ffs.{d}.{name}", ff[name])
+    _uvit_resblock(out, "final_res_block", p["final_res_block"])
+    _conv(out, "final_conv", p["final_conv"])
+    if "unpatchify" in p:
+        _conv_transpose(out, "unpatchify", p["unpatchify"])
+    return out
+
+
+def _unet1d_resblock(out, prefix, p):
+    _dense(out, f"{prefix}.mlp", p["mlp"])
+    for block in ("block1", "block2"):
+        _conv(out, f"{prefix}.{block}.proj", p[block]["proj"])
+        _rms(out, f"{prefix}.{block}.norm.g", p[block]["_RMSNorm1D_0"], 1)
+    if "res_conv" in p:
+        _conv(out, f"{prefix}.res_conv", p["res_conv"])
+
+
+def unet1d_state_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """vqgan_tpu Unet1D params -> state dict of the port's Unet1D:
+    `{down,up}_{i}_{block1,block2,attn,downsample|upsample}` ->
+    `{downs,ups}.{i}.{0-3}`, RMSNorm g [C] -> [1, C, 1]."""
+    p = _params(tree)
+    out: Dict[str, torch.Tensor] = {}
+    _conv(out, "init_conv", p["init_conv"])
+    _time_mlp(out, p)
+    for side, torch_side, resample in (("down", "downs", "downsample"),
+                                       ("up", "ups", "upsample")):
+        for i in range(_n_stages(p)):
+            prefix = f"{torch_side}.{i}"
+            _unet1d_resblock(out, f"{prefix}.0", p[f"{side}_{i}_block1"])
+            _unet1d_resblock(out, f"{prefix}.1", p[f"{side}_{i}_block2"])
+            _plain_linear_attention(out, f"{prefix}.2",
+                                    p[f"{side}_{i}_attn"], 1)
+            _conv(out, f"{prefix}.3", p[f"{side}_{i}_{resample}"])
+    _unet1d_resblock(out, "mid_block1", p["mid_block1"])
+    _plain_linear_attention(out, "mid_attn", p["mid_attn"], 1)
+    _unet1d_resblock(out, "mid_block2", p["mid_block2"])
+    _unet1d_resblock(out, "final_res_block", p["final_res_block"])
+    _conv(out, "final_conv", p["final_conv"])
     return out
 
 

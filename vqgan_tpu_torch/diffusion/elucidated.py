@@ -32,6 +32,7 @@ from ..core.diffusion_math import (
     normalize_to_neg_one_to_one,
     unnormalize_to_zero_to_one,
 )
+from ..device import resolve_device
 
 __all__ = ["ElucidatedDiffusion"]
 
@@ -61,7 +62,10 @@ class ElucidatedDiffusion:
     S_tmax: float = 50.0
     S_noise: float = 1.003
     self_condition: bool = False
-    device: torch.device = torch.device("cpu")
+    device: str | torch.device = "cuda"  # no GPU raises; "cpu" on ask
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
 
     # Table-1 preconditioners ------------------------------------------------
 

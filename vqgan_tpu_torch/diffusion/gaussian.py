@@ -11,7 +11,8 @@ of that step over the (time, time_next) pairs), `p_sample_loop` (the
 ancestral sampler), `sample` (DDIM when sampling_timesteps < T, else
 ancestral) and `interpolate`. Every random draw can be passed in as a
 tensor, or comes from an explicit `torch.Generator`. NCHW inside; the
-public functions take and return NHWC latents, like the JAX package.
+public functions take and return NHWC latents, like the JAX package, or
+[B, L, C] sequences ([B, C, L] inside) for a 1-D denoiser.
 
 With `classes=None` the model is unconditional: model(x, t) or, with
 `self_condition`, model(x, t, x_self_cond). Self-conditioning feeds, on
@@ -37,17 +38,26 @@ from torch import nn
 from ..core import diffusion_math as dm
 from ..core.guidance import apply_cfg
 from ..core.schedules import DiffusionSchedule, make_schedule
+from ..device import resolve_device
 from ..ops.assignment import auction_assignment
 
 __all__ = ["GaussianDiffusion", "DDIMStep", "immiscible_permutation"]
 
 
 def _nchw(x):
-    return x.permute(0, 3, 1, 2)
+    """Channels last -> channels first: NHWC -> NCHW, [B, L, C] ->
+    [B, C, L]."""
+    return x.movedim(-1, 1)
 
 
 def _nhwc(x):
-    return x.permute(0, 2, 3, 1)
+    """Channels first -> channels last, the inverse of `_nchw`."""
+    return x.movedim(1, -1)
+
+
+def _channels_first(shape):
+    """An NHWC (or [B, L, C]) shape as NCHW (or [B, C, L])."""
+    return (shape[0], shape[-1], *shape[1:-1])
 
 
 def immiscible_permutation(x_start, noise, method: str = "host"):
@@ -97,10 +107,11 @@ class GaussianDiffusion:
     immiscible: bool = False
     immiscible_method: str = "host"
     self_condition: bool = False  # unconditional models only
-    device: torch.device = torch.device("cpu")
+    device: str | torch.device = "cuda"  # no GPU raises; "cpu" on ask
     schedule: DiffusionSchedule = None
 
     def __post_init__(self):
+        self.device = resolve_device(self.device)
         if self.objective not in ("pred_noise", "pred_x0", "pred_v"):
             raise ValueError(f"unknown objective {self.objective!r}")
         if self.immiscible_method not in ("host", "auction"):
@@ -153,8 +164,8 @@ class GaussianDiffusion:
             # per-(sample, channel) constant offset
             offset = torch.randn((b, c), generator=generator,
                                  device=x_start.device)
-            noise = noise + self.offset_noise_strength * offset[:, :, None,
-                                                                None]
+            noise = noise + self.offset_noise_strength * offset.reshape(
+                b, c, *((1,) * (x_start.ndim - 2)))
         t = torch.as_tensor(t, device=x_start.device)
         x = dm.q_sample(self.schedule, x_start, t, noise)
         if classes is not None:
@@ -163,19 +174,23 @@ class GaussianDiffusion:
                                    cond_drop_prob=cond_drop_prob,
                                    generator=generator,
                                    return_features=return_features)
-        elif self.self_condition:
-            with torch.no_grad():
-                x0_est = self._x_start_from_output(
-                    x, t, self.model(x, t, torch.zeros_like(x)))
-            if self_cond_coin is None:
-                self_cond_coin = torch.rand((), generator=generator,
-                                            device=x.device) < 0.5
-            coin = torch.as_tensor(self_cond_coin, device=x.device)
-            model_out = self.model(
-                x, t, torch.where(coin, x0_est, torch.zeros_like(x0_est)),
-                return_features=return_features)
         else:
-            model_out = self.model(x, t, return_features=return_features)
+            # an unconditional model need not take `return_features` (the
+            # 1-D U-Net does not) unless features are asked for
+            feats = {"return_features": True} if return_features else {}
+            if self.self_condition:
+                with torch.no_grad():
+                    x0_est = self._x_start_from_output(
+                        x, t, self.model(x, t, torch.zeros_like(x)))
+                if self_cond_coin is None:
+                    self_cond_coin = torch.rand((), generator=generator,
+                                                device=x.device) < 0.5
+                coin = torch.as_tensor(self_cond_coin, device=x.device)
+                model_out = self.model(
+                    x, t, torch.where(coin, x0_est,
+                                      torch.zeros_like(x0_est)), **feats)
+            else:
+                model_out = self.model(x, t, **feats)
         features = None
         if return_features:
             model_out, features = model_out
@@ -277,23 +292,22 @@ class GaussianDiffusion:
     def _step_noise(self, shape, step_noise, generator):
         """step i -> NCHW noise for an NHWC `shape`: row i of the given
         step_noise ([steps, *shape], NHWC), else a draw from `generator`."""
-        b, h, w, c = shape
         if step_noise is None:
-            return lambda i: torch.randn((b, c, h, w), generator=generator,
+            return lambda i: torch.randn(_channels_first(shape),
+                                         generator=generator,
                                          device=self.device)
         steps = torch.as_tensor(step_noise, dtype=torch.float32,
-                                device=self.device).permute(0, 1, 4, 2, 3)
+                                device=self.device).movedim(-1, 2)
         return lambda i: steps[i]
 
     def _noise_source(self, shape, init_noise, step_noise, generator):
         """(initial NCHW noise, step i -> NCHW noise) for an NHWC `shape`:
         the given tensors (init_noise [*shape], NHWC), else draws from
         `generator`, the initial one first."""
-        b, h, w, c = shape
         img = (_nchw(torch.as_tensor(init_noise, dtype=torch.float32,
                                      device=self.device))
                if init_noise is not None else
-               torch.randn((b, c, h, w), generator=generator,
+               torch.randn(_channels_first(shape), generator=generator,
                            device=self.device))
         return img, self._step_noise(shape, step_noise, generator)
 
@@ -379,6 +393,26 @@ class GaussianDiffusion:
             if return_all_timesteps:
                 trajectory.append(img)
         return self._finish(img, trajectory, return_all_timesteps)
+
+    def _ancestral_loop(self, shape, mean_and_log_var,
+                        return_all_timesteps: bool, init_noise, step_noise,
+                        generator):
+        """The ancestral loop of the learned-variance, weighted-objective
+        and guided samplers: from x_T, x_{t-1} = mean + exp(log_var / 2) *
+        noise for t = T-1 .. 0 (no noise at t = 0), (mean, log_var) =
+        mean_and_log_var(x_t, t [B]). Noise as in `p_sample_loop`. Their
+        JAX counterparts return the final samples only."""
+        if return_all_timesteps:
+            raise ValueError("this sampler returns the final samples only")
+        img, noise_at = self._noise_source(shape, init_noise, step_noise,
+                                           generator)
+        for i, t in enumerate(range(self.timesteps - 1, -1, -1)):
+            tb = torch.full((shape[0],), t, dtype=torch.long,
+                            device=self.device)
+            mean, log_var = mean_and_log_var(img, tb)
+            noise = noise_at(i)
+            img = mean if t == 0 else mean + torch.exp(0.5 * log_var) * noise
+        return self.unnormalize(_nhwc(img))
 
     def ddim_step(self, img, time, time_next, classes, noise, *,
                   cond_scale: float = 6.0, rescaled_phi: float = 0.7,

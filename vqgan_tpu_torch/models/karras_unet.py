@@ -20,8 +20,9 @@ MP transformer blocks and the inverse-sqrt learning-rate decay.
   flash kernels on CUDA) sees Skv = H * W + 4.
 - `Gain` promotes to fp32, as JAX's bf16 * f32 does, so a bf16 model's
   output is fp32.
-- Dropout (default 0.1) is `nn.Dropout`, active only in train mode; its
-  bits cannot match JAX's, so the parity tests run in eval mode.
+- Dropout (default 0.1) runs only when the caller passes
+  `deterministic=False`, as in the JAX package, whose trainers never do;
+  `.train()` alone does not turn it on. Its bits cannot match JAX's.
 
 The names are the port's (`downs.{i}`, `mids.{i}`, `ups.{i}`, `weight` for
 each `mp_kernel`); `checkpoint/from_jax.karras_unet_state_from_jax` maps
@@ -38,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import sdpa
-from .layers import from_heads, with_memory_tokens
+from .layers import Dropout, from_heads, with_memory_tokens
 
 __all__ = [
     "mp_silu",
@@ -115,21 +116,27 @@ def bilinear_resize(x, factor: float):
     return out.to(x.dtype)
 
 
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
 class MPConv(nn.Module):
-    """Bias-less conv with forced weight normalisation, "same" padding; with
-    `concat_ones_to_input` a channel of ones goes in front of the input."""
+    """Bias-less conv over `spatial_rank` dims (2: images) with forced
+    weight normalisation, "same" padding; with `concat_ones_to_input` a
+    channel of ones goes in front of the input."""
 
     def __init__(self, dim_in: int, dim_out: int, kernel_size: int = 3, *,
-                 concat_ones_to_input: bool = False, eps: float = 1e-4,
-                 normalize_forward: bool = True, dtype=torch.float32):
+                 spatial_rank: int = 2, concat_ones_to_input: bool = False,
+                 eps: float = 1e-4, normalize_forward: bool = True,
+                 dtype=torch.float32):
         super().__init__()
+        self.spatial_rank = spatial_rank
         self.concat_ones_to_input = concat_ones_to_input
         self.eps = eps
         self.normalize_forward = normalize_forward
         self.dtype = dtype
         dim_in += int(concat_ones_to_input)
-        self.weight = nn.Parameter(torch.randn(dim_out, dim_in, kernel_size,
-                                               kernel_size))
+        self.weight = nn.Parameter(torch.randn(
+            dim_out, dim_in, *((kernel_size,) * spatial_rank)))
 
     def forward(self, x):
         if self.concat_ones_to_input:
@@ -138,8 +145,8 @@ class MPConv(nn.Module):
         if self.normalize_forward:
             w = normalize_weight(w, self.eps)
         w = w / math.sqrt(w[0].numel())
-        return F.conv2d(x.to(self.dtype), w.to(self.dtype),
-                        padding=w.shape[-1] // 2)
+        return _CONV[self.spatial_rank](x.to(self.dtype), w.to(self.dtype),
+                                        padding=w.shape[-1] // 2)
 
 
 class MPLinear(nn.Module):
@@ -228,18 +235,18 @@ class _KarrasBlock(nn.Module):
         if emb_dim is not None:
             self.to_emb = MPLinear(emb_dim, dim_out, **kw)
             self.emb_gain = Gain()
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.conv2 = MPConv(dim_out, dim_out, 3, **kw)
         self.attn = (KarrasAttention(
             dim_out, _attention_heads(dim_out, attn_dim_head), attn_dim_head,
             mp_add_t=attn_res_mp_add_t, **kw) if has_attn else None)
 
-    def residual(self, x, res, emb):
+    def residual(self, x, res, emb, deterministic: bool):
         h = self.conv1(mp_silu(x))
         if emb is not None:
             scale = self.emb_gain(self.to_emb(emb)) + 1.0
             h = h * scale[:, :, None, None]
-        h = self.conv2(self.dropout(mp_silu(h)))
+        h = self.conv2(self.dropout(mp_silu(h), deterministic))
         x = mp_add(h, res, self.mp_add_t)
         return self.attn(x) if self.attn is not None else x
 
@@ -254,11 +261,11 @@ class KarrasEncoderBlock(_KarrasBlock):
                 dim_in, dim_out, 1,
                 normalize_forward=kw["normalize_forward"], dtype=kw["dtype"])
 
-    def forward(self, x, emb=None):
+    def forward(self, x, emb=None, *, deterministic: bool = True):
         if self.downsample:
             x = self.downsample_conv(bilinear_resize(x, 0.5))
         x = pixel_norm(x)
-        return self.residual(x, x, emb)
+        return self.residual(x, x, emb, deterministic)
 
 
 class KarrasDecoderBlock(_KarrasBlock):
@@ -271,17 +278,18 @@ class KarrasDecoderBlock(_KarrasBlock):
                                 dtype=kw["dtype"])
                          if dim_in != dim_out else None)
 
-    def forward(self, x, emb=None):
+    def forward(self, x, emb=None, *, deterministic: bool = True):
         if self.upsample:
             x = bilinear_resize(x, 2.0)
         res = self.res_conv(x) if self.res_conv is not None else x
-        return self.residual(x, res, emb)
+        return self.residual(x, res, emb, deterministic)
 
 
 class KarrasUnet(nn.Module):
     """Figure 21 config G: bias-less, norm-free, magnitude preserving.
     forward(x [B,C,H,W], time [B] (EDM's c_noise), self_cond=None,
-    class_labels=None) -> [B, C, H, W] fp32."""
+    class_labels=None, *, deterministic=True) -> [B, C, H, W] fp32;
+    dropout only with deterministic=False."""
 
     # continuous noise conditioning: EDM pairs it with ElucidatedDiffusion
     random_or_learned_sinusoidal_cond = True
@@ -371,7 +379,8 @@ class KarrasUnet(nn.Module):
         self.output_conv = MPConv(x_dim, channels, 3, **mp)
         self.output_gain = Gain()
 
-    def forward(self, x, time, self_cond=None, class_labels=None):
+    def forward(self, x, time, self_cond=None, class_labels=None, *,
+                deterministic: bool = True):
         if self.self_condition:
             if self_cond is None:
                 self_cond = torch.zeros_like(x)
@@ -393,14 +402,14 @@ class KarrasUnet(nn.Module):
         x = self.input_block(x)
         skips = [x]
         for down in self.downs:
-            x = down(x, emb)
+            x = down(x, emb, deterministic=deterministic)
             skips.append(x)
         for mid in self.mids:
-            x = mid(x, emb)
+            x = mid(x, emb, deterministic=deterministic)
         for up in self.ups:
             if not up.upsample:
                 x = mp_cat(x, skips.pop(), t=self.mp_cat_t)
-            x = up(x, emb)
+            x = up(x, emb, deterministic=deterministic)
         return self.output_gain(self.output_conv(x))
 
 

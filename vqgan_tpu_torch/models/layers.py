@@ -25,6 +25,7 @@ __all__ = [
     "RMSNorm",
     "ResnetBlock",
     "check_no_dropout",
+    "Dropout",
     "AttnBlock",
     "with_memory_tokens",
     "Downsample",
@@ -66,7 +67,7 @@ def lecun_normal_init_(module: nn.Module, generator=None) -> nn.Module:
     `module`: weights from lecun_normal (a normal truncated at two standard
     deviations, scaled so that the variance is 1 / fan_in), zero biases."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)):
             std = (1.0 / m.weight[0].numel()) ** 0.5 / .87962566103423978
             nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
@@ -131,11 +132,12 @@ class GroupNorm(nn.GroupNorm):
 class RMSNorm(nn.Module):
     """Channel RMSNorm with a learned gain, fp32 math:
     x * rsqrt(sum(x^2) + 1e-12) * g * sqrt(C). The epsilon sits inside the
-    root, unlike F.normalize's max(|x|, eps). `g` is [1, C, 1, 1]."""
+    root, unlike F.normalize's max(|x|, eps). `g` is [1, C, 1, 1] (with
+    spatial_dims 2; [1, C, 1] over [B, C, L] with 1)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, spatial_dims: int = 2):
         super().__init__()
-        self.g = nn.Parameter(torch.ones(1, channels, 1, 1))
+        self.g = nn.Parameter(torch.ones(1, channels, *((1,) * spatial_dims)))
 
     def forward(self, x):
         x32 = x.float()
@@ -151,6 +153,22 @@ def check_no_dropout(dropout: float) -> None:
         raise NotImplementedError(
             f"dropout={dropout} is not supported by the PyTorch port; "
             f"use dropout=0.0")
+
+
+class Dropout(nn.Module):
+    """Dropout with the JAX package's switch: it runs only when the caller
+    passes deterministic=False (flax's `nn.Dropout(deterministic=)`), never
+    because the module is in train mode. The JAX package's trainers never
+    pass it, so they train without dropout, and so do the port's."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x, deterministic: bool = True):
+        if deterministic or self.p == 0.0:
+            return x
+        return F.dropout(x, self.p, training=True)
 
 
 class ResnetBlock(nn.Module):

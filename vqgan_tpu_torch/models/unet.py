@@ -43,7 +43,7 @@ from .unet_cfg import (
 )
 
 __all__ = ["Unet", "SpaceToDepthDownsample", "LinearAttention",
-           "Attention", "ResnetBlock", "space_to_depth"]
+           "Attention", "ResnetBlock", "space_to_depth", "depth_to_space"]
 
 
 def _cast_tuple(t, length: int) -> tuple:
@@ -54,12 +54,20 @@ def _cast_tuple(t, length: int) -> tuple:
     return (t,) * length
 
 
-def space_to_depth(x: torch.Tensor) -> torch.Tensor:
-    """[B, C, H, W] -> [B, 4C, H/2, W/2]; new channel (dy * 2 + dx) * C + c
-    holds x[:, c, 2i + dy, 2j + dx], the JAX package's order."""
+def space_to_depth(x: torch.Tensor, f: int = 2) -> torch.Tensor:
+    """[B, C, H, W] -> [B, f*f*C, H/f, W/f]; new channel (dy * f + dx) * C
+    + c holds x[:, c, f*i + dy, f*j + dx], the JAX package's order."""
     b, c, h, w = x.shape
-    x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
-    return x.reshape(b, 4 * c, h // 2, w // 2)
+    x = x.reshape(b, c, h // f, f, w // f, f).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(b, f * f * c, h // f, w // f)
+
+
+def depth_to_space(x: torch.Tensor, f: int = 2) -> torch.Tensor:
+    """The inverse of `space_to_depth`: [B, f*f*C, H, W] -> [B, C, H*f,
+    W*f], x[:, (dy * f + dx) * C + c, i, j] to [:, c, f*i + dy, f*j + dx]."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, f, f, c // (f * f), h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(b, c // (f * f), h * f, w * f)
 
 
 class SpaceToDepthDownsample(nn.Sequential):

@@ -65,8 +65,9 @@ def _with_denoiser(diffusion, model):
 class Trainer:
     """Trains `model` through `diffusion` (an unconditional
     GaussianDiffusion, or any object with `.loss(images, generator=)`, a
-    `.sample(batch_size=, generator=)` returning NHWC images in [0, 1], a
-    `device` and the model as `model` or `net`)."""
+    `.sample(batch_size=, generator=)` returning NHWC images in [0, 1] (or
+    a 1-D diffusion's sequences), a `device` and the model as `model` or
+    `net`)."""
 
     def __init__(
         self,
@@ -88,7 +89,8 @@ class Trainer:
         fid_evaluator=None,  # eval.fid.FIDEvaluation with the real stats
         save_best_and_latest_only: bool = False,
         seed: int = 0,
-        dataset=None,  # any indexable dataset of (image, label) instead
+        dataset=None,  # any indexable dataset of (item, label), e.g.
+        # Dataset1D, instead of the folder
     ):
         if math.isqrt(num_samples) ** 2 != num_samples:
             raise ValueError(f"num_samples must be a square, got "
@@ -195,12 +197,18 @@ class Trainer:
 
     def sample_grid(self, milestone: int):
         """`num_samples` EMA samples as a square grid,
-        sample-{milestone}.png; returns the NHWC samples."""
+        sample-{milestone}.png; returns the NHWC samples. Samples that are
+        not images (a 1-D diffusion's sequences) make no grid: the JAX
+        trainer's grid fails on them and it prints a warning."""
         from PIL import Image
 
         n = self.num_samples
         gen = torch.Generator(self.device).manual_seed(milestone)
         out = self.ema_diffusion.sample(batch_size=n, generator=gen)
+        if out.ndim != 4:
+            print(f"milestone {milestone}: samples of shape "
+                  f"{tuple(out.shape)} are not images; no grid")
+            return out
         imgs = out.float().cpu().numpy()
         side = math.isqrt(n)
         h, w, c = imgs.shape[1:]
