@@ -95,6 +95,19 @@ Phases, in order; any failure exits non-zero:
    one forward and backward of a tiny KarrasUnet3D with factorised
    attention (output 1e-4, gradients 1e-3 of the largest CPU value; 12
    launches of each kernel).
+4i. The captured modes (CUDA graphs; TF32 off, cudnn.deterministic
+   pinned): a block of 4 `make_ldm_scan_step` steps of 4b's tiny U-Net
+   from step 97 (the EMA's cadence and warm copy at step 100 inside),
+   injected t, noise and mask, captured on the card against the CPU's
+   eager block, held as 4b holds; 8 steps of it from one generator, eager
+   on the card and as one step's graph replayed, which must equal bit for
+   bit; 4c's VQ-GAN as `scan_g` over steps 0-1
+   and `scan_gd` over 2-5 (disc_start 3), captured, against the CPU's
+   split steps, held as 4c holds; DDIM-150 + decode at LDMConfig's full
+   width, batch 16, cond_scale 1 and 3, the captured sampler (one step's
+   graph replayed per step) against the eager loop (images within 1e-5 of the largest; 151 forwards per batch
+   either way), timed in turns. Every launch gate counts through the
+   replays.
 5. Drive generation, `python -m vqgan_tpu_torch.generate`, at full width
    with seeded random weights: LDMConfig defaults (dim 96, mults 1-2-4-4,
    8 heads x 64, T=1000, DDIM-150, pred_v, cosine, bf16 U-Net) and the
@@ -103,7 +116,9 @@ Phases, in order; any failure exits non-zero:
    The kernel launch counts are reset just before and read just after, and
    must be 151 forward launches per batch (150 U-Net steps + 1 VAE decode)
    and no other launch. The JPG layout must be written and every image
-   finite.
+   finite. The sampler replays one captured graph per step (generate's
+   default on the card); phase 4i's eager and captured samples/s are
+   printed beside.
 5b. Drive training, `python -m vqgan_tpu_torch.train_latent_cfg`, at full
    width (LDMConfig defaults, batch 8, no VAE) on a split and latent cache
    of 31 users x 50 seeded random [32, 32, 4] latents: 41 steps, then a
@@ -176,6 +191,8 @@ Phases, in order; any failure exits non-zero:
    with the no-op nodes `torch.export` keeps (one forward launch each);
    two live decodes of one batch, which must agree bit for bit with cuDNN
    held to deterministic algorithms (the selftests run so);
+   one batch of 16 from the live sampler and from the served one, each
+   eager and captured, in turns (images within 1e-5, 151 forwards each);
    `serve_generate` of 2 users x 16 (the JPG layout, finite images); `serve_http --port 0` in a
    subprocess (/healthz warm, POSTs of 2 images returning 256 x 256 JPEGs,
    user_id 0 answered 400); the VQ codec of 5c's milestone at batch 8
@@ -246,6 +263,16 @@ Phases, in order; any failure exits non-zero:
    11 in 3-D, 4 x 11 factorised). Every loss and sample finite. Prints
    each path's images/s, samples/s, sequences/s or ms per forward +
    backward beside the card's name and power limit.
+5j. Drive the captured training modes at full width through their entry
+   points (`drive_captured_training`): `train_latent_cfg --step_mode scan
+   --scan_block 8` for the U-Net and the DiT (41 steps and a resume to 50
+   each, on 5b's data; 1 / 8 launches of each flash kernel per step
+   through the replays; the EMA gate and checkpoint checks of 5b), and
+   `train_vqgan --step_mode scan` and `--step_mode fused` (16 steps
+   across disc_start 8, on 5c's images; 1 VQ and 2 of each flash launch
+   per G step, 1 VQ and 2 forwards per grid; D unchanged to step 8, moved
+   by 16); then the eager and captured modes' latents/s and images/s in
+   turns, with each graph's capture seconds and pool bytes.
 6. Print the kernels' JSON line, then the card line, then the device line.
 """
 
@@ -1135,7 +1162,8 @@ def check_small_dit_and_remat(torch, kernels, seed: int):
 
 
 def card_vs_cpu_training(torch, kernels, label, init, seed: int, *,
-                         remat: bool, per_step: dict):
+                         remat: bool, per_step: dict, n_steps: int = 3,
+                         scan_start=None):
     """Three training steps of the small fp32 denoiser `init` on the card
     and on the CPU from the same weights, with injected t, noise and
     cond-drop mask (TF32 off), through `Rematerialized` with `remat`.
@@ -1154,7 +1182,10 @@ def card_vs_cpu_training(torch, kernels, label, init, seed: int, *,
       way on the other; every other element agrees to rounding (2.4e-6 at
       lr 1e-4 in the runs so far).
     The card's launches of each flash kernel in the 3 steps must be 3 x
-    `per_step`."""
+    `per_step`. With `scan_start`, the `n_steps` steps run as one block of
+    `make_ldm_scan_step` from that step (the EMA at its defaults: every 10
+    steps, warm copies to step 100), on the card as CUDA graphs, their
+    launches counted through the replays."""
     import copy
 
     from vqgan_tpu_torch.build import Rematerialized
@@ -1162,10 +1193,11 @@ def card_vs_cpu_training(torch, kernels, label, init, seed: int, *,
     from vqgan_tpu_torch.training.ldm_step import (
         LDMTrainState,
         make_ldm_optimizer,
+        make_ldm_scan_step,
         make_ldm_train_step,
     )
 
-    n_steps, b, lr = 3, 4, 1e-4
+    b, lr = 4, 1e-4
     rng = np.random.default_rng(seed + 2)
     lat = rng.standard_normal((n_steps, b, 8, 8, 4)).astype(np.float32)
     noise = rng.standard_normal((n_steps, b, 8, 8, 4)).astype(np.float32)
@@ -1198,17 +1230,28 @@ def card_vs_cpu_training(torch, kernels, label, init, seed: int, *,
 
         opt = make_ldm_optimizer(model.parameters(), learning_rate=lr,
                                  weight_decay=1e-4, betas=(0.9, 0.99),
-                                 max_grad_norm=1.0)
-        state = LDMTrainState(0, model,
+                                 max_grad_norm=1.0,
+                                 capturable=scan_start is not None)
+        state = LDMTrainState(scan_start or 0, model,
                               copy.deepcopy(model).requires_grad_(False), opt)
-        step = make_ldm_train_step(diffusion, opt, ema_update_every=1,
-                                   ema_update_after_step=1)
-        reset_counts(kernels)
-        losses = []
-        for i in range(n_steps):
-            x = inputs(i)
-            log = step(state, x.pop("latents"), x.pop("classes"), **x)
-            losses.append(float(log["loss"]))
+        if scan_start is None:
+            step = make_ldm_train_step(diffusion, opt, ema_update_every=1,
+                                       ema_update_after_step=1)
+            reset_counts(kernels)
+            losses = []
+            for i in range(n_steps):
+                x = inputs(i)
+                log = step(state, x.pop("latents"), x.pop("classes"), **x)
+                losses.append(float(log["loss"]))
+        else:
+            block = make_ldm_scan_step(diffusion, opt)
+            xs = [inputs(i) for i in range(n_steps)]
+            stacked = {k: torch.stack([torch.as_tensor(x[k]).to(dev)
+                                       for x in xs]) for k in xs[0]}
+            reset_counts(kernels)
+            log = block(state, stacked.pop("latents"),
+                        stacked.pop("classes"), **stacked)
+            losses = [float(v) for v in log["loss"]]
         launches = {name: kernels[name].launches for name in FLASH}
 
         def flat(m):
@@ -1265,10 +1308,14 @@ def _flat(torch, module, params_only=True):
                       if params_only != ("running" in k)])
 
 
-def check_small_vqgan(torch, kernels, seed: int):
+def check_small_vqgan(torch, kernels, seed: int, *, scan: bool = False):
     """Three VQ-GAN training steps of a tiny fp32 config on the card and on
     the CPU from the same weights and images (TF32 off), disc_start 1: step
-    0 is G only, steps 1-2 G + D. Tolerances:
+    0 is G only, steps 1-2 G + D. With `scan` (phase 4i), six steps with
+    disc_start 3, the card's as `make_vqgan_scan_steps`' CUDA graphs:
+    `scan_g` over steps 0-1, then `scan_gd` over steps 2-5, which straddle
+    disc_start (step 2's D update masked); the CPU's split steps as
+    before. Tolerances:
     - indices of the initial encoder's z, exact but for near-ties within
       1e-4 of |z|^2 + |e|^2 by the CPU's scores: the encoders' outputs
       differ by cuDNN's and the CPU's summation orders (~1e-6 relative);
@@ -1292,10 +1339,13 @@ def check_small_vqgan(torch, kernels, seed: int):
     from vqgan_tpu_torch.training import (
         VQGANTrainState,
         make_gan_optimizers,
+        make_vqgan_scan_steps,
         make_vqgan_split_steps,
     )
 
-    n_steps, b, lr = 3, 4, 4.5e-5
+    n_steps, disc_start = (6, 3) if scan else (3, 1)
+    b, lr = 4, 4.5e-5
+    label = "small VQ-GAN scan steps" if scan else "small VQ-GAN training"
     torch.manual_seed(seed)
     vq_init = VQVAE(ch=16, ch_mult=(1, 2), num_res_blocks=1, resolution=32,
                     z_channels=16, num_embeddings=8, embedding_dim=16)
@@ -1308,10 +1358,12 @@ def check_small_vqgan(torch, kernels, seed: int):
         vqvae = copy.deepcopy(vq_init).to(dev)
         disc = copy.deepcopy(d_init).to(dev)
         lpips = copy.deepcopy(lpips_init).to(dev).eval().requires_grad_(False)
+        captured = scan and dev == "cuda"
         opt_g, opt_d = make_gan_optimizers(vqvae.parameters(),
                                            disc.parameters(),
                                            learning_rate=lr,
-                                           disc_learning_rate=lr)
+                                           disc_learning_rate=lr,
+                                           capturable=captured)
         grads = []
         g_update = opt_g.step
 
@@ -1322,8 +1374,9 @@ def check_small_vqgan(torch, kernels, seed: int):
             return g_update(g, norm)
 
         opt_g.step = record
-        g_step, d_step = make_vqgan_split_steps(
-            disc_start=1, perceptual_fn=perceptual_loss_fn(lpips))
+        step_kw = dict(disc_start=disc_start,
+                       perceptual_fn=perceptual_loss_fn(lpips))
+        g_step, d_step = make_vqgan_split_steps(**step_kw)
         state = VQGANTrainState(0, vqvae, disc, opt_g, opt_d)
         with torch.no_grad():
             x0 = torch.from_numpy(images[0]).to(dev).permute(0, 3, 1, 2)
@@ -1331,10 +1384,17 @@ def check_small_vqgan(torch, kernels, seed: int):
             idx = vqvae.encode_to_indices(x0).flatten()
         reset_counts(kernels)
         logs = []
-        for i in range(n_steps):
+        if captured:
+            scan_gd, scan_g = make_vqgan_scan_steps(**step_kw)
+            x = torch.from_numpy(images).to(dev)
+            for fn, part in ((scan_g, x[:2]), (scan_gd, x[2:])):
+                block = fn(state, part)
+                logs += [{k: v[i].cpu() for k, v in block.items()}
+                         for i in range(len(part))]
+        for i in range(len(logs), n_steps):
             x = torch.from_numpy(images[i]).to(dev)
             recon, log = g_step(state, x)
-            if i >= 1:
+            if i >= disc_start:
                 log.update(d_step(state, x, recon))
             logs.append({k: v.cpu() for k, v in log.items()})
         launches = {name: k.launches for name, k in kernels.items()}
@@ -1368,7 +1428,7 @@ def check_small_vqgan(torch, kernels, seed: int):
                        (diff.abs() > lr / 2).float().mean().item())
     expected = {"vq_nearest": n_steps, "flash_fwd": 5 * n_steps,
                 "flash_bwd_dq": 5 * n_steps, "flash_bwd_dkv": 5 * n_steps}
-    print(f"small VQ-GAN training, card vs CPU: {flips} index flips ({far} "
+    print(f"{label}, card vs CPU: {flips} index flips ({far} "
           f"not near-ties); max rel loss diff {loss_err:.3e}; max|grad "
           f"diff|={grad_err:.3e} (max|grad| {grad_size:.3e}); max|BN stats "
           f"diff|={stats_err:.3e}; "
@@ -1378,10 +1438,166 @@ def check_small_vqgan(torch, kernels, seed: int):
     if far or not usage_ok or loss_err > 1e-4 \
             or grad_err > 1e-3 * grad_size or stats_err > 1e-4 \
             or any(r > 0.05 or f > 0.01 for r, f in moves.values()):
-        fail("VQ-GAN training on the card disagrees with the CPU")
+        fail(f"{label} on the card disagree with the CPU")
     if gpu["launches"] != expected:
-        fail(f"expected launches {expected} in {n_steps} VQ-GAN steps, got "
-             f"{gpu['launches']}")
+        fail(f"{label}: expected launches {expected} in {n_steps} steps, "
+             f"got {gpu['launches']}")
+
+
+def check_small_captured(torch, kernels, seed: int) -> dict:
+    """Phase 4i: the captured modes (CUDA graphs), TF32 off and
+    cudnn.deterministic pinned. Returns phase 5's eager and captured
+    DDIM samples/s.
+    (a) a block of 4 `make_ldm_scan_step` steps of phase 4b's tiny U-Net
+        from step 97 (the EMA's cadence and its warm copy at step 100
+        inside), injected t, noise and mask, captured on the card against
+        the CPU's eager block, held as 4b holds; one launch of each flash
+        kernel per step, counted through the replays;
+    (b) `ldm_captured_vs_eager`;
+    (c) phase 4c's VQ-GAN as scan_g then scan_gd across disc_start,
+        captured, against the CPU's split steps (`check_small_vqgan`);
+    (d) `ddim_captured_vs_eager`."""
+    from vqgan_tpu_torch.models import CFGUnet
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.manual_seed(seed)
+        init = CFGUnet(dim=16, num_classes=3, cond_drop_prob=0.0,
+                       dim_mults=(1, 2), channels=4, attn_dim_head=16,
+                       attn_heads=2)
+        card_vs_cpu_training(torch, kernels, "small U-Net scan block", init,
+                             seed, remat=False, n_steps=4, scan_start=97,
+                             per_step={name: 1 for name in FLASH})
+        ldm_captured_vs_eager(torch, kernels, init, seed)
+        check_small_vqgan(torch, kernels, seed, scan=True)
+        return ddim_captured_vs_eager(torch, kernels, seed)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def ldm_captured_vs_eager(torch, kernels, init, seed: int):
+    """Phase 4i (b): two blocks of 4 steps of the tiny U-Net, t, noise and
+    the cond-drop mask (p 0.5) drawn from a generator of one seed, two
+    ways on the card: eagerly (`graph=False`), and as one step's graph
+    replayed per step (its first step eager, the warm-up). The captured
+    run must equal the eager one bit for bit in
+    every loss, parameter and EMA value (the same kernels on the same
+    inputs: cudnn.deterministic, the flash kernels' fixed order, the same
+    Philox draws), leave the generator where the eager run leaves it, and
+    launch each flash kernel once per step."""
+    import copy
+
+    from vqgan_tpu_torch.diffusion import GaussianDiffusion
+    from vqgan_tpu_torch.training.ldm_step import (
+        LDMTrainState,
+        make_ldm_optimizer,
+        make_ldm_scan_step,
+    )
+
+    rng = np.random.default_rng(seed + 12)
+    lat = torch.from_numpy(rng.standard_normal((2, 4, 4, 8, 8, 4)).astype(
+        np.float32)).cuda()
+    cls = torch.from_numpy(rng.integers(0, 3, (2, 4, 4))).cuda()
+    runs = {}
+    for label, kw in (("eager", dict(graph=False)),
+                      ("step graphs", {})):
+        model = copy.deepcopy(init).cuda().train()
+        diffusion = GaussianDiffusion(
+            model, image_size=8, channels=4, timesteps=20,
+            objective="pred_v", min_snr_loss_weight=True,
+            auto_normalize=False, device=torch.device("cuda"))
+        opt = make_ldm_optimizer(model.parameters(), learning_rate=1e-4,
+                                 weight_decay=1e-4, betas=(0.9, 0.99),
+                                 max_grad_norm=1.0, capturable=True)
+        state = LDMTrainState(97, model,
+                              copy.deepcopy(model).requires_grad_(False), opt)
+        block = make_ldm_scan_step(diffusion, opt, cond_drop_prob=0.5, **kw)
+        gen = torch.Generator("cuda").manual_seed(seed + 13)
+        reset_counts(kernels)
+        losses = torch.cat([block(state, lat[i], cls[i],
+                                  generator=gen)["loss"] for i in range(2)])
+        runs[label] = dict(
+            losses=losses.cpu(), params=_flat(torch, model),
+            ema=_flat(torch, state.ema_model), rng=gen.get_state(),
+            launches={name: kernels[name].launches for name in FLASH})
+    ref = runs.pop("eager")
+    for label, run in runs.items():
+        diffs = {k: (run[k] - ref[k]).abs().max().item()
+                 for k in ("losses", "params", "ema")}
+        print(f"LDM {label} vs eager on the card, 8 steps from one "
+              f"generator: max|diff| {diffs}; launches {run['launches']}")
+        if any(diffs.values()) or not torch.equal(run["rng"], ref["rng"]):
+            fail(f"LDM {label} differ from the eager steps")
+        if run["launches"] != {name: 8 for name in FLASH} \
+                or ref["launches"] != run["launches"]:
+            fail(f"LDM {label}: expected 8 launches of each flash kernel, "
+                 f"got {run['launches']} (eager {ref['launches']})")
+
+
+def ddim_captured_vs_eager(torch, kernels, seed: int) -> dict:
+    """Phase 4i (d): DDIM-150 at LDMConfig's full width (seeded random
+    U-Net, the default KL-VAE decode), batch 16, cond_scale 1.0 and 3.0,
+    noise drawn from a generator of one seed: the captured sampler against
+    the eager loop (`graph=False`), images within 1e-5 of the largest
+    eager value, 151 forward launches per decoded batch either way, the
+    first captured call (a step, the capture, the replays) equal to the
+    later ones. Timed in turns (eager, captured, captured, eager) after
+    that first call; returns samples/s."""
+    from vqgan_tpu_torch.configs import LDMConfig
+    from vqgan_tpu_torch.generate import load_model, load_vae
+
+    cfg = LDMConfig()
+    torch.manual_seed(seed)
+    diffusion, _ = load_model(cfg, device="cuda")
+    vae = load_vae(None, cfg.latent_channels, cfg.image_size, device="cuda")
+    classes = torch.arange(16) % cfg.num_users
+    rates = {}
+    for cond_scale in (1.0, 3.0):
+        def run(graph):
+            gen = torch.Generator("cuda").manual_seed(seed + 14)
+            reset_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            z = diffusion.ddim_sample((16, 32, 32, 4), classes,
+                                      cond_scale=cond_scale,
+                                      rescaled_phi=0.7, generator=gen,
+                                      graph=graph)
+            with torch.inference_mode():
+                images = vae.decode_latents(z).float()
+            torch.cuda.synchronize()
+            return (images.cpu(), time.perf_counter() - t0,
+                    read_counts(kernels))
+
+        first = run(True)  # the capture, before the turns
+        out = [run(graph) for graph in (False, True, True, False)]
+        eager, captured = out[0][0], out[1][0]
+        err = (captured - eager).abs().max().item()
+        size = eager.abs().max().item()
+        for images, _, counts in [first, *out]:
+            fwd = sum(n for (name, _), n in counts.items()
+                      if name == "flash_fwd")
+            if fwd != 151 or sum(counts.values()) != 151:
+                fail(f"DDIM-150 + decode at cond_scale {cond_scale}: "
+                     f"expected 151 forward launches, got {counts}")
+        if not torch.equal(first[0], captured):
+            fail("the captured sampler's first call (its capture) differs "
+                 "from its replays")
+        secs = {"eager": (out[0][1] + out[3][1]) / 2,
+                "captured": (out[1][1] + out[2][1]) / 2}
+        rates[cond_scale] = {k: 16 / v for k, v in secs.items()}
+        graph = next(iter(diffusion._graphs.values()))
+        print(f"DDIM-150 + decode, batch 16, cond_scale {cond_scale}: "
+              f"captured vs eager max|diff| {err:.3e} (max|image| "
+              f"{size:.3e}); seconds per batch in turns (eager, captured, "
+              f"captured, eager) {[round(o[1], 4) for o in out]}; "
+              f"samples/s {rates[cond_scale]}; capture "
+              f"{graph.capture_seconds:.3f} s, pool {graph.pool_bytes} B")
+        diffusion._graphs.clear()
+        if not np.isfinite(captured.numpy()).all() or err > 1e-5 * size:
+            fail(f"the captured DDIM sampler disagrees with the eager loop "
+                 f"at cond_scale {cond_scale}")
+    return rates
 
 
 def check_small_kl_vae(torch, kernels, seed: int):
@@ -1752,6 +1968,193 @@ def drive_vqgan_training(torch, kernels, seed: int, work: Path):
     for key, n in second_counts.items():
         counts[key] = counts.get(key, 0) + n
     return counts, rates
+
+
+def drive_captured_training(torch, kernels, seed: int, work: Path,
+                            ldm: Path, vqgan: Path, card: str):
+    """Phase 5j, the captured training modes at full width through their
+    entry points, with seeded random weights:
+    - `train_latent_cfg --step_mode scan --scan_block 8` (LDMConfig
+      defaults: batch 8, bf16) on phase 5b's split and latent cache, 41
+      steps, then a resume to 50: finite losses, one launch of each flash
+      kernel per step at [8, 16, 8, 64] bf16 counted through the replays,
+      the EMA the warm copy of step 40's weights and not the final ones,
+      the checkpoint loading back;
+    - the same with `--model_type dit`: 8 launches of each per step at
+      [8, 256, 8, 64];
+    - `train_vqgan --step_mode scan` and `--step_mode fused` (VQGANConfig
+      defaults: batch 8 at 256 px, bf16) on phase 5c's images, 16 steps
+      with disc_start 8 and a save every 8: finite losses, per G step one
+      VQ and two of each flash launch, one VQ and two forwards per grid,
+      the discriminator unchanged at the step-8 milestone and moved by
+      step 16;
+    - rates in turns in this process, each run a fresh trainer of 32 steps
+      timed after its first 8 (captures excluded): the U-Net's and the
+      DiT's step and scan modes (step, scan, scan, step); the VQ-GAN's
+      split, scan and fused at disc_start 0 (split, scan, fused, fused,
+      scan, split); with each graph's capture seconds and pool bytes.
+    Returns ({(kernel, shape): launches}, {metric: value})."""
+    from vqgan_tpu_torch import train_latent_cfg, train_vqgan
+    from vqgan_tpu_torch.checkpoint import CheckpointManager
+    from vqgan_tpu_torch.configs import LDMConfig, VQGANConfig
+    from vqgan_tpu_torch.training.ldm_trainer import LatentDiffusionTrainer
+    from vqgan_tpu_torch.training.vqgan_trainer import VQGANTrainer
+
+    t_phase = time.perf_counter()
+    counts, metrics = {}, {}
+    split, cache = ldm / "data_split.json", ldm / "latents_cache"
+
+    def gated(label, fn, expected):
+        return run_gated(torch, kernels, label, fn, expected, counts)
+
+    # --- stage 2: the U-Net and the DiT in scan mode, with a resume -----
+    for model_type, per_step, key in (
+            ("unet", 1, (8, 16, 8, 64, "bfloat16")),
+            ("dit", 8, (8, 256, 8, 64, "bfloat16"))):
+        results = work / f"scan_{model_type}"
+        common = ["--model_type", model_type, "--step_mode", "scan",
+                  "--scan_block", "8", "--split", str(split),
+                  "--latents_cache_folder", str(cache), "--results_folder",
+                  str(results), "--seed", str(seed)]
+        first, _ = gated(
+            f"train_latent_cfg --model_type {model_type} --step_mode scan "
+            f"(41 steps)",
+            lambda: train_latent_cfg.main([*common, "--train_num_steps",
+                                           "41"]),
+            {(name, key): 41 * per_step for name in FLASH})
+        trainer = first.pop("trainer")
+        warm = {k: v.detach().clone()
+                for k, v in trainer.model.state_dict().items()}
+        graphs = trainer.graph_stats()
+        del trainer
+        second, _ = gated(
+            f"train_latent_cfg --model_type {model_type} --step_mode scan "
+            f"(resumed to 50)",
+            lambda: train_latent_cfg.main([*common, "--train_num_steps",
+                                           "50", "--resume", "-1"]),
+            {(name, key): 9 * per_step for name in FLASH})
+        trainer = second.pop("trainer")
+        losses = first["losses"] + second["losses"]
+        if len(losses) != 50 or not all(np.isfinite(losses)):
+            fail(f"scan {model_type}: expected 50 finite losses, got "
+                 f"{losses}")
+        ema = trainer.ema_model.state_dict()
+        online = trainer.model.state_dict()
+        if trainer.state.step != 50 or any(
+                not torch.equal(ema[k], warm[k]) for k in warm):
+            fail(f"scan {model_type}: the EMA is not the step-40 warm copy")
+        if all(torch.equal(ema[k], online[k]) for k in online):
+            fail(f"scan {model_type}: the EMA equals the final weights")
+        saved = CheckpointManager(results, prefix="model").restore()
+        if saved["step"] != 50 or any(
+                not torch.equal(saved["ema"][k], ema[k].cpu()) for k in ema):
+            fail(f"scan {model_type}: the checkpoint does not load back")
+        metrics[f"scan_{model_type}"] = {
+            "latents_per_s": first["latents_per_s"], "graphs": graphs}
+        print(f"[{card}] train_latent_cfg --model_type {model_type} "
+              f"--step_mode scan: 41 + 9 steps (resumed), "
+              f"{first['latents_per_s']:.4f} latents/s over "
+              f"{first['timed_steps']} steps; EMA = step-40 warm copy; "
+              f"checkpoint loads back; graphs {graphs}; losses {losses}")
+        del trainer, saved, warm, ema, online
+
+    # --- stage 1: the VQ-GAN's scan and fused modes across disc_start ---
+    images = vqgan / "images"
+    vq_key = (8192, 128, 256, "fp32")
+    attn_key = (8, 1024, 1, 512, "bfloat16")
+    config = work / "vqgan_config.json"
+    config.write_text(json.dumps({"seed": seed, "images_per_user_train": 8}))
+    d_init = {k: v.clone() for k, v in VQGANTrainer(
+        VQGANConfig.from_dict(json.loads(config.read_text())),
+        device="cpu").disc.state_dict().items()}
+    for mode in ("scan", "fused"):
+        results = work / f"vqgan_{mode}"
+        result, _ = gated(
+            f"train_vqgan --step_mode {mode} (16 steps, disc_start 8)",
+            lambda: train_vqgan.main([
+                "--config", str(config), "--split",
+                str(vqgan / "data_split.json"), "--data_path", str(images),
+                "--results_folder", str(results), "--disc_start", "8",
+                "--save_every", "8", "--train_steps", "16", "--step_mode",
+                mode]),
+            {("vq_nearest", vq_key): 16 + 2,
+             ("flash_fwd", attn_key): 2 * (16 + 2),
+             ("flash_bwd_dq", attn_key): 2 * 16,
+             ("flash_bwd_dkv", attn_key): 2 * 16})
+        trainer = result.pop("trainer")
+        losses = result["losses"]
+        ckpt = CheckpointManager(results, prefix="vqgan")
+        at8 = ckpt.restore(1)["disc"]
+        final = {k: v.cpu() for k, v in trainer.disc.state_dict().items()}
+        if len(losses) != 16 or not all(np.isfinite(losses)):
+            fail(f"train_vqgan {mode}: expected 16 finite losses, got "
+                 f"{losses}")
+        if ckpt.restore()["step"] != 16 or any(
+                not torch.equal(at8[k].cpu(), v) for k, v in d_init.items()):
+            fail(f"train_vqgan {mode}: the discriminator moved before "
+                 f"disc_start, or the checkpoints do not load back")
+        if any(torch.equal(final[k], v) for k, v in d_init.items()
+               if "num_batches" not in k):
+            fail(f"train_vqgan {mode}: the discriminator did not move "
+                 f"after disc_start")
+        metrics[f"vqgan_{mode}"] = {"images_per_s": result["images_per_s"],
+                                    "graphs": trainer.graph_stats()}
+        print(f"[{card}] train_vqgan --step_mode {mode}: 16 steps, "
+              f"{result['images_per_s']:.4f} images/s over "
+              f"{result['timed_steps']} steps; discriminator unchanged to "
+              f"step 8, moved by 16; graphs {trainer.graph_stats()}; losses "
+              f"{losses}")
+        del trainer
+
+    # --- rates in turns --------------------------------------------------
+    def ldm_run(model_type, mode):
+        cfg = LDMConfig.from_dict({
+            "model_type": model_type, "latents_cache_folder": str(cache),
+            "results_folder": str(work / "turns"), "seed": seed})
+        trainer = LatentDiffusionTrainer(cfg, split_path=str(split),
+                                         device="cuda", step_mode=mode)
+        return trainer, "latents_per_s"
+
+    def vqgan_run(mode):
+        cfg = VQGANConfig.from_dict({
+            "seed": seed, "images_per_user_train": 8, "disc_start": 0,
+            "data_path": str(images), "results_folder": str(work / "turns")})
+        trainer = VQGANTrainer(cfg, split_path=str(vqgan / "data_split.json"),
+                               device="cuda", step_mode=mode)
+        return trainer, "images_per_s"
+
+    sequences = {
+        "unet": [("step", lambda: ldm_run("unet", "step")),
+                 ("scan", lambda: ldm_run("unet", "scan"))],
+        "dit": [("step", lambda: ldm_run("dit", "step")),
+                ("scan", lambda: ldm_run("dit", "scan"))],
+        "vqgan": [("split", lambda: vqgan_run("split")),
+                  ("scan", lambda: vqgan_run("scan")),
+                  ("fused", lambda: vqgan_run("fused"))]}
+    turns = {}
+    for model, runs in sequences.items():
+        rates = {label: [] for label, _ in runs}
+        graphs = {}
+        for label, make in runs + runs[::-1]:
+            reset_counts(kernels)
+            trainer, rate_key = make()
+            trainer.save_and_sample = lambda *args: None  # no checkpoints
+            result = trainer.train(num_steps=32, log_every=0,
+                                   timing_warmup=8)
+            rates[label].append(result[rate_key])
+            graphs.setdefault(label, trainer.graph_stats())
+            del trainer, result
+        turns[model] = {"rates": rates, "graphs": graphs}
+        print(f"[{card}] {model} training rates in turns "
+              f"({' '.join(label for label, _ in runs + runs[::-1])}), 24 "
+              f"steps after 8 each: " + "; ".join(
+                  f"{label} {[round(r, 4) for r in vals]}"
+                  for label, vals in rates.items())
+              + f"; graphs {graphs}")
+    metrics["turns"] = turns
+    metrics["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"phase 5j: {metrics['phase_seconds']:.3f} s")
+    return counts, metrics
 
 
 def drive_kl_vae_slice(torch, kernels, seed: int, work: Path):
@@ -2414,6 +2817,71 @@ def time_served_step(torch, kernels, counts, card: str, ldm_results: Path,
     return times
 
 
+def served_vs_live(torch, kernels, counts, card: str, ldm_results: Path,
+                   vae_pt: Path, artifact: Path, expected) -> dict:
+    """Seconds per batch of 16 at cond_scale 1.0 (150 DDIM steps and the
+    decode), from one generator seed, in turns in this process: the live
+    sampler (`ddim_sample` and `decode_latents`, as `generate` runs them)
+    and the served one (`CFGSampler`), each eagerly (`graph=False`) and
+    captured: live eager, live captured, served eager, served captured,
+    then back. The captured runs' first calls (the captures) come before
+    the turns. The served images equal the live ones (within 1e-5 of the
+    largest) in each mode; 151 forwards per batch (`expected`: 8
+    batches). Returns {variant: [seconds per batch of each turn]}."""
+    from vqgan_tpu_torch import generate
+    from vqgan_tpu_torch.serving import load_cfg_sampler
+
+    config, weights = generate.load_checkpoint(ldm_results)
+    diffusion, _ = generate.load_model(config, weights, "cuda")
+    vae = generate.load_vae(vae_pt, config.latent_channels,
+                            config.image_size, device="cuda")
+    sampler = load_cfg_sampler(artifact, "cuda")
+    classes = torch.zeros((16,), dtype=torch.long, device="cuda")
+
+    def live(graph):
+        gen = torch.Generator("cuda").manual_seed(5)
+        z = diffusion.ddim_sample((16, 32, 32, 4), classes, cond_scale=1.0,
+                                  rescaled_phi=0.0, generator=gen,
+                                  graph=graph)
+        with torch.inference_mode():
+            return vae.decode_latents(z).float()
+
+    def served(graph):
+        gen = torch.Generator("cuda").manual_seed(5)
+        return sampler(classes, generator=gen, graph=graph)
+
+    variants = {"live eager": lambda: live(False),
+                "live captured": lambda: live(True),
+                "served eager": lambda: served(False),
+                "served captured": lambda: served(True)}
+    reset_counts(kernels)
+    live(True), served(True)  # the captures, before the turns
+    times = {name: [] for name in variants}
+    images = {}
+
+    def run():
+        for name in [*variants, *reversed(variants)]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            images[name] = variants[name]().cpu()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+
+    run_gated(torch, kernels, "live and served sampler in turns", run,
+              expected, counts)
+    size = images["live eager"].abs().max().item()
+    errs = {name: (img - images["live eager"]).abs().max().item()
+            for name, img in images.items()}
+    print(f"[{card}] one batch of 16 at cond_scale 1.0 (DDIM-150 + decode), "
+          f"seconds in turns: " + "; ".join(
+              f"{name} {', '.join(f'{v:.4f}' for v in vals)}"
+              for name, vals in times.items())
+          + f"; max|image - live eager| {errs} (max|image| {size:.3e})")
+    if any(e > 1e-5 * size for e in errs.values()):
+        fail(f"the served and live samplers disagree: {errs}")
+    return times
+
+
 def decode_repeatability(torch, kernels, counts, card: str, vae_pt: Path,
                          vae_key) -> dict:
     """max |difference| of two decodes of the same latents (batch 16,
@@ -2527,6 +2995,14 @@ def drive_serving(torch, kernels, seed: int, work: Path, card: str,
                                           unet_key[1.0])
     metrics["decode_repeat"] = decode_repeatability(
         torch, kernels, counts, card, vae_pt, vae_key)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the decoders' upsampling,
+    try:                                       # as in the export selftest
+        metrics["served_vs_live"] = served_vs_live(
+            torch, kernels, counts, card, ldm_results, vae_pt,
+            artifacts[1.0], per_batch(1.0, 8))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
 
     result, secs = gated(
         "serve_generate 2 users x 16",
@@ -3628,16 +4104,19 @@ def main():
     check_small_dit_and_remat(torch, KERNELS, args.seed)
     check_small_ddpm_and_karras(torch, KERNELS, args.seed)
     check_small_diffusion_library(torch, KERNELS, args.seed)
+    eager_rates = check_small_captured(torch, KERNELS, args.seed)
 
     if not args.kernels_only:
         counts, rates = drive_main_path(torch, KERNELS, args.seed)
-        print("samples/s: " + json.dumps(rates))
+        print("samples/s (captured sampler): " + json.dumps(rates)
+              + f"; phase 4i's DDIM-150 + decode at batch 16, eager and "
+              f"captured in turns: {json.dumps(eager_rates)}")
         # one directory for phases 5b-5f: 5f serves 5b's, 5c's and 5d's
         # checkpoints
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
             work = Path(work)
             for phase in ("ldm", "vqgan", "kl_vae", "gmm", "serving",
-                          "stage2", "pixel", "library"):
+                          "stage2", "pixel", "library", "captured"):
                 (work / phase).mkdir()
             train_counts, rate = drive_training(torch, KERNELS, args.seed,
                                                 work / "ldm")
@@ -3669,10 +4148,15 @@ def main():
             library_counts, library_metrics = drive_diffusion_library(
                 torch, KERNELS, args.seed, work / "library", card)
             print("diffusion library: " + json.dumps(library_metrics))
+            captured_counts, captured_metrics = drive_captured_training(
+                torch, KERNELS, args.seed, work / "captured", work / "ldm",
+                work / "vqgan", card)
+            print("captured training: " + json.dumps(captured_metrics))
         for key, n in [*train_counts.items(), *vq_counts.items(),
                        *kl_counts.items(), *gmm_counts.items(),
                        *serving_counts.items(), *stage2_counts.items(),
-                       *pixel_counts.items(), *library_counts.items()]:
+                       *pixel_counts.items(), *library_counts.items(),
+                       *captured_counts.items()]:
             counts[key] = counts.get(key, 0) + n
         for row in rows.values():
             row["launches"] = counts.get((row["name"], row["key"]), 0)

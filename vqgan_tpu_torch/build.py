@@ -32,9 +32,12 @@ class Rematerialized(nn.Module):
     (`torch.utils.checkpoint`) rather than kept, when a gradient is wanted
     and no features are asked for (the JAX package skips its remat there
     too). The random class dropout is drawn before the checkpointed call:
-    the recomputation restores the global RNG, not an explicit generator,
-    and would otherwise draw another mask. The draw is the model's own, so
-    with and without recomputation the same generator gives the same mask."""
+    the recomputation would restore the global RNG, not an explicit
+    generator, and draw another mask. The draw is the model's own, so with
+    and without recomputation the same generator gives the same mask. The
+    denoiser then draws nothing, so the global RNG state is not stashed
+    (`preserve_rng_state=False`): reading it is refused while a CUDA graph
+    is captured, and the captured training modes recompute too."""
 
     def __init__(self, model: nn.Module):
         super().__init__()
@@ -60,7 +63,7 @@ class Rematerialized(nn.Module):
             return self.model(x, time, classes, cond_drop_mask=cond_drop_mask)
 
         return checkpoint(run, x, time, classes, cond_drop_mask,
-                          use_reentrant=False)
+                          use_reentrant=False, preserve_rng_state=False)
 
 
 def build_cfg_unet_diffusion(cfg: LDMConfig, dtype=None, device="cuda",

@@ -6,8 +6,9 @@ Counterpart of vqgan_tpu/diffusion/gaussian.py: `p_losses` and `loss`
 and the self-conditioning coin can be injected), `model_predictions` (with
 the CFG [cond; null] pair as one 2B-batch forward, and CFG++), `ddim_step`
 (one CFG DDIM step with t, t_next and the noise as tensors, traceable by
-`torch.export`; `DDIMStep` is it as a module), `ddim_sample` (a Python loop
-of that step over the (time, time_next) pairs), `p_sample_loop` (the
+`torch.export`; `DDIMStep` is it as a module), `ddim_sample` (that step
+over the (time, time_next) pairs: on the card each a replay of one captured
+CUDA graph, on the CPU a Python loop), `p_sample_loop` (the
 ancestral sampler), `sample` (DDIM when sampling_timesteps < T, else
 ancestral) and `interpolate`. Every random draw can be passed in as a
 tensor, or comes from an explicit `torch.Generator`. NCHW inside; the
@@ -39,6 +40,7 @@ from ..core import diffusion_math as dm
 from ..core.guidance import apply_cfg
 from ..core.schedules import DiffusionSchedule, make_schedule
 from ..device import resolve_device
+from ..graphs import Graphed
 from ..ops.assignment import auction_assignment
 
 __all__ = ["GaussianDiffusion", "DDIMStep", "immiscible_permutation"]
@@ -109,6 +111,9 @@ class GaussianDiffusion:
     self_condition: bool = False  # unconditional models only
     device: str | torch.device = "cuda"  # no GPU raises; "cpu" on ask
     schedule: DiffusionSchedule = None
+    # the captured DDIM steps of `ddim_sample`, by their key
+    _graphs: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -251,8 +256,7 @@ class GaussianDiffusion:
                                            device=x.device))
         else:
             # [cond; null] as one 2B-batch forward
-            mask = torch.cat([torch.zeros(b, dtype=torch.bool),
-                              torch.ones(b, dtype=torch.bool)]).to(x.device)
+            mask = torch.arange(2 * b, device=x.device) >= b
             both = self.model(torch.cat([x, x]), torch.cat([t, t]),
                               torch.cat([classes, classes]),
                               cond_drop_mask=mask)
@@ -325,27 +329,74 @@ class GaussianDiffusion:
                     rescaled_phi: float = 0.7, clip_denoised: bool = True,
                     return_all_timesteps: bool = False,
                     init_noise=None, step_noise=None,
-                    generator: torch.Generator = None):
+                    generator: torch.Generator = None,
+                    graph: Optional[bool] = None):
         """DDIM sampler. `shape` is NHWC. init_noise ([*shape]) and step_noise
         ([sampling_timesteps, *shape]), NHWC, replace the drawn noise; the
         tests drive the port and the JAX package with the same numbers.
-        Otherwise noise comes from `generator`."""
-        img, noise_at = self._noise_source(shape, init_noise, step_noise,
-                                           generator)
-        trajectory = [img]
+        Otherwise noise comes from `generator`: the initial noise, then one
+        draw per step.
+
+        On the card (`graph` None) each step of the chain is a replay of one
+        captured CUDA graph, the counterpart of the JAX package's one
+        `lax.scan` program: the graph is captured per (shape, cond_scale,
+        rescaled_phi, clip, which noise is given) at the chain's second
+        step, the first running eagerly, and kept on this diffusion. Given
+        noise goes in through the graph's static buffers, drawn noise comes
+        from `generator` in the eager loop's order, and the self-condition
+        carry is one of the graph's inputs. `graph` False runs the Python
+        loop of steps (the CPU's path); True on the CPU raises."""
+        use_graph = self.device.type == "cuda" if graph is None else graph
         classes = self._classes(classes)
         pairs = torch.tensor(self.ddim_time_pairs(), dtype=torch.long,
                              device=self.device)[:, :, None].expand(
                                  -1, -1, shape[0])
-        x_start = None
+        img, noise_at = self._noise_source(shape, init_noise, step_noise,
+                                           generator)
+        kw = dict(cond_scale=cond_scale, rescaled_phi=rescaled_phi,
+                  clip_denoised=clip_denoised)
+        step = (self._ddim_step_graph(classes is None, step_noise is None,
+                                      generator is None, shape, **kw)
+                if use_graph else None)
+        trajectory = [img]
+        x_start = (torch.zeros_like(img) if self.self_condition and use_graph
+                   else None)
         for i, (tb, tnb) in enumerate(pairs):
-            img, x_start = self._ddim_update(
-                img, tb, tnb, classes, noise_at(i), cond_scale=cond_scale,
-                rescaled_phi=rescaled_phi, clip_denoised=clip_denoised,
-                x_self_cond=x_start if self.self_condition else None)
+            if step is None:
+                img, x_start = self._ddim_update(
+                    img, tb, tnb, classes, noise_at(i),
+                    x_self_cond=x_start if self.self_condition else None,
+                    **kw)
+            else:
+                args = [img, tb, tnb]
+                args += [] if classes is None else [classes]
+                args += [] if step_noise is None else [noise_at(i)]
+                args += [x_start] if self.self_condition else []
+                img, x_start = step(*args, generators=[generator])
             if return_all_timesteps:
                 trajectory.append(img)
         return self._finish(img, trajectory, return_all_timesteps)
+
+    def _ddim_step_graph(self, unconditional: bool, draws: bool,
+                         default_generator: bool, shape, **kw) -> Graphed:
+        """The captured DDIM step of `ddim_sample`, by its key: (img, time,
+        time_next[, classes][, noise][, x_self_cond]) -> (next img, x_0
+        estimate), the noise drawn inside from the generator when `draws`."""
+        key = (tuple(shape), *kw.values(), unconditional, draws,
+               default_generator)
+        if key not in self._graphs:
+            def step(generators, img, tb, tnb, *rest):
+                rest = list(rest)
+                classes = None if unconditional else rest.pop(0)
+                noise = (torch.randn(img.shape, generator=generators[0],
+                                     device=img.device)
+                         if draws else rest.pop(0))
+                return self._ddim_update(
+                    img, tb, tnb, classes, noise,
+                    x_self_cond=rest.pop(0) if rest else None, **kw)
+
+            self._graphs[key] = Graphed(step, name="DDIM step")
+        return self._graphs[key]
 
     def _classes(self, classes):
         return (None if classes is None

@@ -47,9 +47,18 @@ def adaptive_disc_weight(nll_grad_norm, g_grad_norm, clip_max: float = 1e4):
     return torch.clamp(w, 0.0, clip_max).detach()
 
 
+def _scalar(value, like) -> torch.Tensor:
+    """`value` (a number or a 0-d tensor) as a float32 tensor on `like`'s
+    device; a number is filled in on the device (no host copy, which a
+    CUDA graph could not capture)."""
+    if torch.is_tensor(value):
+        return value.to(device=like.device, dtype=torch.float32)
+    return torch.full((), float(value), dtype=torch.float32,
+                      device=like.device)
+
+
 def _active(disc_active, like) -> torch.Tensor:
-    return torch.as_tensor(disc_active, dtype=torch.float32,
-                           device=like.device)
+    return _scalar(disc_active, like)
 
 
 def generator_loss(inputs, reconstructions, logits_fake, *, disc_active,
@@ -77,9 +86,7 @@ def generator_loss(inputs, reconstructions, logits_fake, *, disc_active,
     active = _active(disc_active, rec_loss)
     loss = nll_loss + active * weight * g_loss
     log.update({"g_loss": g_loss,
-                "disc_weight": torch.as_tensor(weight, dtype=torch.float32,
-                                               device=rec_loss.device)
-                * active,
+                "disc_weight": _scalar(weight, rec_loss) * active,
                 "total_loss": loss})
     return loss, log
 

@@ -8,6 +8,12 @@ random weights from `--seed`, then measures, after a warm-up:
   wall time per step, device kernel time per step and the device's idle
   share, from torch.profiler over `--steps` steps;
 - the VAE decode of one batch: wall time and device kernel time;
+- the whole DDIM chain (LDMConfig's sampling steps) of one batch at
+  cond_scale 1.0, eager (`graph=False`) and as one captured CUDA graph:
+  host wall time in turns (eager, captured, captured, eager; the capture
+  before them), then device kernel time, the idle share and the launches
+  of each, the hand-written kernels' launches counted through the replay,
+  and the graph's capture seconds and pool bytes;
 - the kernels that take the most device time, and the launches per step.
 Every wall time is read before the first profiled run (`profile_steps`):
 once torch.profiler has run in a process, every later launch costs more
@@ -152,6 +158,24 @@ def main(argv=None):
         with torch.inference_mode():
             return vae.decode_latents(latents)
 
+    def chain(graph):
+        def run():
+            g = torch.Generator(device=device).manual_seed(args.seed)
+            with torch.inference_mode():
+                return diffusion.ddim_sample((b, s, s, c), classes,
+                                             cond_scale=1.0, rescaled_phi=0.7,
+                                             generator=g, graph=graph)
+        return counting(run)
+
+    chains = {"eager": chain(False), "captured": chain(True)}
+    chains["captured"][0]()  # the capture
+    chain_walls = {"eager": [], "captured": []}
+    for name in ("eager", "captured", "captured", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chains[name][0]()
+        torch.cuda.synchronize()
+        chain_walls[name].append((time.perf_counter() - t0) * 1e3)
     out = {
         "device": torch.cuda.get_device_name(0),
         "batch_size": b,
@@ -159,6 +183,15 @@ def main(argv=None):
                          "ddim_step_cond_scale_3": (step(3.0), args.steps),
                          "vae_decode": (decode, 2)}),
     }
+    graph = next(iter(diffusion._graphs.values()))
+    for name, (fn, tally) in chains.items():
+        walls = chain_walls[name]
+        out[f"ddim_chain_{name}"] = {
+            **profiled(fn, 1, sum(walls) / len(walls)), "wall_ms_turns": walls,
+            "kernel_launches_per_chain": {
+                k: n / tally["calls"] for k, n in tally["launches"].items()}}
+    out["ddim_chain_captured"].update(
+        capture_seconds=graph.capture_seconds, pool_bytes=graph.pool_bytes)
     print(json.dumps(out))
     return out
 

@@ -1,7 +1,8 @@
 """Where a training step's time goes on the GPU.
 
     python -m vqgan_tpu_torch.profile_train [--batch_size 8] [--steps 10] \
-        [--config fields.json] [--gradient_checkpointing]
+        [--config fields.json] [--gradient_checkpointing] \
+        [--step_mode step|scan] [--scan_block K]
 
 Builds the full-width denoiser of LDMConfig (the CFG U-Net, or with a
 `--config` JSON of further LDMConfig fields another one, such as
@@ -18,7 +19,12 @@ one step in `ema_update_every` updates the EMA, as in a long run. Also
 counts the flash kernels' launches per step, and reads the peak of
 allocated memory above what is allocated before a step, over one whole
 step and over its forward and backward alone (what gradient checkpointing
-acts on). Prints one JSON object. Needs a CUDA device.
+acts on). With `--step_mode scan` the step is the scan mode's
+(`make_ldm_scan_step` over a `CapturableOptimizer`): one call runs a block
+of `--scan_block` steps, one step's CUDA graph replayed per step, captured
+before the measurement; every figure is then per step, the launches
+counted through the replays, with each graph's capture seconds and pool
+bytes. Prints one JSON object. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from .profile_generate import profile_steps
 from .training.ldm_step import (
     LDMTrainState,
     make_ldm_optimizer,
+    make_ldm_scan_step,
     make_ldm_train_step,
 )
 
@@ -50,7 +57,11 @@ def main(argv=None):
     ap.add_argument("--config", default=None,
                     help="JSON of further LDMConfig fields")
     ap.add_argument("--gradient_checkpointing", action="store_true")
+    ap.add_argument("--step_mode", choices=("step", "scan"), default="step")
+    ap.add_argument("--scan_block", type=int, default=1)
     args = ap.parse_args(argv)
+    scan = args.step_mode == "scan"
+    k = args.scan_block if scan else 1
 
     device = resolve_device("cuda")
     set_full_fp32_precision()
@@ -64,42 +75,70 @@ def main(argv=None):
     optimizer = make_ldm_optimizer(
         model.parameters(), learning_rate=cfg.train_lr,
         weight_decay=cfg.weight_decay, betas=cfg.adam_betas,
-        max_grad_norm=cfg.max_grad_norm)
+        max_grad_norm=cfg.max_grad_norm, capturable=scan)
     state = LDMTrainState(1000, model,
                           copy.deepcopy(model).requires_grad_(False),
                           optimizer)
-    train_step = make_ldm_train_step(diffusion, optimizer,
-                                     ema_decay=cfg.ema_decay,
-                                     ema_update_every=cfg.ema_update_every)
+    ema_kw = dict(ema_decay=cfg.ema_decay,
+                  ema_update_every=cfg.ema_update_every)
     b, s, c = args.batch_size, cfg.latent_size, cfg.latent_channels
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    latents = torch.randn((b, s, s, c), generator=gen, device=device)
-    classes = torch.arange(b, device=device) % cfg.num_users
+    latents = torch.randn((k, b, s, s, c), generator=gen, device=device)
+    classes = (torch.arange(b, device=device) % cfg.num_users).expand(k, b)
+    if scan:
+        block_step = make_ldm_scan_step(diffusion, optimizer, **ema_kw)
 
-    def step():
-        return train_step(state, latents, classes, generator=gen)
+        def step():
+            return block_step(state, latents, classes, generator=gen)
+
+        step()
+        step()  # the warm-up, then the capture
+    else:
+        train_step = make_ldm_train_step(diffusion, optimizer, **ema_kw)
+
+        def step():
+            return train_step(state, latents[0], classes[0], generator=gen)
 
     def forward_backward():
-        diffusion.loss(latents, classes, generator=gen).backward()
+        diffusion.loss(latents[0], classes[0], generator=gen).backward()
 
-    for k in KERNELS.values():
-        k.launches = 0
+    for kernel in KERNELS.values():
+        kernel.launches = 0
     n_before = state.step
+    stats = profile_steps({"train_step": (step, args.steps)})["train_step"]
     out = {
         "device": torch.cuda.get_device_name(0),
         "model_type": cfg.model_type,
         "gradient_checkpointing": args.gradient_checkpointing,
+        "step_mode": args.step_mode,
         "batch_size": b,
-        **profile_steps({"train_step": (step, args.steps)}),
+        "train_step": per_step(stats, k),
     }
+    if scan:
+        out["scan_block"] = k
+        out["graphs"] = [st for r in block_step.runners.values()
+                         for st in r.stats()]
     n_steps = state.step - n_before
     out["flash_launches_per_step"] = {
-        name: k.launches / n_steps for name, k in KERNELS.items()}
+        name: kernel.launches / n_steps for name, kernel in KERNELS.items()}
     out["step_peak_bytes"] = peak_above_start(step)
     optimizer.zero_grad()
     forward_backward()  # the gradients' storage, as a step finds it
     out["forward_backward_peak_bytes"] = peak_above_start(forward_backward)
     print(json.dumps(out))
+    return out
+
+
+def per_step(stats: dict, k: int) -> dict:
+    """`profiled` stats of calls that each ran k steps, per step."""
+    if k == 1:
+        return stats
+    out = dict(stats)
+    for key in ("wall_ms", "device_ms", "launches"):
+        if out[key] is not None:
+            out[key] = out[key] / k
+    out["top"] = [{**t, "ms": t["ms"] / k, "count": t["count"] / k}
+                  for t in stats["top"]]
     return out
 
 

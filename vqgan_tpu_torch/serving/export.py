@@ -42,13 +42,14 @@ import copy
 import json
 import time
 from pathlib import Path
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..graphs import Graphed
 from ..kernels import ops  # noqa: F401  (registers the operators)
 
 __all__ = ["export_program", "load_program", "export_cfg_sampler",
@@ -241,7 +242,14 @@ class CFGSampler:
     0-based labels. Noise: `init_noise` [B, h, w, C] and `step_noise` [S,
     B, h, w, C] (NHWC, as `GaussianDiffusion.ddim_sample` takes them), else
     drawn from `generator` in the live sampler's order: the initial noise,
-    then one draw per step."""
+    then one draw per step.
+
+    On the card (`graph` None) each step of the loop replays one CUDA graph
+    of the loaded step (`graphs.Graphed`), captured per kind of noise at
+    the first call's second step and kept; given noise goes in through its
+    static buffers, and a replay draws from `generator` what the loop
+    draws. `graph` False runs the loaded step from Python. The decode runs
+    after the loop, outside the graph."""
 
     def __init__(self, outdir, device="cuda"):
         outdir = Path(outdir)
@@ -255,28 +263,47 @@ class CFGSampler:
         pairs = torch.tensor(self.meta["ddim_pairs"], dtype=torch.long,
                              device=self.device)
         self._pairs = pairs[:, :, None].expand(-1, -1, self.batch_size)
+        self.graphs = {}
 
     def __call__(self, classes, *, generator: torch.Generator = None,
-                 init_noise=None, step_noise=None):
+                 init_noise=None, step_noise=None,
+                 graph: Optional[bool] = None):
         b, dev = self.batch_size, self.device
         classes = torch.as_tensor(classes, dtype=torch.long, device=dev)
         if classes.shape != (b,):
             raise ValueError(f"the artifact takes {b} classes, got "
                              f"{tuple(classes.shape)}")
-
-        def randn():
-            return torch.randn((b, *self.latent_shape), generator=generator,
-                               device=dev)
-
+        given = {name: _as_nchw(x, dev) for name, x in
+                 (("init_noise", init_noise), ("step_noise", step_noise))
+                 if x is not None}
+        use_graph = dev.type == "cuda" if graph is None else graph
+        draws = "step_noise" not in given
+        if use_graph:
+            key = (draws, generator is None)
+            if key not in self.graphs:
+                self.graphs[key] = Graphed(
+                    lambda gens, img, t, t_next, cls, *noise: self._step(
+                        img, t, t_next, cls,
+                        *(noise or [self._randn(gens[0])])),
+                    name="served DDIM step")
+            graphed = self.graphs[key]
         with torch.inference_mode():
-            img = (_as_nchw(init_noise, dev) if init_noise is not None
-                   else randn())
-            if step_noise is not None:
-                step_noise = _as_nchw(step_noise, dev)
+            img = given.get("init_noise")
+            if img is None:
+                img = self._randn(generator)
             for i, (t, t_next) in enumerate(self._pairs):
-                noise = step_noise[i] if step_noise is not None else randn()
-                img = self._step(img, t, t_next, classes, noise)
+                if not draws:
+                    noise = [given["step_noise"][i]]
+                else:  # drawn inside the graph, or here
+                    noise = [] if use_graph else [self._randn(generator)]
+                img = (graphed(img, t, t_next, classes, *noise,
+                               generators=[generator]) if use_graph
+                       else self._step(img, t, t_next, classes, *noise))
             return self._decode(img)
+
+    def _randn(self, generator):
+        return torch.randn((self.batch_size, *self.latent_shape),
+                           generator=generator, device=self.device)
 
 
 def load_cfg_sampler(outdir, device="cuda") -> CFGSampler:

@@ -3,9 +3,12 @@
     python -m vqgan_tpu_torch.time_sampling [--dit_batches 4] [--label NAME]
 
 With random weights from `--seed` (LDMConfig's defaults, the fp32 KL-VAE):
-- the DiT (`model_type` "dit") through `generate.generate_samples`, a
-  DDIM-150 batch of 16 at cond_scale 1.0, then the decode, `--dit_batches`
-  times (the first one warms up);
+- the DiT (`model_type` "dit"), a DDIM-150 batch of 16 at cond_scale 1.0
+  from `ddim_sample`, then the decode: as `generate` samples (one captured
+  CUDA graph on the card; "dit_generate_s") and eagerly (`graph=False`;
+  "dit_eager_s"), in turns (eager, captured, captured, eager)
+  `--dit_batches` / 4 times, after one untimed batch of each (the capture
+  and the warm-up);
 - one ancestral batch of 16 of the CFG U-Net (sampling_timesteps =
   timesteps = 1000), then the decode;
 - the live `DDIMStep` (the function `export_serving` exports) at batch 16
@@ -14,8 +17,9 @@ Each is timed on the host with the device synchronised at both ends, JPEG
 writing left out, and reports the hand-written kernels' launches. It
 reaches the package only through `generate`, `diffusion.gaussian.DDIMStep`
 and `kernels.KERNELS`, so a copy of this file placed in another checkout
-of the package times that checkout's samplers: run both in turns in one
-process tree on one card to compare them. Prints one JSON object. Needs a
+of the package (one whose `ddim_sample` takes `graph`) times that
+checkout's samplers: run both in turns in one process tree on one card to
+compare them. Prints one JSON object. Needs a
 CUDA device.
 """
 
@@ -68,10 +72,12 @@ def main(argv=None):
            "batch_size": b}
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
-    def sample_and_decode(diffusion):
+    def sample_and_decode(diffusion, graph=None):
         def run():
-            latents = generate.generate_samples(diffusion, 0, b, 1.0, 0.0,
-                                                gen)
+            latents = diffusion.ddim_sample(
+                (b, config.latent_size, config.latent_size,
+                 config.latent_channels), torch.zeros(b, dtype=torch.long),
+                cond_scale=1.0, rescaled_phi=0.0, generator=gen, graph=graph)
             with torch.inference_mode():
                 return vae.decode_latents(latents)
         return run
@@ -79,17 +85,30 @@ def main(argv=None):
     torch.manual_seed(args.seed)
     dit, _ = generate.load_model(
         dataclasses.replace(config, model_type="dit"), None, device)
-    runs = [timed(sample_and_decode(dit)) for _ in range(args.dit_batches)]
-    out["dit_generate_s"] = [secs for secs, _ in runs]
-    out["dit_generate_launches"] = runs[-1][1]
-    del dit
+    # the default sampler (one captured graph on the card) and the eager
+    # loop; keys "dit_generate_*" for the default, "dit_eager_*" for eager
+    modes = {"dit_generate": sample_and_decode(dit, None),
+             "dit_eager": sample_and_decode(dit, False)}
+    for name, fn in modes.items():
+        fn()  # the capture; the warm-up
+        out[f"{name}_s"] = []
+    for _ in range(max(1, args.dit_batches // 4)):
+        for name in ("dit_eager", "dit_generate", "dit_generate",
+                     "dit_eager"):
+            secs, out[f"{name}_launches"] = timed(modes[name])
+            out[f"{name}_s"].append(secs)
+    del dit, modes
 
     torch.manual_seed(args.seed)
     unet, _ = generate.load_model(
         dataclasses.replace(config, sampling_timesteps=config.timesteps),
         None, device)
-    out["ancestral_s"], out["ancestral_launches"] = timed(
-        sample_and_decode(unet))
+    def ancestral():
+        latents = generate.generate_samples(unet, 0, b, 1.0, 0.0, gen)
+        with torch.inference_mode():
+            return vae.decode_latents(latents)
+
+    out["ancestral_s"], out["ancestral_launches"] = timed(ancestral)
 
     step = DDIMStep(unet, 1.0, 0.0)
     s, c = config.latent_size, config.latent_channels

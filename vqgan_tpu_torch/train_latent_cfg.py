@@ -11,8 +11,11 @@ a JSON of further LDMConfig fields with `--config`; the CFG U-Net (or,
 with `--model_type dit`, the DiT) trained on the cached latents, with
 resume. `--vae_path` is a KL-VAE state dict
 (`.pt`); with it, latents missing from the cache are encoded and every
-checkpoint comes with a sample grid. The JAX package's mesh, sharding and
-scan dispatch have no counterpart here.
+checkpoint comes with a sample grid. `--step_mode scan` runs
+`--scan_block` steps per dispatch, on the card as CUDA graphs (the JAX
+package's one-program scan); `auto` (the default) picks it for runs of 1000
+steps or more, as the JAX CLI does, and the eager `step` mode otherwise.
+The JAX package's mesh and sharding have no counterpart here.
 
 Runs on the GPU by default (`--device cpu` to run on the CPU), with TF32
 off for fp32 matmuls and convolutions.
@@ -49,6 +52,12 @@ def parse_args(argv=None):
                     help="ablation baseline config (all optimizations off)")
     ap.add_argument("--config", default=None,
                     help="JSON of further LDMConfig fields")
+    ap.add_argument("--step_mode", default="auto",
+                    choices=("auto", "step", "scan"),
+                    help="'step': one eager step per batch; 'scan': "
+                         "scan_block steps per dispatch, as CUDA graphs on "
+                         "the card; 'auto': scan from 1000 steps on")
+    ap.add_argument("--scan_block", type=int, default=8)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
@@ -76,10 +85,18 @@ def main(argv=None) -> dict:
         vae = load_vae(args.vae_path, config.latent_channels,
                        config.image_size, device=device)
 
-    from .training.ldm_trainer import LatentDiffusionTrainer
+    from .training.ldm_trainer import (
+        LatentDiffusionTrainer,
+        resolve_step_mode,
+    )
 
+    step_mode = resolve_step_mode(args.step_mode, config.train_num_steps)
+    if step_mode != args.step_mode:
+        print(f"step_mode auto -> {step_mode} "
+              f"({config.train_num_steps} steps)")
     trainer = LatentDiffusionTrainer(config, split_path=args.split, vae=vae,
-                                     device=device)
+                                     device=device, step_mode=step_mode,
+                                     scan_block=args.scan_block)
     if args.resume is not None:
         step = trainer.load(None if args.resume < 0 else args.resume)
         print(f"resumed from step {step}")

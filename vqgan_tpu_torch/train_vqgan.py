@@ -10,8 +10,11 @@ PatchGAN and LPIPS losses trained on the split's images, with resume,
 reconstruction grids and `vqgan-{m}.pt` checkpoints. `--lpips_weights` is
 the JAX CLI's `.npz` of exported weights: torchvision VGG16 tensors under
 `vgg.` (`vgg.features.0.weight`, ...) and lpips ones under `lin.`
-(`lin.lin0.model.1.weight`, ...). The JAX CLI's XLA dispatch flags
-(`--step_mode`, `--scan_block`, `--fast_compile`) have no counterpart.
+(`lin.lin0.model.1.weight`, ...). `--step_mode` is the JAX CLI's:
+`split` (eager G and D steps), `fused` (one G+D step, a CUDA graph on the
+card) or `scan` (`--scan_block` steps per dispatch, CUDA graphs on the
+card); `auto` (the default) gives `scan` from 1000 steps and `split`
+below. The JAX CLI's `--fast_compile` tunes XLA and has no counterpart.
 
 Runs on the GPU by default (`--device cpu` to run on the CPU), with TF32
 off for fp32 matmuls and convolutions.
@@ -52,6 +55,13 @@ def parse_args(argv=None):
                     help=".npz of exported VGG16 + lpips weights")
     ap.add_argument("--config", default=None,
                     help="JSON of further VQGANConfig fields")
+    ap.add_argument("--step_mode", default="auto",
+                    choices=("auto", "split", "fused", "scan"),
+                    help="'split': eager G and D steps; 'fused': one G+D "
+                         "step per batch; 'scan': scan_block steps per "
+                         "dispatch (both CUDA graphs on the card); 'auto': "
+                         "scan from 1000 steps on, else split")
+    ap.add_argument("--scan_block", type=int, default=8)
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
@@ -81,10 +91,14 @@ def main(argv=None) -> dict:
     lpips_weights = (read_lpips_npz(args.lpips_weights)
                      if args.lpips_weights else None)
 
-    from .training.vqgan_trainer import VQGANTrainer
+    from .training.vqgan_trainer import VQGANTrainer, resolve_step_mode
 
+    step_mode = resolve_step_mode(args.step_mode, config.train_steps)
+    if step_mode != args.step_mode:
+        print(f"step_mode auto -> {step_mode} ({config.train_steps} steps)")
     trainer = VQGANTrainer(config, split_path=args.split,
-                           lpips_weights=lpips_weights, device=device)
+                           lpips_weights=lpips_weights, device=device,
+                           step_mode=step_mode, scan_block=args.scan_block)
     if args.resume is not None:
         step = trainer.load(None if args.resume < 0 else args.resume)
         print(f"resumed from step {step}")

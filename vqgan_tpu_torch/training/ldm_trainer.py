@@ -1,6 +1,6 @@
 """Stage-2 latent-diffusion trainer.
 
-Counterpart of vqgan_tpu/training/ldm_trainer.py with its per-step loop:
+Counterpart of vqgan_tpu/training/ldm_trainer.py with its two step modes:
 the denoiser (the CFG U-Net, or the DiT with model_type "dit") and
 GaussianDiffusion from an LDMConfig, optionally with gradient checkpointing
 (the whole denoiser forward recomputed in the backward pass, as the JAX
@@ -9,6 +9,17 @@ the cached latents, Adam(W) with clipping and warmup, an EMA copy, the
 loss-health watchdog, `sample-{m}.png` grids and milestone + latest
 checkpoints every `save_and_sample_every` steps, and `load(milestone)` to
 resume.
+
+`step_mode` "step" runs one eager step per loader batch. "scan" runs
+`scan_block` steps per dispatch (`make_ldm_scan_step`), on the card as
+one step's CUDA graph replayed per step, over a `CapturableOptimizer`.
+Its loop (`scan_loop.run_scan_loop`) keeps the
+JAX package's event rule: full blocks run where the next event (a log, a
+save with its grid, the end) is at least a block away, and the steps that
+lead up to an event run one at a time. Its watchdog reads each dispatch's
+stacked losses one dispatch late; a non-finite loss drains the dispatch
+just queued at once. Its checkpoints are those of the step mode, so a run
+resumes in either mode.
 
 - The watchdog reads each step's loss one step late, after the next step
   is queued, so the loop never waits for the device to drain.
@@ -35,21 +46,43 @@ from ..configs.ldm_config import LDMConfig
 from ..data import BatchLoader, LatentCache, LatentDataset, load_split
 from ..device import resolve_device
 from ..utils.metrics_log import MetricsLogger
-from .ldm_step import LDMTrainState, make_ldm_optimizer, make_ldm_train_step
+from .ldm_step import (
+    LDMTrainState,
+    make_ldm_optimizer,
+    make_ldm_scan_step,
+    make_ldm_train_step,
+)
+from .scan_loop import resolve_step_mode as _resolve_step_mode
+from .scan_loop import run_scan_loop
 from .watchdog import TrainingWatchdog, check_sample_range
 
-__all__ = ["LatentDiffusionTrainer"]
+__all__ = ["LatentDiffusionTrainer", "STEP_MODES", "resolve_step_mode"]
+
+STEP_MODES = ("step", "scan")
+
+
+def resolve_step_mode(mode: str, train_num_steps: int) -> str:
+    """"auto" gives "scan" from 1000 steps and "step" below, as the JAX
+    CLI resolves it; any other mode is itself."""
+    return _resolve_step_mode(mode, train_num_steps, eager="step")
 
 
 class LatentDiffusionTrainer:
     def __init__(self, config: LDMConfig, split_path: Optional[str] = None,
                  vae=None, device="cuda",
-                 gradient_checkpointing: bool = False):
+                 gradient_checkpointing: bool = False,
+                 step_mode: str = "step", scan_block: int = 8):
         """`vae`: the port's KLVAE on `device`, for sample grids and for
         encoding latents missing from the cache; None trains from a full
         cache and saves checkpoints without grids. `gradient_checkpointing`
         trades a second denoiser forward per step for the activations it
-        would keep."""
+        would keep. `step_mode` and `scan_block`: see the module
+        docstring."""
+        if step_mode not in STEP_MODES:
+            raise ValueError(f"step_mode must be one of {STEP_MODES}, got "
+                             f"{step_mode!r}")
+        self.step_mode = step_mode
+        self.scan_block = max(1, int(scan_block))
         self.config = cfg = config
         self.device = resolve_device(device)
         torch.manual_seed(cfg.seed)  # initial weights
@@ -67,15 +100,21 @@ class LatentDiffusionTrainer:
             weight_decay=cfg.weight_decay, betas=cfg.adam_betas,
             max_grad_norm=cfg.max_grad_norm or None,
             warmup_steps=cfg.warmup_steps if cfg.use_lr_warmup else 0,
-            gradient_accumulate_every=cfg.gradient_accumulate_every)
-        self.train_step = make_ldm_train_step(
-            self.diffusion, self.optimizer,
+            gradient_accumulate_every=cfg.gradient_accumulate_every,
+            capturable=step_mode == "scan")
+        step_kwargs = dict(
             cond_drop_prob=cfg.cond_drop_prob,
             contrastive_weight=(cfg.contrastive_weight
                                 if cfg.use_contrastive_loss else 0.0),
             contrastive_start_step=cfg.contrastive_start_step,
             contrastive_temperature=cfg.contrastive_temperature,
             ema_decay=cfg.ema_decay, ema_update_every=cfg.ema_update_every)
+        if step_mode == "scan":
+            self.scan_step = make_ldm_scan_step(
+                self.diffusion, self.optimizer, **step_kwargs)
+        else:
+            self.train_step = make_ldm_train_step(
+                self.diffusion, self.optimizer, **step_kwargs)
         self.state = LDMTrainState(0, self.model, self.ema_model,
                                    self.optimizer)
 
@@ -115,7 +154,9 @@ class LatentDiffusionTrainer:
         Returns {"losses": every step's loss, "timed_steps", "timed_seconds",
         "latents_per_s"}: host seconds of the steps after the first
         `timing_warmup`, the device synchronised at both ends, checkpoint
-        saves excluded."""
+        saves (and in scan mode the graph captures) excluded."""
+        if self.step_mode == "scan":
+            return self._train_scan(num_steps, log_every, timing_warmup)
         cfg = self.config
         num_steps = num_steps or cfg.train_num_steps
         if self.loader is None:
@@ -183,6 +224,58 @@ class LatentDiffusionTrainer:
                 "timed_seconds": timed_seconds,
                 "latents_per_s": (timed_steps * cfg.train_batch_size
                                   / timed_seconds if timed_seconds else None)}
+
+    def dispatch_block(self, latents, labels) -> dict:
+        """Run len(latents) steps as one dispatch (step_mode "scan") on
+        host batches latents [K, B, H, W, C] and labels [K, B]; returns the
+        logs stacked on a leading [K] axis, on the device."""
+        return self.scan_step(
+            self.state, torch.from_numpy(latents).to(self.device),
+            torch.from_numpy(labels).to(self.device, torch.long),
+            generator=self.generator)
+
+    def graph_stats(self) -> list:
+        """Each captured graph's name, capture seconds, pool bytes, replays
+        and kernel launches per replay (scan mode on the card)."""
+        if self.step_mode != "scan":
+            return []
+        return [st for r in self.scan_step.runners.values()
+                for st in r.stats()]
+
+    def _train_scan(self, num_steps: Optional[int], log_every: int,
+                    timing_warmup: int) -> dict:
+        """The scan-mode loop (`scan_loop.run_scan_loop`); returns what
+        `train` returns."""
+        cfg = self.config
+        num_steps = num_steps or cfg.train_num_steps
+        if self.loader is None:
+            raise RuntimeError("no dataset configured: pass split_path")
+
+        def dispatch(step, drawn):
+            logs = self.dispatch_block(np.stack([d[0] for d in drawn]),
+                                       np.stack([d[1] for d in drawn]))
+            return logs, logs["loss"]
+
+        def log(step, logs, steps_per_s):
+            host = {k: float(v[-1]) for k, v in logs.items()}
+            self.metrics.log(step, host)
+            msg = f"step {step}/{num_steps} loss={host['loss']:.4f}"
+            if "contrastive_loss" in host:
+                msg += f" contrastive={host['contrastive_loss']:.4f}"
+            print(msg + f" ({steps_per_s * cfg.train_batch_size:.1f} "
+                  f"latents/s)")
+
+        out = run_scan_loop(
+            start=self.state.step, num_steps=num_steps,
+            scan_block=self.scan_block, batches=iter(self.loader),
+            dispatch=dispatch, log_every=log_every, log=log,
+            save_every=cfg.save_and_sample_every, save=self.save_and_sample,
+            watchdog=self.watchdog, sync=self._sync,
+            graph_stats=self.graph_stats, timing_warmup=timing_warmup)
+        seconds = out["timed_seconds"]
+        return {**out, "latents_per_s": (
+            out["timed_steps"] * cfg.train_batch_size / seconds
+            if seconds else None)}
 
     # ------------------------------------------------------------------
 

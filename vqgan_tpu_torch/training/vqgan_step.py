@@ -1,8 +1,23 @@
-"""The two-optimizer VQ-GAN training step.
+"""The two-optimizer VQ-GAN training step, in the JAX package's three
+dispatch forms (vqgan_tpu/training/vqgan_step.py):
 
-Counterpart of vqgan_tpu/training/vqgan_step.py's split steps
-(`make_vqgan_split_steps`), eager: a G step and a D step per call, the
-caller dispatching the D step only from `disc_start` on.
+- `make_vqgan_split_steps`: eager, a G step and a D step per call, the
+  caller dispatching the D step only from `disc_start` on (the gate a host
+  comparison);
+- `make_vqgan_train_step`, the fused step: G then D in one call, the D
+  update computed every step and masked by a device `disc_active`, so
+  that before `disc_start` the discriminator's parameters, its BatchNorm
+  running statistics and `opt_d` keep their old values;
+- `make_vqgan_scan_steps` -> (scan_gd, scan_g): a block of K fused steps
+  (G, then D on that step's detached reconstruction; the next step's G
+  sees the updated D), or of K G-only steps for blocks that end by
+  `disc_start`.
+
+The fused and scan forms run on the card as CUDA graphs
+(`graphs.BlockRunner`), eagerly on the CPU; their step counter lives on
+the device and their optimizers are `CapturableOptimizer`s (the masked D
+update). Their G step always computes D's logits with a graph, and the
+adaptive weight, and gates the adversarial term on the device.
 
 - G step: L1 + LPIPS + VQ loss, plus the adversarial term gated by
   `step >= disc_start`. It reads the discriminator in eval mode (running
@@ -24,8 +39,7 @@ caller dispatching the D step only from `disc_start` on.
   gradient) of revived codebook rows.
 
 Images and reconstructions cross the step functions in NHWC, as in JAX;
-the modules run NCHW. The JAX package's fused and scan step modes exist to
-amortise XLA compiles and dispatch and are not ported.
+the modules run NCHW.
 """
 
 from __future__ import annotations
@@ -42,10 +56,12 @@ from ..losses.gan import (
     discriminator_loss,
     generator_loss,
 )
-from .ldm_step import LDMOptimizer
+from ..graphs import BlockRunner, GraphPool
+from .ldm_step import LDMOptimizer, make_ldm_optimizer
 
 __all__ = ["VQGANTrainState", "make_gan_optimizers",
-           "make_vqgan_split_steps", "reset_codebook_moments"]
+           "make_vqgan_scan_steps", "make_vqgan_split_steps",
+           "make_vqgan_train_step", "reset_codebook_moments"]
 
 
 def make_gan_optimizers(vqvae_params, disc_params,
@@ -54,15 +70,18 @@ def make_gan_optimizers(vqvae_params, disc_params,
                         betas: Tuple[float, float] = (0.5, 0.9),
                         weight_decay: float = 0.0,
                         max_grad_norm: Optional[float] = 1.0,
-                        gradient_accumulate_every: int = 1):
+                        gradient_accumulate_every: int = 1,
+                        capturable: bool = False):
     """(G optimizer, D optimizer): Adam (AdamW when weight_decay > 0) with
-    global-norm clipping; k > 1 averages k gradients per update."""
+    global-norm clipping; k > 1 averages k gradients per update. The fused
+    and scan steps need `capturable` ones."""
 
     def chain(params, lr):
-        return LDMOptimizer(params, learning_rate=lr,
-                            weight_decay=weight_decay, betas=betas,
-                            max_grad_norm=max_grad_norm,
-                            gradient_accumulate_every=gradient_accumulate_every)
+        return make_ldm_optimizer(
+            params, learning_rate=lr, weight_decay=weight_decay, betas=betas,
+            max_grad_norm=max_grad_norm,
+            gradient_accumulate_every=gradient_accumulate_every,
+            capturable=capturable)
 
     return (chain(vqvae_params, learning_rate),
             chain(disc_params, disc_learning_rate))
@@ -128,34 +147,30 @@ def _nchw(images):
     return images.permute(0, 3, 1, 2)
 
 
-def make_vqgan_split_steps(*, disc_start: int = 10000,
-                           disc_weight: float = 0.1,
-                           perceptual_weight: float = 1.0,
-                           disc_loss_type: str = "hinge",
-                           perceptual_fn: Optional[Callable] = None,
-                           use_adaptive_weight: bool = False):
-    """(g_step, d_step):
+def _make_phases(*, disc_start: int, disc_weight: float,
+                 perceptual_weight: float, disc_loss_type: str,
+                 perceptual_fn: Optional[Callable],
+                 use_adaptive_weight: bool):
+    """The G and D updates, shared by the three dispatch forms, as the JAX
+    package shares its `_make_phases`."""
 
-        g_step(state, images)        -> (recon NHWC, detached; G log)
-        d_step(state, images, recon) -> D log
-
-    images [B, H, W, C] in [0, 1]. `g_step` updates the VQ-VAE and advances
-    `state.step`; `d_step` updates the discriminator and is unconditional:
-    the caller runs it only where the pre-increment step >= disc_start.
-    Logs hold detached tensors on the device (usage_counts is [K])."""
-
-    def g_step(state: VQGANTrainState, images):
+    def g_phase(state: VQGANTrainState, images, step):
+        """The G update at `step` (steps taken): a host integer, or a 0-d
+        tensor on the device, and then D's logits and the adaptive weight
+        are computed at every step and the gate is a device predicate.
+        Returns (recon NHWC, detached; the G log; disc_active)."""
         x = _nchw(images)
-        active = state.step >= disc_start
+        traced = torch.is_tensor(step)
+        active = step >= disc_start
         state.vqvae.train()
         state.disc.eval()
         state.opt_g.zero_grad()
         with _frozen(state.disc):
             recon, loss_dict, _ = state.vqvae(x)
-            with torch.set_grad_enabled(active):
+            with torch.set_grad_enabled(traced or active):
                 logits_fake = state.disc(recon)
             adaptive = None
-            if use_adaptive_weight and active:
+            if use_adaptive_weight and (traced or active):
                 last = state.vqvae.decoder.conv_out.weight
                 nll = torch.mean(torch.abs(x - recon))
                 if perceptual_fn is not None:
@@ -174,21 +189,151 @@ def make_vqgan_split_steps(*, disc_start: int = 10000,
             total = gan_total + loss_dict["vq_loss"]
             total.backward()
         state.opt_g.step(state.opt_g.grads())
-        state.step += 1
         log = {**log, **loss_dict, "loss_total": total}
         return (recon.detach().permute(0, 2, 3, 1),
-                {k: v.detach() for k, v in log.items()})
+                {k: v.detach() for k, v in log.items()}, active)
 
-    def d_step(state: VQGANTrainState, images, recon):
+    def d_phase(state: VQGANTrainState, images, recon, active=None):
+        """The D update on the detached reconstruction: two train-mode
+        passes, real then fake. With `active` (a 0-d bool tensor) it is
+        masked: where False, the parameters, `opt_d` and the BatchNorm
+        running statistics keep their old values."""
         state.disc.train()
         state.opt_d.zero_grad()
+        kept = (None if active is None
+                else [b.clone() for b in state.disc.buffers()])
         logits_real = state.disc(_nchw(images))
         logits_fake = state.disc(_nchw(recon).detach())
-        d_loss, log = discriminator_loss(logits_real, logits_fake,
-                                         disc_active=True,
-                                         disc_loss_type=disc_loss_type)
+        d_loss, log = discriminator_loss(
+            logits_real, logits_fake,
+            disc_active=True if active is None else active,
+            disc_loss_type=disc_loss_type)
         d_loss.backward()
-        state.opt_d.step(state.opt_d.grads())
+        if active is None:
+            state.opt_d.step(state.opt_d.grads())
+        else:
+            state.opt_d.step(state.opt_d.grads(), active=active)
+            with torch.no_grad():
+                for buf, old in zip(state.disc.buffers(), kept):
+                    buf.copy_(torch.where(active, buf, old))
         return {k: v.detach() for k, v in log.items()}
 
+    return g_phase, d_phase
+
+
+def make_vqgan_split_steps(*, disc_start: int = 10000,
+                           disc_weight: float = 0.1,
+                           perceptual_weight: float = 1.0,
+                           disc_loss_type: str = "hinge",
+                           perceptual_fn: Optional[Callable] = None,
+                           use_adaptive_weight: bool = False):
+    """(g_step, d_step):
+
+        g_step(state, images)        -> (recon NHWC, detached; G log)
+        d_step(state, images, recon) -> D log
+
+    images [B, H, W, C] in [0, 1]. `g_step` updates the VQ-VAE and advances
+    `state.step`; `d_step` updates the discriminator and is unconditional:
+    the caller runs it only where the pre-increment step >= disc_start.
+    Logs hold detached tensors on the device (usage_counts is [K])."""
+    g_phase, d_phase = _make_phases(
+        disc_start=disc_start, disc_weight=disc_weight,
+        perceptual_weight=perceptual_weight, disc_loss_type=disc_loss_type,
+        perceptual_fn=perceptual_fn, use_adaptive_weight=use_adaptive_weight)
+
+    def g_step(state: VQGANTrainState, images):
+        recon, log, _ = g_phase(state, images, state.step)
+        state.step += 1
+        return recon, log
+
+    def d_step(state: VQGANTrainState, images, recon):
+        return d_phase(state, images, recon)
+
     return g_step, d_step
+
+
+def make_vqgan_scan_steps(*, disc_start: int = 10000,
+                          disc_weight: float = 0.1,
+                          perceptual_weight: float = 1.0,
+                          disc_loss_type: str = "hinge",
+                          perceptual_fn: Optional[Callable] = None,
+                          use_adaptive_weight: bool = False,
+                          usage_accum: Optional[torch.Tensor] = None):
+    """(scan_gd, scan_g), the counterpart of the JAX package's
+    `make_vqgan_scan_steps`:
+
+        scan_gd(state, superbatch [K, B, H, W, C]) -> stacked logs
+        scan_g(state, superbatch)                  -> stacked G logs
+
+    `scan_gd` runs K fused steps (G, then D masked by the device
+    `disc_active`), correct at any step; `scan_g` runs K G-only steps,
+    for blocks that end by `disc_start`. Every log has a leading [K] axis.
+    `usage_accum` ([num_embeddings] int32), when given, adds each step's
+    codebook usage inside the steps (the trainer's revival window). On the
+    card each step replays one CUDA graph (`graphs.BlockRunner`), on the
+    CPU the steps run eagerly; `scan_gd.runners` and `scan_g.runners` hold
+    the graphs, which share one memory pool (a run replays one or the
+    other, never both at once). Both optimizers must be
+    `CapturableOptimizer`s."""
+    g_phase, d_phase = _make_phases(
+        disc_start=disc_start, disc_weight=disc_weight,
+        perceptual_weight=perceptual_weight, disc_loss_type=disc_loss_type,
+        perceptual_fn=perceptual_fn, use_adaptive_weight=use_adaptive_weight)
+    counters = {}  # device -> the device step counter
+    pool = GraphPool()
+
+    def one_step(state, counter, images, with_d: bool) -> dict:
+        recon, log, active = g_phase(state, images, counter)
+        counter.add_(1)
+        if with_d:
+            log.update(d_phase(state, images, recon, active))
+        if usage_accum is not None:
+            usage_accum.add_(log["usage_counts"])
+        return log
+
+    def make(with_d: bool):
+        runners = {}
+        names = []
+
+        def scan(state: VQGANTrainState, superbatch) -> dict:
+            dev = superbatch.device
+            if dev not in counters:
+                counters[dev] = torch.zeros((), dtype=torch.long, device=dev)
+            counter = counters[dev]
+
+            def body(generators, images):
+                logs = [one_step(state, counter, x, with_d) for x in images]
+                if not names:
+                    names.extend(logs[0])
+                return tuple(torch.stack([log[k] for log in logs])
+                             for k in names)
+
+            if id(state) not in runners:
+                runners[id(state)] = BlockRunner(
+                    body,
+                    name="VQ-GAN G+D steps" if with_d else "VQ-GAN G steps",
+                    pool=pool)
+            counter.fill_(state.step)
+            out = runners[id(state)](superbatch)
+            state.step += superbatch.shape[0]
+            return dict(zip(names, out))
+
+        scan.runners = runners
+        return scan
+
+    return make(True), make(False)
+
+
+def make_vqgan_train_step(**step_kwargs):
+    """The fused step, the counterpart of the JAX package's
+    `make_vqgan_train_step`: train_step(state, images [B, H, W, C]) -> the
+    merged G and D logs, one `scan_gd` step (G, then D masked by the
+    device `disc_active`); as a CUDA graph on the card.
+    `step_kwargs` are `make_vqgan_scan_steps`'."""
+    scan_gd, _ = make_vqgan_scan_steps(**step_kwargs)
+
+    def train_step(state: VQGANTrainState, images) -> dict:
+        return {k: v[0] for k, v in scan_gd(state, images[None]).items()}
+
+    train_step.runners = scan_gd.runners
+    return train_step

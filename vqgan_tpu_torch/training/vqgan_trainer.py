@@ -1,13 +1,25 @@
 """Stage-1 VQ-GAN trainer.
 
-Counterpart of vqgan_tpu/training/vqgan_trainer.py with its per-step loop:
-the VQ-VAE, PatchGAN and LPIPS of a VQGANConfig; `ImageFolderDataset` over
-the split's training images; the G step each step and the D step from
-`disc_start` on (`vqgan_step.make_vqgan_split_steps`); the optional
+Counterpart of vqgan_tpu/training/vqgan_trainer.py with its three step
+modes: the VQ-VAE, PatchGAN and LPIPS of a VQGANConfig;
+`ImageFolderDataset` over the split's training images; the optional
 dead-code revival; `reconstruction-{m}.png` grids and milestone + latest
 checkpoints (`vqgan-{m}.pt`: step, VQ-VAE, discriminator with its BatchNorm
 statistics, both optimizer states) every `save_and_sample_every` steps; and
 `load(milestone)` to resume.
+
+`step_mode` "split": per batch the G step, and the D step from
+`disc_start` on (`vqgan_step.make_vqgan_split_steps`), eagerly. "fused":
+per batch one G+D step with the D update masked before `disc_start`
+(`make_vqgan_train_step`), a CUDA graph on the card. "scan": `scan_block`
+steps per dispatch (`make_vqgan_scan_steps`: G-only blocks where the block
+ends by `disc_start`, G+D otherwise), CUDA graphs on the card, with
+`scan_loop.run_scan_loop` and the JAX package's event rule: full blocks where the next event (a log, a
+revival, a save with its grid, the end) is at least a block away, single
+steps up to it. The captured modes keep the codebook-usage window inside
+the steps, and their watchdog reads each dispatch's stacked losses one
+dispatch late (a non-finite loss drains the dispatch just queued at once).
+Checkpoints are the same in every mode, so a run resumes in any of them.
 
 - The watchdog reads each step's loss one step late, after the next step
   is queued, so the loop never waits for the device to drain.
@@ -42,21 +54,46 @@ from ..utils.metrics_log import MetricsLogger
 from .vqgan_step import (
     VQGANTrainState,
     make_gan_optimizers,
+    make_vqgan_scan_steps,
     make_vqgan_split_steps,
+    make_vqgan_train_step,
     reset_codebook_moments,
 )
+from .scan_loop import capture_seconds, run_scan_loop
+from .scan_loop import resolve_step_mode as _resolve_step_mode
 from .watchdog import TrainingWatchdog
 
-__all__ = ["VQGANTrainer"]
+__all__ = ["STEP_MODES", "VQGANTrainer", "resolve_step_mode"]
+
+STEP_MODES = ("split", "fused", "scan")
+
+
+def resolve_step_mode(mode: str, train_steps: int) -> str:
+    """"auto" gives "scan" for runs of 1000 steps or more and "split"
+    otherwise, as the JAX CLI's `resolve_step_mode`; any other mode is
+    itself."""
+    return _resolve_step_mode(mode, train_steps, eager="split")
 
 
 class VQGANTrainer:
     def __init__(self, config: VQGANConfig, split_path: Optional[str] = None,
                  lpips_weights: Optional[Dict[str, Dict]] = None,
-                 device="cuda"):
+                 device="cuda", step_mode: str = "split",
+                 scan_block: int = 8):
         """`lpips_weights`: {"vgg": torchvision VGG16 state, "lin": lpips
         lin state} for `LPIPS.load_torch_weights`; None keeps LPIPS at its
-        random initialisation, as the JAX trainer does without weights."""
+        random initialisation, as the JAX trainer does without weights.
+        `step_mode`, `scan_block`: see the module docstring."""
+        if step_mode not in STEP_MODES:
+            raise ValueError(f"step_mode must be one of {STEP_MODES}, got "
+                             f"{step_mode!r}")
+        if step_mode != "split" and config.disc_norm == "act":
+            raise ValueError(
+                "the ActNorm discriminator initialises itself on a host "
+                "read of its first batch, which a CUDA graph cannot hold: "
+                "use step_mode 'split' with disc_norm 'act'")
+        self.step_mode = step_mode
+        self.scan_block = max(1, int(scan_block))
         self.config = cfg = config
         self.device = resolve_device(device)
         dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
@@ -88,13 +125,27 @@ class VQGANTrainer:
             disc_learning_rate=cfg.disc_learning_rate,
             betas=cfg.adam_betas, weight_decay=cfg.weight_decay,
             max_grad_norm=cfg.max_grad_norm or None,
-            gradient_accumulate_every=cfg.gradient_accumulate_every)
-        self.g_step, self.d_step = make_vqgan_split_steps(
+            gradient_accumulate_every=cfg.gradient_accumulate_every,
+            capturable=step_mode != "split")
+        self._revive_every = int(cfg.revive_dead_codes_every or 0)
+        self._usage_accum = torch.zeros((cfg.num_embeddings,),
+                                        dtype=torch.int32, device=self.device)
+        step_kwargs = dict(
             disc_start=cfg.disc_start, disc_weight=cfg.disc_weight,
             perceptual_weight=cfg.perceptual_weight,
             disc_loss_type=cfg.disc_loss_type,
             perceptual_fn=perceptual_loss_fn(self.lpips),
             use_adaptive_weight=cfg.use_adaptive_weight)
+        if step_mode == "split":
+            self.g_step, self.d_step = make_vqgan_split_steps(**step_kwargs)
+        else:
+            captured = dict(step_kwargs,
+                            usage_accum=(self._usage_accum
+                                         if self._revive_every else None))
+            if step_mode == "fused":
+                self.train_step = make_vqgan_train_step(**captured)
+            else:
+                self.scan_gd, self.scan_g = make_vqgan_scan_steps(**captured)
         self.state = VQGANTrainState(0, self.vqvae, self.disc, self.opt_g,
                                      self.opt_d)
 
@@ -108,9 +159,6 @@ class VQGANTrainer:
         self.ckpt = CheckpointManager(cfg.results_folder, prefix="vqgan")
         self.watchdog = TrainingWatchdog()
         self.metrics = MetricsLogger(cfg.results_folder, run_name="vqgan")
-        self._revive_every = int(cfg.revive_dead_codes_every or 0)
-        self._usage_accum = torch.zeros((cfg.num_embeddings,),
-                                        dtype=torch.int32, device=self.device)
         self._revive_gen = torch.Generator(self.device).manual_seed(
             cfg.seed ^ 0x5EED)
 
@@ -125,11 +173,37 @@ class VQGANTrainer:
 
     def dispatch_step(self, images: torch.Tensor, step: int) -> dict:
         """One full training step: the G update, plus the D update where
-        `step >= disc_start`. Returns the merged logs."""
+        `step >= disc_start` (the fused step masks it on the device).
+        Returns the merged logs."""
+        if self.step_mode == "fused":
+            return self.train_step(self.state, images)
+        if self.step_mode == "scan":
+            return {k: v[0] for k, v in
+                    self.dispatch_block(images[None], step).items()}
         recon, log = self.g_step(self.state, images)
         if step >= self.config.disc_start:
             log.update(self.d_step(self.state, images, recon))
         return log
+
+    def dispatch_block(self, superbatch: torch.Tensor, step: int) -> dict:
+        """Run len(superbatch) steps ([K, B, H, W, C]) from `step` as one
+        dispatch (step_mode "scan"): G-only where the block ends by
+        `disc_start`, G+D otherwise. Returns the logs stacked on [K]."""
+        if step + superbatch.shape[0] <= self.config.disc_start:
+            return self.scan_g(self.state, superbatch)
+        return self.scan_gd(self.state, superbatch)
+
+    def graph_stats(self) -> list:
+        """Each captured graph's name, capture seconds, pool bytes, replays
+        and kernel launches per replay (the fused and scan modes)."""
+        if self.step_mode == "fused":
+            runners = list(self.train_step.runners.values())
+        elif self.step_mode == "scan":
+            runners = [*self.scan_gd.runners.values(),
+                       *self.scan_g.runners.values()]
+        else:
+            runners = []
+        return [st for r in runners for st in r.stats()]
 
     def revive(self, images: torch.Tensor, step: int) -> int:
         """Re-anchor the codes unused since the last revival to random
@@ -153,7 +227,9 @@ class VQGANTrainer:
         {"losses": every step's loss_total, "timed_steps", "timed_seconds",
         "images_per_s"}: host seconds of the steps after the first
         `timing_warmup`, the device synchronised at both ends, grids and
-        checkpoint saves excluded."""
+        checkpoint saves (and the graph captures) excluded."""
+        if self.step_mode == "scan":
+            return self._train_scan(num_steps, log_every, timing_warmup)
         cfg = self.config
         num_steps = num_steps or cfg.train_steps
         if self.loader is None:
@@ -175,18 +251,20 @@ class VQGANTrainer:
         batches = iter(self.loader)
         images_np = None
         timed_from = None
-        timed_seconds = 0.0
+        timed_seconds = captures = 0.0
         t_log, n_log = time.perf_counter(), 0
         try:
             for step in range(start, num_steps):
                 if step - start == timing_warmup:
                     self._sync()
                     timed_from = time.perf_counter()
+                    captures = capture_seconds(self.graph_stats())
                 images_np, _ = next(batches)
                 images = self._to_device(images_np)
                 log = self.dispatch_step(images, step)
                 if self._revive_every:
-                    self._usage_accum += log["usage_counts"]
+                    if self.step_mode == "split":
+                        self._usage_accum += log["usage_counts"]
                     if (step + 1) % self._revive_every == 0:
                         self.revive(images, step + 1)
                 drain()  # the previous step's loss; this step stays queued
@@ -196,16 +274,8 @@ class VQGANTrainer:
                 if log_every and (step + 1) % log_every == 0:
                     host = {k: float(v) for k, v in log.items()
                             if v.ndim == 0}  # usage_counts is [K]
-                    ips = n_log * cfg.batch_size / (
-                        time.perf_counter() - t_log)
-                    self.metrics.log(step + 1,
-                                     {**host, "images_per_sec": ips})
-                    print(f"step {step + 1}/{num_steps} "
-                          f"g={host['total_loss']:.4f} "
-                          f"d={host.get('d_loss', 0.0):.4f} "
-                          f"vq={host['vq_loss']:.4f} "
-                          f"usage={host['codebook_usage_ratio']:.2f} "
-                          f"({ips:.1f} img/s)")
+                    self._log(step + 1, num_steps, host, n_log * cfg.batch_size
+                              / (time.perf_counter() - t_log))
                     t_log, n_log = time.perf_counter(), 0
 
                 if every and (step + 1) % every == 0:
@@ -221,6 +291,7 @@ class VQGANTrainer:
         self._sync()
         if timed_from is not None:
             timed_seconds += time.perf_counter() - timed_from
+            timed_seconds -= capture_seconds(self.graph_stats()) - captures
         timed_steps = max(num_steps - start - timing_warmup, 0)
         if num_steps > start and (not every or num_steps % every):
             self.save_and_sample(num_steps // every + 1 if every else 1,
@@ -229,6 +300,50 @@ class VQGANTrainer:
                 "timed_seconds": timed_seconds,
                 "images_per_s": (timed_steps * cfg.batch_size / timed_seconds
                                  if timed_seconds else None)}
+
+    def _train_scan(self, num_steps: Optional[int], log_every: int,
+                    timing_warmup: int) -> dict:
+        """The scan-mode loop (`scan_loop.run_scan_loop`, with the
+        revival cadence as an event); returns what `train` returns."""
+        cfg = self.config
+        num_steps = num_steps or cfg.train_steps
+        if self.loader is None:
+            raise RuntimeError("no dataset configured: pass split_path")
+        last = [None]  # the last host batch, for grids
+
+        def dispatch(step, drawn):
+            last[0] = drawn[-1][0]
+            superbatch = self._to_device(np.stack([d[0] for d in drawn]))
+            logs = self.dispatch_block(superbatch, step)
+            end = step + len(drawn)
+            if self._revive_every and end % self._revive_every == 0:
+                self.revive(superbatch[-1], end)
+            return logs, logs["loss_total"]
+
+        def log(step, logs, steps_per_s):
+            host = {k: float(v[-1]) for k, v in logs.items()
+                    if v.ndim == 1}  # usage_counts is [n, K]
+            self._log(step, num_steps, host, steps_per_s * cfg.batch_size)
+
+        out = run_scan_loop(
+            start=self.state.step, num_steps=num_steps,
+            scan_block=self.scan_block, batches=iter(self.loader),
+            dispatch=dispatch, log_every=log_every, log=log,
+            save_every=cfg.save_and_sample_every,
+            save=lambda m: self.save_and_sample(m, last[0]),
+            watchdog=self.watchdog, sync=self._sync,
+            graph_stats=self.graph_stats, timing_warmup=timing_warmup,
+            cadences=(self._revive_every,))
+        seconds = out["timed_seconds"]
+        return {**out, "images_per_s": (
+            out["timed_steps"] * cfg.batch_size / seconds
+            if seconds else None)}
+
+    def _log(self, step: int, num_steps: int, host: dict, ips: float):
+        self.metrics.log(step, {**host, "images_per_sec": ips})
+        print(f"step {step}/{num_steps} g={host['total_loss']:.4f} "
+              f"d={host.get('d_loss', 0.0):.4f} vq={host['vq_loss']:.4f} "
+              f"usage={host['codebook_usage_ratio']:.2f} ({ips:.1f} img/s)")
 
     # ------------------------------------------------------------------
 
