@@ -28,7 +28,8 @@ Phases, in order; any failure exits non-zero:
    histogram against bincount; and every other shape the end-to-end demo
    launches (the VQ-GAN at 128 px: flash forward and backward at
    [8,256,1,512] bf16, forward at [16,256,1,512], VQ at [2048,256] and
-   [4096,256] x [128,256]; serving at batch 4); phase 5g's: the DiT's
+   [4096,256] x [128,256]; serving at batch 4); phase 5k's bf16 KL-VAE
+   decode (`bench_sampling`) at [16,1024,1,512]; phase 5g's: the DiT's
    multi-tile S = 256 at d = 64, forward at [8, 16 and 32,256,8,64] and
    backward at [8,256,8,64] bf16, q, k and v as views of one projection as
    the model makes them, and the Diffusers-style trainer's U-Net, forward
@@ -163,16 +164,17 @@ Phases, in order; any failure exits non-zero:
    1e-4 of the largest; Inception features of 2 images within 1e-4 of the
    largest; no hand-written kernel launched.
 5e. Drive the GMM split, the cluster validation, the classifier and FID at
-   full width on 31 users x 60 seeded JPGs (256 px) with a random default
+   full width on 16 users x 60 seeded JPGs (256 px; 16 of the reference's
+   31 users, cut to keep the smoke within its time) with a random default
    KL-VAE saved as a checkpoint: `preprocess_latents_with_gmm` (one flash
    forward per padded encode batch at [16, 1024, 1, 512] fp32: 4 per
    user; a sound split; each cluster's gen and class counts its
-   largest-remainder quotas; exactly the 930 gen-train latents cached),
+   largest-remainder quotas; exactly the 480 gen-train latents cached),
    `validate_cluster_number` for 2 users and k 2-4 (its JSON report),
    `generate --random_init` for 4 users x 16 images (151 forwards each, at
    phase 3's unet_mid and vae_mid shapes), `classifier_experiment` on the
    real class-train images and those 64 synthetic ones for 2 epochs
-   (finite losses, 310 test samples, the results JSON, no hand-written
+   (finite losses, 160 test samples, the results JSON, no hand-written
    kernel), and FID with a random-init
    Inception: test images against the generated ones (finite, >= 0) and
    against themselves (under 2 x 2048 x sqrt(eps) x the covariance's
@@ -245,15 +247,17 @@ Phases, in order; any failure exits non-zero:
    batch 16) on 31 x 8 seeded 128 px JPGs with learned variance and with
    the weighted objective, 10 + 2 timed steps each (3 / 3 / 3 launches
    per step at [16,256,4,32]) and an ancestral batch of 16 (T cut from
-   1000 to 100: 300 forwards); RePaint of 4 with the left half known (T
+   1000 to 50: 150 forwards); RePaint of 4 with the left half known (T
    100, 160 denoise ops, 480 forwards at [4,256,4,32]; the known half
    equal to the image); classifier guidance by a seeded ResNet18 over
    DDIM-50 and the ancestral sampler (150 and 300 forwards); simple
    diffusion (v) over the UViT at its defaults at 256 px, 10 + 2 steps at
-   batch 16 (6 / 6 / 6 at [16,256,4,32]) and a grid of 16 (100 of 500
-   steps: 600 forwards); continuous time with the learned log-SNR
+   batch 16 (6 / 6 / 6 at [16,256,4,32]) and a grid of 16 (50 of 500
+   steps: 300 forwards); continuous time with the learned log-SNR
    schedule and the v variant over the U-Net with learned sinusoidal time,
-   10 + 2 steps each and a batch of 16 (100 of 500 steps: 300 forwards);
+   10 + 2 steps each and a batch of 16 (50 of 500 steps: 150 forwards;
+   these three sampler cuts halved from 100 to keep the smoke within its
+   time);
    the upstream 1-D example (Unet1D dim 64, 32 channels, seq 128, pred_v)
    on a seeded Dataset1D, 10 + 2 steps at batch 32 (1 / 1 / 1 at
    [32,16,4,32] fp32) and DDIM-250 of 16 (250 forwards); the Karras 1-D (L
@@ -272,7 +276,44 @@ Phases, in order; any failure exits non-zero:
    across disc_start 8, on 5c's images; 1 VQ and 2 of each flash launch
    per G step, 1 VQ and 2 forwards per grid; D unchanged to step 8, moved
    by 16); then the eager and captured modes' latents/s and images/s in
-   turns, with each graph's capture seconds and pool bytes.
+   turns, with each graph's capture seconds and pool bytes: each run 16
+   steps, 8 timed after 8 (cut from 32 to keep the smoke within its
+   time).
+4j. The captured samplers (one step's CUDA graph replayed per step;
+   cudnn.deterministic pinned) at 4g-4h's tiny widths, fp32: the
+   ancestral sampler (CFG U-Net at cond_scale 3; a self-conditioned DDPM
+   U-Net), self-conditioned DDIM, `interpolate`, learned variance, the
+   weighted objective, the guided ancestral and DDIM samplers (a ResNet18's
+   `autograd.grad` inside the graph), EDM Heun and DPM++(2M) (KarrasUnet),
+   continuous time (learned log-SNR; v), simple diffusion (UViT), RePaint
+   (both kinds of op) and the 1-D ancestral and DDIM chains: each from
+   injected noise captured on the card against the CPU's eager loop
+   (1e-3), and from one generator captured against the eager loop on the
+   card, equal bit for bit with the generator left where the eager loop
+   leaves it; every run's launches, through the replays, equal to the
+   eager loop's and a whole number per forward. The auction at batch 16,
+   captured blocks against eager against the CPU (one permutation), its
+   default calls keeping one graph of 16 bids across calls; 4c's
+   VQ-GAN with the ActNorm discriminator as the scan mode's programs,
+   captured, against the CPU's split steps, held as 4c.
+5k. The captured samplers at full width, each timed in turns (eager,
+   captured, captured, eager, after an untimed call of each; the
+   ancestral sampler's and `interpolate`'s untimed eager call is a 3-step
+   `interpolate`, cut from a full batch to keep the smoke within its
+   time), every
+   call's launches gated exactly, captured within 1e-5 of the largest
+   eager value (`drive_sampler_graphs`): the ancestral sampler at
+   LDMConfig's width (T 1000, batch 16, cond_scale 1) and the decode
+   (1000 + 1 forwards); `interpolate` from t = 250 (cut from 999; 250);
+   `bench_edm`'s Heun-32 and DPM++(2M) (512 and 256 at [16,256,4,64]);
+   the library at 5i's widths with steps cut (learned variance and the
+   weighted objective at T 20, guided ancestral T 20 and DDIM-20, RePaint
+   at T 20, continuous time and the UViT at 20 steps, the 1-D DDIM-50);
+   and `python -m vqgan_tpu_torch.bench_sampling` at its defaults (bf16
+   decode: 4 x (150 + 1) forwards), its JSON line printed. Prints each
+   path's eager and captured samples/s, capture seconds and pool bytes.
+   Phases 5g, 5h and 5i sample through the graphs too (the samplers'
+   default on the card), their launch gates unchanged.
 6. Print the kernels' JSON line, then the card line, then the device line.
 """
 
@@ -430,6 +471,8 @@ def attention_cases():
         ("unet_mid", 16, 16, 16, 8, 64, "bfloat16", True),
         ("unet_mid_cfg", 32, 16, 16, 8, 64, "bfloat16", True),
         ("vae_mid", 16, 1024, 1024, 1, 512, "float32", True),
+        # bench_sampling's decode: the KL-VAE in bf16, as the JAX CLI has it
+        ("vae_mid_bf16", 16, 1024, 1024, 1, 512, "bfloat16", True),
         ("kl_vae_mid_train", 8, 1024, 1024, 1, 512, "float32", True),
         ("vqvae_mid_train", 8, 1024, 1024, 1, 512, "bfloat16", True),
         ("ragged_d512", 2, 100, 100, 1, 512, "float32", False),
@@ -1308,14 +1351,16 @@ def _flat(torch, module, params_only=True):
                       if params_only != ("running" in k)])
 
 
-def check_small_vqgan(torch, kernels, seed: int, *, scan: bool = False):
+def check_small_vqgan(torch, kernels, seed: int, *, scan: bool = False,
+                      disc_norm: str = "batch"):
     """Three VQ-GAN training steps of a tiny fp32 config on the card and on
     the CPU from the same weights and images (TF32 off), disc_start 1: step
     0 is G only, steps 1-2 G + D. With `scan` (phase 4i), six steps with
     disc_start 3, the card's as `make_vqgan_scan_steps`' CUDA graphs:
     `scan_g` over steps 0-1, then `scan_gd` over steps 2-5, which straddle
     disc_start (step 2's D update masked); the CPU's split steps as
-    before. Tolerances:
+    before. `disc_norm` the discriminator's norm (phase 4j: "act").
+    Tolerances:
     - indices of the initial encoder's z, exact but for near-ties within
       1e-4 of |z|^2 + |e|^2 by the CPU's scores: the encoders' outputs
       differ by cuDNN's and the CPU's summation orders (~1e-6 relative);
@@ -1323,7 +1368,7 @@ def check_small_vqgan(torch, kernels, seed: int, *, scan: bool = False):
     - losses, rtol 1e-4;
     - the first G step's gradients, codebook included, 1e-3 of the largest;
     - BatchNorm running statistics, 1e-4 (convolutions summed in other
-      orders before each norm);
+      orders before each norm); ActNorm's buffers, which no step changes;
     - parameter moves from the initial weights: the card's differs from
       the CPU's by at most 5% in norm and by over lr / 2 in at most 1% of
       the elements (Adam's first steps are sign-like, and conv biases under
@@ -1346,10 +1391,11 @@ def check_small_vqgan(torch, kernels, seed: int, *, scan: bool = False):
     n_steps, disc_start = (6, 3) if scan else (3, 1)
     b, lr = 4, 4.5e-5
     label = "small VQ-GAN scan steps" if scan else "small VQ-GAN training"
+    label += "" if disc_norm == "batch" else f", {disc_norm} norm"
     torch.manual_seed(seed)
     vq_init = VQVAE(ch=16, ch_mult=(1, 2), num_res_blocks=1, resolution=32,
                     z_channels=16, num_embeddings=8, embedding_dim=16)
-    d_init = PatchGANDiscriminator(ndf=8, n_layers=2)
+    d_init = PatchGANDiscriminator(ndf=8, n_layers=2, norm=disc_norm)
     lpips_init = LPIPS()
     images = np.random.default_rng(seed + 4).random(
         (n_steps, b, 32, 32, 3)).astype(np.float32)
@@ -1400,7 +1446,10 @@ def check_small_vqgan(torch, kernels, seed: int, *, scan: bool = False):
         launches = {name: k.launches for name, k in kernels.items()}
         out[dev] = dict(z=z.cpu(), idx=idx.cpu(), logs=logs, grads=grads[0],
                         vq=_flat(torch, vqvae), d=_flat(torch, disc),
-                        stats=_flat(torch, disc, params_only=False),
+                        stats=(_flat(torch, disc, params_only=False)
+                               if disc_norm == "batch" else torch.cat(
+                                   [v.flatten().cpu().float()
+                                    for v in disc.buffers()])),
                         launches=launches)
 
     cpu, gpu = out["cpu"], out["cuda"]
@@ -1598,6 +1647,307 @@ def ddim_captured_vs_eager(torch, kernels, seed: int) -> dict:
             fail(f"the captured DDIM sampler disagrees with the eager loop "
                  f"at cond_scale {cond_scale}")
     return rates
+
+
+def sampler_cases(torch, seed: int) -> list:
+    """Phase 4j's samplers at 4g-4h's tiny widths, fp32: (label,
+    make(device) -> the diffusion on that device, run(diffusion, graph,
+    generator, draws) -> the output, draws(rng) -> the injected noise
+    (numpy), model forwards per call)."""
+    import copy
+
+    from vqgan_tpu_torch.diffusion import (
+        ContinuousTimeGaussianDiffusion,
+        ElucidatedDiffusion,
+        GaussianDiffusion,
+        GaussianDiffusion1D,
+        GuidedGaussianDiffusion,
+        LearnedLogSNR,
+        LearnedScheduleDenoiser,
+        LearnedVarianceGaussianDiffusion,
+        RePaintDiffusion,
+        SimpleDiffusion,
+        VParamContinuousTimeGaussianDiffusion,
+        WeightedObjectiveGaussianDiffusion,
+        make_classifier_cond_fn,
+    )
+    from vqgan_tpu_torch.models import CFGUnet, KarrasUnet, Unet, Unet1D, UViT
+    from vqgan_tpu_torch.models.resnet import ResNet18
+
+    img, lat, seq = (4, 16, 16, 3), (4, 8, 8, 4), (4, 32, 4)
+    t_steps = 10
+    classes = np.array([0, 1, 2, 0])
+
+    def noise(shape, n=None):
+        def draw(rng):
+            return {"init_noise": rng.standard_normal(shape).astype(
+                np.float32), **({} if n is None else {
+                    "step_noise": rng.standard_normal(
+                        (n, *shape)).astype(np.float32)})}
+        return draw
+
+    def on(init, dev):
+        return copy.deepcopy(init).to(torch.device(dev)).eval()
+
+    torch.manual_seed(seed + 30)
+    unet = Unet(dim=16, dim_mults=(1, 2), full_attn=(False, True))
+    unet_sc = Unet(dim=16, dim_mults=(1, 2), full_attn=(False, True),
+                   self_condition=True)
+    unet_lv = Unet(dim=16, dim_mults=(1, 2), full_attn=(False, True),
+                   learned_variance=True)
+    unet_wo = Unet(dim=16, dim_mults=(1, 2), full_attn=(False, True),
+                   out_dim=8)
+    unet_ct = Unet(dim=16, dim_mults=(1, 2), full_attn=(False, True),
+                   learned_sinusoidal_cond=True)
+    schedule = LearnedLogSNR(
+        *ContinuousTimeGaussianDiffusion.learned_endpoints(), hidden_dim=32)
+    cfg = CFGUnet(dim=16, num_classes=3, cond_drop_prob=0.0, dim_mults=(1, 2),
+                  channels=4, attn_dim_head=16, attn_heads=2)
+    uvit = UViT(dim=16, dim_mults=(1, 2), vit_depth=2, attn_heads=2)
+    unet1d = Unet1D(dim=16, dim_mults=(1, 2), channels=4)
+    karras = KarrasUnet(image_size=16, dim=16, dim_max=64, num_classes=3,
+                        channels=3, num_downsamples=2,
+                        num_blocks_per_stage=1, attn_res=(8, 4),
+                        attn_dim_head=16)
+    classifier = ResNet18(3)
+    with torch.no_grad():
+        for name, p in karras.named_parameters():
+            if name.endswith("gain"):
+                p.fill_(0.5)
+    gd_kw = dict(image_size=16, timesteps=t_steps, objective="pred_v")
+
+    def gaussian(cls, init, **kw):
+        return lambda dev: cls(on(init, dev), **{**gd_kw, **kw},
+                               device=torch.device(dev))
+
+    def cls_on(dev):
+        return torch.from_numpy(classes).to(dev)
+
+    def edm(dev):
+        net = on(karras, dev)
+        labels = cls_on(dev)
+        return ElucidatedDiffusion(
+            lambda x, t, self_cond=None: net(x, t, class_labels=labels),
+            image_size=16, num_sample_steps=4, device=torch.device(dev))
+
+    def guided(dev):
+        d = GuidedGaussianDiffusion(on(unet, dev), **gd_kw,
+                                    sampling_timesteps=4,
+                                    device=torch.device(dev))
+        net = on(classifier, dev)
+        d.guide = (make_classifier_cond_fn(lambda x, t: net(x), 2.0),
+                   {"y": cls_on(dev)})
+        return d
+
+    rp_kw = dict(resample_iter=2, resample_jump=2, resample_every=4)
+    n_denoise = int((RePaintDiffusion(unet, **gd_kw, **rp_kw, device="cpu")
+                     .schedule_ops()[:, 0] == 0).sum())
+    n_ops = len(RePaintDiffusion(unet, **gd_kw, **rp_kw,
+                                 device="cpu").schedule_ops())
+
+    def repaint_draws(rng):
+        return {"init_noise": rng.standard_normal(img).astype(np.float32),
+                "blend_noise": rng.standard_normal((n_ops, *img)).astype(
+                    np.float32),
+                "step_noise": rng.standard_normal((n_ops, *img)).astype(
+                    np.float32)}
+
+    gt = np.random.default_rng(seed + 31).random(img).astype(np.float32)
+    mask = np.zeros((4, 16, 16, 1), np.float32)
+    mask[:, :, :8] = 1.0
+    x1, x2 = np.random.default_rng(seed + 32).random((2, *img)).astype(
+        np.float32)
+
+    def ct(learned: bool):
+        def make(dev):
+            kw = dict(image_size=16, num_sample_steps=4,
+                      device=torch.device(dev))
+            if learned:
+                return ContinuousTimeGaussianDiffusion(
+                    LearnedScheduleDenoiser(on(unet_ct, dev),
+                                            on(schedule, dev)),
+                    noise_schedule="learned", **kw)
+            return VParamContinuousTimeGaussianDiffusion(on(unet_ct, dev),
+                                                         **kw)
+        return make
+
+    def sample(d, graph, gen, draws):
+        return d.sample(4, generator=gen, graph=graph, **(draws or {}))
+
+    return [
+        ("ancestral, CFG U-Net at cond_scale 3", gaussian(
+            GaussianDiffusion, cfg, image_size=8, channels=4,
+            objective="pred_v"),
+         lambda d, graph, gen, draws: d.p_sample_loop(
+             lat, cls_on(d.device), cond_scale=3.0, rescaled_phi=0.7,
+             generator=gen, graph=graph, **(draws or {})),
+         noise(lat, t_steps), t_steps),
+        ("ancestral, self-conditioned DDPM U-Net", gaussian(
+            GaussianDiffusion, unet_sc, self_condition=True),
+         lambda d, graph, gen, draws: d.p_sample_loop(
+             img, None, generator=gen, graph=graph, **(draws or {})),
+         noise(img, t_steps), t_steps),
+        ("DDIM-4, self-conditioned DDPM U-Net", gaussian(
+            GaussianDiffusion, unet_sc, self_condition=True,
+            sampling_timesteps=4),
+         lambda d, graph, gen, draws: d.ddim_sample(
+             img, None, generator=gen, graph=graph, **(draws or {})),
+         noise(img, 4), 4),
+        ("interpolate from t = 6", gaussian(GaussianDiffusion, unet),
+         lambda d, graph, gen, draws: d.interpolate(
+             x1, x2, None, t=6, lam=0.3, generator=gen, graph=graph,
+             **({} if draws is None else {
+                 "noise1": draws["init_noise"], "noise2": draws["noise2"],
+                 "step_noise": draws["step_noise"]})),
+         lambda rng: {**noise(img, 6)(rng), "noise2": rng.standard_normal(
+             img).astype(np.float32)}, 6),
+        ("learned variance, ancestral", gaussian(
+            LearnedVarianceGaussianDiffusion, unet_lv,
+            objective="pred_noise"),
+         lambda d, graph, gen, draws: d.p_sample_loop(
+             img, generator=gen, graph=graph, **(draws or {})),
+         noise(img, t_steps), t_steps),
+        ("weighted objective, ancestral", gaussian(
+            WeightedObjectiveGaussianDiffusion, unet_wo,
+            objective="pred_noise"),
+         lambda d, graph, gen, draws: d.p_sample_loop(
+             img, generator=gen, graph=graph, **(draws or {})),
+         noise(img, t_steps), t_steps),
+        ("guided ancestral (ResNet18's autograd.grad inside)", guided,
+         lambda d, graph, gen, draws: d.p_sample_loop_guided(
+             img, *d.guide, generator=gen, graph=graph, **(draws or {})),
+         noise(img, t_steps), t_steps),
+        ("guided DDIM-4", guided,
+         lambda d, graph, gen, draws: d.ddim_sample_guided(
+             img, *d.guide, generator=gen, graph=graph, **(draws or {})),
+         noise(img, 4), 4),
+        ("EDM Heun-4, KarrasUnet", edm,
+         lambda d, graph, gen, draws: d.sample(
+             4, generator=gen, graph=graph, **(draws or {})),
+         noise(img, 4), 8),
+        ("EDM DPM++(2M)-4, KarrasUnet", edm,
+         lambda d, graph, gen, draws: d.sample_using_dpmpp(
+             4, generator=gen, graph=graph, **(draws or {})),
+         noise(img), 4),
+        ("continuous time, learned log-SNR", ct(True), sample,
+         noise(img, 4), 4),
+        ("continuous time, v", ct(False), sample, noise(img, 4), 4),
+        ("simple diffusion, UViT", lambda dev: SimpleDiffusion(
+            on(uvit, dev), image_size=16, num_sample_steps=4,
+            device=torch.device(dev)), sample, noise(img, 4), 4),
+        (f"RePaint ({n_denoise} denoise of {n_ops} ops)", gaussian(
+            RePaintDiffusion, unet, **rp_kw),
+         lambda d, graph, gen, draws: d.inpaint(
+             gt, mask, generator=gen, graph=graph, **(draws or {})),
+         repaint_draws, n_denoise),
+        ("1-D, ancestral", lambda dev: GaussianDiffusion1D(
+            on(unet1d, dev), image_size=32, seq_length=32, channels=4,
+            timesteps=t_steps, objective="pred_v",
+            device=torch.device(dev)),
+         lambda d, graph, gen, draws: d.p_sample_loop(
+             seq, None, generator=gen, graph=graph, **(draws or {})),
+         noise(seq, t_steps), t_steps),
+        ("1-D, DDIM-4", lambda dev: GaussianDiffusion1D(
+            on(unet1d, dev), image_size=32, seq_length=32, channels=4,
+            timesteps=t_steps, sampling_timesteps=4, objective="pred_v",
+            device=torch.device(dev)),
+         lambda d, graph, gen, draws: d.ddim_sample(
+             seq, None, generator=gen, graph=graph, **(draws or {})),
+         noise(seq, 4), 4),
+    ]
+
+
+def check_small_sampler_graphs(torch, kernels, seed: int):
+    """Phase 4j: every captured sampler (`graphs.run_chain`: one step's
+    CUDA graph replayed per step) at tiny widths, cudnn.deterministic
+    pinned (`sampler_cases`):
+    - from injected noise, captured on the card against the CPU's eager
+      loop: outputs within 1e-3 (phase 4's rule: cuDNN and the kernels sum
+      in other orders);
+    - from one generator, captured against the eager loop (`graph=False`)
+      on the card: equal bit for bit, the generator left where the eager
+      loop leaves it;
+    - the launches of every run, counted through the replays, equal to the
+      eager loop's, a whole number per model forward;
+    - the auction at batch 16: captured blocks of bids (three default
+      calls, which keep one graph of 16 bids in the module's
+      `DEFAULT_GRAPHS`)
+      against eager against the CPU, the same permutation;
+    - phase 4c's VQ-GAN with the ActNorm discriminator as the scan mode's
+      programs (`make_vqgan_scan_steps`, what `VQGANTrainer(step_mode=
+      "scan")` dispatches), captured, against the CPU's split steps
+      (`check_small_vqgan`)."""
+    from vqgan_tpu_torch.ops.assignment import auction_assignment
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    try:
+        for label, make, run, draws, n_fwd in sampler_cases(torch, seed):
+            inject = draws(np.random.default_rng(seed + 33))
+            cpu = run(make("cpu"), None, None, inject).float()
+            card = make("cuda")
+            runs = {}
+            for name, graph, drawn in (("captured, injected", None, False),
+                                       ("eager, drawn", False, True),
+                                       ("captured, drawn", None, True)):
+                gen = (torch.Generator("cuda").manual_seed(seed + 34)
+                       if drawn else None)
+                reset_counts(kernels)
+                out = run(card, graph, gen, None if drawn else inject)
+                torch.cuda.synchronize()
+                runs[name] = (out.float().cpu(), read_counts(kernels),
+                              gen.get_state() if drawn else None)
+            got, counts, _ = runs["captured, injected"]
+            err = (got - cpu).abs().max().item()
+            eager, captured = runs["eager, drawn"], runs["captured, drawn"]
+            fwd = sum(n for (k, _), n in eager[1].items() if k == "flash_fwd")
+            stats = card._graphs.stats()
+            print(f"{label}: captured vs CPU max|diff| {err:.3e}; captured "
+                  f"vs eager from one generator "
+                  f"{(captured[0] - eager[0]).abs().max().item():.3e}; "
+                  f"launches {eager[1]}; {len(stats['graphs'])} graph(s), "
+                  f"capture {stats['capture_seconds']:.3f} s, pool "
+                  f"{stats['pool_bytes']} B")
+            if not bool(torch.isfinite(got).all()) or err > 1e-3:
+                fail(f"{label}: the captured chain on the card disagrees "
+                     f"with the CPU")
+            if not torch.equal(captured[0], eager[0]) \
+                    or not torch.equal(captured[2], eager[2]):
+                fail(f"{label}: the captured chain differs from the eager "
+                     f"loop on the card")
+            if not fwd or fwd % n_fwd or any(
+                    r[1] != eager[1] for r in runs.values()) or any(
+                    k != "flash_fwd" for (k, _) in eager[1]):
+                fail(f"{label}: expected the eager loop's launches, a "
+                     f"whole number per forward ({n_fwd} forwards), "
+                     f"through the replays: "
+                     f"{ {k: r[1] for k, r in runs.items()} }")
+
+        dist = torch.from_numpy(np.random.default_rng(seed + 35).random(
+            (16, 16)).astype(np.float32))
+        perms = {"cpu": auction_assignment(dist).tolist(),
+                 "eager": auction_assignment(dist.cuda(), graph=False)
+                 .tolist()}
+        from vqgan_tpu_torch.ops.assignment import DEFAULT_GRAPHS
+
+        for i in range(3):  # the capture, then the replays alone
+            perms[f"captured {i}"] = auction_assignment(
+                dist.cuda()).tolist()
+        stats = DEFAULT_GRAPHS.stats()
+        print(f"auction at batch 16: {perms}; the default calls' graphs "
+              f"{stats}")
+        if any(p != perms["cpu"] for p in perms.values()) \
+                or sorted(perms["cpu"]) != list(range(16)):
+            fail("the captured auction's permutation differs")
+        if [g["name"] for g in stats["graphs"]].count(
+                "auction, 16 bids") != 1:
+            fail("the auction's default calls at batch 16 did not keep "
+                 "one graph of their blocks of bids")
+        check_small_vqgan(torch, kernels, seed, scan=True, disc_norm="act")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"phase 4j: {time.perf_counter() - t0:.3f} s")
 
 
 def check_small_kl_vae(torch, kernels, seed: int):
@@ -1988,8 +2338,9 @@ def drive_captured_training(torch, kernels, seed: int, work: Path,
       VQ and two of each flash launch, one VQ and two forwards per grid,
       the discriminator unchanged at the step-8 milestone and moved by
       step 16;
-    - rates in turns in this process, each run a fresh trainer of 32 steps
-      timed after its first 8 (captures excluded): the U-Net's and the
+    - rates in turns in this process, each run a fresh trainer of 16 steps
+      (cut from 32 to keep the smoke in its time) timed after its first 8
+      (captures excluded): the U-Net's and the
       DiT's step and scan modes (step, scan, scan, step); the VQ-GAN's
       split, scan and fused at disc_start 0 (split, scan, fused, fused,
       scan, split); with each graph's capture seconds and pool bytes.
@@ -2139,14 +2490,14 @@ def drive_captured_training(torch, kernels, seed: int, work: Path,
             reset_counts(kernels)
             trainer, rate_key = make()
             trainer.save_and_sample = lambda *args: None  # no checkpoints
-            result = trainer.train(num_steps=32, log_every=0,
+            result = trainer.train(num_steps=16, log_every=0,
                                    timing_warmup=8)
             rates[label].append(result[rate_key])
             graphs.setdefault(label, trainer.graph_stats())
             del trainer, result
         turns[model] = {"rates": rates, "graphs": graphs}
         print(f"[{card}] {model} training rates in turns "
-              f"({' '.join(label for label, _ in runs + runs[::-1])}), 24 "
+              f"({' '.join(label for label, _ in runs + runs[::-1])}), 8 "
               f"steps after 8 each: " + "; ".join(
                   f"{label} {[round(r, 4) for r in vals]}"
                   for label, vals in rates.items())
@@ -2486,20 +2837,33 @@ def run_gated(torch, kernels, label, fn, expected, counts):
     return result, secs
 
 
+def run_gated_tagged(torch, kernels, label, fn, expected, counts,
+                     tag=None):
+    """`run_gated`, its launches added to `counts` under (kernel, shape +
+    (tag,)) for a tagged path, as `row_key` keys its rows."""
+    mine = {}
+    result = run_gated(torch, kernels, label, fn, expected, mine)
+    for (name, shape), n in mine.items():
+        key = (name, shape + (tag,) if tag else shape)
+        counts[key] = counts.get(key, 0) + n
+    return result
+
+
 def drive_gmm_classifier_slice(torch, kernels, seed: int, work: Path,
-                               n_users: int = 31, per_user: int = 60,
+                               n_users: int = 16, per_user: int = 60,
                                size: int = 256):
     """Phase 5e, the GMM split, the cluster validation, the classifier and
     FID at full width through their entry points, on `n_users` x
-    `per_user` seeded JPGs (`write_user_images`; the reference has ~150
-    per user), with a random `AutoencoderConfig()` KL-VAE from the seed
+    `per_user` seeded JPGs (`write_user_images`; the reference has 31
+    users of ~150; 16 users keep the smoke within its time), with a
+    random `AutoencoderConfig()` KL-VAE from the seed
     saved as a port checkpoint:
     - `preprocess_latents_with_gmm` at its defaults (30 gen-train, 20
       class-train per user; batches of 16, the last zero-padded): one
       flash forward per encode batch at [16, 1024, 1, 512] fp32 and no
       other launch; the split passes `verify_split`; each cluster's gen
       and class counts are `largest_remainder_quotas` of its members; the
-      cache holds exactly the 930 gen-train latents, finite [32, 32, 4];
+      cache holds exactly the 480 gen-train latents, finite [32, 32, 4];
     - `validate_cluster_number --num_users 2 --k_min 2 --k_max 4`: its
       JSON report, 4 forwards per user;
     - `generate --random_init --user_ids 1 2 3 4 --num_images 16` into
@@ -2508,15 +2872,15 @@ def drive_gmm_classifier_slice(torch, kernels, seed: int, work: Path,
       unet_mid and vae_mid rows);
     - `classifier_experiment` on the real class-train images and that
       synthetic folder (ResNet18 at 256 px, batch 64, Adam 1e-4, ImageNet
-      normalisation), one seed, 2 epochs of 15: finite losses, 310 test
+      normalisation), one seed, 2 epochs: finite losses, 160 test
       samples, the results JSON; no hand-written kernel; then, untimed by
       the CLI, the loader alone over the real class-train images and 5
       train steps on one batch resident on the card;
     - FID with the port's Inception (random init from the seed: not
-      calibrated) of the 310 test images against the 16 generated ones
+      calibrated) of the 160 test images against the 16 generated ones
       (finite, >= 0), and of the test images against themselves, which
       is 0 but for the square root's rounding: the covariance has rank
-      309 of 2048, so ~1700 eigenvalues of its square are float64
+      159 of 2048, so ~1890 eigenvalues of its square are float64
       rounding noise of order eps x lambda_max^2, each of whose roots
       can leave sqrt(eps) x lambda_max in the trace. Bound: 2 x 2048 x
       sqrt(eps) x lambda_max.
@@ -3484,7 +3848,9 @@ def drive_pixel_diffusion(torch, kernels, seed: int, work: Path, card: str):
       forwards (250 x 3) at [25, 256, 4, 32]. Finite losses, the grid and
       the checkpoint written; then the grid alone, timed.
     - the auction at batch 16 on the card (128 px images against noise),
-      ms per call, against scipy's exact assignment's cost.
+      ms per call with its blocks of bids captured (the graphs kept
+      across calls: the diffusion's, and `auction_assignment`'s default)
+      and eager, against scipy's exact assignment's cost.
     - `train_ddpm --self_condition --immiscible --sampling_timesteps 50
       --calculate_fid --num_fid_samples 50 --save_best_and_latest_only`:
       10 steps with one milestone, then `--resume -1` to step 12; per
@@ -3502,6 +3868,8 @@ def drive_pixel_diffusion(torch, kernels, seed: int, work: Path, card: str):
     from vqgan_tpu_torch import bench_edm, train_ddpm
     from vqgan_tpu_torch.checkpoint import CheckpointManager
     from vqgan_tpu_torch.diffusion.gaussian import immiscible_permutation
+    from vqgan_tpu_torch.graphs import ChainGraphs
+    from vqgan_tpu_torch.ops.assignment import auction_assignment
     from vqgan_tpu_torch.training.ddpm_trainer import FolderDataset
 
     t_phase = time.perf_counter()
@@ -3565,21 +3933,31 @@ def drive_pixel_diffusion(torch, kernels, seed: int, work: Path, card: str):
         "cuda").permute(0, 3, 1, 2) * 2 - 1
     z = torch.randn(x.shape, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(seed))
-    perm = immiscible_permutation(x, z, "auction")
+    graphs = ChainGraphs()  # the blocks of bids' graphs, kept across calls
+    perm = immiscible_permutation(x, z, "auction", graphs)
     exact = immiscible_permutation(x, z, "host")
     dist = ((x.flatten(1)[:, None] - z.flatten(1)[None]) ** 2).sum(-1)
     rows = torch.arange(16, device="cuda")
     got, best = dist[rows, perm].sum().item(), dist[rows, exact].sum().item()
     bound = (dist.max() - dist.min()).item() / 2  # the auction's b * eps
     auction_ms = cuda_ms(
-        torch, lambda: immiscible_permutation(x, z, "auction"), 20)
+        torch, lambda: immiscible_permutation(x, z, "auction", graphs), 20)
+    eager_ms = cuda_ms(
+        torch, lambda: auction_assignment(dist, graph=False), 20)
+    # the default call: its graphs kept in the module's ChainGraphs
+    default_ms = cuda_ms(torch, lambda: auction_assignment(dist), 20)
     host_ms = cuda_ms(torch, lambda: immiscible_permutation(x, z, "host"), 20)
     metrics["auction_ms_b16"] = auction_ms
+    metrics["auction_eager_ms_b16"] = eager_ms
+    metrics["auction_default_ms_b16"] = default_ms
     metrics["host_assignment_ms_b16"] = host_ms
     print(f"[{card}] immiscible assignment at batch 16, 128 px: auction "
-          f"{auction_ms:.4f} ms per call, scipy on the host {host_ms:.4f} "
+          f"{auction_ms:.4f} ms per call (its blocks of bids captured; "
+          f"eager {eager_ms:.4f}; auction_assignment's default call "
+          f"{default_ms:.4f}), scipy on the host {host_ms:.4f} "
           f"ms; cost {got:.1f} against the exact {best:.1f} (bound "
-          f"+{bound:.1f}), permutations {'equal' if torch.equal(perm, exact) else 'differ'}")
+          f"+{bound:.1f}), permutations {'equal' if torch.equal(perm, exact) else 'differ'}; "
+          f"{graphs.stats()}")
     if sorted(perm.tolist()) != list(range(16)) or got > best + bound:
         fail("the auction at batch 16 is no permutation, or costs more "
              "than its bound")
@@ -3788,10 +4166,12 @@ def drive_diffusion_library(torch, kernels, seed: int, work: Path,
     (a) train_ddpm's U-Net (dim 64, mults 1-2-4-8, bf16, batch 16) on 31 x
         8 seeded 128 px JPGs, full attention at 16 x 16 (down, mid, up:
         3 launches of each flash kernel per step at [16, 256, 4, 32], Skv
-        260), T cut from 1000 to 100 for the samplers that walk every t:
+        260), T cut from 1000 to 100 for the samplers that walk every t
+        (to 50 for the ancestral batches; these and (b)'s and (c)'s
+        sampling steps were halved to keep the smoke within its time):
         learned variance (pred_noise) and the weighted objective (out_dim
         2C + 2) 10 + 2 timed steps each at T 1000, then one ancestral batch
-        of 16 from the EMA weights over a T 100 schedule (300 forwards);
+        of 16 from the EMA weights over a T 50 schedule (150 forwards);
         RePaint of a batch of 4 with the left half known
         (resampling at its defaults: 160 denoise ops, 480 forwards at
         [4, 256, 4, 32]; the known half equal to the image); classifier
@@ -3800,13 +4180,13 @@ def drive_diffusion_library(torch, kernels, seed: int, work: Path,
     (b) `SimpleDiffusion` (v) over the UViT (dim 64, mults 1-2-4-8, bf16;
         ViT depth 6, 4 heads x 32) on 31 x 8 JPGs at 256 px: 10 + 2 timed
         steps at batch 16 (6 / 6 / 6 per step at [16, 256, 4, 32], Skv
-        256), then one grid of 16 with 100 of its 500 sampling steps (600
+        256), then one grid of 16 with 50 of its 500 sampling steps (300
         forwards).
     (c) continuous time over (a)'s U-Net with learned sinusoidal time
         features: the learned log-SNR schedule (its MLP trained and
         averaged with the U-Net) and the v-parameterised variant, 10 + 2
-        timed steps each, then a batch of 16 with 100 of 500 sampling
-        steps (300 forwards).
+        timed steps each, then a batch of 16 with 50 of 500 sampling
+        steps (150 forwards).
     (d) the upstream README's 1-D example: Unet1D(dim 64, mults 1-2-4-8,
         32 channels), GaussianDiffusion1D(seq_length 128, T 1000, pred_v)
         on a seeded Dataset1D of 64 sequences: 10 + 2 timed steps at batch
@@ -3858,14 +4238,8 @@ def drive_diffusion_library(torch, kernels, seed: int, work: Path,
     seq_gen = (16, 16, 4, 32, "float32")
 
     def gated(label, fn, expected, tag=None):
-        """run_gated; a tagged path's launches go into `counts` under
-        (kernel, shape + (tag,)), as `row_key` keys its rows."""
-        mine = {}
-        result = run_gated(torch, kernels, label, fn, expected, mine)
-        for (name, shape), n in mine.items():
-            key = (name, shape + (tag,) if tag else shape)
-            counts[key] = counts.get(key, 0) + n
-        return result
+        return run_gated_tagged(torch, kernels, label, fn, expected, counts,
+                                tag)
 
     def per_step(shapes, n):
         return {(name, shape): k * n for shape, k in shapes.items()
@@ -3916,12 +4290,12 @@ def drive_diffusion_library(torch, kernels, seed: int, work: Path,
         model = unet(**kw)
         diffusion = cls(model, image_size=128, device=dev)
         trainer = train(label, diffusion, model, folder=images)
-        cut = dataclasses.replace(trainer.ema_diffusion, timesteps=100,
+        cut = dataclasses.replace(trainer.ema_diffusion, timesteps=50,
                                   sampling_timesteps=None, schedule=None)
         sampled(f"{label}_ancestral",
-                f"{label} ancestral batch of 16 (T 100)",
+                f"{label} ancestral batch of 16 (T 50)",
                 lambda: cut.sample(batch_size=16, generator=gen(1)),
-                {("flash_fwd", ddpm): 300}, 16, (16, 128, 128, 3))
+                {("flash_fwd", ddpm): 150}, 16, (16, 128, 128, 3))
         del trainer, model, diffusion
 
     # --- (a) RePaint and classifier guidance ----------------------------
@@ -3964,12 +4338,12 @@ def drive_diffusion_library(torch, kernels, seed: int, work: Path,
     torch.manual_seed(seed + 23)
     model = UViT(dim=64, dim_mults=(1, 2, 4, 8), dtype=bf16).to(dev)
     sd = SimpleDiffusion(model, image_size=256, pred_objective="v",
-                         num_sample_steps=100, device=dev)
+                         num_sample_steps=50, device=dev)
     trainer = train("uvit_simple", sd, model, folder=images256,
                     shapes={uvit: 6}, tag="uvit")
-    grid = sampled("uvit_grid", "UViT grid of 16 (100 of 500 steps)",
+    grid = sampled("uvit_grid", "UViT grid of 16 (50 of 500 steps)",
                    lambda: trainer.sample_grid(1),
-                   {("flash_fwd", uvit): 600}, 16, (16, 256, 256, 3),
+                   {("flash_fwd", uvit): 300}, 16, (16, 256, 256, 3),
                    tag="uvit")
     shutil.copy(trainer.results_folder / "sample-1.png",
                 OUT / "uvit_sample-1.png")
@@ -3984,14 +4358,14 @@ def drive_diffusion_library(torch, kernels, seed: int, work: Path,
     for label, diffusion in (
             ("continuous_learned", ContinuousTimeGaussianDiffusion(
                 model, image_size=128, noise_schedule="learned",
-                num_sample_steps=100, device=dev)),
+                num_sample_steps=50, device=dev)),
             ("continuous_v", VParamContinuousTimeGaussianDiffusion(
-                model.net, image_size=128, num_sample_steps=100,
+                model.net, image_size=128, num_sample_steps=50,
                 device=dev))):
         trainer = train(label, diffusion, diffusion.model, folder=images)
-        sampled(label, f"{label} batch of 16 (100 of 500 steps)",
+        sampled(label, f"{label} batch of 16 (50 of 500 steps)",
                 lambda: trainer.ema_diffusion.sample(16, generator=gen(4)),
-                {("flash_fwd", ddpm): 300}, 16, (16, 128, 128, 3))
+                {("flash_fwd", ddpm): 150}, 16, (16, 128, 128, 3))
         del trainer
     del model
 
@@ -4059,6 +4433,248 @@ def drive_diffusion_library(torch, kernels, seed: int, work: Path,
     return counts, metrics
 
 
+def drive_sampler_graphs(torch, kernels, seed: int, card: str):
+    """Phase 5k, the captured samplers at full width, random weights from
+    a seed, cudnn.deterministic pinned (as 4i); each path timed in turns
+    (eager, captured, captured, eager) after one untimed call of each (the
+    capture, the warm-up; for the ancestral sampler and `interpolate` the
+    eager warm-up is a 3-step `interpolate`, not a full batch), every
+    call's launches gated exactly; captured
+    within 1e-5 of the largest eager value; samples/s of each, the
+    graphs' capture seconds and pool bytes:
+    - the ancestral sampler at LDMConfig's full width (T 1000, batch 16,
+      cond_scale 1.0), then the fp32 decode: 1000 + 1 forwards;
+    - `interpolate` at that width from t = 250 (cut from T - 1 = 999):
+      250 forwards;
+    - `bench_edm`'s Heun-32 and DPM++(2M) at its defaults (512 and 256
+      forwards at [16, 256, 4, 64]);
+    - the library's samplers at 5i's widths (train_ddpm's U-Net at 128 px,
+      bf16, batch 16; the UViT at 256 px; the 1-D example), steps cut:
+      learned variance and the weighted objective ancestral at T 20, the
+      guided ancestral (T 20) and DDIM-20 (T 100) with a seeded ResNet18,
+      RePaint of 4 at T 20 (50 denoise ops), continuous time (learned
+      log-SNR) and simple diffusion (UViT) at 20 steps, the 1-D DDIM-50;
+    - `python -m vqgan_tpu_torch.bench_sampling` at its defaults (its
+      first call untimed, 3 timed: 4 x (150 + 1) forwards, the decode in
+      bf16), its JSON line printed.
+    Returns ({(kernel, shape): launches}, {metric: value})."""
+    import contextlib
+    import io
+
+    from vqgan_tpu_torch import bench_edm, bench_sampling
+    from vqgan_tpu_torch.configs import LDMConfig
+    from vqgan_tpu_torch.diffusion import (
+        ContinuousTimeGaussianDiffusion,
+        GaussianDiffusion1D,
+        GuidedGaussianDiffusion,
+        LearnedLogSNR,
+        LearnedScheduleDenoiser,
+        LearnedVarianceGaussianDiffusion,
+        RePaintDiffusion,
+        SimpleDiffusion,
+        WeightedObjectiveGaussianDiffusion,
+        make_classifier_cond_fn,
+    )
+    from vqgan_tpu_torch.generate import load_model, load_vae
+    from vqgan_tpu_torch.models import Unet, Unet1D, UViT
+    from vqgan_tpu_torch.models.resnet import ResNet18
+
+    t_phase = time.perf_counter()
+    counts, metrics = {}, {}
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    unet16 = (16, 16, 8, 64, "bfloat16")
+    vae16 = (16, 1024, 1, 512, "float32")
+    ddpm = (16, 256, 4, 32, "bfloat16")
+
+    def gated(label, fn, expected, tag=None):
+        return run_gated_tagged(torch, kernels, label, fn, expected, counts,
+                                tag)
+
+    def turns(label, run, expected, n, graphs, tag=None, warm=None):
+        """run(graph) -> the output; in turns after an untimed call of
+        each (`warm`, (fn, expected), in place of the untimed eager call);
+        records samples/s, capture seconds and pool bytes."""
+        gated(f"{label}, captured (untimed)", lambda: run(True), expected,
+              tag)
+        gated(f"{label}, eager (untimed)", *(
+            warm or (lambda: run(False), expected)), tag)
+        outs, secs = {}, {"eager": [], "captured": []}
+        for name in ("eager", "captured", "captured", "eager"):
+            out, sec = gated(f"{label}, {name}",
+                             lambda: run(name == "captured"), expected, tag)
+            outs.setdefault(name, out.float().cpu())
+            secs[name].append(sec)
+        eager, captured = outs["eager"], outs["captured"]
+        err = (captured - eager).abs().max().item()
+        size = eager.abs().max().item()
+        stats = graphs.stats()
+        rates = {k: n / (sum(v) / len(v)) for k, v in secs.items()}
+        metrics[label] = {"eager_samples_per_s": rates["eager"],
+                          "captured_samples_per_s": rates["captured"],
+                          "capture_seconds": stats["capture_seconds"],
+                          "pool_bytes": stats["pool_bytes"]}
+        print(f"[{card}] {label}: seconds per batch in turns (eager, "
+              f"captured, captured, eager) {secs['eager'][0]:.4f}, "
+              f"{secs['captured'][0]:.4f}, {secs['captured'][1]:.4f}, "
+              f"{secs['eager'][1]:.4f}; samples/s eager "
+              f"{rates['eager']:.4f}, captured {rates['captured']:.4f}; "
+              f"captured vs eager max|diff| {err:.3e} (max {size:.3e}); "
+              f"{len(stats['graphs'])} graph(s), capture "
+              f"{stats['capture_seconds']:.3f} s, pool "
+              f"{stats['pool_bytes']} B")
+        if not np.isfinite(captured.numpy()).all() or err > 1e-5 * size:
+            fail(f"{label}: the captured sampler disagrees with the eager "
+                 f"loop")
+
+    def gen(s):
+        return torch.Generator("cuda").manual_seed(seed + s)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # --- the LDM U-Net: ancestral (T 1000) and interpolate -------------
+        cfg = LDMConfig(sampling_timesteps=1000)
+        torch.manual_seed(seed + 40)
+        diffusion, _ = load_model(cfg, device=dev)
+        vae = load_vae(None, cfg.latent_channels, cfg.image_size, device=dev)
+        classes = torch.arange(16, device=dev) % cfg.num_users
+
+        def ancestral(graph):
+            latents = diffusion.p_sample_loop(
+                (16, 32, 32, 4), classes, cond_scale=1.0,
+                rescaled_phi=cfg.rescaled_phi, generator=gen(41),
+                graph=graph)
+            with torch.inference_mode():
+                return vae.decode_latents(latents)
+
+        x1, x2 = torch.randn((2, 16, 32, 32, 4), device=dev,
+                             generator=gen(42))
+
+        def interpolate(t, graph):
+            return diffusion.interpolate(x1, x2, classes, t=t, lam=0.5,
+                                         generator=gen(43), graph=graph)
+
+        # the eager warm-up of both: the same ancestral step, 3 times (the
+        # captured call before it ran the step eagerly once, and the decode)
+        warm = (lambda: interpolate(3, False), {("flash_fwd", unet16): 3})
+        turns("ancestral_t1000_decode", ancestral,
+              {("flash_fwd", unet16): 1000, ("flash_fwd", vae16): 1}, 16,
+              diffusion._graphs, warm=warm)
+        turns("interpolate_from_t250",
+              lambda graph: interpolate(250, graph),
+              {("flash_fwd", unet16): 250}, 16, diffusion._graphs, warm=warm)
+        del diffusion, vae
+
+        # --- EDM at bench_edm's defaults -----------------------------------
+        _, ed = bench_edm.build(bench_edm.parse_args([]), dev)
+        karras = (16, 256, 4, 64, "bfloat16")
+        turns("edm_heun32", lambda graph: ed.sample(
+            16, generator=gen(44), graph=graph),
+            {("flash_fwd", karras): 512}, 16, ed._graphs)
+        turns("edm_dpmpp32", lambda graph: ed.sample_using_dpmpp(
+            16, generator=gen(45), graph=graph),
+            {("flash_fwd", karras): 256}, 16, ed._graphs)
+        del ed
+
+        # --- the library at 5i's widths ------------------------------------
+        def unet(**kw):
+            return Unet(dim=64, dim_mults=(1, 2, 4, 8), channels=3,
+                        dtype=bf16, **kw).to(dev).eval()
+
+        img = (16, 128, 128, 3)
+        torch.manual_seed(seed + 46)
+        for label, d in (
+                ("learned_variance_ancestral_t20",
+                 LearnedVarianceGaussianDiffusion(
+                     unet(learned_variance=True), image_size=128,
+                     timesteps=20, device=dev)),
+                ("weighted_objective_ancestral_t20",
+                 WeightedObjectiveGaussianDiffusion(
+                     unet(out_dim=8), image_size=128, timesteps=20,
+                     device=dev))):
+            turns(label, lambda graph, d=d: d.p_sample_loop(
+                img, generator=gen(47), graph=graph),
+                {("flash_fwd", ddpm): 60}, 16, d._graphs)
+        model = unet()
+        classifier = ResNet18(31).to(dev).eval()
+        cond = (make_classifier_cond_fn(lambda x, t: classifier(x)),
+                {"y": torch.arange(16, device=dev) % 31})
+        for label, d, name, n_fwd in (
+                ("guided_ancestral_t20", GuidedGaussianDiffusion(
+                    model, image_size=128, timesteps=20, objective="pred_v",
+                    device=dev), "p_sample_loop_guided", 20),
+                ("guided_ddim20", GuidedGaussianDiffusion(
+                    model, image_size=128, timesteps=100,
+                    sampling_timesteps=20, objective="pred_v", device=dev),
+                 "ddim_sample_guided", 20)):
+            turns(label, lambda graph, d=d, name=name: getattr(d, name)(
+                img, *cond, generator=gen(48), graph=graph),
+                {("flash_fwd", ddpm): 3 * n_fwd}, 16, d._graphs)
+        rp = RePaintDiffusion(model, image_size=128, timesteps=20,
+                              objective="pred_v", device=dev)
+        n_denoise = int((rp.schedule_ops()[:, 0] == 0).sum())
+        gt = torch.rand((4, 128, 128, 3), device=dev, generator=gen(49))
+        mask = torch.zeros(4, 128, 128, 1, device=dev)
+        mask[:, :, :64] = 1.0
+        turns(f"repaint_t20_{n_denoise}_denoise_ops",
+              lambda graph: rp.inpaint(gt, mask, generator=gen(50),
+                                       graph=graph),
+              {("flash_fwd", (4, 256, 4, 32, "bfloat16")): 3 * n_denoise},
+              4, rp._graphs)
+        ct = ContinuousTimeGaussianDiffusion(
+            LearnedScheduleDenoiser(
+                unet(learned_sinusoidal_cond=True), LearnedLogSNR(
+                    *ContinuousTimeGaussianDiffusion.learned_endpoints()
+                ).to(dev)),
+            image_size=128, noise_schedule="learned", num_sample_steps=20,
+            device=dev)
+        turns("continuous_learned_20_steps",
+              lambda graph: ct.sample(16, generator=gen(51), graph=graph),
+              {("flash_fwd", ddpm): 60}, 16, ct._graphs)
+        del model, classifier, rp, ct
+        sd = SimpleDiffusion(UViT(dim=64, dim_mults=(1, 2, 4, 8),
+                                  dtype=bf16).to(dev).eval(),
+                             image_size=256, pred_objective="v",
+                             num_sample_steps=20, device=dev)
+        turns("uvit_simple_20_steps",
+              lambda graph: sd.sample(16, generator=gen(52), graph=graph),
+              {("flash_fwd", ddpm): 120}, 16, sd._graphs, tag="uvit")
+        del sd
+        d1 = GaussianDiffusion1D(
+            Unet1D(dim=64, dim_mults=(1, 2, 4, 8), channels=32).to(
+                dev).eval(), image_size=128, seq_length=128, channels=32,
+            timesteps=1000, sampling_timesteps=50, objective="pred_v",
+            device=dev)
+        turns("unet1d_ddim50", lambda graph: d1.sample(
+            16, generator=gen(53), graph=graph),
+            {("flash_fwd", (16, 16, 4, 32, "float32")): 50}, 16, d1._graphs)
+        del d1
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # --- bench_sampling at its defaults ------------------------------------
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        bench, _ = gated("bench_sampling (defaults)",
+                         lambda: bench_sampling.main([]),
+                         {("flash_fwd", unet16): 4 * 150,
+                          ("flash_fwd", (16, 1024, 1, 512, "bfloat16")): 4})
+    lines = stdout.getvalue().strip().splitlines()
+    print("\n".join(lines))
+    line = json.loads([x for x in lines if x.startswith("{")][-1])
+    if set(line) != {"metric", "value", "unit", "vs_baseline"} \
+            or not line["value"] > 0 \
+            or not bool(torch.isfinite(bench["images"]).all()) \
+            or tuple(bench["images"].shape) != (16, 256, 256, 3):
+        fail(f"bench_sampling: {line}, {tuple(bench['images'].shape)}")
+    metrics["bench_sampling_samples_per_s"] = bench["samples_per_s"]
+    metrics["bench_sampling_first_s"] = bench["first_s"]
+    metrics["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"phase 5k: {metrics['phase_seconds']:.3f} s")
+    return counts, metrics
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4105,6 +4721,7 @@ def main():
     check_small_ddpm_and_karras(torch, KERNELS, args.seed)
     check_small_diffusion_library(torch, KERNELS, args.seed)
     eager_rates = check_small_captured(torch, KERNELS, args.seed)
+    check_small_sampler_graphs(torch, KERNELS, args.seed)
 
     if not args.kernels_only:
         counts, rates = drive_main_path(torch, KERNELS, args.seed)
@@ -4152,11 +4769,14 @@ def main():
                 torch, KERNELS, args.seed, work / "captured", work / "ldm",
                 work / "vqgan", card)
             print("captured training: " + json.dumps(captured_metrics))
+            sampler_counts, sampler_metrics = drive_sampler_graphs(
+                torch, KERNELS, args.seed, card)
+            print("captured samplers: " + json.dumps(sampler_metrics))
         for key, n in [*train_counts.items(), *vq_counts.items(),
                        *kl_counts.items(), *gmm_counts.items(),
                        *serving_counts.items(), *stage2_counts.items(),
                        *pixel_counts.items(), *library_counts.items(),
-                       *captured_counts.items()]:
+                       *captured_counts.items(), *sampler_counts.items()]:
             counts[key] = counts.get(key, 0) + n
         for row in rows.values():
             row["launches"] = counts.get((row["name"], row["key"]), 0)

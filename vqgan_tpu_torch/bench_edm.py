@@ -8,8 +8,10 @@ Counterpart of cli/bench_edm.py (BASELINE config #5), with its flags and
 defaults: a class-conditional KarrasUnet (dim 64, dim_max 4 x dim, 31
 classes, 2 downsamples, 2 blocks per stage, attention at 16 and 8 px,
 bf16, eval mode) at 64 px with random weights from `--seed`; batch 16,
-32 steps, one untimed batch per sampler, then `--iters` timed batches.
-Times are host seconds with the device synchronised at both ends. Prints
+32 steps, one untimed batch per sampler (on the card it holds the
+capture: each sampler step then replays one captured CUDA graph, the
+samplers' default), then `--iters` timed batches. Times are host seconds
+with the device synchronised at both ends. Prints
 each sampler's samples/s on stderr and, as its last line, the JSON line of
 the JAX CLI (the Heun rate, or DPM++'s with `--sampler dpmpp`).
 

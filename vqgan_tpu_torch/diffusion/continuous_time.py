@@ -31,7 +31,8 @@ from ..core.diffusion_math import (
     unnormalize_to_zero_to_one,
 )
 from ..device import resolve_device
-from .gaussian import _channels_first, _nchw, _nhwc
+from ..graphs import ChainGraphs, ChainStep, resolve_graph, run_chain
+from .gaussian import _channels_first, _nchw, _nhwc, _row_noise
 
 __all__ = [
     "beta_linear_log_snr",
@@ -126,13 +127,16 @@ def alpha_sigma(log_snr):
 
 
 def logsnr_sample(diffusion, batch_size: int, step: Callable, init_noise,
-                  step_noise, generator):
+                  step_noise, generator, graph=None):
     """The samplers of the log-SNR diffusions: times 1 -> 0 in
     `num_sample_steps` steps; `step(img, time, time_next)` (0-d fp32
     tensors) gives the posterior (mean, variance); noise is added except at
-    time_next = 0; the result clipped to [-1, 1] and mapped to [0, 1],
-    NHWC. init_noise ([B, H, W, C]) and step_noise ([steps, B, H, W, C])
-    replace the draws from `generator`, the initial one first."""
+    time_next = 0 (a device mask on the last step); the result clipped to
+    [-1, 1] and mapped to [0, 1], NHWC. init_noise ([B, H, W, C]) and
+    step_noise ([steps, B, H, W, C]) replace the draws from `generator`,
+    the initial one first. On the card each step replays one captured
+    graph of the step (`graph` None; False and the CPU run it eagerly;
+    True on the CPU raises), kept on `diffusion._graphs`."""
     dev = diffusion.device
     shape = (batch_size, diffusion.image_size, diffusion.image_size,
              diffusion.channels)
@@ -142,15 +146,24 @@ def logsnr_sample(diffusion, batch_size: int, step: Callable, init_noise,
                             device=dev))
     steps_noise = (None if step_noise is None else torch.as_tensor(
         step_noise, dtype=torch.float32, device=dev).movedim(-1, 2))
+    n = diffusion.num_sample_steps
     times = torch.from_numpy(np.linspace(
-        1.0, 0.0, diffusion.num_sample_steps + 1).astype(np.float32)).to(dev)
-    for i in range(diffusion.num_sample_steps):
-        time, time_next = times[i], times[i + 1]
-        mean, var = step(img, time, time_next)
-        noise = (steps_noise[i] if steps_noise is not None else torch.randn(
-            img.shape, generator=generator, device=dev))
-        img = mean if i == diffusion.num_sample_steps - 1 \
-            else mean + torch.sqrt(var) * noise
+        1.0, 0.0, n + 1).astype(np.float32)).to(dev)
+
+    def body(generators, carry, consts, row):
+        img = carry["img"]
+        mean, var = step(img, row["time"], row["time_next"])
+        noise = _row_noise(row, img, generators)
+        return {"img": torch.where(row["last"], mean,
+                                   mean + torch.sqrt(var) * noise)}
+
+    chain = ChainStep(body, graphs=diffusion._graphs, key=("logsnr", getattr(step, "__func__", step)),
+                      graph=resolve_graph(graph, dev),
+                      name=f"{type(diffusion).__name__} step")
+    img = run_chain(chain, {"img": img}, n, table={
+        "time": times[:-1], "time_next": times[1:],
+        "last": torch.arange(n, device=dev) == n - 1,
+        "noise": steps_noise}, generators=[generator])["img"]
     return unnormalize_to_zero_to_one(_nhwc(torch.clamp(img, -1.0, 1.0)))
 
 
@@ -185,6 +198,9 @@ class ContinuousTimeGaussianDiffusion:
     min_snr_loss_weight: bool = False
     min_snr_gamma: float = 5.0
     device: str | torch.device = "cuda"  # no GPU raises; "cpu" on ask
+    # the sampler's captured steps, by their key
+    _graphs: ChainGraphs = dataclasses.field(
+        default_factory=ChainGraphs, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -255,11 +271,12 @@ class ContinuousTimeGaussianDiffusion:
 
     @torch.inference_mode()
     def sample(self, batch_size: int = 16, *, init_noise=None,
-               step_noise=None, generator: torch.Generator = None):
+               step_noise=None, generator: torch.Generator = None,
+               graph=None):
         """Ancestral sampling over `num_sample_steps`; see
         `logsnr_sample`."""
         return logsnr_sample(self, batch_size, self._posterior, init_noise,
-                             step_noise, generator)
+                             step_noise, generator, graph)
 
 
 @dataclasses.dataclass
@@ -273,6 +290,8 @@ class VParamContinuousTimeGaussianDiffusion:
     num_sample_steps: int = 500
     clip_sample_denoised: bool = True
     device: str | torch.device = "cuda"  # no GPU raises; "cpu" on ask
+    _graphs: ChainGraphs = dataclasses.field(
+        default_factory=ChainGraphs, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -309,6 +328,7 @@ class VParamContinuousTimeGaussianDiffusion:
 
     @torch.inference_mode()
     def sample(self, batch_size: int = 16, *, init_noise=None,
-               step_noise=None, generator: torch.Generator = None):
+               step_noise=None, generator: torch.Generator = None,
+               graph=None):
         return logsnr_sample(self, batch_size, self._posterior, init_noise,
-                             step_noise, generator)
+                             step_noise, generator, graph)

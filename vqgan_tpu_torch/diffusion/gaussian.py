@@ -7,11 +7,16 @@ and the self-conditioning coin can be injected), `model_predictions` (with
 the CFG [cond; null] pair as one 2B-batch forward, and CFG++), `ddim_step`
 (one CFG DDIM step with t, t_next and the noise as tensors, traceable by
 `torch.export`; `DDIMStep` is it as a module), `ddim_sample` (that step
-over the (time, time_next) pairs: on the card each a replay of one captured
-CUDA graph, on the CPU a Python loop), `p_sample_loop` (the
-ancestral sampler), `sample` (DDIM when sampling_timesteps < T, else
-ancestral) and `interpolate`. Every random draw can be passed in as a
-tensor, or comes from an explicit `torch.Generator`. NCHW inside; the
+over the (time, time_next) pairs), `p_sample_loop` (the ancestral sampler),
+`sample` (DDIM when sampling_timesteps < T, else ancestral) and
+`interpolate`. Each sampler is one step body run over a per-step table
+(`graphs.run_chain`): on the card each step a replay of the body's
+captured CUDA graph, the counterpart of the JAX package's one `lax.scan`
+program; on the CPU, or with `graph=False`, the body called from a Python
+loop. The body branches on no step: the last ancestral step's missing
+noise is a device mask (`torch.where`), as JAX's `jnp.where` is. Every
+random draw can be passed in as a tensor, or comes from an explicit
+`torch.Generator`, drawn inside the body in the eager loop's order. NCHW inside; the
 public functions take and return NHWC latents, like the JAX package, or
 [B, L, C] sequences ([B, C, L] inside) for a 1-D denoiser.
 
@@ -40,7 +45,7 @@ from ..core import diffusion_math as dm
 from ..core.guidance import apply_cfg
 from ..core.schedules import DiffusionSchedule, make_schedule
 from ..device import resolve_device
-from ..graphs import Graphed
+from ..graphs import ChainGraphs, ChainStep, resolve_graph, run_chain
 from ..ops.assignment import auction_assignment
 
 __all__ = ["GaussianDiffusion", "DDIMStep", "immiscible_permutation"]
@@ -62,19 +67,21 @@ def _channels_first(shape):
     return (shape[0], shape[-1], *shape[1:-1])
 
 
-def immiscible_permutation(x_start, noise, method: str = "host"):
+def immiscible_permutation(x_start, noise, method: str = "host",
+                           graphs: Optional[ChainGraphs] = None):
     """[B] int64 on x_start's device: row i of the batch gets noise row
     perm[i], the assignment of least total squared distance between the
     flattened images and noise draws. "host": scipy's exact Hungarian
     solver on the fp32 distance matrix, copied to the host; "auction": the
-    on-device epsilon-auction, within B * eps of the least cost."""
+    on-device epsilon-auction, within B * eps of the least cost, its
+    blocks of bids replayed from `graphs` on the card."""
     b = x_start.shape[0]
     xf = x_start.reshape(b, -1).float()
     nf = noise.reshape(b, -1).float()
     dist = ((xf * xf).sum(1, keepdim=True) - 2.0 * (xf @ nf.T)
             + (nf * nf).sum(1)[None, :])
     if method == "auction":
-        return auction_assignment(dist)
+        return auction_assignment(dist, graphs=graphs)
     if method != "host":
         raise ValueError(f"unknown immiscible_method {method!r}")
     from scipy.optimize import linear_sum_assignment
@@ -111,9 +118,9 @@ class GaussianDiffusion:
     self_condition: bool = False  # unconditional models only
     device: str | torch.device = "cuda"  # no GPU raises; "cpu" on ask
     schedule: DiffusionSchedule = None
-    # the captured DDIM steps of `ddim_sample`, by their key
-    _graphs: dict = dataclasses.field(default_factory=dict, init=False,
-                                      repr=False, compare=False)
+    # the samplers' captured steps (and the auction's bids), by their key
+    _graphs: ChainGraphs = dataclasses.field(
+        default_factory=ChainGraphs, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -163,8 +170,8 @@ class GaussianDiffusion:
             noise = _nchw(torch.as_tensor(noise, dtype=torch.float32,
                                           device=x_start.device))
         if self.immiscible:
-            noise = noise[immiscible_permutation(x_start, noise,
-                                                 self.immiscible_method)]
+            noise = noise[immiscible_permutation(
+                x_start, noise, self.immiscible_method, self._graphs)]
         if self.offset_noise_strength > 0.0:
             # per-(sample, channel) constant offset
             offset = torch.randn((b, c), generator=generator,
@@ -293,27 +300,22 @@ class GaussianDiffusion:
                             num=self.sampling_timesteps + 1).astype(int)[::-1]
         return [(int(a), int(b)) for a, b in zip(times[:-1], times[1:])]
 
-    def _step_noise(self, shape, step_noise, generator):
-        """step i -> NCHW noise for an NHWC `shape`: row i of the given
-        step_noise ([steps, *shape], NHWC), else a draw from `generator`."""
+    def _given_steps(self, step_noise):
+        """Given per-step noise, NHWC [steps, *shape] -> NCHW; None stays
+        None."""
         if step_noise is None:
-            return lambda i: torch.randn(_channels_first(shape),
-                                         generator=generator,
-                                         device=self.device)
-        steps = torch.as_tensor(step_noise, dtype=torch.float32,
-                                device=self.device).movedim(-1, 2)
-        return lambda i: steps[i]
+            return None
+        return torch.as_tensor(step_noise, dtype=torch.float32,
+                               device=self.device).movedim(-1, 2)
 
-    def _noise_source(self, shape, init_noise, step_noise, generator):
-        """(initial NCHW noise, step i -> NCHW noise) for an NHWC `shape`:
-        the given tensors (init_noise [*shape], NHWC), else draws from
-        `generator`, the initial one first."""
-        img = (_nchw(torch.as_tensor(init_noise, dtype=torch.float32,
-                                     device=self.device))
-               if init_noise is not None else
-               torch.randn(_channels_first(shape), generator=generator,
-                           device=self.device))
-        return img, self._step_noise(shape, step_noise, generator)
+    def _initial_noise(self, shape, init_noise, generator):
+        """The initial NCHW noise for an NHWC `shape`: init_noise ([*shape],
+        NHWC) as given, else a draw from `generator`."""
+        if init_noise is not None:
+            return _nchw(torch.as_tensor(init_noise, dtype=torch.float32,
+                                         device=self.device))
+        return torch.randn(_channels_first(shape), generator=generator,
+                           device=self.device)
 
     def _finish(self, img, trajectory, return_all_timesteps: bool):
         """NHWC result, unnormalised: the final latents, or with
@@ -323,6 +325,37 @@ class GaussianDiffusion:
             return self.unnormalize(torch.stack(
                 [_nhwc(x) for x in trajectory], dim=1))
         return self.unnormalize(_nhwc(img))
+
+    def _chain(self, img, body, key, table: dict, *, classes=None,
+               consts=None, step_noise=None, generator=None, graph=None,
+               carry_x_start: bool = False,
+               return_all_timesteps: bool = False, name: str = "step",
+               latest=None):
+        """The samplers' loop: `body` (a `ChainStep` body over the carry
+        {"img"[, "x_start"]}) over the per-step `table` from NCHW `img`,
+        given noise as its "noise" column; on the card each step a replay
+        of the body's graph, kept under `key` for `latest` (see
+        `graphs.ChainStep`). Returns the NHWC result (`_finish`)."""
+        step = ChainStep(body, graphs=self._graphs, key=key,
+                         graph=resolve_graph(graph, self.device),
+                         name=f"{type(self).__name__} {name}", latest=latest)
+        trajectory = [img]
+        carry = run_chain(
+            step, {"img": img,
+                   "x_start": torch.zeros_like(img) if carry_x_start
+                   else None},
+            len(next(iter(table.values()))),
+            consts={"classes": self._classes(classes), **(consts or {})},
+            table={**table, "noise": self._given_steps(step_noise)},
+            generators=[generator],
+            each=((lambda c: trajectory.append(c["img"]))
+                  if return_all_timesteps else None))
+        return self._finish(carry["img"], trajectory, return_all_timesteps)
+
+    def _times(self, start: int, batch: int):
+        """The ancestral chain's t = start .. 0, [start + 1, batch] int64."""
+        return torch.arange(start, -1, -1, device=self.device)[:, None].expand(
+            -1, batch)
 
     @torch.inference_mode()
     def ddim_sample(self, shape, classes, *, cond_scale: float = 6.0,
@@ -346,124 +379,126 @@ class GaussianDiffusion:
         from `generator` in the eager loop's order, and the self-condition
         carry is one of the graph's inputs. `graph` False runs the Python
         loop of steps (the CPU's path); True on the CPU raises."""
-        use_graph = self.device.type == "cuda" if graph is None else graph
-        classes = self._classes(classes)
+        kw = dict(cond_scale=cond_scale, rescaled_phi=rescaled_phi,
+                  clip_denoised=clip_denoised)
+
+        def body(generators, carry, consts, row):
+            img = carry["img"]
+            noise = _row_noise(row, img, generators)
+            img, x_start = self._ddim_update(
+                img, row["time"], row["time_next"], consts.get("classes"),
+                noise, x_self_cond=carry.get("x_start"), **kw)
+            return {"img": img, "x_start": x_start}
+
         pairs = torch.tensor(self.ddim_time_pairs(), dtype=torch.long,
                              device=self.device)[:, :, None].expand(
                                  -1, -1, shape[0])
-        img, noise_at = self._noise_source(shape, init_noise, step_noise,
-                                           generator)
-        kw = dict(cond_scale=cond_scale, rescaled_phi=rescaled_phi,
-                  clip_denoised=clip_denoised)
-        step = (self._ddim_step_graph(classes is None, step_noise is None,
-                                      generator is None, shape, **kw)
-                if use_graph else None)
-        trajectory = [img]
-        x_start = (torch.zeros_like(img) if self.self_condition and use_graph
-                   else None)
-        for i, (tb, tnb) in enumerate(pairs):
-            if step is None:
-                img, x_start = self._ddim_update(
-                    img, tb, tnb, classes, noise_at(i),
-                    x_self_cond=x_start if self.self_condition else None,
-                    **kw)
-            else:
-                args = [img, tb, tnb]
-                args += [] if classes is None else [classes]
-                args += [] if step_noise is None else [noise_at(i)]
-                args += [x_start] if self.self_condition else []
-                img, x_start = step(*args, generators=[generator])
-            if return_all_timesteps:
-                trajectory.append(img)
-        return self._finish(img, trajectory, return_all_timesteps)
-
-    def _ddim_step_graph(self, unconditional: bool, draws: bool,
-                         default_generator: bool, shape, **kw) -> Graphed:
-        """The captured DDIM step of `ddim_sample`, by its key: (img, time,
-        time_next[, classes][, noise][, x_self_cond]) -> (next img, x_0
-        estimate), the noise drawn inside from the generator when `draws`."""
-        key = (tuple(shape), *kw.values(), unconditional, draws,
-               default_generator)
-        if key not in self._graphs:
-            def step(generators, img, tb, tnb, *rest):
-                rest = list(rest)
-                classes = None if unconditional else rest.pop(0)
-                noise = (torch.randn(img.shape, generator=generators[0],
-                                     device=img.device)
-                         if draws else rest.pop(0))
-                return self._ddim_update(
-                    img, tb, tnb, classes, noise,
-                    x_self_cond=rest.pop(0) if rest else None, **kw)
-
-            self._graphs[key] = Graphed(step, name="DDIM step")
-        return self._graphs[key]
+        img = self._initial_noise(shape, init_noise, generator)
+        return self._chain(
+            img, body, ("ddim", *kw.values()),
+            {"time": pairs[:, 0], "time_next": pairs[:, 1]}, classes=classes,
+            step_noise=step_noise, generator=generator, graph=graph,
+            carry_x_start=self.self_condition,
+            return_all_timesteps=return_all_timesteps, name="DDIM step")
 
     def _classes(self, classes):
         return (None if classes is None
                 else torch.as_tensor(classes, device=self.device))
 
-    def p_sample(self, img, t: int, classes, noise, *, cond_scale: float,
-                 rescaled_phi: float, clip_denoised: bool = True,
-                 x_self_cond=None):
-        """One ancestral step from x_t (NCHW) at time `t` (a Python int):
-        the model's x_0, clipped after `model_predictions`, the posterior
-        mean and clipped log variance, plus `noise` except at t = 0.
-        Returns (x_{t-1}, the x_0 estimate)."""
-        tb = torch.full((img.shape[0],), t, dtype=torch.long,
-                        device=img.device)
+    def _p_predict(self, img, tb, classes, *, cond_scale: float,
+                   rescaled_phi: float, clip_denoised: bool,
+                   x_self_cond=None):
+        """(posterior mean, clipped log variance, x_0 estimate) at x_t:
+        the model's x_0, clipped after `model_predictions`."""
         _, x_start = self.model_predictions(
             img, tb, classes, cond_scale=cond_scale,
             rescaled_phi=rescaled_phi, x_self_cond=x_self_cond)
         if clip_denoised:
             x_start = torch.clamp(x_start, -1.0, 1.0)
         mean, _, log_var = dm.q_posterior(self.schedule, x_start, img, tb)
-        if t == 0:
-            return mean, x_start
-        return mean + torch.exp(0.5 * log_var) * noise, x_start
+        return mean, log_var, x_start
+
+    def _ancestral_body(self, predict):
+        """The ancestral chain's step body: (mean, log_var, x_0) =
+        predict(x_t, t [B], consts, x_self_cond), then
+        `ancestral_update` with this step's noise (drawn first, as the
+        eager loop draws it)."""
+        def body(generators, carry, consts, row):
+            img, tb = carry["img"], row["t"]
+            noise = _row_noise(row, img, generators)
+            mean, log_var, x_start = predict(img, tb, consts,
+                                             carry.get("x_start"))
+            return {"img": ancestral_update(mean, log_var, noise, tb),
+                    "x_start": x_start}
+
+        return body
+
+    def _cfg_ancestral(self, img, start: int, classes, *, cond_scale,
+                       rescaled_phi, clip_denoised, carry_x_start,
+                       step_noise, generator, graph,
+                       return_all_timesteps=False):
+        """Ancestral steps from t = start down to 0 over NCHW `img`
+        (`_p_predict`, then `ancestral_update`), the x_0 estimate carried
+        into the next step with `carry_x_start`."""
+        kw = dict(cond_scale=cond_scale, rescaled_phi=rescaled_phi,
+                  clip_denoised=clip_denoised)
+
+        def predict(x, tb, consts, x_self_cond):
+            return self._p_predict(x, tb, consts.get("classes"),
+                                   x_self_cond=x_self_cond, **kw)
+
+        return self._chain(
+            img, self._ancestral_body(predict),
+            ("ancestral", *kw.values(), carry_x_start),
+            {"t": self._times(start, img.shape[0])}, classes=classes,
+            step_noise=step_noise, generator=generator, graph=graph,
+            carry_x_start=carry_x_start,
+            return_all_timesteps=return_all_timesteps,
+            name="ancestral step")
 
     @torch.inference_mode()
     def p_sample_loop(self, shape, classes, *, cond_scale: float = 6.0,
                       rescaled_phi: float = 0.7, clip_denoised: bool = True,
                       return_all_timesteps: bool = False, init_noise=None,
-                      step_noise=None, generator: torch.Generator = None):
+                      step_noise=None, generator: torch.Generator = None,
+                      graph: Optional[bool] = None):
         """Ancestral (DDPM) sampler over every t from T-1 down to 0. `shape`
         is NHWC; init_noise ([*shape]) and step_noise ([timesteps, *shape],
         row i for t = T-1-i; the row for t = 0 is unused), NHWC, replace the
         draws from `generator` (one per step, t = 0 included, as the JAX
-        package draws)."""
-        img, noise_at = self._noise_source(shape, init_noise, step_noise,
-                                           generator)
-        trajectory = [img]
-        classes = self._classes(classes)
-        x_start = None
-        for i, t in enumerate(range(self.timesteps - 1, -1, -1)):
-            img, x_start = self.p_sample(
-                img, t, classes, noise_at(i), cond_scale=cond_scale,
-                rescaled_phi=rescaled_phi, clip_denoised=clip_denoised,
-                x_self_cond=x_start if self.self_condition else None)
-            if return_all_timesteps:
-                trajectory.append(img)
-        return self._finish(img, trajectory, return_all_timesteps)
+        package draws). `graph` as in `ddim_sample`: each step a replay of
+        one captured graph on the card."""
+        img = self._initial_noise(shape, init_noise, generator)
+        return self._cfg_ancestral(
+            img, self.timesteps - 1, classes, cond_scale=cond_scale,
+            rescaled_phi=rescaled_phi, clip_denoised=clip_denoised,
+            carry_x_start=self.self_condition, step_noise=step_noise,
+            generator=generator, graph=graph,
+            return_all_timesteps=return_all_timesteps)
 
-    def _ancestral_loop(self, shape, mean_and_log_var,
+    def _ancestral_loop(self, shape, mean_and_log_var, key,
                         return_all_timesteps: bool, init_noise, step_noise,
-                        generator):
+                        generator, *, consts=None, graph=None,
+                        latest=None):
         """The ancestral loop of the learned-variance, weighted-objective
         and guided samplers: from x_T, x_{t-1} = mean + exp(log_var / 2) *
         noise for t = T-1 .. 0 (no noise at t = 0), (mean, log_var) =
-        mean_and_log_var(x_t, t [B]). Noise as in `p_sample_loop`. Their
-        JAX counterparts return the final samples only."""
+        mean_and_log_var(x_t, t [B], consts). Noise and `graph` as in
+        `p_sample_loop`; `key` and `latest` (`graphs.ChainStep`) name
+        what the caller's mean_and_log_var reads besides its arguments.
+        Their JAX counterparts return the final samples only."""
         if return_all_timesteps:
             raise ValueError("this sampler returns the final samples only")
-        img, noise_at = self._noise_source(shape, init_noise, step_noise,
-                                           generator)
-        for i, t in enumerate(range(self.timesteps - 1, -1, -1)):
-            tb = torch.full((shape[0],), t, dtype=torch.long,
-                            device=self.device)
-            mean, log_var = mean_and_log_var(img, tb)
-            noise = noise_at(i)
-            img = mean if t == 0 else mean + torch.exp(0.5 * log_var) * noise
-        return self.unnormalize(_nhwc(img))
+        img = self._initial_noise(shape, init_noise, generator)
+
+        def predict(x, tb, consts, _):
+            return (*mean_and_log_var(x, tb, consts), None)
+
+        return self._chain(
+            img, self._ancestral_body(predict), key,
+            {"t": self._times(self.timesteps - 1, shape[0])}, consts=consts,
+            step_noise=step_noise, generator=generator, graph=graph,
+            latest=latest, name="ancestral step")
 
     def ddim_step(self, img, time, time_next, classes, noise, *,
                   cond_scale: float = 6.0, rescaled_phi: float = 0.7,
@@ -492,10 +527,11 @@ class GaussianDiffusion:
     def sample(self, batch_size: Optional[int] = None, classes=None, *,
                cond_scale: float = 6.0, rescaled_phi: float = 0.7,
                return_all_timesteps: bool = False,
-               generator: torch.Generator = None):
+               generator: torch.Generator = None,
+               graph: Optional[bool] = None):
         """NHWC samples for `classes` (unconditional with classes None):
         DDIM when sampling_timesteps < T, the ancestral sampler when they
-        are equal."""
+        are equal; `graph` as in `ddim_sample`."""
         if batch_size is None:
             if classes is None:
                 raise ValueError("sample needs batch_size or classes")
@@ -505,17 +541,19 @@ class GaussianDiffusion:
         return fn(shape, classes, cond_scale=cond_scale,
                   rescaled_phi=rescaled_phi,
                   return_all_timesteps=return_all_timesteps,
-                  generator=generator)
+                  generator=generator, graph=graph)
 
     @torch.inference_mode()
     def interpolate(self, x1, x2, classes, t: Optional[int] = None,
                     lam: float = 0.5, *, noise1=None, noise2=None,
-                    step_noise=None, generator: torch.Generator = None):
+                    step_noise=None, generator: torch.Generator = None,
+                    graph: Optional[bool] = None):
         """Diffuse NHWC x1 and x2 to time t (default T-1), mix them as
         (1 - lam) x1_t + lam x2_t, then denoise ancestrally from t-1 down
         to 0 at cond_scale 1.0. noise1 / noise2 (the two q_sample draws,
         NHWC) and step_noise ([t, *shape]) replace the draws from
-        `generator`, in that order."""
+        `generator`, in that order. `graph` as in `ddim_sample`: the
+        steps replay `p_sample_loop`'s graph at cond_scale 1.0."""
         t = self.timesteps - 1 if t is None else t
         dev = self.device
         x1 = _nchw(torch.as_tensor(x1, dtype=torch.float32, device=dev))
@@ -533,12 +571,26 @@ class GaussianDiffusion:
         xt2 = dm.q_sample(self.schedule, self.normalize(x2), tb,
                           given_or_drawn(noise2))
         img = (1 - lam) * xt1 + lam * xt2
-        noise_at = self._step_noise(_nhwc(img).shape, step_noise, generator)
-        classes = self._classes(classes)
-        for i, tcur in enumerate(range(t - 1, -1, -1)):
-            img, _ = self.p_sample(img, tcur, classes, noise_at(i),
-                                   cond_scale=1.0, rescaled_phi=0.0)
-        return self.unnormalize(_nhwc(img))
+        return self._cfg_ancestral(
+            img, t - 1, classes, cond_scale=1.0, rescaled_phi=0.0,
+            clip_denoised=True, carry_x_start=False, step_noise=step_noise,
+            generator=generator, graph=graph)
+
+
+def _row_noise(row: dict, img, generators, name: str = "noise"):
+    """A step's noise: its row `name` of the given noise, else a draw of
+    img's shape from the step's generator."""
+    if name in row:
+        return row[name]
+    return torch.randn(img.shape, generator=generators[0], device=img.device)
+
+
+def ancestral_update(mean, log_var, noise, tb):
+    """x_{t-1} = mean + exp(log_var / 2) * noise, and the mean alone where
+    t [B] is 0: a device mask, as JAX's `jnp.where`, both sides always
+    computed."""
+    last = (tb == 0).reshape(-1, *((1,) * (mean.ndim - 1)))
+    return torch.where(last, mean, mean + torch.exp(0.5 * log_var) * noise)
 
 
 class DDIMStep(nn.Module):

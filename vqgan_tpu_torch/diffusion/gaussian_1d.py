@@ -10,6 +10,7 @@ holds it; `Dataset1D` is an in-memory dataset the DDPM `Trainer` takes as
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -35,13 +36,16 @@ class GaussianDiffusion1D(GaussianDiffusion):
 
     def sample(self, batch_size: int = 16, classes=None, *,
                cond_scale: float = 1.0, rescaled_phi: float = 0.0,
-               generator: torch.Generator = None):
+               generator: torch.Generator = None,
+               graph: Optional[bool] = None):
         """[B, L, C] samples (or [B, C, L] with `channel_first_data`):
-        DDIM when sampling_timesteps < T, else ancestral."""
+        DDIM when sampling_timesteps < T, else ancestral; `graph` as in
+        `GaussianDiffusion.ddim_sample` (the graphs keyed by the [B, C, L]
+        shape apart from the images')."""
         shape = (batch_size, self.seq_length, self.channels)
         fn = self.ddim_sample if self.is_ddim_sampling else self.p_sample_loop
         out = fn(shape, classes, cond_scale=cond_scale,
-                 rescaled_phi=rescaled_phi, generator=generator)
+                 rescaled_phi=rescaled_phi, generator=generator, graph=graph)
         return self._swap(out)
 
 

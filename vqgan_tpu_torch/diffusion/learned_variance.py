@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -132,15 +133,17 @@ class LearnedVarianceGaussianDiffusion(GaussianDiffusion):
     def p_sample_loop(self, shape, classes=None, *, cond_scale: float = 1.0,
                       rescaled_phi: float = 0.0, clip_denoised: bool = True,
                       return_all_timesteps: bool = False, init_noise=None,
-                      step_noise=None, generator: torch.Generator = None):
+                      step_noise=None, generator: torch.Generator = None,
+                      graph: Optional[bool] = None):
         """Ancestral sampling with the learned variance; `shape` NHWC,
-        init_noise ([*shape]) and step_noise ([timesteps, *shape]) as in
-        `GaussianDiffusion.p_sample_loop`."""
-        def mean_and_log_var(img, tb):
+        init_noise ([*shape]), step_noise ([timesteps, *shape]) and
+        `graph` as in `GaussianDiffusion.p_sample_loop`."""
+        def mean_and_log_var(img, tb, _):
             mean, _, log_var, _ = self.p_mean_variance(
                 img, tb, clip_denoised=clip_denoised)
             return mean, log_var
 
-        return self._ancestral_loop(shape, mean_and_log_var,
-                                    return_all_timesteps, init_noise,
-                                    step_noise, generator)
+        return self._ancestral_loop(
+            shape, mean_and_log_var, ("learned variance", clip_denoised),
+            return_all_timesteps, init_noise, step_noise, generator,
+            graph=graph)

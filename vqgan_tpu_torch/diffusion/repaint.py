@@ -17,18 +17,23 @@ The (op, t) schedule is built on the host; the loop runs the model on
 DENOISE ops only (the JAX scan evaluates it on every op and discards it on
 RENOISE ones: the same result). Each op has two noise draws, the blend's
 and the step's; a RENOISE op uses the step's, as the JAX package draws both
-branches' step noise from one key.
+branches' step noise from one key. The two kinds of op are two step bodies
+(`graphs.ChainStep`), on the card two captured graphs replayed in the
+schedule's order; the final denoise (t = 0) pastes the ground truth by a
+device mask, not a branch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..core import diffusion_math as dm
-from .gaussian import GaussianDiffusion, _nchw, _nhwc
+from ..graphs import ChainStep, resolve_graph
+from .gaussian import GaussianDiffusion, _nchw, _nhwc, _row_noise
 
 __all__ = ["RePaintDiffusion", "build_repaint_schedule"]
 
@@ -80,48 +85,74 @@ class RePaintDiffusion(GaussianDiffusion):
     def inpaint(self, gt, mask, *, classes=None, cond_scale: float = 1.0,
                 clip_denoised: bool = True, init_noise=None,
                 blend_noise=None, step_noise=None,
-                generator: torch.Generator = None):
+                generator: torch.Generator = None,
+                graph: Optional[bool] = None):
         """gt [B, H, W, C] in data space ([0, 1] with auto_normalize); mask
         NHWC, broadcastable to gt, 1 = the KNOWN region. init_noise
         ([*gt.shape]), blend_noise and step_noise ([n_ops, *gt.shape],
         row i for op i of `schedule_ops()`, NHWC) replace the draws from
-        `generator` (initial, then per op the blend's and the step's)."""
+        `generator` (initial, then per op the blend's and the step's).
+        `graph` as in `GaussianDiffusion.ddim_sample`: on the card each op
+        replays its kind's captured graph."""
         dev = self.device
         gt = torch.as_tensor(gt, dtype=torch.float32, device=dev)
         shape = tuple(gt.shape)
-        gt_n = _nchw(self.normalize(gt))
-        mask = _nchw(torch.as_tensor(mask, dtype=torch.float32, device=dev))
         ops = self.schedule_ops()
         diffusion, sched = self, self.schedule
         top = int(ops[:, 1].max())
         if top >= self.timesteps:
             sched = _extend_schedule(sched, top + 1)
             diffusion = dataclasses.replace(self, schedule=sched)
-        img, step_at = self._noise_source(shape, init_noise, step_noise,
-                                          generator)
-        blend_at = self._step_noise(shape, blend_noise, generator)
-        classes = self._classes(classes)
-        for i, (op, t) in enumerate(ops.tolist()):
-            if op == _OP_RENOISE:
-                # after DENOISE at t the state sits at level t-1; the
-                # RENOISE op recorded with t ascends x_{t-1} -> x_t by beta_t
-                beta = sched.betas[t]
-                img = torch.sqrt(1 - beta) * img + torch.sqrt(beta) \
-                    * step_at(i)
-                continue
+        b = shape[0]
+
+        def renoise(generators, carry, consts, row):
+            # after DENOISE at t the state sits at level t-1; the RENOISE
+            # op recorded with t ascends x_{t-1} -> x_t by beta_t
+            img = carry["img"]
+            noise = _row_noise(row, img, generators, "step")
+            beta = sched.betas[row["t"]]
+            return {"img": torch.sqrt(1 - beta) * img
+                    + torch.sqrt(beta) * noise}
+
+        def denoise(generators, carry, consts, row):
+            img, t, gt_n, mask = (carry["img"], row["t"], consts["gt"],
+                                  consts["mask"])
+            blend = _row_noise(row, img, generators, "blend")
             ac = sched.alphas_cumprod[t]
-            noised_gt = torch.sqrt(ac) * gt_n + torch.sqrt(1 - ac) \
-                * blend_at(i)
+            noised_gt = torch.sqrt(ac) * gt_n + torch.sqrt(1 - ac) * blend
             img = mask * noised_gt + (1 - mask) * img
-            tb = torch.full((shape[0],), t, dtype=torch.long, device=dev)
-            _, x_start = diffusion.model_predictions(img, tb, classes,
-                                                     cond_scale=cond_scale)
+            tb = t.expand(b)
+            _, x_start = diffusion.model_predictions(
+                img, tb, consts.get("classes"), cond_scale=cond_scale)
             if clip_denoised:
                 x_start = torch.clamp(x_start, -1.0, 1.0)
             mean, _, log_var = dm.q_posterior(sched, x_start, img, tb)
-            noise = step_at(i)
-            if t > 0:
-                img = mean + torch.exp(0.5 * log_var) * noise
-            else:  # the final step pastes the ground truth
-                img = mask * gt_n + (1 - mask) * mean
-        return self.unnormalize(_nhwc(img))
+            noise = _row_noise(row, img, generators, "step")
+            # the final step pastes the ground truth
+            return {"img": torch.where(
+                t > 0, mean + torch.exp(0.5 * log_var) * noise,
+                mask * gt_n + (1 - mask) * mean)}
+
+        use_graph = resolve_graph(graph, dev)
+        steps = {op: ChainStep(body, graphs=self._graphs,
+                               key=("repaint", op, cond_scale,
+                                    clip_denoised, top),
+                               graph=use_graph,
+                               name=f"RePaint {name} op")
+                 for op, body, name in ((_OP_RENOISE, renoise, "renoise"),
+                                        (_OP_DENOISE, denoise, "denoise"))}
+        consts = {"gt": _nchw(self.normalize(gt)),
+                  "mask": _nchw(torch.as_tensor(mask, dtype=torch.float32,
+                                                device=dev)),
+                  "classes": self._classes(classes)}
+        carry = {"img": self._initial_noise(shape, init_noise, generator)}
+        # t as [1] rows: a gather by a tensor index, no host read
+        table = {"t": torch.from_numpy(ops[:, 1:].astype(np.int64)).to(dev),
+                 "blend": self._given_steps(blend_noise),
+                 "step": self._given_steps(step_noise)}
+        for i, op in enumerate(ops[:, 0].tolist()):
+            row = {k: v[i] for k, v in table.items() if v is not None}
+            if op == _OP_RENOISE:
+                row.pop("blend", None)
+            carry = steps[op](carry, consts, row, [generator])
+        return self.unnormalize(_nhwc(carry["img"]))

@@ -19,6 +19,7 @@ import torch
 
 from ..core.diffusion_math import normalize_to_neg_one_to_one
 from ..device import resolve_device
+from ..graphs import ChainGraphs
 from .continuous_time import (
     _noise_for,
     _pad,
@@ -82,6 +83,9 @@ class SimpleDiffusion:
     min_snr_loss_weight: bool = True
     min_snr_gamma: float = 5.0
     device: str | torch.device = "cuda"  # no GPU raises; "cpu" on ask
+    # the sampler's captured steps, by their key
+    _graphs: ChainGraphs = dataclasses.field(
+        default_factory=ChainGraphs, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -147,8 +151,9 @@ class SimpleDiffusion:
 
     @torch.inference_mode()
     def sample(self, batch_size: int = 16, *, init_noise=None,
-               step_noise=None, generator: torch.Generator = None):
+               step_noise=None, generator: torch.Generator = None,
+               graph: Optional[bool] = None):
         """Ancestral sampling over `num_sample_steps`; see
         `continuous_time.logsnr_sample`."""
         return logsnr_sample(self, batch_size, self._posterior, init_noise,
-                             step_noise, generator)
+                             step_noise, generator, graph)

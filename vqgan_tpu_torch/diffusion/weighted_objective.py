@@ -8,6 +8,7 @@ output has C + C + 2 channels (NCHW inside); DDIM is refused, as there.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -74,14 +75,16 @@ class WeightedObjectiveGaussianDiffusion(GaussianDiffusion):
     def p_sample_loop(self, shape, classes=None, *, cond_scale: float = 1.0,
                       rescaled_phi: float = 0.0, clip_denoised: bool = True,
                       return_all_timesteps: bool = False, init_noise=None,
-                      step_noise=None, generator: torch.Generator = None):
-        """Ancestral sampling from the weighted x_0; noise as in
-        `GaussianDiffusion.p_sample_loop`."""
-        def mean_and_log_var(img, tb):
+                      step_noise=None, generator: torch.Generator = None,
+                      graph: Optional[bool] = None):
+        """Ancestral sampling from the weighted x_0; noise and `graph` as
+        in `GaussianDiffusion.p_sample_loop`."""
+        def mean_and_log_var(img, tb, _):
             mean, _, log_var = self.p_mean_variance(
                 img, tb, clip_denoised=clip_denoised)
             return mean, log_var
 
-        return self._ancestral_loop(shape, mean_and_log_var,
-                                    return_all_timesteps, init_noise,
-                                    step_noise, generator)
+        return self._ancestral_loop(
+            shape, mean_and_log_var, ("weighted objective", clip_denoised),
+            return_all_timesteps, init_noise, step_noise, generator,
+            graph=graph)

@@ -6,8 +6,11 @@ steps included). PyTorch runs eagerly, one host call per kernel, and the
 small stage-2 models spend most of each step on the host; a captured graph
 replays every kernel of the captured call from one host call.
 
-`BlockRunner` runs blocks of training steps through `Graphed`: one
-step's graph replayed once per step of the block.
+`ChainStep` and `run_chain` run a sampler's chain of steps: one step
+body, run eagerly (the CPU, or `graph=False`) or as the replay of its
+captured graph, kept in the sampler's `ChainGraphs` under a key.
+`BlockRunner` runs blocks of training steps through the same `ChainStep`:
+one step's graph replayed once per step of the block.
 
 `Graphed(fn)` wraps fn(generators, *tensors) -> a tensor or a tuple of
 tensors, following PyTorch's documented capture pattern:
@@ -48,7 +51,8 @@ from typing import Callable, Iterable, Optional, Sequence
 
 import torch
 
-__all__ = ["BlockRunner", "GraphPool", "Graphed", "LaunchRecord"]
+__all__ = ["BlockRunner", "ChainGraphs", "ChainStep", "GraphPool",
+           "Graphed", "LaunchRecord", "resolve_graph", "run_chain"]
 
 
 def _check_cuda(name: str, tensors: Iterable[torch.Tensor]) -> torch.device:
@@ -251,44 +255,177 @@ class Graphed:
                 "kernel_launches_per_replay": self.launches.per_replay()}
 
 
+def resolve_graph(graph: Optional[bool], device) -> bool:
+    """Whether a sampler on `device` replays CUDA graphs: None gives True
+    on the card and False on the CPU; True on the CPU raises ValueError."""
+    on_card = torch.device(device).type == "cuda"
+    if graph and not on_card:
+        raise ValueError(f"graph=True needs the card; the sampler runs on "
+                         f"{device}, where its steps run eagerly")
+    return on_card if graph is None else bool(graph)
+
+
+class ChainGraphs(dict):
+    """Captured steps (`Graphed`) by key, every one in one `GraphPool`
+    (`pool`, by default its own): the steps kept together never run at
+    the same time. `latest` holds, per key, the value that a key's graph
+    was captured for when that value may change without bound between
+    calls (a guide's cond_fn): a new value replaces the key's graph."""
+
+    def __init__(self, pool: Optional[GraphPool] = None):
+        super().__init__()
+        self.pool = pool or GraphPool()
+        self.latest = {}
+
+    def stats(self) -> dict:
+        """Each graph's `Graphed.stats()` with its name, and the sums of
+        their capture seconds and pool bytes."""
+        graphs = [{"name": g.name, **g.stats()} for g in self.values()
+                  if g.graph is not None]
+        return {"graphs": graphs,
+                "capture_seconds": sum(g["capture_seconds"] for g in graphs),
+                "pool_bytes": sum(g["pool_bytes"] for g in graphs)}
+
+
+def _live(tensors: Optional[dict]) -> dict:
+    return {k: v for k, v in (tensors or {}).items() if v is not None}
+
+
+class ChainStep:
+    """One step of a chain: body(generators, carry, consts, row) -> a
+    {name: tensor} dict (None entries are left out): the next carry, its
+    entries of the given carry's names, or with no carry (a block of
+    training steps) every entry:
+
+    - carry: what one step hands the next (the image, a self-condition
+      estimate, DPM++'s previous denoised);
+    - consts: the same tensors at every step (classes, RePaint's ground
+      truth and mask, a guide's targets);
+    - row: this step's row of the chain's per-step table (times, host
+      scalars, given noise; a training block's batch).
+
+    With `graph` False the body runs eagerly. Otherwise each call replays
+    the body's CUDA graph (`Graphed`: its first call runs eagerly as the
+    warm-up, the second captures), kept in `graphs` under (`key`, the
+    names, shapes, dtypes and strides of the tensors, which generators are
+    the default one): the key must name every Python value the body reads
+    that differs between calls. A value with no bound on its count
+    (a guide's cond_fn) goes in `latest` instead: only the graph of the
+    latest value is kept. The strides keep a replay in the memory layout
+    the eager call computes in (a channels-last image takes other cuDNN
+    kernels than a contiguous one, which round otherwise). Drawn noise
+    comes from the generators inside the body, so a replay draws what the
+    eager call draws."""
+
+    def __init__(self, body: Callable, *, graphs: ChainGraphs, key,
+                 graph: bool, name: str = "sampler step", latest=None):
+        self.body = body
+        self.graphs = graphs
+        self.key = key
+        self.graph = graph
+        self.name = name
+        self.latest = latest
+
+    def __call__(self, carry: dict, consts: Optional[dict] = None,
+                 row: Optional[dict] = None,
+                 generators: Sequence[Optional[torch.Generator]] = ()
+                 ) -> dict:
+        parts = (_live(carry), _live(consts), _live(row))
+        generators = list(generators)
+        if not self.graph:
+            return _outputs(self.body(generators, *parts), parts[0])
+        names = tuple(tuple(p) for p in parts)
+        tensors = [t for p in parts for t in p.values()]
+        gkey = (self.key, names,
+                tuple((tuple(t.shape), t.dtype, t.stride()) for t in tensors),
+                tuple(g is None for g in generators))
+        step = self.graphs.get(gkey)
+        if step is None or self.graphs.latest.get(gkey) != self.latest:
+            # a graph for another `latest` is dropped: its pool blocks go
+            # back to the pool
+            self.graphs.latest[gkey] = self.latest
+            step = self.graphs[gkey] = Graphed(
+                _flat_body(self.body, names), name=self.name,
+                pool=self.graphs.pool)
+        out = step(*tensors, generators=generators)
+        return dict(zip(step.fn.out_names,
+                        (out,) if torch.is_tensor(out) else out))
+
+
+def _outputs(out: dict, carry: dict) -> dict:
+    """A step's returned entries: the carry's names, or with no carry
+    every entry that is not None."""
+    return {k: out[k] for k in carry} if carry else _live(out)
+
+
+def _flat_body(body: Callable, names) -> Callable:
+    """body over dicts as fn(generators, *tensors) -> a tuple, for
+    `Graphed`; `fn.out_names` are the names of the tuple's tensors."""
+    def fn(generators, *tensors):
+        parts, i = [], 0
+        for keys in names:
+            parts.append(dict(zip(keys, tensors[i:i + len(keys)])))
+            i += len(keys)
+        out = _outputs(body(generators, *parts), parts[0])
+        fn.out_names = tuple(out)
+        return tuple(out.values())
+
+    return fn
+
+
 class BlockRunner:
     """body(generators, *inputs) -> a tuple of outputs, every input and
     output with the steps on its leading axis, run over blocks of steps:
-    eagerly on the CPU; on the card as one step's CUDA graph (`Graphed`)
-    replayed once per step of the block, so a block of any length, and the
-    single steps before an event, share it. The graphs are kept in
-    `graphs`, keyed by the inputs' per-step shapes and dtypes, which
-    generators are the default one and the caller's `key`. `graph` False
-    runs the body eagerly on the card too (the reference a captured run is
-    held against). Every graph the runner captures shares one `GraphPool`:
-    `pool`, which other runners whose graphs never run at the same time
-    may share, or the runner's own."""
+    eagerly on the CPU, as one call over the block; on the card one step
+    (`ChainStep`, the step's inputs as its row) replayed once per step of
+    the block, so a block of any length, and the single steps before an
+    event, share one graph. The graphs are kept in `graphs`, a
+    `ChainGraphs`, under the caller's `key` and the per-step tensors.
+    `graph` False runs the body eagerly on the card too (the reference a
+    captured run is held against). `pool`, a `GraphPool`, is shared with
+    other runners whose graphs never run at the same time; by default the
+    runner has its own."""
 
     def __init__(self, body: Callable, *, name: str = "block",
                  graph: bool = True, pool: Optional[GraphPool] = None):
         self.body = body
         self.name = name
-        self.pool = pool or GraphPool()
         self.graph = graph
-        self.graphs = {}
+        self.graphs = ChainGraphs(pool)
+
+    def _one(self, generators, carry, consts, row):
+        return dict(enumerate(self.body(generators, *row.values())))
 
     def __call__(self, *inputs: torch.Tensor,
                  generators: Sequence[Optional[torch.Generator]] = (),
                  key=()) -> tuple:
-        generators = list(generators)
         if not self.graph or inputs[0].device.type != "cuda":
-            return tuple(self.body(generators, *inputs))
-        gkey = (tuple((tuple(x.shape[1:]), x.dtype) for x in inputs),
-                tuple(g is None for g in generators), key)
-        graph = self.graphs.get(gkey)
-        if graph is None:
-            graph = self.graphs[gkey] = Graphed(
-                lambda gens, *xs: tuple(self.body(gens, *xs)),
-                name=f"{self.name}, one step", pool=self.pool)
-        parts = [graph(*(x[i:i + 1] for x in inputs), generators=generators)
+            return tuple(self.body(list(generators), *inputs))
+        step = ChainStep(self._one, graphs=self.graphs, key=key, graph=True,
+                         name=f"{self.name}, one step")
+        parts = [step({}, row={str(j): x[i:i + 1]
+                               for j, x in enumerate(inputs)},
+                      generators=generators)
                  for i in range(inputs[0].shape[0])]
-        return tuple(torch.cat(col) for col in zip(*parts))
+        return tuple(torch.cat(col) for col in
+                     zip(*(p.values() for p in parts)))
 
     def stats(self) -> list:
         """`Graphed.stats()` of each graph, with its name."""
         return [{"name": g.name, **g.stats()} for g in self.graphs.values()]
+
+
+def run_chain(step: ChainStep, carry: dict, steps: int, *,
+              consts: Optional[dict] = None, table: Optional[dict] = None,
+              generators: Sequence[Optional[torch.Generator]] = (),
+              each: Optional[Callable] = None) -> dict:
+    """`steps` calls of `step`, row i of each `table` column ([steps,
+    ...]) at step i; `each(carry)` after every step. Returns the last
+    carry."""
+    table = _live(table)
+    for i in range(steps):
+        carry = step(carry, consts, {k: v[i] for k, v in table.items()},
+                     generators)
+        if each is not None:
+            each(carry)
+    return carry

@@ -33,7 +33,8 @@ __all__ = ["BatchNorm", "ActNorm", "PatchGANDiscriminator",
 class ActNorm(nn.Module):
     """Per-channel affine x * weight + bias with data-dependent
     initialisation from the first batch passed with init_actnorm=True
-    (bias = -mean, weight = 1 / (std + 1e-6)). The three values are buffers,
+    (bias = -mean, weight = 1 / (std + 1e-6)), chosen by `torch.where` on
+    the `initialized` flag on the device. The three values are buffers,
     not trained, as the JAX package's 'actnorm_stats' collection."""
 
     def __init__(self, channels: int):
@@ -43,12 +44,16 @@ class ActNorm(nn.Module):
         self.register_buffer("weight", torch.ones(channels))
 
     def forward(self, x, init_actnorm: bool = False):
-        if init_actnorm and not bool(self.initialized):
+        if init_actnorm:
+            # decided on the device, as JAX's jnp.where: no host read, so
+            # a CUDA graph holds it
             with torch.no_grad():
                 std, mean = torch.std_mean(x.float(), dim=(0, 2, 3),
                                            unbiased=False)
-                self.bias.copy_(-mean)
-                self.weight.copy_(1.0 / (std + 1e-6))
+                do_init = self.initialized == 0
+                self.bias.copy_(torch.where(do_init, -mean, self.bias))
+                self.weight.copy_(torch.where(do_init, 1.0 / (std + 1e-6),
+                                              self.weight))
                 self.initialized.fill_(1)
         return x * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
 

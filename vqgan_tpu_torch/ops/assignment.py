@@ -13,21 +13,71 @@ host sync: the loop reads whether every person is assigned once per block
 of b bids, and a bid made after that (there is none left to
 make) changes nothing, by `torch.where` on an `active` flag. Without the
 mask such a bid would bid for person 0, since argmax of all-False is 0.
+On the card a block of bids is one captured CUDA graph (`graphs.ChainStep`)
+replayed per block, with the one host read after it: the JAX package's
+`while_loop` decides on the device, which a graph of this PyTorch cannot.
+The graphs are kept across calls, by default in this module's
+`ChainGraphs` (one graph per device, batch size and block length), so
+only the first two calls of a shape run eagerly and capture.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from ..graphs import ChainGraphs, ChainStep, resolve_graph
 
 __all__ = ["auction_assignment"]
 
+# the blocks of bids' graphs of callers that keep none of their own
+DEFAULT_GRAPHS = ChainGraphs()
+
+
+def _bids(k: int):
+    """The step body of a block of k bids over the carry (assign, owner,
+    prices) and the consts (value, eps)."""
+    def body(generators, carry, consts, row):
+        assign, owner, prices = (carry["assign"], carry["owner"],
+                                 carry["prices"])
+        value, eps_ = consts["value"], consts["eps"]
+        idx = torch.arange(value.shape[0], device=value.device)
+        for _ in range(k):
+            unassigned = assign < 0
+            active = unassigned.any()
+            # the first unassigned; gathers by 1-element index tensors
+            i = unassigned.to(torch.uint8).argmax().reshape(1)
+            net = value.index_select(0, i)[0] - prices
+            j1 = net.argmax().reshape(1)
+            is_j1 = idx == j1
+            v2 = torch.where(is_j1, float("-inf"), net).max()
+            # b == 1: v2 = -inf, the bid is eps alone
+            incr = torch.where(torch.isfinite(v2), net.gather(0, j1)[0] - v2,
+                               torch.zeros_like(v2)) + eps_
+            prev = owner.gather(0, j1)
+            new_assign = torch.where(idx == i, j1, assign)
+            new_assign = torch.where((idx == prev) & (prev >= 0), -1,
+                                     new_assign)  # evict the previous owner
+            assign = torch.where(active, new_assign, assign)
+            owner = torch.where(active & is_j1, i, owner)
+            prices = torch.where(active & is_j1, prices + incr, prices)
+        return {"assign": assign, "owner": owner, "prices": prices}
+
+    return body
+
 
 def auction_assignment(dist: torch.Tensor, eps: float | None = None,
-                       max_iters: int | None = None) -> torch.Tensor:
+                       max_iters: int | None = None, *,
+                       graph: Optional[bool] = None,
+                       graphs: Optional[ChainGraphs] = None) -> torch.Tensor:
     """cols[i] = object assigned to row i, minimising ~sum dist[i, cols[i]].
 
     dist: [b, b] cost matrix. Returns [b] int64 on dist's device, a
-    permutation of 0..b-1."""
+    permutation of 0..b-1. `graph` None replays a block of bids' captured
+    graph on the card (False: the bids eagerly; True on the CPU raises),
+    kept across calls in `graphs` (a `GaussianDiffusion` passes its own),
+    by default in the module's."""
     b = dist.shape[0]
     if dist.shape != (b, b):
         raise ValueError(f"dist must be square, got {tuple(dist.shape)}")
@@ -38,34 +88,22 @@ def auction_assignment(dist: torch.Tensor, eps: float | None = None,
         eps, dtype=torch.float32, device=dev)
     # an eps-auction ends within ~b * (range / eps + 1) bids
     cap = max_iters if max_iters is not None else 4 * b * (2 * b + 1)
-    idx = torch.arange(b, device=dev)
+    use_graph = resolve_graph(graph, dev)
+    graphs = DEFAULT_GRAPHS if graphs is None else graphs
     neg_inf = torch.tensor(float("-inf"), device=dev)
-
-    assign = torch.full((b,), -1, dtype=torch.long, device=dev)
-    owner = torch.full((b,), -1, dtype=torch.long, device=dev)
-    prices = torch.zeros(b, dtype=torch.float32, device=dev)
+    carry = {"assign": torch.full((b,), -1, dtype=torch.long, device=dev),
+             "owner": torch.full((b,), -1, dtype=torch.long, device=dev),
+             "prices": torch.zeros(b, dtype=torch.float32, device=dev)}
+    consts = {"value": value, "eps": eps_}
     done, it = b == 0, 0
     while not done and it < cap:
-        for _ in range(min(b, cap - it)):
-            unassigned = assign < 0
-            active = unassigned.any()
-            i = unassigned.to(torch.uint8).argmax()  # first unassigned
-            net = value[i] - prices
-            j1 = net.argmax()
-            is_j1 = idx == j1
-            v2 = torch.where(is_j1, neg_inf, net).max()
-            # b == 1: v2 = -inf, the bid is eps alone
-            incr = torch.where(torch.isfinite(v2), net[j1] - v2,
-                               torch.zeros_like(v2)) + eps_
-            prev = owner[j1]
-            new_assign = torch.where(idx == i, j1, assign)
-            new_assign = torch.where((idx == prev) & (prev >= 0), -1,
-                                     new_assign)  # evict the previous owner
-            assign = torch.where(active, new_assign, assign)
-            owner = torch.where(active & is_j1, i, owner)
-            prices = torch.where(active & is_j1, prices + incr, prices)
-        it += min(b, cap - it)
-        done = not bool((assign < 0).any())  # one host read per block
+        k = min(b, cap - it)
+        carry = ChainStep(_bids(k), graphs=graphs, key=("auction", k, dev),
+                          graph=use_graph, name=f"auction, {k} bids")(
+                              carry, consts)
+        it += k
+        done = not bool((carry["assign"] < 0).any())  # one host read
+    assign = carry["assign"]
 
     if not done:
         # the cap was hit: each person still unassigned, in order, takes

@@ -16,15 +16,24 @@ with `profile_generate.profile_steps`:
   the update);
 each as host wall ms (read first, with no profiler run yet in the
 process), device kernel ms, the device's idle share, launches and the top
-kernels, and each flash kernel's launches and device ms per step. Prints
-one JSON object. Needs a CUDA device.
+kernels, and each flash kernel's launches and device ms per step;
+- whole sampler chains, eager (`graph=False`) and captured (one step's
+  CUDA graph replayed per step), host wall ms in turns (eager, captured,
+  captured, eager; one untimed call of each before), then one profiled
+  call of each: `bench_edm`'s Heun-32 and DPM++(2M)-32 batches of 16, and
+  an ancestral batch of 16 of the DDPM U-Net over a schedule cut to
+  `ANCESTRAL_TIMESTEPS` (100) steps; with each graph's capture seconds
+  and pool bytes.
+Prints one JSON object. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -32,8 +41,16 @@ import torch
 from . import bench_edm, train_ddpm
 from .core import diffusion_math as dm
 from .device import resolve_device, set_full_fp32_precision
-from .profile_generate import KERNEL_FUNCTIONS, counting, profile_steps
+from .profile_generate import (
+    KERNEL_FUNCTIONS,
+    counting,
+    profile_steps,
+    profiled,
+)
 from .training.ddpm_trainer import Trainer
+
+# the profiled ancestral chain's schedule, cut from the DDPM's 1000 steps
+ANCESTRAL_TIMESTEPS = 100
 
 
 def main(argv=None):
@@ -96,6 +113,38 @@ def main(argv=None):
                                                  clamp=True)) / 8.0
         return x_edm - 1.0 * (d + d2)
 
+    cut = dataclasses.replace(ema, timesteps=ANCESTRAL_TIMESTEPS,
+                              sampling_timesteps=None, schedule=None)
+    b = edm_args.batch
+
+    def chain(run):
+        def fn(graph):
+            g = torch.Generator(device).manual_seed(args.seed)
+            return lambda: run(g, graph)
+        return fn
+
+    chains = {
+        "edm_heun_chain": chain(lambda g, graph: ed.sample(
+            b, generator=g, graph=graph)),
+        "edm_dpmpp_chain": chain(lambda g, graph: ed.sample_using_dpmpp(
+            b, generator=g, graph=graph)),
+        f"ddpm_ancestral_t{ANCESTRAL_TIMESTEPS}_chain": chain(
+            lambda g, graph: cut.sample(batch_size=b, generator=g,
+                                        graph=graph)),
+    }
+    chain_walls = {}
+    for label, make in chains.items():
+        for graph in (None, False):  # the capture; the warm-up
+            make(graph)()
+        walls = chain_walls[label] = {"eager": [], "captured": []}
+        for name in ("eager", "captured", "captured", "eager"):
+            fn = make(None if name == "captured" else False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+
     steps, tallies = {}, {}
     for label, fn in (("ddpm_train_step_b16",
                        lambda: trainer.train_step(images)),
@@ -112,6 +161,15 @@ def main(argv=None):
     for label, tally in tallies.items():
         out[label]["flash_launches_per_step"] = {
             name: n / tally["calls"] for name, n in tally["launches"].items()}
+    graphs = {"edm": ed._graphs, "ddpm": cut._graphs}
+    for label, make in chains.items():
+        for name, walls in chain_walls[label].items():
+            fn, tally = counting(make(None if name == "captured" else False))
+            out[f"{label}_{name}"] = {
+                **profiled(fn, 1, sum(walls) / len(walls)),
+                "wall_ms_turns": walls,
+                "kernel_launches_per_chain": tally["launches"]}
+    out["graphs"] = {k: g.stats() for k, g in graphs.items()}
     print(json.dumps(out, default=lambda v: float(np.asarray(v))))
     return out
 

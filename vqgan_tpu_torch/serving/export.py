@@ -49,7 +49,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..graphs import Graphed
+from ..graphs import ChainGraphs, ChainStep, resolve_graph, run_chain
 from ..kernels import ops  # noqa: F401  (registers the operators)
 
 __all__ = ["export_program", "load_program", "export_cfg_sampler",
@@ -245,11 +245,11 @@ class CFGSampler:
     then one draw per step.
 
     On the card (`graph` None) each step of the loop replays one CUDA graph
-    of the loaded step (`graphs.Graphed`), captured per kind of noise at
+    of the loaded step (`graphs.ChainStep`), captured per kind of noise at
     the first call's second step and kept; given noise goes in through its
     static buffers, and a replay draws from `generator` what the loop
-    draws. `graph` False runs the loaded step from Python. The decode runs
-    after the loop, outside the graph."""
+    draws. `graph` False runs the loaded step from Python; True on the CPU
+    raises. The decode runs after the loop, outside the graph."""
 
     def __init__(self, outdir, device="cuda"):
         outdir = Path(outdir)
@@ -263,7 +263,7 @@ class CFGSampler:
         pairs = torch.tensor(self.meta["ddim_pairs"], dtype=torch.long,
                              device=self.device)
         self._pairs = pairs[:, :, None].expand(-1, -1, self.batch_size)
-        self.graphs = {}
+        self.graphs = ChainGraphs()
 
     def __call__(self, classes, *, generator: torch.Generator = None,
                  init_noise=None, step_noise=None,
@@ -276,29 +276,27 @@ class CFGSampler:
         given = {name: _as_nchw(x, dev) for name, x in
                  (("init_noise", init_noise), ("step_noise", step_noise))
                  if x is not None}
-        use_graph = dev.type == "cuda" if graph is None else graph
-        draws = "step_noise" not in given
-        if use_graph:
-            key = (draws, generator is None)
-            if key not in self.graphs:
-                self.graphs[key] = Graphed(
-                    lambda gens, img, t, t_next, cls, *noise: self._step(
-                        img, t, t_next, cls,
-                        *(noise or [self._randn(gens[0])])),
-                    name="served DDIM step")
-            graphed = self.graphs[key]
+
+        def body(generators, carry, consts, row):
+            noise = (row["noise"] if "noise" in row
+                     else self._randn(generators[0]))
+            return {"img": self._step(carry["img"], row["time"],
+                                      row["time_next"], consts["classes"],
+                                      noise)}
+
+        step = ChainStep(body, graphs=self.graphs, key="served DDIM step",
+                         graph=resolve_graph(graph, dev),
+                         name="served DDIM step")
         with torch.inference_mode():
             img = given.get("init_noise")
             if img is None:
                 img = self._randn(generator)
-            for i, (t, t_next) in enumerate(self._pairs):
-                if not draws:
-                    noise = [given["step_noise"][i]]
-                else:  # drawn inside the graph, or here
-                    noise = [] if use_graph else [self._randn(generator)]
-                img = (graphed(img, t, t_next, classes, *noise,
-                               generators=[generator]) if use_graph
-                       else self._step(img, t, t_next, classes, *noise))
+            img = run_chain(step, {"img": img}, len(self._pairs),
+                            consts={"classes": classes},
+                            table={"time": self._pairs[:, 0],
+                                   "time_next": self._pairs[:, 1],
+                                   "noise": given.get("step_noise")},
+                            generators=[generator])["img"]
             return self._decode(img)
 
     def _randn(self, generator):

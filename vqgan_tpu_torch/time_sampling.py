@@ -9,8 +9,10 @@ With random weights from `--seed` (LDMConfig's defaults, the fp32 KL-VAE):
   "dit_eager_s"), in turns (eager, captured, captured, eager)
   `--dit_batches` / 4 times, after one untimed batch of each (the capture
   and the warm-up);
-- one ancestral batch of 16 of the CFG U-Net (sampling_timesteps =
-  timesteps = 1000), then the decode;
+- an ancestral batch of 16 of the CFG U-Net (sampling_timesteps =
+  timesteps = 1000), then the decode: captured and eagerly in turns after
+  one untimed batch of each ("ancestral_turns_s"), the means as
+  "ancestral_s" (captured, the default) and "ancestral_eager_s";
 - the live `DDIMStep` (the function `export_serving` exports) at batch 16
   and cond_scale 1.0: host ms per step over 20 steps, three times.
 Each is timed on the host with the device synchronised at both ends, JPEG
@@ -103,12 +105,30 @@ def main(argv=None):
     unet, _ = generate.load_model(
         dataclasses.replace(config, sampling_timesteps=config.timesteps),
         None, device)
-    def ancestral():
-        latents = generate.generate_samples(unet, 0, b, 1.0, 0.0, gen)
-        with torch.inference_mode():
-            return vae.decode_latents(latents)
 
-    out["ancestral_s"], out["ancestral_launches"] = timed(ancestral)
+    def ancestral(graph):
+        def run():
+            latents = unet.p_sample_loop(
+                (b, config.latent_size, config.latent_size,
+                 config.latent_channels), torch.zeros(b, dtype=torch.long),
+                cond_scale=1.0, rescaled_phi=0.0, generator=gen, graph=graph)
+            with torch.inference_mode():
+                return vae.decode_latents(latents)
+        return run
+
+    # the default sampler (one captured step's graph replayed per step on
+    # the card) as "ancestral_*", the eager loop as "ancestral_eager_*"
+    modes = {"ancestral": ancestral(None), "ancestral_eager": ancestral(False)}
+    turns = {name: [] for name in modes}
+    for fn in modes.values():
+        fn()  # the capture; the warm-up
+    for name in ("ancestral_eager", "ancestral", "ancestral",
+                 "ancestral_eager"):
+        secs, out[f"{name}_launches"] = timed(modes[name])
+        turns[name].append(secs)
+    for name, secs in turns.items():
+        out[f"{name}_s"] = sum(secs) / len(secs)
+    out["ancestral_turns_s"] = turns
 
     step = DDIMStep(unet, 1.0, 0.0)
     s, c = config.latent_size, config.latent_channels

@@ -87,11 +87,6 @@ class VQGANTrainer:
         if step_mode not in STEP_MODES:
             raise ValueError(f"step_mode must be one of {STEP_MODES}, got "
                              f"{step_mode!r}")
-        if step_mode != "split" and config.disc_norm == "act":
-            raise ValueError(
-                "the ActNorm discriminator initialises itself on a host "
-                "read of its first batch, which a CUDA graph cannot hold: "
-                "use step_mode 'split' with disc_norm 'act'")
         self.step_mode = step_mode
         self.scan_block = max(1, int(scan_block))
         self.config = cfg = config
