@@ -5,7 +5,10 @@
     python3 chip_smoke.py --kernels-only  # build + kernel and small checks
 
 Phases, in order; any failure exits non-zero:
-1. A CUDA device must be present; print its name and power limit.
+1. A CUDA device must be present; print its name and power limit. Probe
+   whether g++ finds libjpeg's `jpeglib.h` (installing nothing): with it,
+   the image trainers of 5c and 5h must read through the native C++ ring
+   ("native_ring"), without it through the Python BatchLoader ("python").
 2. Build every hand-written kernel from the sources in this checkout, one
    nvcc per source, all at once; print each instance's registers, spills
    and shared memory, and the count of tensor-core (HMMA) instructions in
@@ -127,7 +130,9 @@ Phases, in order; any failure exits non-zero:
    flash kernel must launch once per step at [8, 16, 8, 64] bf16; the EMA
    must equal the online weights after step 40 (the last warm copy:
    update_every 10, update_after_step 100) and differ from the final ones;
-   the checkpoint and its latest pointer must load back. Then generate 16
+   the checkpoint and its latest pointer must load back; both calls must
+   read through the native latent batch reader ("native_latents", with
+   device prefetch). Then generate 16
    images from that checkpoint (EMA weights) with a seeded random KL-VAE
    state dict: 151 forward launches, no backward launch.
 5c. Drive stage-1 VQ-GAN training, `python -m vqgan_tpu_torch.train_vqgan`,
@@ -138,7 +143,9 @@ Phases, in order; any failure exits non-zero:
    [8,1024,1,512] bf16, plus one VQ and two forward launches per
    reconstruction grid; the discriminator unchanged after the first call
    and moved after the second; checkpoints and the latest pointer load
-   back; the grids exist. Prints images/s.
+   back; the grids exist; both calls read through the loader the probe
+   expects (`native_input` true in the config where libjpeg is present).
+   Prints images/s.
 5d. Drive the stage-1 KL-VAE slice at full width on 31 users x 8 seeded
    JPGs, entry point by entry point: `create_data_split`, then
    `train_kl_vae` at its defaults (AutoencoderConfig(), batch 8 at 256
@@ -238,9 +245,26 @@ Phases, in order; any failure exits non-zero:
    `bench_edm` at its defaults (KarrasUnet dim 64 at 64 px, bf16, batch
    16: 8 forward launches per network forward at [16,256,4,64], 512 per
    Heun-32 batch and 256 per DPM++(2M) batch, 4 batches of each; finite
-   images). Prints DDPM images/s, the grid's samples/s, the auction's ms
-   and the EDM samplers' samples/s, each beside the card's name and power
-   limit.
+   images). The first `train_ddpm` must read through the loader the
+   probe expects. Prints DDPM images/s, the grid's samples/s, the
+   auction's ms and the EDM samplers' samples/s, each beside the card's
+   name and power limit.
+5l. The input pipeline on the files 5c and 5b wrote (`drive_input_pipeline`,
+   about 30 s): `bench_decode` over 5c's 248 JPEGs at 256 -> 256 and 256
+   -> 128 px, 8 threads (PIL and, with libjpeg, native images/s);
+   `bench_input_pipeline` at 128 px, batch 8, --step_ms 0 and 20
+   (batches/s of each loader); the latent loader alone at batch 24,
+   `native_batch_loader` against the BatchLoader; gates: device batches
+   from `device_prefetch` equal their host batches bit for bit (latents
+   and images), and with libjpeg the ring's batches equal the batch decode
+   of their indices and repeat across two rings of one seed;
+   `debug_ldm_pipeline` on 5d's KL-VAE milestone and images (1 forward at
+   [1,1024,1,512] and 4 at [8,1024,1,512] fp32); one A/B in turns
+   (python, native, native, python) of 5g's Diffusers-style trainer
+   (batch 24, no VAE, 20 steps, 1 launch of each flash kernel per step at
+   [24,16,8,32]): the BatchLoader with a synchronous copy against the
+   native latent reader with prefetch, latents/s. Each number beside the
+   card's name and power limit.
 5i. Drive the rest of the diffusion library at full width through the
    DDPM `Trainer` and the samplers (random weights from a seed; only steps
    cut, each cut listed): train_ddpm's U-Net (dim 64, mults 1-2-4-8, bf16,
@@ -375,6 +399,24 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def libjpeg_headers() -> bool:
+    """Whether g++ finds `jpeglib.h`, which the native JPEG decoder builds
+    against (the latent batch reader needs g++ alone). Installs nothing."""
+    try:
+        proc = subprocess.run(["g++", "-E", "-x", "c++", "-"],
+                              input="#include <jpeglib.h>\n",
+                              capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return False
+    return proc.returncode == 0
+
+
+def expected_image_loader(jpeg: bool) -> str:
+    """The loader an image trainer must name: the C++ ring where libjpeg's
+    headers are present, else the Python BatchLoader (PIL)."""
+    return "native_ring" if jpeg else "python"
 
 
 def tensor_core_instructions(kernels) -> dict:
@@ -2159,6 +2201,11 @@ def drive_training(torch, kernels, seed: int, work: Path):
         counts[key] = counts.get(key, 0) + n
 
     losses = first["losses"] + second["losses"]
+    print(f"train_latent_cfg loaders: {first['loader']}, "
+          f"{second['loader']} (with device prefetch)")
+    if (first["loader"], second["loader"]) != ("native_latents",) * 2:
+        fail(f"train_latent_cfg read through {first['loader']} / "
+             f"{second['loader']}, not the native latent batch reader")
     print(f"train_latent_cfg: {len(first['losses'])} + "
           f"{len(second['losses'])} steps (resumed), whole first call "
           f"{secs:.3f} s; {first['timed_steps']} steps after a warm-up of "
@@ -2240,11 +2287,14 @@ def write_image_data(work: Path, seed: int):
     return work / "data_split.json", work / "images"
 
 
-def drive_vqgan_training(torch, kernels, seed: int, work: Path):
+def drive_vqgan_training(torch, kernels, seed: int, work: Path,
+                         jpeg: bool):
     """Full-width stage-1 training through `train_vqgan.main` (VQGANConfig
     defaults: batch 8 at 256 px, bf16): 10 G-only steps (disc_start 10)
     with the off-cadence final save, then a resume to step 30 (G + D from
-    step 10, saves at steps 20 and 30). Returns ({(kernel, shape):
+    step 10, saves at steps 20 and 30). With libjpeg's headers (`jpeg`)
+    the config sets `native_input` true, so the run reads through the C++
+    ring or raises; without, the Python loader. Returns ({(kernel, shape):
     launches}, {"G only": images/s, "G + D": images/s})."""
     from vqgan_tpu_torch import train_vqgan
     from vqgan_tpu_torch.checkpoint import CheckpointManager
@@ -2252,7 +2302,9 @@ def drive_vqgan_training(torch, kernels, seed: int, work: Path):
 
     split, images = write_image_data(work, seed)
     config = work / "vqgan_config.json"
-    config.write_text(json.dumps({"seed": seed, "images_per_user_train": 8}))
+    config.write_text(json.dumps({"seed": seed, "images_per_user_train": 8,
+                                  **({"native_input": True} if jpeg
+                                     else {})}))
     results = work / "vqgan"
     common = ["--config", str(config), "--split", str(split), "--data_path",
               str(images), "--results_folder", str(results),
@@ -2283,6 +2335,12 @@ def drive_vqgan_training(torch, kernels, seed: int, work: Path):
     trainer = second.pop("trainer")
 
     losses = first["losses"] + second["losses"]
+    want = expected_image_loader(jpeg)
+    print(f"train_vqgan loaders: {first['loader']}, {second['loader']} "
+          f"(with device prefetch; libjpeg headers {jpeg})")
+    if (first["loader"], second["loader"]) != (want, want):
+        fail(f"train_vqgan read through {first['loader']} / "
+             f"{second['loader']}, expected {want}")
     rates = {"G only": first["images_per_s"], "G + D": second["images_per_s"]}
     print(f"train_vqgan: {len(first['losses'])} G-only steps + "
           f"{len(second['losses'])} G+D steps (resumed); images/s after a "
@@ -3837,7 +3895,8 @@ def check_small_ddpm_and_karras(torch, kernels, seed: int):
              f"{launches}")
 
 
-def drive_pixel_diffusion(torch, kernels, seed: int, work: Path, card: str):
+def drive_pixel_diffusion(torch, kernels, seed: int, work: Path, card: str,
+                          jpeg: bool):
     """Phase 5h, pixel-space diffusion at full width through its entry
     points, on 31 x 8 seeded JPGs (128 px):
     - `train_ddpm` at the JAX CLI's defaults (128 px, dim 64, mults
@@ -3898,6 +3957,11 @@ def drive_pixel_diffusion(torch, kernels, seed: int, work: Path, card: str):
                                  "--save_and_sample_every", "20"]),
         {**steps(20, 3), ("flash_fwd", grid): 750})
     trainer = first.pop("trainer")
+    print(f"train_ddpm loader: {first['loader']} (with device prefetch; "
+          f"libjpeg headers {jpeg})")
+    if first["loader"] != expected_image_loader(jpeg):
+        fail(f"train_ddpm read through {first['loader']}, expected "
+             f"{expected_image_loader(jpeg)}")
     png = res / "sample-1.png"
     if len(first["losses"]) != 20 or not all(np.isfinite(first["losses"])) \
             or not png.exists() \
@@ -4022,6 +4086,214 @@ def drive_pixel_diffusion(torch, kernels, seed: int, work: Path, card: str):
           f"{edm['dpmpp']['first_s']:.3f} s)")
     metrics["phase_seconds"] = time.perf_counter() - t_phase
     print(f"phase 5h: {metrics['phase_seconds']:.3f} s")
+    return counts, metrics
+
+
+def python_sync_batches(trainer):
+    """The LDM trainer's input before the native reader: the Python
+    BatchLoader and a synchronous pageable copy per batch (the A/B's other
+    arm), as `LatentDiffusionTrainer._prefetched` returns its batches."""
+    import torch
+
+    def batches():
+        it = iter(trainer.loader)
+        try:
+            for latents, labels in it:
+                yield (latents, labels), (
+                    torch.from_numpy(latents).to(trainer.device),
+                    torch.from_numpy(labels).to(trainer.device, torch.long))
+        finally:
+            it.close()
+
+    return batches(), "python_sync_copy"
+
+
+def drive_input_pipeline(torch, kernels, seed: int, vqgan: Path, ldm: Path,
+                         kl_ckpt: Path, kl_images: Path, card: str,
+                         jpeg: bool):
+    """Phase 5l, the input pipeline on the card's host, on the files 5c
+    (31 x 8 JPEGs at 256 px) and 5b (the latent cache of 31 x 50 [32, 32,
+    4] latents) wrote:
+    - `bench_decode` over 5c's JPEGs at 256 -> 256 and 256 -> 128, 8
+      threads: PIL and (with libjpeg's headers) native images/s;
+    - `bench_input_pipeline` over the same folder at 128 px, batch 8, at
+      --step_ms 0 and 20: batches/s of the PIL BatchLoader, and with
+      libjpeg the BatchLoader over native get_batch and the async ring;
+    - the latent loader alone at batch 24: `native_batch_loader` against
+      the BatchLoader, latents/s over 20 batches after the first;
+    - gates: every device batch that `device_prefetch` (`to_device`: a
+      pinned copy, non_blocking) hands over equals its host batch bit for
+      bit, for 5b's latents and 5c's images; with libjpeg, the native
+      decode of a batch equals the ring's batch of the same indices bit
+      for bit, and two rings of one seed give the same batches and
+      indices;
+    - `debug_ldm_pipeline` on 5d's KL-VAE milestone and its images at
+      256 px: every check printed with a finite value; 1 forward launch
+      at [1, 1024, 1, 512] fp32 (the random-latent decode) and 4 at [8,
+      1024, 1, 512] (encode, decode, the invariance check's two decodes);
+      healthy or not (a 20-step KL-VAE may reconstruct poorly) reported;
+    - one A/B in turns (python, native, native, python): the
+      Diffusers-style trainer of 5g (batch 24, head dim 32, no VAE, 20
+      steps, 1 launch of each flash kernel per step at [24, 16, 8, 32])
+      with the BatchLoader and a synchronous copy against the native
+      latent reader with prefetch; latents/s of each run after a warm-up
+      of 5.
+    Returns ({(kernel, shape): launches}, {metric: value})."""
+    from vqgan_tpu_torch import (
+        bench_decode,
+        bench_input_pipeline,
+        debug_ldm_pipeline,
+        train_stage1_diffusers,
+    )
+    from vqgan_tpu_torch.data import (
+        BatchLoader,
+        ImageFolderDataset,
+        LatentCache,
+        LatentDataset,
+        load_split,
+    )
+    from vqgan_tpu_torch.data.native_image import (
+        NativePipeline,
+        decode_jpeg_batch,
+    )
+    from vqgan_tpu_torch.data.prefetch import device_prefetch, to_device
+    from vqgan_tpu_torch.training import ldm_trainer
+
+    t_phase = time.perf_counter()
+    counts, metrics = {}, {}
+    images, image_split = vqgan / "images", load_split(
+        vqgan / "data_split.json")
+    paths = sorted(str(p) for p in images.rglob("*.jpg"))
+    split, cache = ldm / "data_split.json", ldm / "latents_cache"
+
+    # --- decode rates ---------------------------------------------------
+    for size in (256, 128):
+        result = bench_decode.main(["--paths", *paths, "--size", str(size),
+                                    "--threads", "8", "--iters", "2"])
+        metrics[f"decode_{size}"] = result
+        print(f"[{card}] bench_decode {len(paths)} JPEGs 256 -> {size} px, "
+              f"8 threads: PIL {result['pil_img_per_s']:.4f} images/s, "
+              f"native {result['native_img_per_s']} images/s")
+        if jpeg and not result["native_img_per_s"]:
+            fail("bench_decode: the native decoder did not run")
+
+    # --- loaders --------------------------------------------------------
+    for step_ms in (0, 20):
+        rates = bench_input_pipeline.main(
+            ["--decode_size", "128", "--batch", "8", "--n_batches", "20",
+             "--step_ms", str(step_ms)], data_path=images,
+            split=image_split)
+        metrics[f"pipeline_step_{step_ms}ms"] = rates
+        print(f"[{card}] bench_input_pipeline 128 px batch 8, step "
+              f"{step_ms} ms: batches/s {json.dumps(rates)}")
+        if jpeg and len(rates) != 3:
+            fail(f"bench_input_pipeline: native loaders missing: {rates}")
+
+    latent_ds = LatentDataset("", load_split(split), LatentCache(cache),
+                              images_per_user=50, seed=seed)
+    for name, it in (("native_batch_loader", latent_ds.native_batch_loader(
+                         24, seed=seed, repeat=True)),
+                     ("BatchLoader", iter(BatchLoader(
+                         latent_ds, 24, shuffle=True, seed=seed,
+                         repeat=True)))):
+        try:
+            next(it)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                next(it)
+            metrics[f"latents_per_s_b24_{name}"] = 20 * 24 / (
+                time.perf_counter() - t0)
+        finally:
+            it.close()
+        print(f"[{card}] the latent loader alone at batch 24, {name}: "
+              f"{metrics[f'latents_per_s_b24_{name}']:.4f} latents/s (20 "
+              f"batches after the first)")
+
+    # --- gates ----------------------------------------------------------
+    device = torch.device("cuda")
+    sources = [("latents", latent_ds.native_batch_loader(24, seed=seed,
+                                                         repeat=True), 8),
+               ("images", iter(BatchLoader(
+                   ImageFolderDataset(images, image_split, "train",
+                                      image_size=256), 8, seed=seed,
+                   repeat=True)), 4)]
+    for name, it, n in sources:
+        pre = device_prefetch(it, lambda b: to_device(b[0], device), depth=2)
+        try:
+            for _ in range(n):
+                (host, _), dev = next(pre)
+                torch.cuda.synchronize()
+                if not torch.equal(dev.cpu(), torch.from_numpy(host)):
+                    fail(f"device_prefetch ({name}): a device batch differs "
+                         f"from its host batch")
+        finally:
+            pre.close()
+    print(f"device_prefetch: {sources[0][2]} latent and {sources[1][2]} "
+          f"image batches on the card equal their host batches bit for bit")
+    if jpeg:
+        def stream():
+            with NativePipeline(paths, 256, 8, seed=seed) as pipe:
+                return [pipe.next(return_indices=True) for _ in range(4)]
+
+        first, again = stream(), stream()
+        for (a, ia), (b, ib) in zip(first, again):
+            if not (np.array_equal(a, b) and np.array_equal(ia, ib)):
+                fail("two rings of one seed gave different batches")
+            if not np.array_equal(a, decode_jpeg_batch(
+                    [paths[i] for i in ia], 256)):
+                fail("the ring's batch differs from the decode of its "
+                     "indices")
+        print("native ring: batches and indices repeat across two rings of "
+              "one seed and equal the batch decode bit for bit")
+    else:
+        print("native decoder gates not run: g++ finds no jpeglib.h on this "
+              "host (the probe); the image trainers read with PIL")
+
+    # --- debug_ldm_pipeline on 5d's KL-VAE -------------------------------
+    kl_key = (8, 1024, 1, 512, "float32")
+    healthy, secs = run_gated(
+        torch, kernels, "debug_ldm_pipeline (5d's KL-VAE, 256 px)",
+        lambda: debug_ldm_pipeline.main(["--vae_path", str(kl_ckpt),
+                                         "--data_path", str(kl_images)]),
+        {("flash_fwd", (1, 1024, 1, 512, "float32")): 1,
+         ("flash_fwd", kl_key): 4}, counts)
+    metrics["debug_ldm_pipeline_healthy"] = healthy
+    print(f"[{card}] debug_ldm_pipeline: {secs:.3f} s, healthy {healthy} "
+          f"(the KL-VAE trained 20 steps)")
+
+    # --- the A/B in turns -----------------------------------------------
+    key = (24, 16, 8, 32, "bfloat16")
+    patched = ldm_trainer.LatentDiffusionTrainer._prefetched
+    turns = {"python_sync_copy": [], "native_latents": []}
+    for arm in ("python_sync_copy", "native_latents", "native_latents",
+                "python_sync_copy"):
+        if arm == "python_sync_copy":
+            ldm_trainer.LatentDiffusionTrainer._prefetched = \
+                python_sync_batches
+        try:
+            result, _ = run_gated(
+                torch, kernels, f"train_stage1_diffusers 20 steps, {arm}",
+                lambda: train_stage1_diffusers.main([
+                    "--split", str(split), "--latents_cache_folder",
+                    str(cache), "--output_dir",
+                    str(ldm.parent / "input_ab" / str(len(turns[arm]))
+                        / arm), "--attention_head_dim", "32",
+                    "--max_train_steps", "20", "--seed", str(seed)]),
+                {(name, key): 20 for name in FLASH}, counts)
+        finally:
+            ldm_trainer.LatentDiffusionTrainer._prefetched = patched
+        del result["trainer"]
+        if result["loader"] != arm or not all(np.isfinite(result["losses"])):
+            fail(f"A/B {arm}: loader {result['loader']}, losses "
+                 f"{result['losses']}")
+        turns[arm].append(result["latents_per_s"])
+    metrics["diffusers_ab_latents_per_s"] = turns
+    print(f"[{card}] A/B in turns (python, native, native, python), "
+          f"train_stage1_diffusers batch 24, 15 steps after a warm-up of "
+          f"5: "
+          f"latents/s {json.dumps(turns)}")
+    metrics["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"phase 5l: {metrics['phase_seconds']:.3f} s")
     return counts, metrics
 
 
@@ -4692,6 +4964,9 @@ def main():
         fail("no CUDA device")
     card = card_line()
     print(f"card: {card}")
+    jpeg = libjpeg_headers()
+    print(f"libjpeg headers (g++ finds jpeglib.h): {jpeg}; image trainers "
+          f"must read through {expected_image_loader(jpeg)}")
     name = torch.cuda.get_device_name(0)
     peaks = peaks_for(name)
     set_full_fp32_precision()
@@ -4739,7 +5014,7 @@ def main():
                                                 work / "ldm")
             print(f"latents/s: {rate}")
             vq_counts, vq_rates = drive_vqgan_training(
-                torch, KERNELS, args.seed, work / "vqgan")
+                torch, KERNELS, args.seed, work / "vqgan", jpeg)
             print("images/s: " + json.dumps(vq_rates))
             kl_counts, kl_rate = drive_kl_vae_slice(torch, KERNELS,
                                                     args.seed, work / "kl_vae")
@@ -4760,8 +5035,13 @@ def main():
                 card)
             print("stage-2 rest: " + json.dumps(stage2_metrics))
             pixel_counts, pixel_metrics = drive_pixel_diffusion(
-                torch, KERNELS, args.seed, work / "pixel", card)
+                torch, KERNELS, args.seed, work / "pixel", card, jpeg)
             print("pixel-space diffusion: " + json.dumps(pixel_metrics))
+            input_counts, input_metrics = drive_input_pipeline(
+                torch, KERNELS, args.seed, work / "vqgan", work / "ldm",
+                work / "kl_vae" / "kl_vae" / "kl_vae-2.pt",
+                work / "kl_vae" / "images", card, jpeg)
+            print("input pipeline: " + json.dumps(input_metrics))
             library_counts, library_metrics = drive_diffusion_library(
                 torch, KERNELS, args.seed, work / "library", card)
             print("diffusion library: " + json.dumps(library_metrics))
@@ -4775,7 +5055,8 @@ def main():
         for key, n in [*train_counts.items(), *vq_counts.items(),
                        *kl_counts.items(), *gmm_counts.items(),
                        *serving_counts.items(), *stage2_counts.items(),
-                       *pixel_counts.items(), *library_counts.items(),
+                       *pixel_counts.items(), *input_counts.items(),
+                       *library_counts.items(),
                        *captured_counts.items(), *sampler_counts.items()]:
             counts[key] = counts.get(key, 0) + n
         for row in rows.values():

@@ -3,8 +3,11 @@ package's VQGANConfig (vqgan_tpu/configs/vqgan_config.py), field for field,
 with its checks and summary.
 
 `compute_dtype` is the models' compute dtype (bf16 by default; parameters
-stay fp32). The JAX package's `native_input` (its C++ image pipeline) has
-no counterpart: the port reads images with PIL on the BatchLoader's thread.
+stay fp32). `native_input` chooses the trainer's image loader, as in the
+JAX package (`data.native_image.make_batch_loader`): "auto" takes the C++
+decode ring where it builds and the host has the cores for it, else the
+Python BatchLoader (the reason printed); True requires the ring and raises
+without it; False keeps the Python BatchLoader.
 """
 
 from __future__ import annotations
@@ -80,6 +83,9 @@ class VQGANConfig:
     # --- misc ---
     compute_dtype: str = "bfloat16"
     seed: int = 42
+    # input pipeline: "auto" = the C++ async decode ring where it applies,
+    # else the Python BatchLoader; True requires the ring; False disables it
+    native_input: bool | str = "auto"
 
     @property
     def total_train_images(self) -> int:

@@ -6,8 +6,9 @@ vqgan_tpu/data/datasets.py.
   `imagenet_norm`, then normalised by `IMAGENET_MEAN` / `IMAGENET_STD`
   (the classifier's input).
 - `ImageFolderDataset`: the split's images of each `ID_x` user folder,
-  (image, 0-based label) items, decoded with PIL (the JAX package's
-  native C++ decoder is not ported).
+  (image, 0-based label) items; `get_batch` decodes a whole batch with the
+  native C++ decoder (`native_image.decode_jpeg_batch`) where the batch is
+  all JPEG and not ImageNet-normalised, with PIL otherwise.
 - `SyntheticDataset`: every image of the `ID_x` folders of generated
   images, label x - 1, optionally only the 0-based labels of
   `user_filter`.
@@ -15,7 +16,9 @@ vqgan_tpu/data/datasets.py.
   shape; callers slice the real rows back out.
 - `BatchLoader`: a shuffling batch iterator that assembles batches on a
   background thread, double-buffered, so the device does not wait on the
-  host. Same seed, same batches as the JAX package's.
+  host; through the dataset's `get_batch` where it has one. Same seed, same
+  batches as the JAX package's. `native_image.make_batch_loader` chooses
+  between it and the native ring.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ import numpy as np
 from .splits import IMAGE_EXTENSIONS, train_images_for_user
 
 __all__ = ["load_image", "ImageFolderDataset", "SyntheticDataset",
-           "BatchLoader", "IMAGENET_MEAN", "IMAGENET_STD", "pad_to_batch"]
+           "BatchLoader", "IMAGENET_MEAN", "IMAGENET_STD", "pad_to_batch",
+           "is_jpeg"]
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -101,6 +105,37 @@ class ImageFolderDataset:
         path, label = self.items[i]
         return load_image(path, self.image_size, self.imagenet_norm), label
 
+    def get_batch(self, idxs) -> Tuple[np.ndarray, np.ndarray]:
+        """The batch of `idxs` at once: the native C++ decoder (threaded
+        decode, resize and crop into one contiguous buffer) for an all-JPEG
+        batch without ImageNet normalisation where the library is present,
+        else PIL per item. A decode error raises."""
+        paths = [self.items[int(i)][0] for i in idxs]
+        labels = np.asarray([self.items[int(i)][1] for i in idxs], np.int32)
+        if not self.imagenet_norm and all(is_jpeg(p) for p in paths):
+            from .native_image import decode_jpeg_batch
+
+            batch = decode_jpeg_batch(paths, self.image_size)
+            if batch is not None:
+                return batch, labels
+        imgs = [load_image(p, self.image_size, self.imagenet_norm)
+                for p in paths]
+        return np.stack(imgs), labels
+
+    def native_decode(self) -> bool:
+        """Whether `get_batch` decodes natively: all items JPEG, no
+        ImageNet normalisation, and the decoder library present."""
+        if self.imagenet_norm or not all(is_jpeg(p) for p, _ in self.items):
+            return False
+        from .native_image import load_decoder_lib
+
+        return load_decoder_lib() is not None
+
+
+def is_jpeg(path) -> bool:
+    """Whether `path` names a JPEG (the native decoder reads no other)."""
+    return str(path).lower().endswith((".jpg", ".jpeg"))
+
 
 class SyntheticDataset:
     """Generated images in `ID_x/*.{png,jpg,jpeg}` folders, label x - 1;
@@ -157,6 +192,9 @@ class BatchLoader:
         return order
 
     def _make_batch(self, idxs):
+        get_batch = getattr(self.dataset, "get_batch", None)
+        if get_batch is not None:
+            return get_batch(idxs)
         items, labels = zip(*(self.dataset[int(i)] for i in idxs))
         return np.stack(items), np.asarray(labels, np.int32)
 

@@ -101,3 +101,32 @@ class LatentDataset:
     def fully_cached(self) -> bool:
         return all(self.cache.has(label, name)
                    for _, name, label in self.items)
+
+    def native_batch_loader(self, batch_size: int, shuffle: bool = True,
+                            seed: int = 0, repeat: bool = False,
+                            n_threads: int = 8):
+        """(latents, labels) batches over a fully populated `.npy` cache
+        through the C++ batch reader (`native_loader.NativeLatentBatcher`):
+        one multi-threaded pread fan-out per batch instead of a Python loop
+        over items. Its own `default_rng(seed)` permutation per epoch,
+        drop-last; `repeat` goes on over epochs. As the JAX package's."""
+        from .native_loader import NativeLatentBatcher
+
+        paths = [self.cache.path(label, name)
+                 for _, name, label in self.items]
+        labels = np.asarray([label for _, _, label in self.items], np.int32)
+        batcher = NativeLatentBatcher(paths, n_threads=n_threads)
+        rng = np.random.default_rng(seed)
+        n = len(paths)
+
+        def iterator():
+            while True:
+                order = rng.permutation(n) if shuffle else np.arange(n)
+                end = n - (n % batch_size)
+                for s in range(0, end, batch_size):
+                    idx = order[s:s + batch_size]
+                    yield batcher.gather(idx.tolist()), labels[idx]
+                if not repeat:
+                    return
+
+        return iterator()

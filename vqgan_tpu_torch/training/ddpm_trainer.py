@@ -7,8 +7,12 @@ each milestone with best/latest-only checkpoint retention
 
 - The optimizer is `make_ldm_optimizer` (weight decay 0, so Adam), the EMA
   the port's `ema_update` every `ema_update_every` steps after step 100.
-- The loader is the port's threaded `BatchLoader`, repeating epochs; the
-  JAX package's native C++ decoder is not ported.
+- The loader is `make_batch_loader`'s, as in the JAX trainer: an image
+  folder of JPEGs takes the C++ decode ring (`FolderDataset.items`), any
+  other dataset (`Dataset1D`, PNGs) the threaded `BatchLoader`, repeating
+  epochs; `train` names it under "loader". Batches go through
+  `device_prefetch` (depth 2): the copy of batch n + 2 from pinned memory
+  is enqueued while step n runs.
 - Losses stay on the device until a log line or the end of the run reads
   them, so the loop does not wait for each step.
 - Errors propagate: the JAX package prints a warning when a sample grid
@@ -29,7 +33,9 @@ import numpy as np
 import torch
 
 from ..checkpoint.manager import CheckpointManager
-from ..data.datasets import BatchLoader, load_image
+from ..data.datasets import load_image
+from ..data.native_image import loader_kind, make_batch_loader
+from ..data.prefetch import device_prefetch, to_device
 from ..data.splits import IMAGE_EXTENSIONS
 from .ema import ema_update
 from .ldm_step import LDMTrainState, global_norm, make_ldm_optimizer
@@ -53,6 +59,12 @@ class FolderDataset:
 
     def __getitem__(self, i):
         return load_image(self.paths[i], self.image_size), 0
+
+    @property
+    def items(self):
+        """[(path, 0)]: the view that `make_batch_loader` takes for the
+        native C++ decode ring."""
+        return [(p, 0) for p in self.paths]
 
 
 def _with_denoiser(diffusion, model):
@@ -120,12 +132,13 @@ class Trainer:
         self.state = LDMTrainState(0, model, self.ema_model, self.optimizer)
         self.generator = torch.Generator(self.device).manual_seed(seed)
 
-        self.loader = None
+        self.loader = self.loader_kind = None
         if dataset is None and folder is not None:
             dataset = FolderDataset(folder, diffusion.image_size)
         if dataset is not None:
-            self.loader = BatchLoader(dataset, train_batch_size,
-                                      shuffle=True, seed=seed, repeat=True)
+            self.loader = make_batch_loader(dataset, train_batch_size,
+                                            shuffle=True, seed=seed)
+            self.loader_kind = loader_kind(self.loader)
         self.ckpt = CheckpointManager(self.results_folder, prefix="model")
 
     def _sync(self):
@@ -151,25 +164,26 @@ class Trainer:
 
     def train(self, log_every: int = 100, timing_warmup: int = 5) -> dict:
         """Train up to `train_num_steps`. Returns {"losses": every step's
-        loss, "timed_steps", "timed_seconds", "images_per_s"}: host seconds
-        of the steps after the first `timing_warmup`, the device
-        synchronised at both ends, milestones (grids, FID, saves)
-        excluded."""
+        loss, "timed_steps", "timed_seconds", "images_per_s", "loader"}:
+        host seconds of the steps after the first `timing_warmup`, the
+        device synchronised at both ends, milestones (grids, FID, saves)
+        excluded; the loader's `loader_kind`."""
         if self.loader is None:
             raise RuntimeError("no dataset: pass a folder or a dataset")
         start = self.state.step
         losses = []
         timed_from, timed_seconds = None, 0.0
         t_log = time.perf_counter()
-        batches = iter(self.loader)
+        batches = device_prefetch(
+            iter(self.loader), lambda b: to_device(b[0], self.device),
+            depth=2)
         try:
             for step in range(start, self.train_num_steps):
                 if step - start == timing_warmup:
                     self._sync()
                     timed_from = time.perf_counter()
-                images, _ = next(batches)
-                losses.append(self.train_step(
-                    torch.from_numpy(images).to(self.device)))
+                _, images = next(batches)
+                losses.append(self.train_step(images))
                 if (step + 1) % log_every == 0:
                     ips = log_every * self.batch_size / (
                         time.perf_counter() - t_log)
@@ -193,7 +207,8 @@ class Trainer:
         return {"losses": [float(x) for x in losses],
                 "timed_steps": timed_steps, "timed_seconds": timed_seconds,
                 "images_per_s": (timed_steps * self.batch_size / timed_seconds
-                                 if timed_seconds else None)}
+                                 if timed_seconds else None),
+                "loader": self.loader_kind}
 
     def sample_grid(self, milestone: int):
         """`num_samples` EMA samples as a square grid,

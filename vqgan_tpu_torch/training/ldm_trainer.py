@@ -27,6 +27,13 @@ resumes in either mode.
   off (the two faults ADVICE.md records in the JAX package's scan loop).
 - A run that ends off the save cadence still leaves a loadable checkpoint.
 - Errors propagate: a failed sample or save stops the run.
+
+The batches come from the C++ latent batch reader
+(`LatentDataset.native_batch_loader`) when the cache holds every item as
+`.npy`, and from the Python BatchLoader otherwise, as in the JAX trainer;
+`train` names the one taken under "loader" ("native_latents" or
+"python"). Both modes draw through `device_prefetch` (depth 2): the copy
+of batch n + 2 from pinned memory is enqueued while step n runs.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ from ..build import build_cfg_unet_diffusion
 from ..checkpoint.manager import CheckpointManager
 from ..configs.ldm_config import LDMConfig
 from ..data import BatchLoader, LatentCache, LatentDataset, load_split
+from ..data.native_loader import load_native_lib
+from ..data.prefetch import device_prefetch, to_device
 from ..device import resolve_device
 from ..utils.metrics_log import MetricsLogger
 from .ldm_step import (
@@ -146,15 +155,36 @@ class LatentDiffusionTrainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _make_batch_iter(self):
+        """(the host batch iterator, its loader kind): the native latent
+        batch reader over a fully populated cache, else the BatchLoader."""
+        cfg = self.config
+        ds = self.loader.dataset
+        if ds.fully_cached() and load_native_lib() is not None:
+            print("using native latent batch loader")
+            return ds.native_batch_loader(
+                cfg.train_batch_size, shuffle=True, seed=cfg.seed,
+                repeat=True), "native_latents"
+        return iter(self.loader), "python"
+
+    def _prefetched(self):
+        """(((latents, labels), (device latents, device labels)) pairs,
+        each copy enqueued two batches ahead; the loader kind)."""
+        it, kind = self._make_batch_iter()
+        return device_prefetch(it, lambda b: (
+            to_device(b[0], self.device),
+            to_device(b[1], self.device, torch.long)), depth=2), kind
+
     # ------------------------------------------------------------------
 
     def train(self, num_steps: Optional[int] = None, log_every: int = 50,
               timing_warmup: int = 5) -> dict:
         """Train up to step `num_steps` (default cfg.train_num_steps).
         Returns {"losses": every step's loss, "timed_steps", "timed_seconds",
-        "latents_per_s"}: host seconds of the steps after the first
-        `timing_warmup`, the device synchronised at both ends, checkpoint
-        saves (and in scan mode the graph captures) excluded."""
+        "latents_per_s", "loader"}: host seconds of the steps after the
+        first `timing_warmup`, the device synchronised at both ends,
+        checkpoint saves (and in scan mode the graph captures) excluded;
+        the loader's kind."""
         if self.step_mode == "scan":
             return self._train_scan(num_steps, log_every, timing_warmup)
         cfg = self.config
@@ -175,7 +205,7 @@ class LatentDiffusionTrainer:
                     print(f"  [watchdog] {w}")
                 pending = None
 
-        batches = iter(self.loader)
+        batches, kind = self._prefetched()
         timed_from = None
         timed_seconds = 0.0
         t_log, n_log = time.perf_counter(), 0
@@ -184,11 +214,9 @@ class LatentDiffusionTrainer:
                 if step - start == timing_warmup:
                     self._sync()
                     timed_from = time.perf_counter()
-                latents, labels = next(batches)
-                log = self.train_step(
-                    self.state, torch.from_numpy(latents).to(self.device),
-                    torch.from_numpy(labels).to(self.device, torch.long),
-                    generator=self.generator)
+                _, (latents, labels) = next(batches)
+                log = self.train_step(self.state, latents, labels,
+                                      generator=self.generator)
                 drain()  # the previous step's loss; this step stays queued
                 pending = (step + 1, log["loss"])
                 n_log += 1
@@ -223,16 +251,15 @@ class LatentDiffusionTrainer:
         return {"losses": losses, "timed_steps": timed_steps,
                 "timed_seconds": timed_seconds,
                 "latents_per_s": (timed_steps * cfg.train_batch_size
-                                  / timed_seconds if timed_seconds else None)}
+                                  / timed_seconds if timed_seconds else None),
+                "loader": kind}
 
     def dispatch_block(self, latents, labels) -> dict:
         """Run len(latents) steps as one dispatch (step_mode "scan") on
-        host batches latents [K, B, H, W, C] and labels [K, B]; returns the
-        logs stacked on a leading [K] axis, on the device."""
-        return self.scan_step(
-            self.state, torch.from_numpy(latents).to(self.device),
-            torch.from_numpy(labels).to(self.device, torch.long),
-            generator=self.generator)
+        device batches latents [K, B, H, W, C] and labels [K, B] (long);
+        returns the logs stacked on a leading [K] axis, on the device."""
+        return self.scan_step(self.state, latents, labels,
+                              generator=self.generator)
 
     def graph_stats(self) -> list:
         """Each captured graph's name, capture seconds, pool bytes, replays
@@ -251,9 +278,9 @@ class LatentDiffusionTrainer:
         if self.loader is None:
             raise RuntimeError("no dataset configured: pass split_path")
 
-        def dispatch(step, drawn):
-            logs = self.dispatch_block(np.stack([d[0] for d in drawn]),
-                                       np.stack([d[1] for d in drawn]))
+        def dispatch(step, drawn):  # drawn: (host, (latents, labels))
+            logs = self.dispatch_block(torch.stack([d[1][0] for d in drawn]),
+                                       torch.stack([d[1][1] for d in drawn]))
             return logs, logs["loss"]
 
         def log(step, logs, steps_per_s):
@@ -265,9 +292,10 @@ class LatentDiffusionTrainer:
             print(msg + f" ({steps_per_s * cfg.train_batch_size:.1f} "
                   f"latents/s)")
 
+        batches, kind = self._prefetched()
         out = run_scan_loop(
             start=self.state.step, num_steps=num_steps,
-            scan_block=self.scan_block, batches=iter(self.loader),
+            scan_block=self.scan_block, batches=batches,
             dispatch=dispatch, log_every=log_every, log=log,
             save_every=cfg.save_and_sample_every, save=self.save_and_sample,
             watchdog=self.watchdog, sync=self._sync,
@@ -275,7 +303,7 @@ class LatentDiffusionTrainer:
         seconds = out["timed_seconds"]
         return {**out, "latents_per_s": (
             out["timed_steps"] * cfg.train_batch_size / seconds
-            if seconds else None)}
+            if seconds else None), "loader": kind}
 
     # ------------------------------------------------------------------
 

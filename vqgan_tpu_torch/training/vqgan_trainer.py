@@ -21,6 +21,14 @@ the steps, and their watchdog reads each dispatch's stacked losses one
 dispatch late (a non-finite loss drains the dispatch just queued at once).
 Checkpoints are the same in every mode, so a run resumes in any of them.
 
+The images come from `make_batch_loader` with `native_input`, as in the
+JAX trainer: the C++ decode ring where it applies, else the Python
+BatchLoader; `loader_kind` names the one taken, and `train` returns it
+under "loader". Every mode draws its batches through `device_prefetch`
+(depth 2): the copy of batch n + 2 from pinned memory is enqueued while
+step n runs. The captured modes take the prefetched device batch into
+their static inputs by a device-to-device copy.
+
 - The watchdog reads each step's loss one step late, after the next step
   is queued, so the loop never waits for the device to drain.
 - A save first drains that pending loss, and a cadence of 0 turns its event
@@ -45,7 +53,9 @@ import torch
 
 from ..checkpoint.manager import CheckpointManager
 from ..configs.vqgan_config import VQGANConfig
-from ..data import BatchLoader, ImageFolderDataset, load_split
+from ..data import ImageFolderDataset, load_split
+from ..data.native_image import loader_kind, make_batch_loader
+from ..data.prefetch import device_prefetch, to_device
 from ..device import resolve_device
 from ..models import LPIPS, VQVAE, PatchGANDiscriminator
 from ..models.lpips import perceptual_loss_fn
@@ -145,11 +155,15 @@ class VQGANTrainer:
                                      self.opt_d)
 
         self.loader = None
+        self.loader_kind = None
         if split_path is not None:
             dataset = ImageFolderDataset(cfg.data_path, load_split(split_path),
                                          "train", image_size=cfg.image_size)
-            self.loader = BatchLoader(dataset, cfg.batch_size, shuffle=True,
-                                      seed=cfg.seed, repeat=True)
+            self.loader = make_batch_loader(
+                dataset, cfg.batch_size, shuffle=True, seed=cfg.seed,
+                native=cfg.native_input)
+            self.loader_kind = loader_kind(self.loader)
+            print(f"input pipeline: {self.loader_kind}")
 
         self.ckpt = CheckpointManager(cfg.results_folder, prefix="vqgan")
         self.watchdog = TrainingWatchdog()
@@ -163,6 +177,13 @@ class VQGANTrainer:
 
     def _to_device(self, images: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(images).to(self.device)
+
+    def _prefetched(self):
+        """The loader's ((images, labels), device images) pairs, each copy
+        enqueued two batches ahead."""
+        return device_prefetch(
+            iter(self.loader), lambda b: to_device(b[0], self.device),
+            depth=2)
 
     # ------------------------------------------------------------------
 
@@ -220,9 +241,10 @@ class VQGANTrainer:
               timing_warmup: int = 5) -> dict:
         """Train up to step `num_steps` (default cfg.train_steps). Returns
         {"losses": every step's loss_total, "timed_steps", "timed_seconds",
-        "images_per_s"}: host seconds of the steps after the first
+        "images_per_s", "loader"}: host seconds of the steps after the first
         `timing_warmup`, the device synchronised at both ends, grids and
-        checkpoint saves (and the graph captures) excluded."""
+        checkpoint saves (and the graph captures) excluded; the loader's
+        `loader_kind`."""
         if self.step_mode == "scan":
             return self._train_scan(num_steps, log_every, timing_warmup)
         cfg = self.config
@@ -243,7 +265,7 @@ class VQGANTrainer:
                     print(f"  [watchdog] {w}")
                 pending = None
 
-        batches = iter(self.loader)
+        batches = self._prefetched()
         images_np = None
         timed_from = None
         timed_seconds = captures = 0.0
@@ -254,8 +276,7 @@ class VQGANTrainer:
                     self._sync()
                     timed_from = time.perf_counter()
                     captures = capture_seconds(self.graph_stats())
-                images_np, _ = next(batches)
-                images = self._to_device(images_np)
+                (images_np, _), images = next(batches)
                 log = self.dispatch_step(images, step)
                 if self._revive_every:
                     if self.step_mode == "split":
@@ -294,7 +315,8 @@ class VQGANTrainer:
         return {"losses": losses, "timed_steps": timed_steps,
                 "timed_seconds": timed_seconds,
                 "images_per_s": (timed_steps * cfg.batch_size / timed_seconds
-                                 if timed_seconds else None)}
+                                 if timed_seconds else None),
+                "loader": self.loader_kind}
 
     def _train_scan(self, num_steps: Optional[int], log_every: int,
                     timing_warmup: int) -> dict:
@@ -306,9 +328,9 @@ class VQGANTrainer:
             raise RuntimeError("no dataset configured: pass split_path")
         last = [None]  # the last host batch, for grids
 
-        def dispatch(step, drawn):
-            last[0] = drawn[-1][0]
-            superbatch = self._to_device(np.stack([d[0] for d in drawn]))
+        def dispatch(step, drawn):  # drawn: ((images, labels), device)
+            last[0] = drawn[-1][0][0]
+            superbatch = torch.stack([d[1] for d in drawn])
             logs = self.dispatch_block(superbatch, step)
             end = step + len(drawn)
             if self._revive_every and end % self._revive_every == 0:
@@ -322,7 +344,7 @@ class VQGANTrainer:
 
         out = run_scan_loop(
             start=self.state.step, num_steps=num_steps,
-            scan_block=self.scan_block, batches=iter(self.loader),
+            scan_block=self.scan_block, batches=self._prefetched(),
             dispatch=dispatch, log_every=log_every, log=log,
             save_every=cfg.save_and_sample_every,
             save=lambda m: self.save_and_sample(m, last[0]),
@@ -332,7 +354,7 @@ class VQGANTrainer:
         seconds = out["timed_seconds"]
         return {**out, "images_per_s": (
             out["timed_steps"] * cfg.batch_size / seconds
-            if seconds else None)}
+            if seconds else None), "loader": self.loader_kind}
 
     def _log(self, step: int, num_steps: int, host: dict, ips: float):
         self.metrics.log(step, {**host, "images_per_sec": ips})
