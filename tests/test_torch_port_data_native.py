@@ -142,10 +142,10 @@ def test_get_batch_equals_jax(jpegs, tmp_path, imagenet_norm):
     if imagenet_norm:  # PIL on both sides
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
         np.testing.assert_allclose(got[0], ds[3][0], rtol=0, atol=0)
-        assert not ds.native_decode()
+        assert not datasets.native_decodable(ds)
     else:
         np.testing.assert_array_equal(got, want)
-        assert ds.native_decode()
+        assert datasets.native_decodable(ds)
 
 
 def test_get_batch_of_a_png_batch_decodes_with_pil(jpegs, tmp_path):
@@ -154,7 +154,7 @@ def test_get_batch_of_a_png_batch_decodes_with_pil(jpegs, tmp_path):
     got, _ = ds.get_batch([0, 2])
     want = np.stack([ds[0][0], ds[2][0]])
     np.testing.assert_array_equal(got, want)
-    assert not ds.native_decode()
+    assert not datasets.native_decodable(ds)
     # a JPEG-only batch of the same dataset still decodes natively
     np.testing.assert_array_equal(
         ds.get_batch([1])[0], native_image.decode_jpeg_batch(
@@ -341,6 +341,11 @@ def test_loader_kind_names_each_loader(jpegs, tmp_path):
                                        image_size=16, imagenet_norm=True)
     assert native_image.loader_kind(native_image.make_batch_loader(
         norm, 2)) == "python"
+    # JPEG items without a `get_batch` (the DDPM FolderDataset) read by PIL
+    from vqgan_tpu_torch.training.ddpm_trainer import FolderDataset
+
+    assert native_image.loader_kind(native_image.make_batch_loader(
+        FolderDataset(tmp_path, 16), 2, native=False)) == "python"
 
 
 @pytest.fixture(scope="module")

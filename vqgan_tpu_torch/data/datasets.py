@@ -8,7 +8,8 @@ vqgan_tpu/data/datasets.py.
 - `ImageFolderDataset`: the split's images of each `ID_x` user folder,
   (image, 0-based label) items; `get_batch` decodes a whole batch with the
   native C++ decoder (`native_image.decode_jpeg_batch`) where the batch is
-  all JPEG and not ImageNet-normalised, with PIL otherwise.
+  all JPEG and not ImageNet-normalised (`native_decodable`), with PIL
+  otherwise.
 - `SyntheticDataset`: every image of the `ID_x` folders of generated
   images, label x - 1, optionally only the 0-based labels of
   `user_filter`.
@@ -34,7 +35,7 @@ from .splits import IMAGE_EXTENSIONS, train_images_for_user
 
 __all__ = ["load_image", "ImageFolderDataset", "SyntheticDataset",
            "BatchLoader", "IMAGENET_MEAN", "IMAGENET_STD", "pad_to_batch",
-           "is_jpeg"]
+           "is_jpeg", "native_decodable"]
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -112,7 +113,7 @@ class ImageFolderDataset:
         else PIL per item. A decode error raises."""
         paths = [self.items[int(i)][0] for i in idxs]
         labels = np.asarray([self.items[int(i)][1] for i in idxs], np.int32)
-        if not self.imagenet_norm and all(is_jpeg(p) for p in paths):
+        if native_decodable(self, paths):
             from .native_image import decode_jpeg_batch
 
             batch = decode_jpeg_batch(paths, self.image_size)
@@ -122,19 +123,25 @@ class ImageFolderDataset:
                 for p in paths]
         return np.stack(imgs), labels
 
-    def native_decode(self) -> bool:
-        """Whether `get_batch` decodes natively: all items JPEG, no
-        ImageNet normalisation, and the decoder library present."""
-        if self.imagenet_norm or not all(is_jpeg(p) for p, _ in self.items):
-            return False
-        from .native_image import load_decoder_lib
-
-        return load_decoder_lib() is not None
-
 
 def is_jpeg(path) -> bool:
     """Whether `path` names a JPEG (the native decoder reads no other)."""
     return str(path).lower().endswith((".jpg", ".jpeg"))
+
+
+def native_decodable(dataset, paths=None) -> bool:
+    """Whether the native decoder may read `paths` of `dataset` (default:
+    every path of its `.items`): the dataset has `.items` and an
+    `image_size`, is not ImageNet-normalised, and every path is a JPEG.
+    The one rule behind `get_batch`, `make_batch_loader` and
+    `loader_kind`; whether the library is present is theirs to ask."""
+    if not (hasattr(dataset, "items") and hasattr(dataset, "image_size")):
+        return False
+    if getattr(dataset, "imagenet_norm", False):
+        return False
+    if paths is None:
+        paths = (p for p, _ in dataset.items)
+    return all(is_jpeg(p) for p in paths)
 
 
 class SyntheticDataset:

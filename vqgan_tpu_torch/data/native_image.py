@@ -32,7 +32,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from .datasets import BatchLoader, is_jpeg
+from .datasets import BatchLoader, native_decodable
 from .native_build import NATIVE_SRC, build_native_lib
 
 __all__ = ["load_decoder_lib", "decode_jpeg_batch", "NativePipeline",
@@ -211,10 +211,7 @@ def make_batch_loader(dataset, batch_size: int, shuffle: bool = True,
     native: True (require the ring: raise where it cannot be had, whatever
     the core count), False (never), "auto" (the measured dispatch; the
     reason for a Python loader is printed)."""
-    plain = (hasattr(dataset, "items") and hasattr(dataset, "image_size")
-             and not getattr(dataset, "imagenet_norm", False))
-    if plain:  # libjpeg only: PNG / BMP datasets keep the PIL path
-        plain = all(is_jpeg(p) for p, _ in dataset.items)
+    plain = native_decodable(dataset)  # PNG / BMP datasets keep PIL
     enough_cores = (native is True
                     or (os.cpu_count() or 1) >= _ASYNC_MIN_CORES)
     if native and plain and enough_cores and len(dataset.items) >= batch_size:
@@ -246,5 +243,8 @@ def loader_kind(loader) -> str:
     decodes natively) or "python" (PIL)."""
     if isinstance(loader, NativeBatchLoader):
         return "native_ring"
-    native = getattr(getattr(loader, "dataset", None), "native_decode", None)
-    return "native_get_batch" if native is not None and native() else "python"
+    dataset = getattr(loader, "dataset", None)
+    if (hasattr(dataset, "get_batch") and native_decodable(dataset)
+            and load_decoder_lib() is not None):
+        return "native_get_batch"
+    return "python"

@@ -66,11 +66,12 @@ def run_scan_loop(*, start: int, num_steps: int, scan_block: int,
                   cadences: Sequence[int] = ()) -> dict:
     """Train from step `start` up to `num_steps`.
 
-    - dispatch(step, drawn) runs len(drawn) steps from `step` on the host
-      batches `drawn` (drawn from `batches`, closed at the end) and
-      returns (stacked logs, stacked losses [n]); it runs whatever the
-      trainer does after a block (the VQ-GAN's revival, one of the
-      `cadences`);
+    - dispatch(step, drawn) runs len(drawn) steps from `step` on the
+      items `drawn` from `batches` (closed at the end): the trainers pass
+      `device_prefetch`'s iterator, so each item is a (host batch, device
+      batch) pair and dispatch stacks the device side; it returns
+      (stacked logs, stacked losses [n]) and runs whatever the trainer
+      does after a block (the VQ-GAN's revival, one of the `cadences`);
     - log(step, logs, per_second) at every `log_every`-th step, with the
       steps per second since the last log;
     - save(milestone) at every `save_every`-th step, after the pending
