@@ -338,7 +338,16 @@ Phases, in order; any failure exits non-zero:
    path's eager and captured samples/s, capture seconds and pool bytes.
    Phases 5g, 5h and 5i sample through the graphs too (the samplers'
    default on the card), their launch gates unchanged.
-6. Print the kernels' JSON line, then the card line, then the device line.
+6. Scale-out (`drive_scale_out`): a real NCCL process group of world 1
+   in this process; `train_latent_cfg` at full width under each of the
+   five `--param_sharding` modes (each equal to the replicated run);
+   ring attention through the kernels, forward and backward, at
+   [2,4096,8,64] bf16 over 4 blocks (held to the whole-sequence flash
+   attention, the plain version and fp64) and [2,1024,2,64] fp32 over 8
+   (held to `sdpa_reference`), with the kernels' rows at the block
+   shapes; `dryrun_multichip` at the card's world size, then at 2 ranks
+   sharing the card over gloo.
+7. Print the kernels' JSON line, then the card line, then the device line.
 """
 
 from __future__ import annotations
@@ -4947,6 +4956,315 @@ def drive_sampler_graphs(torch, kernels, seed: int, card: str):
     return counts, metrics
 
 
+# phase 6's ring shapes: (label, whole [B, S, H, D], shards, dtype)
+RING_CASES = (("ring_4096_bf16", (2, 4096, 8, 64), 4, "bfloat16"),
+              ("ring_1024_fp32", (2, 1024, 2, 64), 8, "float32"))
+# phase 6: bf16 ring output and gradients at most this many times as far
+# from fp64 as the whole-sequence flash attention's (each K/V block's
+# dK/dV partial is rounded to bf16 before the fp32 sum)
+_RING_BF16_FACTOR = 2.0
+_SCALE_OUT_STEPS = 6
+
+
+def ring_ref(torch, q, k, v, do, dtype):
+    """(out, [dq, dk, dv]) with autograd: `sdpa_reference` on inputs cast
+    to `dtype`, or with float64 softmax attention in float64 throughout
+    (`sdpa_reference` computes in fp32)."""
+    from vqgan_tpu_torch.ops.attention import sdpa_reference
+
+    ins = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+    if dtype == torch.float64:
+        scale = 1.0 / np.sqrt(q.shape[-1])
+        p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", ins[0], ins[1])
+                          * scale, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", p, ins[2])
+    else:
+        out = sdpa_reference(*ins)
+    out.backward(do.to(dtype))
+    return out.detach(), [t.grad for t in ins]
+
+
+def ring_run(torch, q, k, v, do, n):
+    """(out, [dq, dk, dv]) of `ring_attention_shards` over n blocks."""
+    from vqgan_tpu_torch.ops.ring_attention import ring_attention_shards
+
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = ring_attention_shards(*ins, n)
+    out.backward(do)
+    return out.detach(), [t.grad for t in ins]
+
+
+def ring_rows(torch, peaks, label, shape, n, dt):
+    """Phase 6's rows of kernels #1-#3 at one ring block's shape: device
+    ms from a CUDA graph of the operator, the plain version's and SDPA's
+    ms (its fused backward for #2-#3), the bound, the error against the
+    plain version at that block."""
+    import torch.nn.functional as F
+
+    from vqgan_tpu_torch.kernels.ops import (
+        flash_bwd_dkv_op,
+        flash_bwd_dq_op,
+        flash_fwd_op,
+    )
+    from vqgan_tpu_torch.ops.attention import (
+        flash_bwd_dkv_reference,
+        flash_bwd_dq_reference,
+        flash_delta,
+        flash_forward_reference,
+    )
+
+    b, s, h, d = shape
+    blk = s // n
+    dtype = getattr(torch, dt)
+    g = torch.Generator("cuda").manual_seed(17)
+    q, k, v, do = (torch.randn((b, blk, h, d), generator=g, device="cuda")
+                   .to(dtype) for _ in range(4))
+    scale = 1.0 / np.sqrt(d)
+    out, lse = flash_fwd_op(q, k, v, scale)
+    delta = flash_delta(out, do)
+    ref_out, ref_lse = flash_forward_reference(q, k, v, scale)
+    dq = flash_bwd_dq_op(q, k, v, do, lse, delta, scale)
+    dk, dv = flash_bwd_dkv_op(q, k, v, do, lse, delta, scale)
+    ref_dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, scale)
+    ref_dk, ref_dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+
+    def err(a, b_):
+        return (a.float() - b_.float()).abs().max().item()
+
+    errs = {"flash_fwd": max(err(out, ref_out), err(lse, ref_lse)),
+            "flash_bwd_dq": err(dq, ref_dq),
+            "flash_bwd_dkv": max(err(dk, ref_dk), err(dv, ref_dv))}
+    iters = 50
+    calls = {
+        "flash_fwd": (lambda: flash_fwd_op(q, k, v, scale),
+                      lambda: flash_forward_reference(q, k, v, scale)),
+        "flash_bwd_dq": (
+            lambda: flash_bwd_dq_op(q, k, v, do, lse, delta, scale),
+            lambda: flash_bwd_dq_reference(q, k, v, do, lse, delta, scale)),
+        "flash_bwd_dkv": (
+            lambda: flash_bwd_dkv_op(q, k, v, do, lse, delta, scale),
+            lambda: flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                            scale)),
+    }
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, scale=scale), iters)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        side_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+    gt = do.transpose(1, 2)
+    lib_bwd = device_ms(torch, lambda: torch.autograd.grad(
+        side_out, leaves, gt, retain_graph=True), iters, stream=side)
+    work = backward_work(b, blk, blk, h, d, q.element_size())
+    work["flash_fwd"] = ((4 * b * blk * h * d) * q.element_size()
+                         + 4 * b * h * blk, 4 * b * h * blk * blk * d)
+    rows = {}
+    for name, (kernel, plain) in calls.items():
+        ms = device_ms(torch, kernel, iters)
+        plain_ms = cuda_ms(torch, plain, 10)
+        bound_ms, bound_by = bound(peaks, *work[name], dt)
+        replaces = {"flash_fwd": "vqgan_tpu/ops/attention.py:86",
+                    "flash_bwd_dq": "vqgan_tpu/ops/attention.py:190",
+                    "flash_bwd_dkv": "vqgan_tpu/ops/attention.py:221"}[name]
+        rows[(name, label)] = {
+            "name": name, "key": (b, blk, h, d, dt),
+            "shape": f"[{b},{blk},{h},{d}] {dt} ({label}: {n} blocks of "
+                     f"[{b},{s},{h},{d}])",
+            "route": "cuda", "source": f"vqgan_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd}
+        print(f"{name} {label} block [{b},{blk},{h},{d}] {dt}: device "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library (SDPA"
+              f"{' fused backward, dq+dk+dv' if name != 'flash_fwd' else ''})"
+              f" device ms={rows[(name, label)]['library_ms']:.4f} "
+              f"bound_ms={bound_ms:.6f} ({bound_by}) max|kernel-plain|="
+              f"{errs[name]:.3e}; launches per ring call: {n * n}")
+    return rows
+
+
+def drive_scale_out(torch, kernels, peaks, seed: int, ldm: Path,
+                    work: Path, card: str):
+    """Phase 6, scale-out on the card. Returns ({(kernel, shape):
+    launches} of its main path, its kernel rows, metrics).
+
+    - A real NCCL process group of world 1 in this process; on it
+      `train_latent_cfg` at the full width (phase 5b's split and cache,
+      batch 8, bf16) for each `--param_sharding` mode, _SCALE_OUT_STEPS
+      steps each, cuDNN pinned to deterministic algorithms: each mode's
+      losses within rtol 1e-4 of the replicated run's and its parameters
+      and EMA within 0.05 x lr per step (the tests' whole-step rule); one
+      launch of each flash kernel per step at [8,16,8,64] bf16; latents/s.
+    - `ring_attention_shards` forward and backward with the kernels: at
+      [2,4096,8,64] bf16 over 4 blocks against the whole-sequence flash
+      attention and the plain `sdpa_reference`, each output at most
+      _RING_BF16_FACTOR times as far from an fp64 evaluation as the flash
+      attention's; at the dry run's [2,1024,2,64] fp32 over 8 blocks
+      against `sdpa_reference` at atol 1e-4. n^2 launches of each kernel
+      per call; the kernels' rows at the block shapes.
+    - `dryrun_multichip` at the card's world size, in this group.
+    - World 2 on the one card: gloo takes the CUDA tensors through host
+      memory (parallel/comm.py), so the dry run at n = 2 runs there too;
+      it fails on any check skipped.
+    """
+    import torch.distributed as dist
+
+    from vqgan_tpu_torch import train_latent_cfg
+    from vqgan_tpu_torch.dryrun_multichip import dryrun_multichip, run_rank
+    from vqgan_tpu_torch.ops.attention import flash_attention
+    from vqgan_tpu_torch.parallel import initialize_distributed
+    from vqgan_tpu_torch.parallel.launch import free_port
+
+    t_phase = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    initialize_distributed("cuda", backend="nccl",
+                           init_method=f"tcp://127.0.0.1:{free_port()}",
+                           world_size=1, rank=0)
+    print(f"phase 6: process group {dist.get_backend()} world "
+          f"{dist.get_world_size()} on {card}")
+    config = work / "scale_out.json"
+    config.write_text(json.dumps({"save_and_sample_every": 1000}))
+    common = ["--split", str(ldm / "data_split.json"),
+              "--latents_cache_folder", str(ldm / "latents_cache"),
+              "--data_path", str(ldm / "images"), "--seed", str(seed),
+              "--config", str(config), "--step_mode", "step",
+              "--train_num_steps", str(_SCALE_OUT_STEPS)]
+    train_key = (8, 16, 8, 64, "bfloat16")
+    g = torch.Generator("cuda").manual_seed(seed)
+    ring_inputs = {}
+    for label, shape, n, dt in RING_CASES:
+        ring_inputs[label] = [torch.randn(shape, generator=g, device="cuda")
+                              .to(getattr(torch, dt)) for _ in range(4)]
+
+    # --- the main path, counted ------------------------------------------
+    reset_counts(kernels)
+    runs = {}
+    for mode in ("replicated", "zero1", "fsdp", "tp", "fsdp_tp"):
+        t0 = time.perf_counter()
+        res = train_latent_cfg.main([*common, "--param_sharding", mode,
+                                     "--results_folder",
+                                     str(work / mode)])
+        trainer = res.pop("trainer")
+        runs[mode] = {
+            "losses": res["losses"], "latents_per_s": res["latents_per_s"],
+            "mesh": dict(trainer.mesh.shape), "lr": trainer.config.train_lr,
+            "model": trainer.placed.gathered("model"),
+            "ema": trainer.placed.gathered("ema"),
+            "seconds": time.perf_counter() - t0}
+        del trainer, res
+    ring_out = {label: ring_run(torch, *ring_inputs[label], n)
+                for label, _, n, _ in RING_CASES}
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    print(f"phase 6 launches: {counts}")
+
+    base = runs["replicated"]
+    for mode, run in runs.items():
+        steps = len(run["losses"])
+        d_loss = max(abs(a - b) / abs(b)
+                     for a, b in zip(run["losses"], base["losses"]))
+        d_par = max((run[p][k].float() - base[p][k].float()).abs().max()
+                    .item() for p in ("model", "ema") for k in base[p])
+        atol = 0.05 * run["lr"] * steps
+        print(f"train_latent_cfg --param_sharding {mode} on {run['mesh']} "
+              f"(NCCL world 1): {steps} steps in {run['seconds']:.3f} s, "
+              f"{run['latents_per_s']:.4f} latents/s; losses "
+              f"{run['losses']}; vs replicated: max rel |d loss| "
+              f"{d_loss:.3e}, max |d param| {d_par:.3e} (rule {atol:.2e})")
+        if steps != _SCALE_OUT_STEPS or not all(np.isfinite(run["losses"])):
+            fail(f"{mode}: expected {_SCALE_OUT_STEPS} finite losses")
+        if d_loss > 1e-4 or d_par > atol:
+            fail(f"--param_sharding {mode} differs from replicated")
+    want = {(k, train_key): 5 * _SCALE_OUT_STEPS for k in FLASH}
+    for label, shape, n, dt in RING_CASES:
+        b, s, h, d = shape
+        for k in FLASH:
+            want[(k, (b, s // n, h, d, dt))] = n * n
+    if counts != want:
+        fail(f"phase 6 launches {counts}, expected {want}")
+
+    # --- the ring against flash attention, the plain version, fp64 -------
+    metrics = {"modes": {m: {"latents_per_s": r["latents_per_s"],
+                             "seconds": r["seconds"]}
+                         for m, r in runs.items()}}
+    del runs, base
+    for label, shape, n, dt in RING_CASES:
+        q, k, v, do = ring_inputs[label]
+        out, grads = ring_out[label]
+        exact = ring_ref(torch, q, k, v, do, torch.float64)
+        names = ("out", "dq", "dk", "dv")
+        got = [out, *grads]
+        if dt == "float32":
+            plain = ring_ref(torch, q, k, v, do, torch.float32)
+            errs = [(a.double() - b.double()).abs().max().item()
+                    for a, b in zip(got, [plain[0], *plain[1]])]
+            print(f"ring {label}: max|ring - sdpa_reference| "
+                  + " ".join(f"{n_}={e:.3e}" for n_, e in zip(names, errs)))
+            if max(errs) > 1e-4:
+                fail(f"ring {label} differs from sdpa_reference (atol 1e-4)")
+            metrics[label] = {"max_abs_vs_plain": max(errs)}
+            continue
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        flash_out = flash_attention(*ins)
+        flash_out.backward(do)
+        flash = [flash_out.detach(), *(t.grad for t in ins)]
+        plain = ring_ref(torch, q, k, v, do, q.dtype)
+        plain = [plain[0], *plain[1]]
+        ex = [exact[0], *exact[1]]
+        rec = {}
+        for n_, a, f, p_, e in zip(names, got, flash, plain, ex):
+            d_ring = (a.double() - e).abs().max().item()
+            d_flash = (f.double() - e).abs().max().item()
+            d_plain = (p_.double() - e).abs().max().item()
+            rec[n_] = {"ring_vs_fp64": d_ring, "flash_vs_fp64": d_flash,
+                       "plain_vs_fp64": d_plain,
+                       "ring_vs_flash": (a.float() - f.float()).abs().max()
+                       .item(),
+                       "ring_vs_plain": (a.float() - p_.float()).abs().max()
+                       .item()}
+            print(f"ring {label} {n_}: from fp64 ring {d_ring:.3e}, flash "
+                  f"{d_flash:.3e}, plain {d_plain:.3e}; |ring - flash| "
+                  f"{rec[n_]['ring_vs_flash']:.3e}, |ring - plain| "
+                  f"{rec[n_]['ring_vs_plain']:.3e}")
+            if d_ring > _RING_BF16_FACTOR * d_flash:
+                fail(f"ring {label} {n_}: {d_ring:.3e} from fp64, over "
+                     f"{_RING_BF16_FACTOR} x the flash attention's")
+        metrics[label] = rec
+        del flash, plain, ex, exact
+    del ring_out, ring_inputs
+    torch.cuda.empty_cache()
+    rows = {}
+    for label, shape, n, dt in RING_CASES:
+        rows.update(ring_rows(torch, peaks, label, shape, n, dt))
+
+    # --- the dry run at the card's world size, then at 2 ranks -----------
+    t0 = time.perf_counter()
+    line = run_rank(dist.get_world_size(), "cuda")
+    print(f"{line} ({time.perf_counter() - t0:.3f} s, NCCL world 1)")
+    dist.destroy_process_group()
+    torch.backends.cudnn.deterministic = deterministic
+    t0 = time.perf_counter()
+    line2 = dryrun_multichip(2, "cuda", timeout=300)
+    print(f"{line2} ({time.perf_counter() - t0:.3f} s, 2 ranks on one card "
+          f"over gloo)")
+    if "skipped" in line2:
+        fail(f"the 2-rank dry run skipped a check: {line2}")
+    print("phase 6: with more than one rank, every mode ran on the card "
+          "only over gloo (2 ranks sharing the card, at the dry run's "
+          "small U-Net); at full width and over NCCL, one rank; no mode "
+          "ran on several GPUs")
+    metrics["dryrun_1"] = line
+    metrics["dryrun_2_gloo"] = line2
+    metrics["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"phase 6: {metrics['phase_seconds']:.3f} s")
+    return counts, rows, metrics
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5008,7 +5326,8 @@ def main():
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
             work = Path(work)
             for phase in ("ldm", "vqgan", "kl_vae", "gmm", "serving",
-                          "stage2", "pixel", "library", "captured"):
+                          "stage2", "pixel", "library", "captured",
+                          "scale_out"):
                 (work / phase).mkdir()
             train_counts, rate = drive_training(torch, KERNELS, args.seed,
                                                 work / "ldm")
@@ -5052,12 +5371,18 @@ def main():
             sampler_counts, sampler_metrics = drive_sampler_graphs(
                 torch, KERNELS, args.seed, card)
             print("captured samplers: " + json.dumps(sampler_metrics))
+            scale_counts, scale_rows, scale_metrics = drive_scale_out(
+                torch, KERNELS, peaks, args.seed, work / "ldm",
+                work / "scale_out", card)
+            rows.update(scale_rows)
+            print("scale-out: " + json.dumps(scale_metrics))
         for key, n in [*train_counts.items(), *vq_counts.items(),
                        *kl_counts.items(), *gmm_counts.items(),
                        *serving_counts.items(), *stage2_counts.items(),
                        *pixel_counts.items(), *input_counts.items(),
                        *library_counts.items(),
-                       *captured_counts.items(), *sampler_counts.items()]:
+                       *captured_counts.items(), *sampler_counts.items(),
+                       *scale_counts.items()]:
             counts[key] = counts.get(key, 0) + n
         for row in rows.values():
             row["launches"] = counts.get((row["name"], row["key"]), 0)

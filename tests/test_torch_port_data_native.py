@@ -43,6 +43,10 @@ from vqgan_tpu_torch.data import native_build, native_image
 from vqgan_tpu_torch.data.native_loader import NativeLatentBatcher
 from vqgan_tpu_torch.data.prefetch import device_prefetch, to_device
 
+from _jax_native_libs import jax_native_libs  # noqa: F401
+
+# every test waits until the JAX package's native libraries load
+pytestmark = pytest.mark.usefixtures("jax_native_libs")
 REPO = Path(__file__).resolve().parent.parent
 KINDS = [("square", (64, 64), "RGB"), ("landscape", (96, 48), "RGB"),
          ("portrait", (40, 80), "RGB"), ("gray", (72, 56), "L"),

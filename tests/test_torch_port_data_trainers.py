@@ -49,8 +49,12 @@ from vqgan_tpu_torch.training.ddpm_trainer import FolderDataset, Trainer
 from vqgan_tpu_torch.training.ldm_trainer import LatentDiffusionTrainer
 from vqgan_tpu_torch.training.vqgan_trainer import VQGANTrainer
 
+from _jax_native_libs import jax_native_libs  # noqa: F401
+
 torch.set_num_threads(2)
 
+# every test waits until the JAX package's native libraries load
+pytestmark = pytest.mark.usefixtures("jax_native_libs")
 REPO = Path(__file__).resolve().parent.parent
 LOSS_RTOL = 1e-4
 

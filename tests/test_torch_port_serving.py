@@ -431,7 +431,17 @@ def test_serving_hosts_load_no_model_code_at_run_time():
 
 
 def test_multi_device_export_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        export_cfg_sampler(None, None, tmp_path, batch_size=1,
+    # data-parallel artifacts are ported (test_torch_port_pipeline.py);
+    # weights split over the mesh (TP serving) are not
+    from vqgan_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        export_cfg_sampler(None, None, tmp_path, batch_size=2,
                            latent_shape=(4, 4, 4), ddim_pairs=[], num_users=1,
-                           cond_scale=1.0, rescaled_phi=0.0, mesh="data")
+                           cond_scale=1.0, rescaled_phi=0.0,
+                           mesh=Mesh({"data": 2}, "cpu"), param_specs={})
+    with pytest.raises(NotImplementedError, match="'data' only"):
+        export_cfg_sampler(None, None, tmp_path, batch_size=2,
+                           latent_shape=(4, 4, 4), ddim_pairs=[], num_users=1,
+                           cond_scale=1.0, rescaled_phi=0.0,
+                           mesh=Mesh({"data": 1, "model": 2}, "cpu"))

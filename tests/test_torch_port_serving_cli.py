@@ -107,12 +107,20 @@ def test_export_serving_cli_selftests_on_cpu(checkpoints, tmp_path, capsys):
     assert res["selftest"]["recon_max_abs_diff"] <= ATOL
 
 
-def test_export_serving_dp_raises(checkpoints, tmp_path):
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        export_serving.main([
-            "--checkpoint", str(checkpoints / "ldm"), "--vae_path",
-            str(checkpoints / "kl_vae.pt"), "--out", str(tmp_path), "--dp",
-            "2", "--device", "cpu"])
+def test_export_serving_dp_raises(checkpoints, tmp_path, capsys):
+    # --dp exports (test_torch_port_pipeline.py runs it); it refuses a
+    # batch that does not divide, as the JAX CLI does, and the codec mode
+    common = ["--checkpoint", str(checkpoints / "ldm"), "--vae_path",
+              str(checkpoints / "kl_vae.pt"), "--out", str(tmp_path),
+              "--device", "cpu"]
+    with pytest.raises(SystemExit):
+        export_serving.main([*common, "--dp", "2", "--batch_size", "3"])
+    assert "not divisible by --dp 2" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        export_serving.main(["--mode", "vq_codec", "--vqgan_path",
+                             str(checkpoints / "vqgan" / "vqgan-1.pt"),
+                             "--out", str(tmp_path), "--dp", "2"])
+    assert "--dp exports the cfg_sampler mode" in capsys.readouterr().err
 
 
 def _env():

@@ -25,7 +25,14 @@ not reproducible from run to run at that tolerance). Under
 `--params_dtype bfloat16` the live pipeline
 runs on the same bf16-rounded weights, and the drift from the fp32 weights
 is printed. Runs on the GPU by default (`--device cpu` to export for the
-CPU). `--dp` (data-parallel export) waits for the scale-out slice.
+CPU).
+
+`--dp N` exports a data-parallel artifact, as the JAX CLI's flag does: the
+programs take batch_size / N rows, and the loader runs on N ranks that each
+sample their rows of the batch and gather the images
+(`serving/export.py`). Its `--selftest` runs the artifact on N spawned
+ranks (gloo; on one card they share it) and holds the gathered images
+against the live pipeline on the whole batch.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from .device import resolve_device, set_full_fp32_precision
 from .diffusion.gaussian import DDIMStep
 from .generate import load_checkpoint, load_model, load_vae
 from .models import KLVAE, VQVAE
+from .parallel.mesh import Mesh
 from .serving import (
     export_cfg_sampler,
     export_vq_codec,
@@ -169,8 +177,11 @@ def export_cfg_artifact(args, device) -> dict:
     b = args.batch_size
     step, decode = cfg_programs(diffusion, vae, cond_scale,
                                 args.rescaled_phi)
+    dp = args.dp or 1
+    mesh = Mesh({"data": dp}, device) if dp > 1 else None
     meta = export_cfg_sampler(
-        step, decode, args.out, batch_size=b,
+        step, decode, args.out, batch_size=b, mesh=mesh,
+        arg_specs=(("data",),) if mesh is not None else None,
         latent_shape=(diffusion.channels, diffusion.image_size,
                       diffusion.image_size),
         ddim_pairs=diffusion.ddim_time_pairs(), num_users=config.num_users,
@@ -178,7 +189,9 @@ def export_cfg_artifact(args, device) -> dict:
         params_dtype=args.params_dtype,
         config={**dataclasses.asdict(config), "batch_size": b,
                 "image_size": config.image_size})
-    print(f"exported serving artifact to {args.out} (batch {b}, cond_scale "
+    print(f"exported serving artifact to {args.out} (batch {b}"
+          f"{f', data-parallel over {dp} ranks' if dp > 1 else ''}, "
+          f"cond_scale "
           f"{cond_scale}, {args.params_dtype} weights; "
           + ", ".join(f"{k}.pt2 {v['bytes']} bytes in {v['seconds']:.3f} s"
                       for k, v in meta["programs"].items()) + ")")
@@ -186,7 +199,6 @@ def export_cfg_artifact(args, device) -> dict:
     if not args.selftest:
         return out
 
-    sampler = load_cfg_sampler(args.out, device)
     gen = torch.Generator(device=device).manual_seed(0)
     h = diffusion.image_size
     init = torch.randn((b, h, h, diffusion.channels), generator=gen,
@@ -198,7 +210,18 @@ def export_cfg_artifact(args, device) -> dict:
         diffusion, model=round_weights(diffusion.model, args.params_dtype))
     drift = None
     with _deterministic():
-        got = sampler(classes, init_noise=init, step_noise=steps)
+        if dp > 1:
+            from .parallel.launch import spawn
+
+            ranks = spawn(_served_rank, dp,
+                          (args.out, str(device), classes.cpu(), init.cpu(),
+                           steps.cpu()), timeout=900, device=device)
+            got = ranks[0].to(device)
+            for r, images in enumerate(ranks[1:], 1):
+                _close(f"rank {r} vs rank 0", images, ranks[0], exact=True)
+        else:
+            sampler = load_cfg_sampler(args.out, device)
+            got = sampler(classes, init_noise=init, step_noise=steps)
         want = live_pipeline(live, round_weights(vae, args.params_dtype),
                              classes, init, steps, cond_scale,
                              args.rescaled_phi)
@@ -215,6 +238,17 @@ def export_cfg_artifact(args, device) -> dict:
           f"{got.max().item():.3f}]")
     out["selftest"] = {"max_abs_diff": err, "bf16_drift": drift}
     return out
+
+
+def _served_rank(rank, world, outdir, device, classes, init, steps):
+    """One rank of a data-parallel artifact's selftest: the gathered
+    images of the whole batch."""
+    set_full_fp32_precision()
+    device = torch.device(device)
+    with _deterministic():
+        sampler = load_cfg_sampler(outdir, device)
+        return sampler(classes.to(device), init_noise=init.to(device),
+                       step_noise=steps.to(device)).cpu()
 
 
 def export_codec_artifact(args, device) -> dict:
@@ -277,8 +311,8 @@ def parse_args(argv=None):
     ap.add_argument("--cond_scale", type=float, default=None)
     ap.add_argument("--rescaled_phi", type=float, default=0.7)
     ap.add_argument("--dp", type=int, default=None,
-                    help="data-parallel export over N devices (not ported "
-                         "yet: raises for N > 1)")
+                    help="data-parallel export over N ranks: each runs "
+                         "batch_size / N rows (cfg_sampler mode)")
     ap.add_argument("--params_dtype", choices=["float32", "bfloat16"],
                     default="float32",
                     help="bfloat16 halves the artifact's size; the selftest "
@@ -292,6 +326,12 @@ def parse_args(argv=None):
         ap.error("--mode vq_codec requires --vqgan_path")
     if args.mode == "cfg_sampler" and not (args.checkpoint and args.vae_path):
         ap.error("--mode cfg_sampler requires --checkpoint and --vae_path")
+    if args.dp and args.dp > 1:
+        if args.mode != "cfg_sampler":
+            ap.error("--dp exports the cfg_sampler mode")
+        if args.batch_size % args.dp:
+            ap.error(f"--batch_size {args.batch_size} not divisible by --dp "
+                     f"{args.dp}")
     return args
 
 
@@ -299,10 +339,6 @@ def main(argv=None) -> dict:
     """Export (and self-test) an artifact; returns what `export_*_artifact`
     returns."""
     args = parse_args(argv)
-    if args.dp is not None and args.dp > 1:
-        raise NotImplementedError(
-            "--dp: data-parallel serving artifacts are not ported yet; "
-            "export for one device")
     device = resolve_device(args.device)
     set_full_fp32_precision()
     if args.mode == "vq_codec":

@@ -20,6 +20,10 @@ Parity points with the JAX package (flax defaults):
 Attention runs through the port's `sdpa` (the flash kernels on CUDA) on
 [B, N, heads, dim_head] views of the qkv projection.
 
+`stacked_block_params` and `dit_pipeline_forward` run the block stack as
+a GPipe pipeline over a mesh's "stage" axis (parallel/pp.py); each stage
+runs `DiTBlock`s, so the flax defaults above hold there too.
+
 Parameter names (the JAX package has no PyTorch reader for a DiT, so
 `checkpoint/from_jax.py:dit_state_from_jax` defines the mapping):
 `patch_embed`, `pos_emb` [1, N, dim], `time_mlp_in`, `time_mlp_out`,
@@ -39,7 +43,8 @@ from ..ops.attention import sdpa
 from .layers import Conv2d, Linear, lecun_normal_init_
 from .unet_cfg import SinusoidalPosEmb, draw_cond_drop_mask
 
-__all__ = ["DiT", "DiTBlock", "layer_norm"]
+__all__ = ["DiT", "DiTBlock", "dit_pipeline_forward", "layer_norm",
+           "stacked_block_params"]
 
 
 def layer_norm(x, dtype, eps: float = 1e-6):
@@ -184,3 +189,42 @@ class DiT(nn.Module):
         if return_features:
             return out, features
         return out
+
+
+def stacked_block_params(model: DiT) -> dict:
+    """The blocks' parameters stacked into one name -> [depth, ...] dict
+    (the parallel/pp.py contract); differentiable back to the blocks."""
+    from ..parallel.pp import stack_params
+
+    return stack_params([dict(blk.named_parameters())
+                         for blk in model.blocks])
+
+
+def dit_pipeline_forward(model: DiT, x, time, classes, mesh, *,
+                         num_microbatches: int, cond_drop_mask=None,
+                         stacked=None):
+    """The DiT forward with its block stack pipelined over the mesh's
+    "stage" axis; the embedding and the head run on every stage (a small
+    share of the work). Equals `model(x, time, classes,
+    cond_drop_mask=...)` (same math, same order). `x`, `time`, `classes`
+    and the mask are this rank's rows. No class is dropped at random
+    (CFG dropout belongs to training callers, who pass the mask).
+
+    `stacked`: this stage's blocks from `shard_stacked_params`, to place
+    them once for many calls; by default they come from `model`."""
+    from torch.func import functional_call
+
+    from ..parallel.pp import pipeline_apply, shard_stacked_params
+
+    tokens, c = model.embed(x, time, classes, cond_drop_mask, 0.0)
+    template = model.blocks[0]
+
+    def block_fn(p, carry):
+        t_, c_ = carry
+        return functional_call(template, p, (t_, c_)), c_
+
+    if stacked is None:
+        stacked = shard_stacked_params(stacked_block_params(model), mesh)
+    tokens, c = pipeline_apply(block_fn, stacked, (tokens, c), mesh,
+                               num_microbatches=num_microbatches)
+    return model.head(tokens, c)

@@ -1,0 +1,130 @@
+"""The collectives the scale-out modules use, on NCCL and on gloo alike.
+
+Every function takes a process group (a mesh axis's group, or None for
+the default group) and works on tensors of the rank's device. NCCL takes
+CUDA tensors; gloo takes CPU tensors, and where it is given CUDA tensors
+(several ranks sharing one card) the data goes through host memory. A
+group of one rank still calls the backend, so a one-rank NCCL group runs
+real NCCL collectives.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["all_gather_cat", "all_reduce_", "broadcast_", "group_size",
+           "group_rank", "global_rank", "ppermute", "send_recv"]
+
+
+def group_size(group=None) -> int:
+    return dist.get_world_size(group) if dist.is_initialized() else 1
+
+
+def group_rank(group=None) -> int:
+    return dist.get_rank(group) if dist.is_initialized() else 0
+
+
+def global_rank(group, rank_in_group: int) -> int:
+    """The global rank of `rank_in_group` in `group`."""
+    if group is None:
+        return rank_in_group
+    return dist.get_global_rank(group, rank_in_group)
+
+
+def _via_host(t: torch.Tensor, group) -> bool:
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def all_reduce_(t: torch.Tensor, group=None,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """In-place all-reduce of `t` over `group`."""
+    if not dist.is_initialized():
+        return t
+    if _via_host(t, group):
+        host = t.cpu()
+        dist.all_reduce(host, op=op, group=group)
+        t.copy_(host)
+    else:
+        dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def broadcast_(t: torch.Tensor, src_in_group: int = 0,
+               group=None) -> torch.Tensor:
+    """In-place broadcast of `t` from group rank `src_in_group`."""
+    if not dist.is_initialized():
+        return t
+    src = global_rank(group, src_in_group)
+    if _via_host(t, group):
+        host = t.cpu()
+        dist.broadcast(host, src, group=group)
+        t.copy_(host)
+    else:
+        dist.broadcast(t, src, group=group)
+    return t
+
+
+def all_gather_cat(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's `t` (equal shapes), concatenated along `dim` in group
+    rank order."""
+    n = group_size(group)
+    if not dist.is_initialized():
+        return t
+    src = t.contiguous()
+    if _via_host(src, group):
+        host = src.cpu()
+        parts = [torch.empty_like(host) for _ in range(n)]
+        dist.all_gather(parts, host, group=group)
+        return torch.cat(parts, dim=dim).to(t.device)
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def send_recv(send: Sequence[torch.Tensor], dst: Optional[int],
+              recv_like: Sequence[torch.Tensor], src: Optional[int],
+              group=None) -> list:
+    """Send the tensors `send` to group rank `dst` and receive tensors
+    shaped like `recv_like` from group rank `src`, as one batch of
+    point-to-point operations (dst or src None: that side is skipped).
+    Returns the received tensors ([] when src is None)."""
+    ops: List[dist.P2POp] = []
+    probe = next(iter([*send, *recv_like]), None)
+    staged = probe is not None and _via_host(probe, group)
+    if dst is not None:
+        peer = global_rank(group, dst)
+        for t in send:
+            buf = t.contiguous()
+            ops.append(dist.P2POp(dist.isend, buf.cpu() if staged else buf,
+                                  peer, group))
+    out = []
+    if src is not None:
+        peer = global_rank(group, src)
+        for like in recv_like:
+            buf = torch.empty(like.shape, dtype=like.dtype,
+                              device="cpu" if staged else like.device)
+            out.append(buf)
+            ops.append(dist.P2POp(dist.irecv, buf, peer, group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    if staged:
+        out = [o.to(like.device) for o, like in zip(out, recv_like)]
+    return out
+
+
+def ppermute(xs: Sequence[torch.Tensor], perm: Sequence[tuple],
+             group=None) -> list:
+    """`lax.ppermute` of the tensors `xs` over `group`: group rank i sends
+    them to j for each (i, j) in `perm`; a rank that receives nothing gets
+    zeros."""
+    me = group_rank(group)
+    dst = next((j for i, j in perm if i == me), None)
+    src = next((i for i, j in perm if j == me), None)
+    if dst == me and src == me:
+        return [x.clone() for x in xs]
+    got = send_recv(xs, dst, xs, src, group)
+    return got if src is not None else [torch.zeros_like(x) for x in xs]

@@ -32,8 +32,15 @@ Counterpart of vqgan_tpu/serving/export.py. An artifact is a directory:
 - The programs call the hand-written kernels as the operators of
   `kernels/ops.py`; a loader imports that module (and `device.py`) and no
   model code. Artifacts are tied to the device type they were exported on.
-- Multi-device artifacts (`mesh`, `arg_specs`, `param_specs`) wait for the
-  scale-out slice and raise `NotImplementedError`.
+- Data-parallel artifacts (`mesh` with a "data" axis of dp ranks,
+  `arg_specs` () or ("data",) per call-time input): the programs are
+  traced at the per-rank batch B / dp and meta.json records the mesh. The
+  loader runs on dp ranks of a process group: each draws the global
+  batch's noise (or takes the given noise), runs its rows, and the ranks
+  gather the images, so every rank returns what one device returns for
+  the whole batch. `param_specs` (weights split over the mesh, TP serving)
+  raises `NotImplementedError`: the port's TP placement gathers its
+  kernels for compute, which an exported program cannot do.
 """
 
 from __future__ import annotations
@@ -120,11 +127,17 @@ def export_program(module: nn.Module, example_args: Sequence, path,
             "bytes": Path(path).stat().st_size}
 
 
-def load_program(path):
+def load_program(path, location: Optional[dict] = None):
     """The module of a saved program; it runs with the operators of
     `kernels/ops.py` and no model code. The nodes that compute nothing are
-    dropped first (`_drop_no_ops`)."""
-    module = torch.export.load(str(path)).module()
+    dropped first (`_drop_no_ops`). `location` maps the device it was saved
+    on to another of the same type ({"cuda:0": "cuda:1"})."""
+    program = torch.export.load(str(path))
+    if location:
+        from torch.export.passes import move_to_device_pass
+
+        program = move_to_device_pass(program, location)
+    module = program.module()
     _drop_no_ops(module.graph)
     module.recompile()
     return module
@@ -151,11 +164,28 @@ def _drop_no_ops(graph) -> None:
     graph.lint()
 
 
-def _single_device(mesh, arg_specs, param_specs) -> None:
-    if mesh is not None or arg_specs is not None or param_specs is not None:
+def _data_parallel(mesh, arg_specs, param_specs, batch_size: int) -> int:
+    """The data-parallel degree of an export (1 without a mesh)."""
+    if param_specs is not None:
         raise NotImplementedError(
-            "multi-device artifacts (mesh, arg_specs, param_specs) are not "
-            "ported yet; export for one device")
+            "param_specs: tensor-parallel serving artifacts are not ported; "
+            "the weights of an artifact are whole on each device")
+    if mesh is None:
+        if arg_specs is not None:
+            raise ValueError("arg_specs needs a mesh")
+        return 1
+    if any(n > 1 for a, n in mesh.shape.items() if a != "data"):
+        raise NotImplementedError(
+            f"serving meshes split the batch over 'data' only, got "
+            f"{dict(mesh.shape)}")
+    for spec in arg_specs or ():
+        if tuple(spec)[:1] not in ((), ("data",), (None,)):
+            raise NotImplementedError(
+                f"call-time inputs split over 'data' or whole, got {spec}")
+    dp = mesh.shape["data"]
+    if batch_size % dp:
+        raise ValueError(f"batch {batch_size} does not divide over dp={dp}")
+    return dp
 
 
 def _device_of(module: nn.Module) -> torch.device:
@@ -197,12 +227,14 @@ def export_cfg_sampler(step: nn.Module, decode: nn.Module, outdir, *,
     img: one CFG DDIM step at the baked cond_scale and rescaled_phi (e.g.
     `diffusion.gaussian.DDIMStep`); decode(img [B,C,h,w]) -> NHWC images in
     [0, 1]. `latent_shape` is (C, h, w); `ddim_pairs` the (t, t_next) pairs
-    the loader loops over, in order. Returns the meta.json written."""
-    _single_device(mesh, arg_specs, param_specs)
+    the loader loops over, in order. `mesh` (a "data" axis of dp ranks)
+    makes a data-parallel artifact: the programs run B / dp rows on each
+    rank. Returns the meta.json written."""
+    dp = _data_parallel(mesh, arg_specs, param_specs, batch_size)
     outdir = Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
     device = _device_of(step)
-    b = batch_size
+    b = batch_size // dp
 
     def img():
         return torch.zeros((b, *latent_shape), device=device)
@@ -220,7 +252,10 @@ def export_cfg_sampler(step: nn.Module, decode: nn.Module, outdir, *,
                                  params_dtype),
     }
     return _write_meta(outdir, {
-        "kind": "cfg_sampler", "programs": programs, "batch_size": b,
+        "kind": "cfg_sampler", "programs": programs,
+        "batch_size": batch_size, "rank_batch_size": b,
+        "mesh": ({"axes": ["data"], "shape": [dp], "nr_devices": dp}
+                 if dp > 1 else None),
         "latent_shape": list(latent_shape),
         "ddim_pairs": [list(map(int, p)) for p in ddim_pairs],
         "num_users": int(num_users), "cond_scale": float(cond_scale),
@@ -249,20 +284,46 @@ class CFGSampler:
     the first call's second step and kept; given noise goes in through its
     static buffers, and a replay draws from `generator` what the loop
     draws. `graph` False runs the loaded step from Python; True on the CPU
-    raises. The decode runs after the loop, outside the graph."""
+    raises. The decode runs after the loop, outside the graph.
 
-    def __init__(self, outdir, device="cuda"):
+    A data-parallel artifact runs on the "data" axis of `mesh` (by
+    default a mesh over every rank of the process group), which must have
+    the artifact's dp ranks: each rank takes its rows of the classes and
+    of the global batch's noise, and the images of all ranks are gathered,
+    so each rank returns [B, H, W, 3]."""
+
+    def __init__(self, outdir, device="cuda", mesh=None):
         outdir = Path(outdir)
         self.meta = _read_meta(outdir, device)
-        self.device = torch.device(self.meta["device"])
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        saved = torch.device(self.meta["device"])
+        if saved.type == "cuda" and saved.index is None:
+            saved = torch.device("cuda", 0)
+        # a rank of a data-parallel artifact runs it on its own card
+        location = ({str(saved): str(self.device)}
+                    if saved != self.device else None)
         self.batch_size = int(self.meta["batch_size"])
+        self.rank_batch = int(self.meta.get("rank_batch_size",
+                                            self.batch_size))
+        self.mesh = None
+        layout = self.meta.get("mesh")
+        if layout is not None:
+            from ..parallel.mesh import named_mesh
+
+            dp = layout["shape"][0]
+            self.mesh = mesh or named_mesh({"data": dp}, self.device)
+            if self.mesh.shape.get("data") != dp:
+                raise ValueError(f"{outdir} serves on {dp} data-parallel "
+                                 f"ranks, the mesh has {self.mesh.shape}")
         self.num_users = int(self.meta["num_users"])
         self.latent_shape = tuple(self.meta["latent_shape"])
-        self._step = load_program(outdir / "step.pt2")
-        self._decode = load_program(outdir / "decode.pt2")
+        self._step = load_program(outdir / "step.pt2", location)
+        self._decode = load_program(outdir / "decode.pt2", location)
         pairs = torch.tensor(self.meta["ddim_pairs"], dtype=torch.long,
                              device=self.device)
-        self._pairs = pairs[:, :, None].expand(-1, -1, self.batch_size)
+        self._pairs = pairs[:, :, None].expand(-1, -1, self.rank_batch)
         self.graphs = ChainGraphs()
 
     def __call__(self, classes, *, generator: torch.Generator = None,
@@ -276,6 +337,14 @@ class CFGSampler:
         given = {name: _as_nchw(x, dev) for name, x in
                  (("init_noise", init_noise), ("step_noise", step_noise))
                  if x is not None}
+        if self.mesh is not None:
+            classes = self._rows(classes)
+            if "init_noise" in given:
+                given["init_noise"] = self._rows(given["init_noise"])
+            if "step_noise" in given:
+                given["step_noise"] = self._rows(
+                    given["step_noise"].transpose(0, 1)).transpose(
+                        0, 1).contiguous()
 
         def body(generators, carry, consts, row):
             noise = (row["noise"] if "noise" in row
@@ -297,17 +366,31 @@ class CFGSampler:
                                    "time_next": self._pairs[:, 1],
                                    "noise": given.get("step_noise")},
                             generators=[generator])["img"]
-            return self._decode(img)
+            images = self._decode(img)
+        if self.mesh is not None:
+            from ..parallel.comm import all_gather_cat
+
+            images = all_gather_cat(images, 0, self.mesh.group("data"))
+        return images
+
+    def _rows(self, x):
+        """This rank's rows of a global batch."""
+        i = self.mesh.coord("data") * self.rank_batch
+        return x[i:i + self.rank_batch]
 
     def _randn(self, generator):
-        return torch.randn((self.batch_size, *self.latent_shape),
-                           generator=generator, device=self.device)
+        """The global batch's noise; this rank's rows of it."""
+        noise = torch.randn((self.batch_size, *self.latent_shape),
+                            generator=generator, device=self.device)
+        return noise if self.mesh is None else self._rows(noise)
 
 
-def load_cfg_sampler(outdir, device="cuda") -> CFGSampler:
+def load_cfg_sampler(outdir, device="cuda", mesh=None) -> CFGSampler:
     """Load a serving directory of `export_cfg_sampler` on `device` (the
-    type it was exported on)."""
-    return CFGSampler(outdir, device)
+    type it was exported on, on this process's card of that type); a
+    data-parallel one on `mesh`'s "data" axis (default: every rank of the
+    process group)."""
+    return CFGSampler(outdir, device, mesh)
 
 
 # --------------------------------------------------------------------------

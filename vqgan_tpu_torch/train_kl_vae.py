@@ -12,8 +12,10 @@ constant or warmup-cosine learning rate, and milestone checkpoints
 `kl_vae-{m}.pt` every `--save_every` steps: {"model": the state dict},
 which `generate.load_vae`, `preprocess_latents` and `vae_reconstruction`
 read, beside `kl_vae-{m}.config.json`. As in the JAX CLI there is no
-resume, and no checkpoint off the save cadence. Its mesh and sharding have
-no counterpart on one card.
+resume, and no checkpoint off the save cadence. The JAX CLI's mesh is
+not ported here: the port's data parallelism and parameter sharding
+(`parallel/`) serve the latent-diffusion trainer (`train_latent_cfg
+--param_sharding`), and this trainer runs on one device.
 
 Runs on the GPU by default (`--device cpu` to run on the CPU), with TF32
 off for fp32 matmuls and convolutions.

@@ -15,7 +15,18 @@ checkpoint comes with a sample grid. `--step_mode scan` runs
 `--scan_block` steps per dispatch, on the card as CUDA graphs (the JAX
 package's one-program scan); `auto` (the default) picks it for runs of 1000
 steps or more, as the JAX CLI does, and the eager `step` mode otherwise.
-The JAX package's mesh and sharding have no counterpart here.
+
+`--param_sharding` is the JAX CLI's flag with its choices: "replicated"
+(data parallel), "zero1", "fsdp", "tp" or "fsdp_tp" (parallel/fsdp.py).
+Under torchrun each process takes one GPU and joins an NCCL group (gloo
+with `--device cpu`), the mesh spans the ranks, and each rank trains on
+its rows of the global batch:
+
+    torchrun --nproc_per_node 4 -m vqgan_tpu_torch.train_latent_cfg \
+        --param_sharding fsdp --step_mode step ...
+
+With one process the modes place the state on a mesh of one. The captured
+`scan` mode runs on one device only (`auto` picks `step` on a mesh).
 
 Runs on the GPU by default (`--device cpu` to run on the CPU), with TF32
 off for fp32 matmuls and convolutions.
@@ -29,6 +40,7 @@ from pathlib import Path
 
 from .configs.ldm_config import BaselineLDMConfig, LDMConfig
 from .device import resolve_device, set_full_fp32_precision
+from .parallel.init import initialize_distributed, process_count
 
 __all__ = ["main", "parse_args"]
 
@@ -58,6 +70,12 @@ def parse_args(argv=None):
                          "scan_block steps per dispatch, as CUDA graphs on "
                          "the card; 'auto': scan from 1000 steps on")
     ap.add_argument("--scan_block", type=int, default=8)
+    ap.add_argument("--param_sharding", default="replicated",
+                    choices=["replicated", "zero1", "fsdp", "tp", "fsdp_tp"],
+                    help="parameter layout over the device mesh: replicated"
+                         " (reference-style DP), zero1 (Adam moments and "
+                         "EMA over 'data'), fsdp (ZeRO-3 over 'data'), tp "
+                         "(attention kernels over 'model'), fsdp_tp (2D)")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
@@ -68,6 +86,7 @@ def main(argv=None) -> dict:
     latents/s after the warm-up) with the trainer under "trainer"."""
     args = parse_args(argv)
     device = resolve_device(args.device)
+    initialize_distributed(device)  # a no-op outside torchrun
     set_full_fp32_precision()
     cls = BaselineLDMConfig if args.baseline else LDMConfig
     raw = json.loads(Path(args.config).read_text()) if args.config else {}
@@ -91,12 +110,16 @@ def main(argv=None) -> dict:
     )
 
     step_mode = resolve_step_mode(args.step_mode, config.train_num_steps)
+    if args.step_mode == "auto" and (process_count() > 1 or
+                                     args.param_sharding != "replicated"):
+        step_mode = "step"  # the captured mode runs on one device only
     if step_mode != args.step_mode:
         print(f"step_mode auto -> {step_mode} "
               f"({config.train_num_steps} steps)")
     trainer = LatentDiffusionTrainer(config, split_path=args.split, vae=vae,
                                      device=device, step_mode=step_mode,
-                                     scan_block=args.scan_block)
+                                     scan_block=args.scan_block,
+                                     param_sharding=args.param_sharding)
     if args.resume is not None:
         step = trainer.load(None if args.resume < 0 else args.resume)
         print(f"resumed from step {step}")

@@ -113,6 +113,9 @@ class LDMOptimizer:
                 foreach=True)
         self.count = 0       # updates applied
         self.mini_step = 0   # gradients accumulated towards the next update
+        # the clipping norm of an accumulated gradient; a sharded state
+        # sets one that sums over the ranks' pieces
+        self.norm_fn = global_norm
         self.acc = None      # their running mean (k > 1)
         self._zeros = {}     # index -> zero gradient of an unused parameter
 
@@ -159,7 +162,7 @@ class LDMOptimizer:
             self.mini_step = 0
             grads, norm = self.acc, None
         if self.max_grad_norm is not None:
-            norm = global_norm(grads) if norm is None else norm
+            norm = self.norm_fn(grads) if norm is None else norm
             factor = torch.where(norm < self.max_grad_norm,
                                  torch.ones_like(norm),
                                  self.max_grad_norm / norm)

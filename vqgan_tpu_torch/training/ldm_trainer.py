@@ -34,6 +34,17 @@ The batches come from the C++ latent batch reader
 `train` names the one taken under "loader" ("native_latents" or
 "python"). Both modes draw through `device_prefetch` (depth 2): the copy
 of batch n + 2 from pinned memory is enqueued while step n runs.
+
+`param_sharding` places the state on a mesh, as the JAX trainer does:
+"replicated" (data parallel: the mean gradient over the global batch),
+"zero1", "fsdp", "tp" or "fsdp_tp" (parallel/fsdp.py). Under a process
+group (torchrun) the mesh spans every rank, with a "model" axis of 2 for
+the TP modes where the world size is even, and each rank reads its rows of
+the global batch (`mesh.local_rows`); rank 0 logs, samples and writes the
+checkpoints, which hold whole tensors. With no process group, "replicated"
+is the single-device trainer and the other modes place the state on a
+mesh of one. The captured step mode runs one rank's step and is refused
+on a mesh: over a process group, use step_mode "step".
 """
 
 from __future__ import annotations
@@ -54,6 +65,14 @@ from ..data import BatchLoader, LatentCache, LatentDataset, load_split
 from ..data.native_loader import load_native_lib
 from ..data.prefetch import device_prefetch, to_device
 from ..device import resolve_device
+from ..parallel.fsdp import _DEFAULT_MIN_SIZE, MODES, place_state
+from ..parallel.init import barrier, process_count
+from ..parallel.mesh import (
+    is_main_process,
+    local_rows,
+    make_mesh_for_batch,
+    named_mesh,
+)
 from ..utils.metrics_log import MetricsLogger
 from .ldm_step import (
     LDMTrainState,
@@ -63,6 +82,7 @@ from .ldm_step import (
 )
 from .scan_loop import resolve_step_mode as _resolve_step_mode
 from .scan_loop import run_scan_loop
+from .sharded_step import make_sharded_ldm_train_step
 from .watchdog import TrainingWatchdog, check_sample_range
 
 __all__ = ["LatentDiffusionTrainer", "STEP_MODES", "resolve_step_mode"]
@@ -80,16 +100,38 @@ class LatentDiffusionTrainer:
     def __init__(self, config: LDMConfig, split_path: Optional[str] = None,
                  vae=None, device="cuda",
                  gradient_checkpointing: bool = False,
-                 step_mode: str = "step", scan_block: int = 8):
+                 step_mode: str = "step", scan_block: int = 8,
+                 param_sharding: str = "replicated",
+                 fsdp_min_size: Optional[int] = None):
         """`vae`: the port's KLVAE on `device`, for sample grids and for
         encoding latents missing from the cache; None trains from a full
         cache and saves checkpoints without grids. `gradient_checkpointing`
         trades a second denoiser forward per step for the activations it
-        would keep. `step_mode` and `scan_block`: see the module
-        docstring."""
+        would keep. `step_mode` and `scan_block`, `param_sharding` and
+        `fsdp_min_size` (the FSDP rule's size cutoff, 2^14 elements by
+        default): see the module docstring."""
         if step_mode not in STEP_MODES:
             raise ValueError(f"step_mode must be one of {STEP_MODES}, got "
                              f"{step_mode!r}")
+        assert param_sharding in MODES, param_sharding
+        self.param_sharding = param_sharding
+        self.mesh = None
+        if torch.distributed.is_initialized():
+            world = process_count()
+            self.mesh = make_mesh_for_batch(
+                config.train_batch_size,
+                model=2 if "tp" in param_sharding and world % 2 == 0 else 1,
+                device=resolve_device(device))
+        elif param_sharding != "replicated":
+            self.mesh = named_mesh({"data": 1, "model": 1},
+                                   resolve_device(device))
+        if self.mesh is not None and step_mode == "scan":
+            raise ValueError(
+                "step_mode 'scan' captures one rank's step in a CUDA graph "
+                "and does not hold the mesh's collectives; with "
+                f"param_sharding {param_sharding!r} on {self.mesh} use "
+                "step_mode 'step'")
+        self.main = is_main_process()
         self.step_mode = step_mode
         self.scan_block = max(1, int(scan_block))
         self.config = cfg = config
@@ -126,6 +168,13 @@ class LatentDiffusionTrainer:
                 self.diffusion, self.optimizer, **step_kwargs)
         self.state = LDMTrainState(0, self.model, self.ema_model,
                                    self.optimizer)
+        self.placed = None
+        if self.mesh is not None:
+            self.placed = place_state(self.state, self.mesh, param_sharding,
+                                      fsdp_min_size or _DEFAULT_MIN_SIZE)
+            self.optimizer = self.state.optimizer
+            self.train_step = make_sharded_ldm_train_step(
+                self.diffusion, self.placed, **step_kwargs)
 
         self.vae = vae
         self.loader = None
@@ -143,7 +192,8 @@ class LatentDiffusionTrainer:
         self.ckpt = CheckpointManager(cfg.results_folder, prefix="model")
         self.watchdog = TrainingWatchdog()
         self.generator = torch.Generator(self.device).manual_seed(cfg.seed + 1)
-        self.metrics = MetricsLogger(cfg.results_folder, run_name="ldm")
+        self.metrics = (MetricsLogger(cfg.results_folder, run_name="ldm")
+                        if self.main else None)
 
     def _encode(self, images: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
@@ -171,9 +221,11 @@ class LatentDiffusionTrainer:
         """(((latents, labels), (device latents, device labels)) pairs,
         each copy enqueued two batches ahead; the loader kind)."""
         it, kind = self._make_batch_iter()
+        rows = ((lambda x: local_rows(x, self.mesh)) if self.mesh is not None
+                else (lambda x: x))
         return device_prefetch(it, lambda b: (
-            to_device(b[0], self.device),
-            to_device(b[1], self.device, torch.long)), depth=2), kind
+            to_device(rows(b[0]), self.device),
+            to_device(rows(b[1]), self.device, torch.long)), depth=2), kind
 
     # ------------------------------------------------------------------
 
@@ -225,11 +277,14 @@ class LatentDiffusionTrainer:
                     host = {k: float(v) for k, v in log.items()}
                     ips = n_log * cfg.train_batch_size / (
                         time.perf_counter() - t_log)
-                    self.metrics.log(step + 1, host)
-                    msg = f"step {step + 1}/{num_steps} loss={host['loss']:.4f}"
-                    if "contrastive_loss" in host:
-                        msg += f" contrastive={host['contrastive_loss']:.4f}"
-                    print(msg + f" ({ips:.1f} latents/s)")
+                    if self.main:
+                        self.metrics.log(step + 1, host)
+                        msg = (f"step {step + 1}/{num_steps} "
+                               f"loss={host['loss']:.4f}")
+                        if "contrastive_loss" in host:
+                            msg += (f" contrastive="
+                                    f"{host['contrastive_loss']:.4f}")
+                        print(msg + f" ({ips:.1f} latents/s)")
                     t_log, n_log = time.perf_counter(), 0
 
                 if every and (step + 1) % every == 0:
@@ -311,7 +366,18 @@ class LatentDiffusionTrainer:
                use_ema: Optional[bool] = None,
                generator: Optional[torch.Generator] = None):
         """(NHWC latents, classes) of `num_samples` (cfg.num_samples) DDIM
-        samples, classes cycling over the users."""
+        samples, classes cycling over the users. On a mesh every rank
+        calls it: the split parameters are gathered for it."""
+        if self.placed is None:
+            return self._sample(num_samples, use_ema, generator)
+        self.placed.materialize("model")
+        self.placed.materialize("ema")
+        try:
+            return self._sample(num_samples, use_ema, generator)
+        finally:
+            self.placed.reshard()
+
+    def _sample(self, num_samples, use_ema, generator):
         cfg = self.config
         n = num_samples or cfg.num_samples
         use_ema = cfg.use_ema if use_ema is None else use_ema
@@ -326,16 +392,29 @@ class LatentDiffusionTrainer:
         return latents, classes
 
     def save_and_sample(self, milestone: int):
-        if self.vae is not None:
-            latents, _ = self.sample()
+        """Sample a grid (with a VAE) and write milestone `milestone`. On a
+        mesh every rank gathers the whole state and rank 0 samples and
+        writes."""
+        if self.placed is not None:
+            self.placed.materialize("model")
+            self.placed.materialize("ema")
+            state = self.placed.state_dict()
+        else:
+            state = self.state.state_dict()
+        if self.vae is not None and self.main:
+            latents, _ = self._sample(None, None, None)
             with torch.inference_mode():
                 images = self.vae.decode_latents(latents).float().cpu().numpy()
             warn = check_sample_range(images)
             if warn:
                 print(f"  [watchdog] {warn}")
             self._save_grid(images, milestone)
-        self.ckpt.save(milestone, self.state.state_dict(),
-                       config=dataclasses.asdict(self.config))
+        if self.main:
+            self.ckpt.save(milestone, state,
+                           config=dataclasses.asdict(self.config))
+        if self.placed is not None:
+            self.placed.reshard()
+            barrier()
 
     def _save_grid(self, images: np.ndarray, milestone: int, ncol: int = 4):
         from PIL import Image
@@ -354,6 +433,11 @@ class LatentDiffusionTrainer:
             out / f"sample-{milestone}.png")
 
     def load(self, milestone: Optional[int] = None) -> int:
-        """Resume from `milestone` (the latest when None); returns the step."""
-        self.state.load_state_dict(self.ckpt.restore(milestone))
+        """Resume from `milestone` (the latest when None); returns the step.
+        On a mesh each rank reads the whole state and keeps its pieces."""
+        full = self.ckpt.restore(milestone)
+        if self.placed is not None:
+            self.placed.load_state_dict(full)
+        else:
+            self.state.load_state_dict(full)
         return self.state.step
