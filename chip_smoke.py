@@ -52,7 +52,13 @@ Phases, in order; any failure exits non-zero:
    3-D full [2,2048,6,64] against 2052 and [2,256,12,64] against 260, 3-D
    factorised into space [16,256,6,64] against 260 and [8,64,12,64]
    against 68 and time [512,8,6,64] against 12 and [128,4,12,64] against
-   8, forward and backward, bf16. Time each
+   8, forward and backward, bf16; phase 6's, a rank's rows at world 4:
+   the VQ-VAE's and the KL-VAE's mid attention at [2,1024,1,512] bf16
+   and fp32, the DDPM's at [4,256,4,32] against 260 keys, forward and
+   backward, and VQ at [2048,256] x [128,256], each under the rule of its
+   dtype (the VQ-VAE shape's 2e-3 rule stays with batch 8: at batch 2 the
+   largest dQ lies in [0.25, 0.5), where half a bf16 step is 2.4e-3 of
+   it). Time each
    kernel through its operator (the host time every path pays; the flash
    forward also through its ctypes wrapper alone), its plain version and
    one PyTorch library call at the main paths' shapes (and a few others),
@@ -201,8 +207,9 @@ Phases, in order; any failure exits non-zero:
    two live decodes of one batch, which must agree bit for bit with cuDNN
    held to deterministic algorithms (the selftests run so);
    one batch of 16 from the live sampler and from the served one, each
-   eager and captured, in turns (images within 1e-5, 151 forwards each);
-   `serve_generate` of 2 users x 16 (the JPG layout, finite images); `serve_http --port 0` in a
+   eager and captured, in one pass of turns (images within 1e-5, 151
+   forwards each; the pass back was cut to pay for phase 6's trainers);
+   `serve_generate` of 1 user x 16 (the JPG layout, finite images); `serve_http --port 0` in a
    subprocess (/healthz warm, POSTs of 2 images returning 256 x 256 JPEGs,
    user_id 0 answered 400); the VQ codec of 5c's milestone at batch 8
    (`--mode vq_codec --selftest`: indices equal to the live codec's; 1 VQ
@@ -321,10 +328,13 @@ Phases, in order; any failure exits non-zero:
    VQ-GAN with the ActNorm discriminator as the scan mode's programs,
    captured, against the CPU's split steps, held as 4c.
 5k. The captured samplers at full width, each timed in turns (eager,
-   captured, captured, eager, after an untimed call of each; the
+   then captured, after the untimed capture; cut from eager, captured,
+   captured, eager after an untimed call of each, to pay for phase 6's
+   trainers; the
    ancestral sampler's and `interpolate`'s untimed eager call is a 3-step
    `interpolate`, cut from a full batch to keep the smoke within its
-   time), every
+   time; the other paths' first eager call is timed apart, its cold rate
+   printed beside the warm one of the turns), every
    call's launches gated exactly, captured within 1e-5 of the largest
    eager value (`drive_sampler_graphs`): the ancestral sampler at
    LDMConfig's width (T 1000, batch 16, cond_scale 1) and the decode
@@ -338,8 +348,18 @@ Phases, in order; any failure exits non-zero:
    path's eager and captured samples/s, capture seconds and pool bytes.
    Phases 5g, 5h and 5i sample through the graphs too (the samplers'
    default on the card), their launch gates unchanged.
-6. Scale-out (`drive_scale_out`): a real NCCL process group of world 1
-   in this process; `train_latent_cfg` at full width under each of the
+6. Scale-out (`drive_scale_out`): before the group, `train_vqgan`
+   (split), `train_kl_vae` and `train_ddpm --self_condition --immiscible`
+   at full width and a rank's batch of a world of 4 (2, 2 and 4), the
+   references; then a real NCCL process group of world 1 in this process,
+   with cuDNN's and PyTorch's deterministic algorithms: the same three on
+   it, each equal bit for bit to its reference, `train_vqgan
+   --step_mode fused` and `scan`, captured with the collectives in their
+   graphs, each equal bit for bit to its step bodies run eagerly there,
+   every run's flash and VQ launches per step as on one device (the
+   per-rank rows of phase 3); `train_latent_cfg --step_mode scan` in each
+   `--param_sharding` mode, captured, equal bit for bit to eager;
+   `train_latent_cfg` at full width under each of the
    five `--param_sharding` modes (each equal to the replicated run);
    ring attention through the kernels, forward and backward, at
    [2,4096,8,64] bf16 over 4 blocks (held to the whole-sequence flash
@@ -360,6 +380,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -570,6 +591,12 @@ def attention_cases():
         ("ddpm_mid_grid", 25, 256, 260, 4, 32, "bfloat16", True),
         ("ddpm_mid_fid_tail", 2, 256, 260, 4, 32, "bfloat16", True),
         ("karras_mid", 16, 256, 260, 4, 64, "bfloat16", True),
+        # one rank's rows at world 4 (phase 6 trains at these batches):
+        # the VQ-VAE's and the KL-VAE's mid attention at batch 2 of 8, the
+        # DDPM U-Net's at 4 of 16
+        ("vqvae_mid_rank4", 2, 1024, 1024, 1, 512, "bfloat16", True),
+        ("kl_vae_mid_rank4", 2, 1024, 1024, 1, 512, "float32", True),
+        ("ddpm_mid_rank4", 4, 256, 260, 4, 32, "bfloat16", True),
     ] + library_attention_cases()
 
 
@@ -802,6 +829,13 @@ def bwd_cases():
         # the DDPM U-Net's training shape, 4 memory tokens in front of the
         # keys: the last 64-row K/V tile holds 4 rows
         ("ddpm_mid_train", 16, 256, 260, 4, 32, "bfloat16", True, False,
+         True),
+        # one rank's rows at world 4 (phase 6)
+        ("vqvae_mid_rank4", 2, 1024, 1024, 1, 512, "bfloat16", True, False,
+         True),
+        ("kl_vae_mid_rank4", 2, 1024, 1024, 1, 512, "float32", True, False,
+         True),
+        ("ddpm_mid_rank4", 4, 256, 260, 4, 32, "bfloat16", True, False,
          True),
     ] + [  # phase 5i's training and forward + backward shapes
         (label, b, s_q, s_kv, h, d, dt, True, False, True)
@@ -1044,9 +1078,10 @@ def vq_cases():
         ("ties", 777, 130, 40, True, False),
         ("ragged_d33", 777, 130, 33, False, False),
         ("wide_d300", 300, 70, 300, False, False),
-        # the end-to-end demo's VQ-GAN at 128 px: training (batch 8) and
-        # the latent audit (batch 16)
-        ("vqgan128_train", 2048, 128, 256, False, False),
+        # one rank's rows at world 4 (phase 6's VQ-GAN at batch 2 of 8),
+        # also the end-to-end demo's VQ-GAN at 128 px in training (batch
+        # 8); and its latent audit (batch 16)
+        ("vqgan_rank4", 2048, 128, 256, False, True),
         ("vqgan128_audit", 4096, 128, 256, False, False),
     ]
 
@@ -1107,7 +1142,7 @@ def check_vq(torch, peaks, seed: int):
                      f"{label} {mode}")
             if dup and (idx >= k // 2).any():  # the upper copies
                 fail("vq_nearest broke a tie toward a higher index")
-            if label not in ("vqgan_main", "bench_k8192"):
+            if label not in ("vqgan_main", "vqgan_rank4", "bench_k8192"):
                 continue
 
             iters = 20 if k >= 8192 else 200
@@ -3222,7 +3257,7 @@ def time_served_step(torch, kernels, counts, card: str, ldm_results: Path,
     t = torch.full((16,), 999, dtype=torch.long, device="cuda")
     t_next = torch.full((16,), 992, dtype=torch.long, device="cuda")
     classes = torch.zeros((16,), dtype=torch.long, device="cuda")
-    steps, turns = 20, 3
+    steps, turns = 20, 2  # 2 turns, cut from 3 to pay for phase 6
     times = {name: [] for name in variants}
 
     def run():
@@ -3254,11 +3289,12 @@ def served_vs_live(torch, kernels, counts, card: str, ldm_results: Path,
     decode), from one generator seed, in turns in this process: the live
     sampler (`ddim_sample` and `decode_latents`, as `generate` runs them)
     and the served one (`CFGSampler`), each eagerly (`graph=False`) and
-    captured: live eager, live captured, served eager, served captured,
-    then back. The captured runs' first calls (the captures) come before
+    captured: live eager, live captured, served eager, served captured
+    (one pass; the pass back, ~11 s, was cut to pay for phase 6's
+    trainers). The captured runs' first calls (the captures) come before
     the turns. The served images equal the live ones (within 1e-5 of the
-    largest) in each mode; 151 forwards per batch (`expected`: 8
-    batches). Returns {variant: [seconds per batch of each turn]}."""
+    largest) in each mode; 151 forwards per batch (`expected`: 4
+    batches). Returns {variant: [seconds per batch]}."""
     from vqgan_tpu_torch import generate
     from vqgan_tpu_torch.serving import load_cfg_sampler
 
@@ -3291,7 +3327,7 @@ def served_vs_live(torch, kernels, counts, card: str, ldm_results: Path,
     images = {}
 
     def run():
-        for name in [*variants, *reversed(variants)]:
+        for name in variants:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             images[name] = variants[name]().cpu()
@@ -3358,8 +3394,9 @@ def drive_serving(torch, kernels, seed: int, work: Path, card: str,
     - one DDIM step timed live and served, in turns (`time_served_step`);
     - two live decodes of one batch, with cuDNN's default algorithms and
       with deterministic ones, which must agree bit for bit;
-    - `serve_generate` of 2 users x 16 images from the cond_scale 1.0
-      artifact: the JPG layout, finite images, 151 forwards per batch;
+    - `serve_generate` of 1 user x 16 images from the cond_scale 1.0
+      artifact (cut from 2 users to pay for phase 6's trainers): the JPG
+      layout, finite images, 151 forwards per batch;
     - `serve_http --port 0` in a subprocess: /healthz warm, one POST of 2
       images (two decodable 256 x 256 JPEGs), user_id 0 answered 400;
     - `export_serving --mode vq_codec --selftest` of phase 5c's last VQ-GAN
@@ -3431,19 +3468,19 @@ def drive_serving(torch, kernels, seed: int, work: Path, card: str,
     try:                                       # as in the export selftest
         metrics["served_vs_live"] = served_vs_live(
             torch, kernels, counts, card, ldm_results, vae_pt,
-            artifacts[1.0], per_batch(1.0, 8))
+            artifacts[1.0], per_batch(1.0, 4))
     finally:
         torch.backends.cudnn.deterministic = deterministic
 
     result, secs = gated(
-        "serve_generate 2 users x 16",
+        "serve_generate 1 user x 16",
         lambda: serve_generate.main([
             "--artifact", str(artifacts[1.0]), "--output_dir",
-            str(OUT / "served"), "--user_ids", "1", "2", "--num_images",
+            str(OUT / "served"), "--user_ids", "1", "--num_images",
             "16", "--seed", str(seed)]),
-        per_batch(1.0, 2))
-    check_images(result["images"], 32)
-    rate = 32 / sum(result["batch_seconds"])
+        per_batch(1.0, 1))
+    check_images(result["images"], 16)
+    rate = 16 / sum(result["batch_seconds"])
     metrics["serve_generate_samples_per_s"] = rate
     print(f"[{card}] serve_generate: {rate:.4f} samples/s at batch 16, "
           f"cond_scale 1.0 (phase 5's generate: "
@@ -4717,10 +4754,11 @@ def drive_diffusion_library(torch, kernels, seed: int, work: Path,
 def drive_sampler_graphs(torch, kernels, seed: int, card: str):
     """Phase 5k, the captured samplers at full width, random weights from
     a seed, cudnn.deterministic pinned (as 4i); each path timed in turns
-    (eager, captured, captured, eager) after one untimed call of each (the
-    capture, the warm-up; for the ancestral sampler and `interpolate` the
-    eager warm-up is a 3-step `interpolate`, not a full batch), every
-    call's launches gated exactly; captured
+    (`SAMPLER_TURNS`: eager, then captured) after an untimed captured call
+    (the capture) and an eager warm-up: for the ancestral sampler and
+    `interpolate` an untimed 3-step `interpolate`, for the other paths
+    their first eager call, timed apart (its cold rate is printed beside
+    the warm one), every call's launches gated exactly; captured
     within 1e-5 of the largest eager value; samples/s of each, the
     graphs' capture seconds and pool bytes:
     - the ancestral sampler at LDMConfig's full width (T 1000, batch 16,
@@ -4773,15 +4811,21 @@ def drive_sampler_graphs(torch, kernels, seed: int, card: str):
                                 tag)
 
     def turns(label, run, expected, n, graphs, tag=None, warm=None):
-        """run(graph) -> the output; in turns after an untimed call of
-        each (`warm`, (fn, expected), in place of the untimed eager call);
-        records samples/s, capture seconds and pool bytes."""
+        """run(graph) -> the output; in turns after an untimed captured
+        call (the capture) and an eager warm-up: `warm` ((fn, expected)),
+        untimed, or else the first eager call, timed apart; records
+        samples/s (the first eager call's too), capture seconds and pool
+        bytes."""
         gated(f"{label}, captured (untimed)", lambda: run(True), expected,
               tag)
-        gated(f"{label}, eager (untimed)", *(
-            warm or (lambda: run(False), expected)), tag)
+        first = None
+        if warm is not None:
+            gated(f"{label}, eager warm-up (untimed)", *warm, tag)
+        else:
+            _, first = gated(f"{label}, eager first call",
+                             lambda: run(False), expected, tag)
         outs, secs = {}, {"eager": [], "captured": []}
-        for name in ("eager", "captured", "captured", "eager"):
+        for name in SAMPLER_TURNS:
             out, sec = gated(f"{label}, {name}",
                              lambda: run(name == "captured"), expected, tag)
             outs.setdefault(name, out.float().cpu())
@@ -4792,14 +4836,17 @@ def drive_sampler_graphs(torch, kernels, seed: int, card: str):
         stats = graphs.stats()
         rates = {k: n / (sum(v) / len(v)) for k, v in secs.items()}
         metrics[label] = {"eager_samples_per_s": rates["eager"],
+                          "eager_first_call_samples_per_s": (
+                              n / first if first else None),
                           "captured_samples_per_s": rates["captured"],
                           "capture_seconds": stats["capture_seconds"],
                           "pool_bytes": stats["pool_bytes"]}
         print(f"[{card}] {label}: seconds per batch in turns (eager, "
-              f"captured, captured, eager) {secs['eager'][0]:.4f}, "
-              f"{secs['captured'][0]:.4f}, {secs['captured'][1]:.4f}, "
-              f"{secs['eager'][1]:.4f}; samples/s eager "
-              f"{rates['eager']:.4f}, captured {rates['captured']:.4f}; "
+              f"captured) {secs['eager'][0]:.4f}, "
+              f"{secs['captured'][0]:.4f}; samples/s eager "
+              f"{rates['eager']:.4f} (first eager call "
+              f"{'warmed' if first is None else f'{n / first:.4f}'}), "
+              f"captured {rates['captured']:.4f}; "
               f"captured vs eager max|diff| {err:.3e} (max {size:.3e}); "
               f"{len(stats['graphs'])} graph(s), capture "
               f"{stats['capture_seconds']:.3f} s, pool "
@@ -4956,6 +5003,11 @@ def drive_sampler_graphs(torch, kernels, seed: int, card: str):
     return counts, metrics
 
 
+# phase 5k's timed calls of each sampler, after its untimed capture and
+# its eager warm-up (one of each: the repeats of (eager, captured,
+# captured, eager) went to pay for phase 6)
+SAMPLER_TURNS = ("eager", "captured")
+
 # phase 6's ring shapes: (label, whole [B, S, H, D], shards, dtype)
 RING_CASES = (("ring_4096_bf16", (2, 4096, 8, 64), 4, "bfloat16"),
               ("ring_1024_fp32", (2, 1024, 2, 64), 8, "float32"))
@@ -5087,8 +5139,229 @@ def ring_rows(torch, peaks, label, shape, n, dt):
     return rows
 
 
+# phase 6's data-parallel trainers: the per-rank batch of a world of 4 at
+# full width, so that each rank's shapes reach the kernels on this card
+_DP_STEPS = 8
+_DP_VQGAN_KEY = (2, 1024, 1, 512, "bfloat16")
+_DP_VQ_KEY = (2048, 128, 256, "fp32")
+_DP_KL_KEY = (2, 1024, 1, 512, "float32")
+_DP_DDPM_KEY = (4, 256, 4, 32, "bfloat16")
+_LDM_KEY = (8, 16, 8, 64, "bfloat16")
+# the scan runs on the group: blocks of 2, timed from step 6
+_SCAN_STEPS = 12
+
+
+def _dp_vqgan_counts(g_steps: int, grids: int) -> dict:
+    """One VQ and two of each flash launch per G step, one VQ and two
+    forwards per reconstruction grid, at a rank's shapes."""
+    return {("vq_nearest", _DP_VQ_KEY): g_steps + grids,
+            ("flash_fwd", _DP_VQGAN_KEY): 2 * (g_steps + grids),
+            ("flash_bwd_dq", _DP_VQGAN_KEY): 2 * g_steps,
+            ("flash_bwd_dkv", _DP_VQGAN_KEY): 2 * g_steps}
+
+
+def _state_of(torch, modules) -> dict:
+    """Every tensor of the modules' state dicts, on the host."""
+    return {f"{i}.{k}": v.detach().float().cpu()
+            for i, m in enumerate(modules) for k, v in m.state_dict().items()}
+
+
+def _same_run(label, got, ref):
+    """(losses, state) against (losses, state): bit for bit, or fail."""
+    (g_losses, g_state), (r_losses, r_state) = got, ref
+    d_loss = max(abs(a - b) for a, b in zip(g_losses, r_losses))
+    d_state = max((g_state[k] - v).abs().max().item()
+                  for k, v in r_state.items())
+    print(f"{label}: max |d loss| {d_loss:.3e}, max |d state| "
+          f"{d_state:.3e} over {len(r_state)} tensors")
+    if len(g_losses) != len(r_losses) or not all(np.isfinite(g_losses)) \
+            or d_loss or d_state:
+        fail(f"{label}: not equal bit for bit")
+
+
+def _rate(result, key):
+    value = result.get(key)
+    return f"{value:.4f}" if value is not None else "not measured"
+
+
+def _free(torch):
+    """Return a dropped trainer's memory, its graphs' pools included."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dp_trainers(torch, kernels, seed: int, vqgan: Path, work: Path,
+                card: str, counts: dict, grouped: bool) -> dict:
+    """Phase 6's VQ-GAN, KL-VAE and DDPM training through their entry
+    points at full width, each at a rank's batch of a world of 4 (VQ-GAN
+    and KL-VAE 2 of 8 at 256 px, DDPM 4 of 16 at 128 px; phase 5c's
+    images), _DP_STEPS steps, every call's launches gated exactly (per
+    step as on one device). Without a process group (`grouped` False):
+    `train_vqgan --step_mode split`, `train_kl_vae`, `train_ddpm
+    --self_condition --immiscible`, returned as the references. On the
+    group: the same three, each equal bit for bit to its reference, and
+    `train_vqgan --step_mode fused` and `scan`, captured, each equal bit
+    for bit to its step bodies run eagerly on the group (`graph=False`).
+    Returns {run: (losses, state)} and adds the launches to `counts`."""
+    from vqgan_tpu_torch import train_ddpm, train_kl_vae, train_vqgan
+    from vqgan_tpu_torch.training.vqgan_trainer import VQGANTrainer
+
+    split, images = vqgan / "data_split.json", vqgan / "images"
+    where = "NCCL world 1" if grouped else "no process group"
+    tag = "group" if grouped else "single"
+    config = work / "dp_vqgan.json"
+    config.write_text(json.dumps({"seed": seed, "images_per_user_train": 8}))
+    runs = {}
+
+    def gated(label, fn, expected):
+        return run_gated(torch, kernels, f"{label} ({where})", fn, expected,
+                         counts)
+
+    def vqgan_cli(mode):
+        result, secs = gated(
+            f"train_vqgan --step_mode {mode} --batch_size 2",
+            lambda: train_vqgan.main([
+                "--config", str(config), "--split", str(split),
+                "--data_path", str(images), "--results_folder",
+                str(work / f"vqgan_{mode}_{tag}"), "--batch_size", "2",
+                "--disc_start", str(_DP_STEPS // 2), "--save_every", "1000",
+                "--train_steps", str(_DP_STEPS), "--step_mode", mode,
+                "--scan_block", "2"]),
+            _dp_vqgan_counts(_DP_STEPS, 1))
+        trainer = result.pop("trainer")
+        print(f"[{card}] train_vqgan --step_mode {mode} at batch 2 "
+              f"({where}, mesh {trainer.mesh and trainer.mesh.shape}): "
+              f"{_rate(result, 'images_per_s')} images/s over "
+              f"{result['timed_steps']} steps; losses {result['losses']}")
+        run = (result["losses"], _state_of(torch, (trainer.vqvae,
+                                                   trainer.disc)))
+        return run, trainer
+
+    runs["vqgan_split"], _ = vqgan_cli("split")
+    if grouped:
+        for mode in ("fused", "scan"):
+            captured, trainer = vqgan_cli(mode)
+            graphs = trainer.graph_stats()
+            cfg = trainer.config
+            del trainer
+
+            def eager():
+                tr = VQGANTrainer(cfg, split_path=str(split), device="cuda",
+                                  step_mode=mode, scan_block=2, graph=False)
+                tr.save_and_sample = lambda *args: None  # no checkpoints
+                return tr.train(num_steps=_DP_STEPS)["losses"], tr
+
+            (losses, tr), _ = gated(
+                f"VQGANTrainer {mode} eager (graph=False)", eager,
+                _dp_vqgan_counts(_DP_STEPS, 0))
+            print(f"[{card}] train_vqgan --step_mode {mode} graphs on the "
+                  f"group: {graphs}")
+            _same_run(f"train_vqgan {mode}, captured vs eager on the group",
+                      captured, (losses, _state_of(torch, (tr.vqvae,
+                                                           tr.disc))))
+            del tr
+            _free(torch)
+
+    result, _ = gated(
+        "train_kl_vae --batch_size 2",
+        lambda: train_kl_vae.main([
+            "--device", "cuda", "--data_path", str(images), "--split",
+            str(split), "--results_folder", str(work / f"kl_vae_{tag}"),
+            "--image_size", "256", "--batch_size", "2", "--train_steps",
+            str(_DP_STEPS), "--save_every", str(_DP_STEPS), "--seed",
+            str(seed)]),
+        {(k, _DP_KL_KEY): 2 * _DP_STEPS for k in FLASH})
+    print(f"[{card}] train_kl_vae at batch 2 ({where}): "
+          f"{_rate(result, 'images_per_s')} images/s over "
+          f"{result['timed_steps']} steps; losses {result['losses']}")
+    runs["kl_vae"] = (result["losses"], _state_of(torch, (result["vae"],)))
+    del result
+
+    result, _ = gated(
+        "train_ddpm --self_condition --immiscible --train_batch_size 4",
+        lambda: train_ddpm.main([
+            "--folder", str(images), "--results_folder",
+            str(work / f"ddpm_{tag}"), "--train_batch_size", "4",
+            "--train_num_steps", str(_DP_STEPS), "--self_condition",
+            "--immiscible", "--seed", str(seed)]),
+        {("flash_fwd", _DP_DDPM_KEY): 6 * _DP_STEPS,
+         ("flash_bwd_dq", _DP_DDPM_KEY): 3 * _DP_STEPS,
+         ("flash_bwd_dkv", _DP_DDPM_KEY): 3 * _DP_STEPS})
+    trainer = result.pop("trainer")
+    print(f"[{card}] train_ddpm --self_condition --immiscible at batch 4 "
+          f"({where}, mesh {trainer.mesh and trainer.mesh.shape}): "
+          f"{_rate(result, 'images_per_s')} images/s over "
+          f"{result['timed_steps']} steps; losses {result['losses']}")
+    runs["ddpm"] = (result["losses"], _state_of(
+        torch, (trainer.model, trainer.ema_model)))
+    del trainer, result
+    return runs
+
+
+def ldm_scan_on_the_group(torch, kernels, common: list, work: Path,
+                          card: str, counts: dict) -> dict:
+    """`train_latent_cfg --step_mode scan --scan_block 2` for
+    _SCAN_STEPS steps in each `--param_sharding` mode on the NCCL group
+    (its steps' graphs holding the collectives), each equal bit for bit to
+    the same trainer's step bodies run eagerly (`graph=False`); one launch
+    of each flash kernel per step. Returns {mode: latents/s}."""
+    import dataclasses as dc
+
+    from vqgan_tpu_torch import train_latent_cfg
+    from vqgan_tpu_torch.training.ldm_trainer import LatentDiffusionTrainer
+
+    args = [a if a != "step" else "scan" for a in common]
+    steps = _SCAN_STEPS
+    args[args.index("--train_num_steps") + 1] = str(steps)
+    split = args[args.index("--split") + 1]
+    per_run = {(k, _LDM_KEY): steps for k in FLASH}
+    rates = {}
+    for mode in ("replicated", "zero1", "fsdp", "tp", "fsdp_tp"):
+        result, _ = run_gated(
+            torch, kernels, f"train_latent_cfg --step_mode scan "
+            f"--param_sharding {mode} (NCCL world 1)",
+            lambda: train_latent_cfg.main([
+                *args, "--scan_block", "2", "--param_sharding", mode,
+                "--results_folder", str(work / f"scan_{mode}")]),
+            per_run, counts)
+        trainer = result.pop("trainer")
+        captured = (result["losses"], {
+            f"{part}.{k}": v.float().cpu()
+            for part in ("model", "ema")
+            for k, v in trainer.placed.gathered(part).items()})
+        graphs = trainer.graph_stats()
+        cfg = dc.replace(trainer.config,
+                         results_folder=str(work / f"scan_{mode}_eager"))
+        del trainer
+
+        def eager():
+            tr = LatentDiffusionTrainer(cfg, split_path=split, device="cuda",
+                                        step_mode="scan", scan_block=2,
+                                        param_sharding=mode, graph=False)
+            tr.save_and_sample = lambda *a: None  # no checkpoints
+            out = tr.train(num_steps=steps)
+            return out["losses"], {
+                f"{part}.{k}": v.float().cpu() for part in ("model", "ema")
+                for k, v in tr.placed.gathered(part).items()}
+
+        ref, _ = run_gated(torch, kernels, f"LatentDiffusionTrainer scan "
+                           f"{mode} eager (graph=False)", eager, per_run,
+                           counts)
+        rates[mode] = result["latents_per_s"]
+        print(f"[{card}] train_latent_cfg --step_mode scan --param_sharding "
+              f"{mode} (NCCL world 1): {_rate(result, 'latents_per_s')} "
+              f"latents/s over {result['timed_steps']} steps; graphs "
+              f"{graphs}")
+        _same_run(f"scan {mode}, captured vs eager on the group", captured,
+                  ref)
+        _free(torch)
+    return rates
+
+
 def drive_scale_out(torch, kernels, peaks, seed: int, ldm: Path,
-                    work: Path, card: str):
+                    vqgan: Path, work: Path, card: str):
     """Phase 6, scale-out on the card. Returns ({(kernel, shape):
     launches} of its main path, its kernel rows, metrics).
 
@@ -5110,6 +5383,11 @@ def drive_scale_out(torch, kernels, peaks, seed: int, ldm: Path,
     - World 2 on the one card: gloo takes the CUDA tensors through host
       memory (parallel/comm.py), so the dry run at n = 2 runs there too;
       it fails on any check skipped.
+    - The data-parallel trainers (`dp_trainers`), before the group and on
+      it, and `train_latent_cfg --step_mode scan` in each mode on it
+      (`ldm_scan_on_the_group`), with cuDNN and PyTorch's deterministic
+      algorithms (the VQ lookup's codebook gradient is an `index_add_`),
+      every run gated by its launches and bit for bit.
     """
     import torch.distributed as dist
 
@@ -5122,6 +5400,14 @@ def drive_scale_out(torch, kernels, peaks, seed: int, ldm: Path,
     t_phase = time.perf_counter()
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dp_counts = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # cuBLAS's workspace
+        refs = dp_trainers(torch, kernels, seed, vqgan, work, card,
+                           dp_counts, grouped=False)
+    torch.use_deterministic_algorithms(False)
+    t_refs = time.perf_counter() - t_phase
     initialize_distributed("cuda", backend="nccl",
                            init_method=f"tcp://127.0.0.1:{free_port()}",
                            world_size=1, rank=0)
@@ -5188,10 +5474,30 @@ def drive_scale_out(torch, kernels, peaks, seed: int, ldm: Path,
     if counts != want:
         fail(f"phase 6 launches {counts}, expected {want}")
 
+    # --- the data-parallel trainers and the scan mode on the group -------
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        grouped = dp_trainers(torch, kernels, seed, vqgan, work, card,
+                              dp_counts, grouped=True)
+        for name, ref in refs.items():
+            _same_run(f"{name}: NCCL world 1 vs no process group",
+                      grouped[name], ref)
+        del grouped, refs
+        scan_rates = ldm_scan_on_the_group(torch, kernels, common, work,
+                                           card, dp_counts)
+    torch.use_deterministic_algorithms(False)
+    t_dp = time.perf_counter() - t0 + t_refs
+    print(f"phase 6 data-parallel trainers and scan on the group: "
+          f"{t_dp:.3f} s (of it {t_refs:.3f} s before the group)")
+
     # --- the ring against flash attention, the plain version, fp64 -------
     metrics = {"modes": {m: {"latents_per_s": r["latents_per_s"],
                              "seconds": r["seconds"]}
-                         for m, r in runs.items()}}
+                         for m, r in runs.items()},
+               "scan_latents_per_s": scan_rates,
+               "data_parallel_seconds": t_dp}
     del runs, base
     for label, shape, n, dt in RING_CASES:
         q, k, v, do = ring_inputs[label]
@@ -5262,6 +5568,8 @@ def drive_scale_out(torch, kernels, peaks, seed: int, ldm: Path,
     metrics["dryrun_2_gloo"] = line2
     metrics["phase_seconds"] = time.perf_counter() - t_phase
     print(f"phase 6: {metrics['phase_seconds']:.3f} s")
+    for key, n in dp_counts.items():
+        counts[key] = counts.get(key, 0) + n
     return counts, rows, metrics
 
 
@@ -5373,7 +5681,7 @@ def main():
             print("captured samplers: " + json.dumps(sampler_metrics))
             scale_counts, scale_rows, scale_metrics = drive_scale_out(
                 torch, KERNELS, peaks, args.seed, work / "ldm",
-                work / "scale_out", card)
+                work / "vqgan", work / "scale_out", card)
             rows.update(scale_rows)
             print("scale-out: " + json.dumps(scale_metrics))
         for key, n in [*train_counts.items(), *vq_counts.items(),

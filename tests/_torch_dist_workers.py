@@ -113,6 +113,8 @@ def numpy_tree(x):
     """Copies as numpy (never views of a tensor's storage)."""
     if isinstance(x, dict):
         return {k: numpy_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [numpy_tree(v) for v in x]
     if torch.is_tensor(x):
         return x.detach().cpu().numpy().copy()
     return np.array(x, copy=True)
@@ -151,3 +153,359 @@ def train_run(rank, world, cfg_kwargs, split, mode, steps):
     params = (tr.placed.gathered("model") if tr.placed is not None
               else {k: v.detach() for k, v in tr.model.named_parameters()})
     return out["losses"], out["loader"], params
+
+
+def vqgan_modes(rank, world, cfg_kwargs, states, images, modes,
+                revive=False):
+    """For each step mode: the port's VQGANTrainer from the port state
+    dicts `states` ({"vqvae", "disc", "lpips"}) on this rank's rows of
+    each global batch of `images` [n, B, H, W, C]: "split" and "fused" one
+    `dispatch_step` per batch, "scan" one `dispatch_block` of all n. With
+    `revive`, a revival after the last step from the window of every
+    step's usage. Returns {mode: {"logs": [{key: array}] per step,
+    "vqvae", "disc" (state dicts), "counts" (G and D updates),
+    "revived": (number, dead mask, codebook) or None}}."""
+    from vqgan_tpu_torch.configs import VQGANConfig
+    from vqgan_tpu_torch.parallel.mesh import local_rows
+    from vqgan_tpu_torch.training.vqgan_trainer import VQGANTrainer
+
+    out = {}
+    for mode in modes:
+        tr = VQGANTrainer(VQGANConfig(**cfg_kwargs), device="cpu",
+                          step_mode=mode, scan_block=len(images))
+        for name in ("vqvae", "disc", "lpips"):
+            getattr(tr, name).load_state_dict(states[name])
+        rows = [torch.from_numpy(x) for x in images]
+        if tr.mesh is not None:
+            rows = [local_rows(x, tr.mesh) for x in rows]
+        if mode == "scan":
+            stacked = tr.dispatch_block(torch.stack(rows), 0)
+            logs = [{k: v[i] for k, v in stacked.items()}
+                    for i in range(len(rows))]
+        else:
+            logs = [tr.dispatch_step(x, i) for i, x in enumerate(rows)]
+        out[mode] = numpy_tree({
+            "logs": logs, "vqvae": tr.vqvae.state_dict(),
+            "disc": tr.disc.state_dict(),
+            "counts": (tr.opt_g.state_dict()["count"],
+                       tr.opt_d.state_dict()["count"])})
+        out[mode]["revived"] = None
+        if revive:
+            if mode == "split":  # the captured modes sum inside the steps
+                for log in logs:
+                    tr._usage_accum += log["usage_counts"]
+            window = tr._usage_accum.clone()
+            dead = window < tr.config.revive_usage_threshold
+            n = tr.revive(rows[-1], len(rows))
+            out[mode]["revived"] = numpy_tree([
+                n, dead, window,
+                tr.vqvae.quantizer.embedding.weight.detach()])
+    return out
+
+
+def norm_layers(rank, world, x, weight, bias, grad_out):
+    """`BatchNorm` in train mode and `ActNorm`'s initialisation on this
+    rank's rows of `x` inside `global_batch` over every rank: BatchNorm's
+    output rows, its running statistics after one pass, the gradients of
+    sum(out * grad_out) for its weight and bias (averaged over the ranks)
+    and for this rank's rows of x; ActNorm's bias and weight."""
+    from vqgan_tpu_torch.models.discriminator import ActNorm, BatchNorm
+    from vqgan_tpu_torch.parallel import make_mesh
+    from vqgan_tpu_torch.parallel.mesh import (
+        global_batch,
+        local_rows,
+        mean_over_data,
+    )
+
+    mesh = make_mesh(device="cpu") if world > 1 else None
+    rows = torch.from_numpy(x)
+    g_rows = torch.from_numpy(grad_out)
+    if mesh is not None:
+        rows, g_rows = local_rows(rows, mesh), local_rows(g_rows, mesh)
+    bn = BatchNorm(x.shape[1]).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(weight))
+        bn.bias.copy_(torch.from_numpy(bias))
+    rows = rows.clone().requires_grad_()
+    with global_batch(mesh):
+        out = bn(rows)
+    # each rank's share of the global sum, as a loss over rows
+    (out * g_rows).sum().backward()
+    grads = mean_over_data([bn.weight.grad, bn.bias.grad], mesh)
+    n = world if mesh is not None else 1
+    act = ActNorm(x.shape[1])
+    with global_batch(mesh):
+        act(rows.detach(), init_actnorm=True)
+    return numpy_tree({"out": out, "running_mean": bn.running_mean,
+                       "running_var": bn.running_var,
+                       "weight_grad": grads[0] * n, "bias_grad": grads[1] * n,
+                       "x_grad": rows.grad, "act_bias": act.bias,
+                       "act_weight": act.weight})
+
+
+def ema_codebook(rank, world, codebook, size, total, z, idx):
+    """`ema_codebook_update` on this rank's rows of z [N, D] and indices
+    [N] inside `global_batch` over every rank."""
+    from vqgan_tpu_torch.ops.vq import ema_codebook_update
+    from vqgan_tpu_torch.parallel import make_mesh
+    from vqgan_tpu_torch.parallel.mesh import global_batch, local_rows
+
+    mesh = make_mesh(device="cpu")
+    with global_batch(mesh):
+        out = ema_codebook_update(
+            torch.from_numpy(codebook), torch.from_numpy(size),
+            torch.from_numpy(total), local_rows(torch.from_numpy(z), mesh),
+            local_rows(torch.from_numpy(idx), mesh))
+    return numpy_tree(list(out))
+
+
+def kl_vae_steps(rank, world, cfg_kwargs, state, images, eps, kl_weight,
+                 lr, seed):
+    """The port's KL-VAE step (`make_kl_vae_train_step`) on this rank's
+    rows of each global batch of `images` [n, B, H, W, C]: with the
+    global posterior noise `eps` [n, B, h, w, c] injected where given,
+    else drawn from a generator seeded with `seed`. Returns (the logs per
+    step, the parameters)."""
+    from vqgan_tpu_torch.models.autoencoder import AutoencoderConfig, KLVAE
+    from vqgan_tpu_torch.parallel import make_mesh_for_batch
+    from vqgan_tpu_torch.parallel.mesh import local_rows
+    from vqgan_tpu_torch.training import (
+        make_kl_vae_optimizer,
+        make_kl_vae_train_step,
+    )
+
+    mesh = (make_mesh_for_batch(images.shape[1], device="cpu")
+            if world > 1 else None)
+    vae = KLVAE(AutoencoderConfig(**cfg_kwargs))
+    vae.load_state_dict(state)
+    opt = make_kl_vae_optimizer(vae.parameters(), lr, "constant",
+                                len(images))
+    step = make_kl_vae_train_step(vae, opt, kl_weight=kl_weight, mesh=mesh)
+    generator = torch.Generator().manual_seed(seed)
+    logs = []
+    for i, x in enumerate(images):
+        x = torch.from_numpy(x)
+        if mesh is not None:
+            x = local_rows(x, mesh)
+        noise = (None if eps is None else
+                 torch.from_numpy(eps[i]).permute(0, 3, 1, 2).contiguous())
+        logs.append(step(x, generator=generator, noise=noise))
+    return numpy_tree(logs), numpy_tree(dict(vae.named_parameters()))
+
+
+def ddpm_steps(rank, world, unet_kwargs, diff_kwargs, state, images, draws,
+               lr, seed, results):
+    """The port's DDPM `Trainer.train_step` on this rank's rows of each
+    global batch of `images` [n, B, H, W, C], with the global draws
+    `draws[i]` ({"t", "noise", "self_cond_coin"}) where given, else drawn
+    from the trainer's generator. Returns (the losses, the parameters,
+    the EMA's)."""
+    from vqgan_tpu_torch.diffusion import GaussianDiffusion
+    from vqgan_tpu_torch.models import Unet
+    from vqgan_tpu_torch.parallel.mesh import local_rows
+    from vqgan_tpu_torch.training.ddpm_trainer import Trainer
+
+    net = Unet(**unet_kwargs)
+    net.load_state_dict(state)
+    diffusion = GaussianDiffusion(net, **diff_kwargs, device="cpu")
+    tr = Trainer(diffusion, net, train_batch_size=images.shape[1],
+                 train_lr=lr, results_folder=results, seed=seed)
+    losses = []
+    for i, x in enumerate(images):
+        x = torch.from_numpy(x)
+        if tr.mesh is not None:
+            x = local_rows(x, tr.mesh)
+        kwargs = {} if draws is None else {
+            k: torch.as_tensor(v) for k, v in draws[i].items()}
+        losses.append(float(tr.train_step(x, **kwargs)))
+    return (losses, numpy_tree(dict(net.named_parameters())),
+            numpy_tree(dict(tr.ema_model.named_parameters())))
+
+
+def ddpm_fid_milestone(rank, world, unet_kwargs, diff_kwargs, state,
+                       real, n_fid, batch, results):
+    """A DDPM `Trainer` milestone with the FID, its evaluator over the
+    first 4 values of each image as its features: this rank's share of
+    `real` [n, H, W, C] (its `rank_batches`) for the real statistics, then
+    `save_and_sample(1)`.
+    Returns (the FID, the real (mu, cov), the features of this rank's
+    generated images, the checkpoints this rank sees)."""
+    from vqgan_tpu_torch.checkpoint import CheckpointManager
+    from vqgan_tpu_torch.diffusion import GaussianDiffusion
+    from vqgan_tpu_torch.eval.fid import FIDEvaluation, rank_batches
+    from vqgan_tpu_torch.models import Unet
+    from vqgan_tpu_torch.training.ddpm_trainer import Trainer
+
+    net = Unet(**unet_kwargs)
+    net.load_state_dict(state)
+    diffusion = GaussianDiffusion(net, **diff_kwargs, device="cpu")
+    made = []
+
+    def features(images):
+        out = torch.as_tensor(images).reshape(len(images), -1)[:, :4]
+        made.append(out.numpy())
+        return out
+
+    ev = FIDEvaluation(features, batch_size=batch, num_fid_samples=n_fid,
+                       dim=4)
+    real_mu_cov = ev.load_or_precalc_real_stats(
+        real[a:b] for a, b in rank_batches(len(real), batch))
+    made.clear()  # from here on, the generated images' features
+    tr = Trainer(diffusion, net, train_batch_size=4, results_folder=results,
+                 calculate_fid=True, fid_evaluator=ev, num_samples=4)
+    tr.save_and_sample(1)
+    return (tr.last_fid, real_mu_cov, made,
+            CheckpointManager(results, prefix="model").all_milestones())
+
+
+def immiscible_gathers(rank, world, unet_kwargs, diff_kwargs, state,
+                       images, t):
+    """`p_losses` with immiscible noise inside `global_batch` on this
+    rank's rows of `images`, the noise drawn and then given (this rank's
+    rows of a draw): the all-gathers each call makes."""
+    from vqgan_tpu_torch.diffusion import GaussianDiffusion
+    from vqgan_tpu_torch.models import Unet
+    from vqgan_tpu_torch.parallel import comm
+    from vqgan_tpu_torch.parallel.mesh import (global_batch, local_rows,
+                                               make_mesh_for_batch)
+
+    net = Unet(**unet_kwargs)
+    net.load_state_dict(state)
+    diffusion = GaussianDiffusion(net, **diff_kwargs, device="cpu")
+    mesh = make_mesh_for_batch(len(images), device="cpu")
+    x = local_rows(torch.from_numpy(images), mesh)
+    t = local_rows(torch.as_tensor(t), mesh)
+    gathers, gather = [], comm.all_gather_cat
+
+    def counted(*args, **kwargs):
+        gathers[-1] += 1
+        return gather(*args, **kwargs)
+
+    comm.all_gather_cat = counted
+    try:
+        with global_batch(mesh):
+            for noise in (None, torch.randn(x.shape)):
+                gathers.append(0)
+                diffusion.p_losses(x, t, noise=noise,
+                                   generator=torch.Generator().manual_seed(0))
+    finally:
+        comm.all_gather_cat = gather
+    return gathers
+
+
+def ldm_step_and_scan(rank, world, cfg_kwargs, modes, batches, min_size):
+    """For each --param_sharding mode, the port's LDM trainer in step mode
+    and in scan mode (one block of every batch) on this rank's rows of the
+    global batches (draws from the trainer's generator): the logs per step
+    and the gathered parameters and EMA, per step mode."""
+    from vqgan_tpu_torch.configs.ldm_config import LDMConfig
+    from vqgan_tpu_torch.parallel.mesh import local_rows
+    from vqgan_tpu_torch.training.ldm_trainer import LatentDiffusionTrainer
+
+    out = {}
+    for mode in modes:
+        for step_mode in ("step", "scan"):
+            tr = LatentDiffusionTrainer(
+                LDMConfig(**cfg_kwargs), device="cpu", param_sharding=mode,
+                fsdp_min_size=min_size, step_mode=step_mode)
+            rows = [[local_rows(torch.from_numpy(a), tr.mesh)
+                     for a in batch] for batch in batches]
+            if step_mode == "scan":
+                stacked = tr.dispatch_block(
+                    torch.stack([r[0] for r in rows]),
+                    torch.stack([r[1] for r in rows]).long())
+                logs = [{k: float(v[i]) for k, v in stacked.items()}
+                        for i in range(len(rows))]
+            else:
+                logs = [{k: float(v) for k, v in tr.train_step(
+                    tr.state, latents, labels.long(),
+                    generator=tr.generator).items()}
+                    for latents, labels in rows]
+            out[(mode, step_mode)] = {
+                "logs": logs, "model": tr.placed.gathered("model"),
+                "ema": tr.placed.gathered("ema"), "step": tr.state.step}
+    return out
+
+
+def capture_refusal(rank, world):
+    """Inside what the collectives take for a CUDA graph capture, a gloo
+    collective raises: the message of each of all_reduce_, all_gather_cat
+    and broadcast_."""
+    from vqgan_tpu_torch.parallel import comm
+
+    comm.capturing = lambda: True
+    messages = []
+    for fn in (lambda t: comm.all_reduce_(t),
+               lambda t: comm.all_gather_cat(t, 0),
+               lambda t: comm.broadcast_(t, 0)):
+        try:
+            fn(torch.ones(3))
+            messages.append(None)
+        except RuntimeError as e:
+            messages.append(str(e))
+    return messages
+
+
+def cli_run(rank, world, module, argv, small=None):
+    """`vqgan_tpu_torch.<module>.main(argv)` on this rank (the process
+    group already up, as torchrun's would be), or for train_kl_vae with
+    `small` (AutoencoderConfig fields) its `train`. Returns (the losses,
+    the trained parameters)."""
+    import importlib
+
+    cli = importlib.import_module(f"vqgan_tpu_torch.{module}")
+    if small is not None:
+        from vqgan_tpu_torch.models.autoencoder import AutoencoderConfig
+
+        result = cli.train(cli.parse_args(argv), AutoencoderConfig(**small))
+        model = result["vae"]
+    else:
+        result = cli.main(argv)
+        trainer = result["trainer"]
+        model = getattr(trainer, "vqvae", None) or trainer.model
+    return (list(map(float, result["losses"])),
+            numpy_tree(dict(model.named_parameters())))
+
+
+def ldm_scan_captured(rank, world, cfg_kwargs, batches, mode):
+    """On the card: the LDM trainer's scan mode under `mode` on this
+    rank's rows, captured (graph) and eager (graph=False), one block of
+    every batch each, cuDNN deterministic. Returns {graph: (logs, the
+    gathered parameters)} and the graphs' kernel launches per replay."""
+    from vqgan_tpu_torch.configs.ldm_config import LDMConfig
+    from vqgan_tpu_torch.parallel.mesh import local_rows
+    from vqgan_tpu_torch.training.ldm_trainer import LatentDiffusionTrainer
+
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    for graph in (True, False):
+        tr = LatentDiffusionTrainer(LDMConfig(**cfg_kwargs), device="cuda",
+                                    param_sharding=mode, step_mode="scan",
+                                    graph=graph)
+        rows = [[local_rows(torch.from_numpy(a), tr.mesh).cuda()
+                 for a in batch] for batch in batches]
+        logs = []
+        for _ in range(2):  # the warm-up call, then the captured replays
+            stacked = tr.dispatch_block(
+                torch.stack([r[0] for r in rows]),
+                torch.stack([r[1] for r in rows]).long())
+            logs.append(numpy_tree(stacked))
+        out[graph] = (logs, numpy_tree(tr.placed.gathered("model")),
+                      tr.graph_stats())
+    return out
+
+
+def gloo_in_capture(rank, world):
+    """On the card, in a gloo group: an all-reduce of a CUDA tensor inside
+    a real CUDA graph capture. Returns the error's message."""
+    from vqgan_tpu_torch.parallel import comm
+
+    x = torch.ones(4, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    try:
+        with torch.cuda.stream(side), torch.cuda.graph(graph):
+            comm.all_reduce_(x)
+    except RuntimeError as e:
+        return str(e)
+    return None

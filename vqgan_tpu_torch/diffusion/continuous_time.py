@@ -32,6 +32,7 @@ from ..core.diffusion_math import (
 )
 from ..device import resolve_device
 from ..graphs import ChainGraphs, ChainStep, resolve_graph, run_chain
+from ..parallel.mesh import draw_rows
 from .gaussian import _channels_first, _nchw, _nhwc, _row_noise
 
 __all__ = [
@@ -170,16 +171,18 @@ def logsnr_sample(diffusion, batch_size: int, step: Callable, init_noise,
 def _noise_for(x_start, noise, generator):
     """The NCHW noise: `noise` (NHWC) as given, else a draw."""
     if noise is None:
-        return torch.randn(x_start.shape, generator=generator,
-                           device=x_start.device)
+        return draw_rows(lambda shape: torch.randn(
+            shape, generator=generator, device=x_start.device),
+            x_start.shape)
     return _nchw(torch.as_tensor(noise, dtype=torch.float32,
                                  device=x_start.device))
 
 
 def _times_for(img, times, generator):
     if times is None:
-        return torch.rand((img.shape[0],), generator=generator,
-                          device=img.device)
+        return draw_rows(lambda shape: torch.rand(
+            shape, generator=generator, device=img.device),
+            (img.shape[0],))
     return torch.as_tensor(times, dtype=torch.float32, device=img.device)
 
 

@@ -40,6 +40,7 @@ from ..core.diffusion_math import (
 )
 from ..device import resolve_device
 from ..graphs import ChainGraphs, ChainStep, resolve_graph, run_chain
+from ..parallel.mesh import draw_rows
 
 __all__ = ["ElucidatedDiffusion"]
 
@@ -289,8 +290,9 @@ class ElucidatedDiffusion:
 
     def noise_distribution(self, batch_size: int,
                            generator: Optional[torch.Generator] = None):
-        return torch.exp(self.P_mean + self.P_std * torch.randn(
-            (batch_size,), generator=generator, device=self.device))
+        return torch.exp(self.P_mean + self.P_std * draw_rows(
+            lambda shape: torch.randn(shape, generator=generator,
+                                      device=self.device), (batch_size,)))
 
     def loss(self, images, *, sigmas=None, noise=None, self_cond_coin=None,
              generator: Optional[torch.Generator] = None):
@@ -303,8 +305,9 @@ class ElucidatedDiffusion:
         sigmas = (self.noise_distribution(b, generator) if sigmas is None
                   else torch.as_tensor(sigmas, dtype=torch.float32,
                                        device=self.device))
-        noise = (torch.randn(images.shape, generator=generator,
-                             device=self.device)
+        noise = (draw_rows(lambda shape: torch.randn(
+                     shape, generator=generator, device=self.device),
+                     images.shape)
                  if noise is None else _nchw(noise, self.device))
         noised = images + sigmas[:, None, None, None] * noise
 

@@ -47,6 +47,12 @@ from ..core.schedules import DiffusionSchedule, make_schedule
 from ..device import resolve_device
 from ..graphs import ChainGraphs, ChainStep, resolve_graph, run_chain
 from ..ops.assignment import auction_assignment
+from ..parallel.mesh import (
+    draw_rows,
+    gather_rows,
+    global_shape,
+    own_rows,
+)
 
 __all__ = ["GaussianDiffusion", "DDIMStep", "immiscible_permutation"]
 
@@ -159,23 +165,34 @@ class GaussianDiffusion:
         not given (then permuted under `immiscible`), as are the offset
         noise and, without `cond_drop_mask`, the model's random class
         dropout, and without `self_cond_coin` (a bool, True feeds the x_0
-        estimate) the self-conditioning coin. Returns the scalar loss, and
-        the model's mid-block features with `return_features`."""
+        estimate) the self-conditioning coin. Inside
+        `parallel.mesh.global_batch` (a step on a mesh, x_start this rank's
+        rows) the draws and the immiscible assignment are the global
+        batch's, and each rank keeps its rows of them. Returns the scalar
+        loss, and the model's mid-block features with `return_features`."""
         x_start = _nchw(torch.as_tensor(x_start, device=self.device))
         b, c = x_start.shape[:2]
-        if noise is None:
-            noise = torch.randn(x_start.shape, generator=generator,
-                                device=x_start.device)
-        else:
+        dev = x_start.device
+        if noise is not None:
             noise = _nchw(torch.as_tensor(noise, dtype=torch.float32,
-                                          device=x_start.device))
+                                          device=dev))
         if self.immiscible:
-            noise = noise[immiscible_permutation(
-                x_start, noise, self.immiscible_method, self._graphs)]
+            # one assignment over the whole batch: on a mesh every rank
+            # solves the same one over the global noise (drawn whole, or
+            # gathered where given) and keeps its rows
+            whole = (torch.randn(global_shape(x_start.shape),
+                                 generator=generator, device=dev)
+                     if noise is None else gather_rows(noise))
+            noise = own_rows(whole[immiscible_permutation(
+                gather_rows(x_start), whole, self.immiscible_method,
+                self._graphs)])
+        elif noise is None:
+            noise = draw_rows(lambda shape: torch.randn(
+                shape, generator=generator, device=dev), x_start.shape)
         if self.offset_noise_strength > 0.0:
             # per-(sample, channel) constant offset
-            offset = torch.randn((b, c), generator=generator,
-                                 device=x_start.device)
+            offset = draw_rows(lambda shape: torch.randn(
+                shape, generator=generator, device=dev), (b, c))
             noise = noise + self.offset_noise_strength * offset.reshape(
                 b, c, *((1,) * (x_start.ndim - 2)))
         t = torch.as_tensor(t, device=x_start.device)
@@ -232,8 +249,9 @@ class GaussianDiffusion:
         (unless given), normalize, then `p_losses`. `img` is NHWC."""
         img = torch.as_tensor(img, device=self.device)
         if t is None:
-            t = torch.randint(0, self.timesteps, (img.shape[0],),
-                              generator=generator, device=img.device)
+            t = draw_rows(lambda shape: torch.randint(
+                0, self.timesteps, shape, generator=generator,
+                device=img.device), (img.shape[0],))
         return self.p_losses(self.normalize(img), t, classes,
                              generator=generator, **kwargs)
 

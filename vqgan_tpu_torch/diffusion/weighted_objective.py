@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from ..core import diffusion_math as dm
+from ..parallel.mesh import draw_rows
 from .gaussian import GaussianDiffusion, _nchw
 
 __all__ = ["WeightedObjectiveGaussianDiffusion"]
@@ -56,8 +57,9 @@ class WeightedObjectiveGaussianDiffusion(GaussianDiffusion):
         x_start and `noise`, the noise drawn from `generator` when not
         given."""
         x_start = _nchw(torch.as_tensor(x_start, device=self.device))
-        noise = (torch.randn(x_start.shape, generator=generator,
-                             device=self.device) if noise is None
+        noise = (draw_rows(lambda shape: torch.randn(
+                     shape, generator=generator, device=self.device),
+                     x_start.shape) if noise is None
                  else _nchw(torch.as_tensor(noise, dtype=torch.float32,
                                             device=self.device)))
         t = torch.as_tensor(t, device=self.device)

@@ -17,6 +17,13 @@ Counterpart of vqgan_tpu/eval/fid.py (the reference's fid_evaluation.py):
   given, and `fid_score(sampler_fn, generator)` over `num_fid_samples`
   generated images; sampler_fn(generator, n) returns n NHWC images in
   [0, 1], where the JAX package passes a key.
+
+Under a process group (a data-parallel trainer under torchrun) every
+rank calls each `FIDEvaluation` method together and makes its share of
+the batches, rank r the r-th of every `world` (`rank_batches`); the
+statistics are summed over the ranks, as the JAX trainer's one program
+spreads its samples over the mesh: no rank waits for another to make
+them all.
 """
 
 from __future__ import annotations
@@ -29,9 +36,26 @@ import torch
 
 from ..device import resolve_device
 from ..models.inception import InceptionV3Features, load_inception_weights
+from ..parallel import comm
+from ..parallel.init import process_count, process_index
 
 __all__ = ["FIDStats", "FIDEvaluation", "frechet_distance",
-           "make_inception_feature_fn"]
+           "make_inception_feature_fn", "rank_batches"]
+
+
+def rank_batches(n: int, batch_size: int) -> list:
+    """(start, stop) of this rank's batches of `n` items in batches of
+    `batch_size`: the r-th of every `world` batches on rank r, every batch
+    without a process group."""
+    starts = range(0, n, batch_size)[process_index()::process_count()]
+    return [(i, min(i + batch_size, n)) for i in starts]
+
+
+def _group_device() -> torch.device:
+    """Where the default group's collectives take their tensors."""
+    if torch.distributed.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
 
 
 class FIDStats:
@@ -47,6 +71,18 @@ class FIDStats:
         self.n += feats.shape[0]
         self.sum += feats.sum(axis=0)
         self.outer += feats.T @ feats
+
+    def all_reduce(self) -> "FIDStats":
+        """The statistics summed over every rank of the default group, in
+        float64, on every rank."""
+        dim = self.sum.shape[0]
+        flat = torch.from_numpy(np.concatenate(
+            [[float(self.n)], self.sum, self.outer.reshape(-1)]))
+        flat = comm.all_reduce_(flat.to(_group_device())).cpu().numpy()
+        self.n = int(round(flat[0]))
+        self.sum = flat[1:1 + dim]
+        self.outer = flat[1 + dim:].reshape(dim, dim)
+        return self
 
     def finalize(self) -> Tuple[np.ndarray, np.ndarray]:
         mu = self.sum / self.n
@@ -113,7 +149,9 @@ def make_inception_feature_fn(state_dict=None, seed: int = 0,
 class FIDEvaluation:
     """feature_fn(images [B, H, W, 3] in [0, 1]) -> [B, dim] (the port's
     Inception by default elsewhere: `make_inception_feature_fn`);
-    sampler_fn(generator, batch_size) -> images in [0, 1]."""
+    sampler_fn(generator, batch_size) -> images in [0, 1]. Under a
+    process group every rank calls each method together (see the module
+    docstring)."""
 
     def __init__(
         self,
@@ -132,7 +170,9 @@ class FIDEvaluation:
 
     def load_or_precalc_real_stats(self, real_batches: Iterator):
         """Real-data (mu, cov): loaded from `stats_path` when it exists,
-        else computed over `real_batches` and saved there."""
+        else computed over `real_batches` and saved there. Under a
+        process group `real_batches` is this rank's share of the data (its
+        `rank_batches`), and rank 0 saves the whole set's statistics."""
         if self.stats_path is not None and self.stats_path.exists():
             data = np.load(self.stats_path)
             self._real = (data["mu"], data["sigma"])
@@ -141,8 +181,10 @@ class FIDEvaluation:
         acc = FIDStats(self.dim)
         for batch in real_batches:
             acc.update(_numpy(self.feature_fn(batch)))
+        if process_count() > 1:
+            acc.all_reduce()
         self._real = acc.finalize()
-        if self.stats_path is not None:
+        if self.stats_path is not None and process_index() == 0:
             self.stats_path.parent.mkdir(parents=True, exist_ok=True)
             np.savez(self.stats_path, mu=self._real[0], sigma=self._real[1])
         return self._real
@@ -150,14 +192,23 @@ class FIDEvaluation:
     def fid_score(self, sampler_fn: Callable,
                   generator: Optional[torch.Generator] = None) -> float:
         """Generate num_fid_samples images through sampler_fn and score
-        them against the real statistics."""
+        them against the real statistics. Under a process group this rank
+        generates its `rank_batches` of them from `generator` (a generator
+        of its own), and every rank returns rank 0's score."""
         assert self._real is not None, "call load_or_precalc_real_stats first"
         acc = FIDStats(self.dim)
-        remaining = self.num_fid_samples
-        while remaining > 0:
-            n = min(self.batch_size, remaining)
-            acc.update(_numpy(self.feature_fn(sampler_fn(generator, n))))
-            remaining -= n
-        mu_f, cov_f = acc.finalize()
-        mu_r, cov_r = self._real
-        return frechet_distance(mu_r, cov_r, mu_f, cov_f)
+        for start, stop in rank_batches(self.num_fid_samples,
+                                        self.batch_size):
+            acc.update(_numpy(self.feature_fn(
+                sampler_fn(generator, stop - start))))
+        shared = process_count() > 1
+        if shared:
+            acc.all_reduce()
+        score = torch.zeros((), dtype=torch.float64)
+        if process_index() == 0:
+            mu_f, cov_f = acc.finalize()
+            score.fill_(frechet_distance(*self._real, mu_f, cov_f))
+        if shared:
+            # the square root takes seconds: rank 0 computes it for all
+            score = comm.broadcast_(score.to(_group_device()))
+        return float(score)

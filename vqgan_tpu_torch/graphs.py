@@ -40,6 +40,11 @@ path counts.
 
 A capture or replay that fails raises; nothing runs eagerly in its place.
 CPU tensors raise `ValueError`: a CPU caller runs its body eagerly.
+
+Collectives: a step body's NCCL collectives (a training step on a mesh)
+are captured with it, onto the capture stream; the warm-up call makes
+their communicators. A gloo collective, or one staged through host
+memory, raises inside a capture (`parallel/comm.py`).
 """
 
 from __future__ import annotations

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import draw_rows
 from .layers import (
     AttnBlock,
     Conv2d,
@@ -173,10 +174,13 @@ class DiagonalGaussian:
     def sample(self, generator: torch.Generator | None = None,
                noise=None):
         """mean + std * noise, the noise drawn from `generator` unless
-        given (a tensor or array of the mean's shape)."""
+        given (a tensor or array of the mean's shape); inside
+        `parallel.mesh.global_batch`, this rank's rows of the global
+        batch's draw."""
         if noise is None:
-            noise = torch.randn(self.mean.shape, generator=generator,
-                                device=self.mean.device, dtype=torch.float32)
+            noise = draw_rows(lambda shape: torch.randn(
+                shape, generator=generator, device=self.mean.device,
+                dtype=torch.float32), self.mean.shape)
         else:
             noise = torch.as_tensor(noise, dtype=torch.float32,
                                     device=self.mean.device)

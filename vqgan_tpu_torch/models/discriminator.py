@@ -9,7 +9,10 @@ Convolutions compute in `dtype`; norms and the output conv in fp32.
 
 Norms (`norm`):
 - "batch": `BatchNorm` (models/layers.py, shared with the ResNet), flax's
-  BatchNorm semantics, which the JAX package holds.
+  BatchNorm semantics, which the JAX package holds. In a step on a mesh
+  its statistics are the global batch's: the JAX module's docstring says
+  they stay per device, but its trainer jits one program over the batch
+  placed P("data"), where GSPMD takes the mean over the global batch.
 - "act": `ActNorm`, an affine whose scale and shift live in buffers, set
   from the first batch only when called with init_actnorm=True (the
   discriminator never asks, as in the JAX package).
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import batch_mesh, sum_over_data
 from .layers import BatchNorm, Conv2d
 
 __all__ = ["BatchNorm", "ActNorm", "PatchGANDiscriminator",
@@ -35,7 +39,10 @@ class ActNorm(nn.Module):
     initialisation from the first batch passed with init_actnorm=True
     (bias = -mean, weight = 1 / (std + 1e-6)), chosen by `torch.where` on
     the `initialized` flag on the device. The three values are buffers,
-    not trained, as the JAX package's 'actnorm_stats' collection."""
+    not trained, as the JAX package's 'actnorm_stats' collection. Inside
+    `parallel.mesh.global_batch` on a mesh, the mean and std are the global
+    batch's, as jnp.mean / jnp.std give them under the JAX package's jit:
+    the sum of x over the ranks, then that of (x - mean)^2."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -48,14 +55,26 @@ class ActNorm(nn.Module):
             # decided on the device, as JAX's jnp.where: no host read, so
             # a CUDA graph holds it
             with torch.no_grad():
-                std, mean = torch.std_mean(x.float(), dim=(0, 2, 3),
-                                           unbiased=False)
+                std, mean = _batch_std_mean(x.float())
                 do_init = self.initialized == 0
                 self.bias.copy_(torch.where(do_init, -mean, self.bias))
                 self.weight.copy_(torch.where(do_init, 1.0 / (std + 1e-6),
                                               self.weight))
                 self.initialized.fill_(1)
         return x * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+
+
+def _batch_std_mean(x):
+    """(std, mean) per channel of NCHW `x`, biased, over the batch: this
+    rank's, or inside `global_batch` the global batch's in two passes."""
+    mesh = batch_mesh()
+    if mesh is None:
+        return torch.std_mean(x, dim=(0, 2, 3), unbiased=False)
+    n = x.numel() // x.shape[1] * mesh.shape["data"]
+    mean = sum_over_data(x.sum(dim=(0, 2, 3))) / n
+    var = sum_over_data(((x - mean[None, :, None, None]) ** 2).sum(
+        dim=(0, 2, 3))) / n
+    return var.sqrt(), mean
 
 
 class _GroupNorm(nn.GroupNorm):

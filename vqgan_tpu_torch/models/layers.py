@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import sdpa
+from ..parallel.mesh import batch_mesh, sum_over_data
 
 __all__ = [
     "lecun_normal_init_",
@@ -82,7 +83,14 @@ class BatchNorm(nn.Module):
     biased batch variance, and the running variance averaging that biased
     variance. torch's BatchNorm2d averages the unbiased one (n / (n - 1)),
     so it is not used. Train or eval mode follows `module.train()` /
-    `.eval()`; computes in fp32."""
+    `.eval()`; computes in fp32.
+
+    Inside `parallel.mesh.global_batch` on a mesh whose "data" axis has
+    more than one rank, the train-mode statistics are the global batch's,
+    as under the JAX package's jit over a batch placed P("data"): the
+    per-channel sums of x and x^2 in fp32 summed over the ranks (their
+    gradient too), then flax's E[x^2] - E[x]^2 clipped at 0; the running
+    statistics follow the global values."""
 
     def __init__(self, channels: int, momentum: float = 0.1,
                  eps: float = 1e-5):
@@ -96,6 +104,8 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         x = x.float()
+        if self.training and batch_mesh() is not None:
+            return self._global_batch_forward(x)
         if self.training:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
@@ -107,6 +117,20 @@ class BatchNorm(nn.Module):
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, training=False,
                             eps=self.eps)
+
+    def _global_batch_forward(self, x):
+        n = x.numel() // x.shape[1] * batch_mesh().shape["data"]
+        sums = sum_over_data(torch.stack([x.sum(dim=(0, 2, 3)),
+                                          (x * x).sum(dim=(0, 2, 3))]))
+        mean = sums[0] / n
+        var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(m * var)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return ((x - mean[None, :, None, None]) * scale[None, :, None, None]
+                + self.bias[None, :, None, None])
 
 
 def group_count(channels: int, num_groups: int = 32) -> int:

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import sdpa
+from ..parallel.mesh import draw_rows
 from .layers import Conv2d, Linear, RMSNorm, UpsampleNearest, from_heads, to_heads
 
 __all__ = ["CFGUnet", "SinusoidalPosEmb", "draw_cond_drop_mask"]
@@ -33,9 +34,12 @@ def draw_cond_drop_mask(b: int, p: float,
                         generator: Optional[torch.Generator], device):
     """The training-time class dropout: bool [B], True with probability p,
     drawn from `generator`; None when p is 0. The denoisers draw it here,
-    and so does the rematerialised forward before its checkpoint."""
+    and so does the rematerialised forward before its checkpoint. Inside
+    `parallel.mesh.global_batch` the global batch's draw, this rank's
+    rows."""
     if p > 0.0:
-        return torch.rand(b, generator=generator, device=device) < p
+        return draw_rows(lambda shape: torch.rand(
+            shape, generator=generator, device=device), (b,)) < p
     return None
 
 

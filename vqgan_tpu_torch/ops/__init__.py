@@ -14,6 +14,7 @@ from .attention import (
 from .vq import (
     VQLookupFunction,
     codebook_usage,
+    ema_codebook_update,
     revive_dead_codes,
     vq_lookup,
     vq_lookup_reference,
@@ -24,5 +25,5 @@ __all__ = ["auction_assignment", "FlashAttentionFunction", "flash_attention", "f
            "flash_bwd_dkv_reference", "flash_bwd_dq", "flash_bwd_dq_reference",
            "flash_forward", "flash_forward_reference", "sdpa",
            "sdpa_reference", "VQLookupFunction", "codebook_usage",
-           "revive_dead_codes", "vq_lookup", "vq_lookup_reference",
+           "ema_codebook_update", "revive_dead_codes", "vq_lookup", "vq_lookup_reference",
            "vq_nearest_indices"]

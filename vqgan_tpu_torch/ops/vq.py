@@ -25,8 +25,13 @@ Counterpart of vqgan_tpu/ops/vq.py. z is [N, D] and the codebook [K, D].
   for the bf16 mode and 0.0461 for addmm + argmin + index_select; at
   K = 8192, 0.694 / 0.201 / 1.385 ms (CUDA graphs, chip_smoke.py, NVIDIA
   H100 80GB HBM3, 700.00 W): 0.017 ms of a 115 ms G step either way.
-- `codebook_usage`, `revive_dead_codes`: the non-kernel parts of the JAX
-  module that the trainer uses.
+- `codebook_usage`, `revive_dead_codes`, `ema_codebook_update`: the
+  non-kernel parts of the JAX module. Inside `parallel.mesh.global_batch`
+  (a step on a mesh, z this rank's rows) the revival draws from the global
+  batch's z rows, the same draw on every rank, so the codebook stays
+  replicated, and the EMA update's counts and sums are the global batch's.
+  The usage histogram the kernel returns is this rank's; the VQ-GAN step
+  sums it over "data" where its logs and the revival window read it.
 """
 
 from __future__ import annotations
@@ -37,11 +42,12 @@ import torch
 
 from ..kernels.ops import vq_nearest_op
 from ..kernels.reference import codebook_usage, vq_lookup_reference, vq_scores
+from ..parallel.mesh import gather_rows, sum_over_data
 from .attention import check_device
 
 __all__ = ["vq_lookup", "vq_lookup_reference", "vq_nearest_indices",
-           "codebook_usage", "revive_dead_codes", "vq_scores",
-           "VQLookupFunction"]
+           "codebook_usage", "revive_dead_codes", "ema_codebook_update",
+           "vq_scores", "VQLookupFunction"]
 
 _MODES = {"auto": "fp32", "fp32": "fp32", True: "bf16"}
 
@@ -90,10 +96,12 @@ def revive_dead_codes(codebook, usage_counts, z, generator:
                       Optional[torch.Generator] = None, threshold: int = 1):
     """Re-anchor under-used codes to random encoder outputs: every code whose
     accumulated usage is below `threshold` becomes a row of z drawn
-    uniformly (from `generator`). z: [..., D] pre-quant features. Returns
-    (new codebook, number revived (0-d tensor), dead mask [K] bool)."""
+    uniformly (from `generator`). z: [..., D] pre-quant features, this
+    rank's inside `global_batch` (the draw is over every rank's rows).
+    Returns (new codebook, number revived (0-d tensor), dead mask [K]
+    bool)."""
     k, d = codebook.shape
-    z2 = z.reshape(-1, z.shape[-1]).to(codebook.dtype)
+    z2 = gather_rows(z.reshape(-1, z.shape[-1])).to(codebook.dtype)
     if z2.shape[-1] != d:
         raise ValueError(f"z rows have {z2.shape[-1]} features, the codebook "
                          f"{d}")
@@ -103,3 +111,29 @@ def revive_dead_codes(codebook, usage_counts, z, generator:
     new_codebook = torch.where(dead[:, None], z2.index_select(0, rows),
                                codebook)
     return new_codebook, dead.sum(), dead
+
+
+@torch.no_grad()
+def ema_codebook_update(codebook, cluster_size, cluster_sum, z, indices,
+                        decay: float = 0.99, eps: float = 1e-5):
+    """The optional VQ-VAE-2 EMA codebook update, as the JAX package's
+    `ema_codebook_update` (no trainer calls it; the codebook learns by
+    Adam): per-code counts and sums of the z rows `indices` pick, decayed
+    into `cluster_size` [K] and `cluster_sum` [K, D], then Laplace-smoothed
+    sizes divide the sums. Inside `global_batch` the counts and sums are
+    the global batch's. Returns (new codebook, new cluster_size, new
+    cluster_sum)."""
+    k, d = codebook.shape
+    z2 = z.reshape(-1, d).float()
+    idx = indices.reshape(-1).long()
+    counts = torch.zeros(k, dtype=torch.float32, device=z2.device)
+    counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.float32))
+    sums = torch.zeros((k, d), dtype=torch.float32, device=z2.device)
+    sums.index_add_(0, idx, z2)
+    counts, sums = sum_over_data(counts), sum_over_data(sums)
+    new_size = cluster_size * decay + counts * (1 - decay)
+    new_sum = cluster_sum * decay + sums * (1 - decay)
+    n = new_size.sum()
+    smoothed = (new_size + eps) / (n + k * eps) * n
+    new_codebook = (new_sum / smoothed[:, None]).to(codebook.dtype)
+    return new_codebook, new_size, new_sum

@@ -6,6 +6,13 @@ CUDA tensors; gloo takes CPU tensors, and where it is given CUDA tensors
 (several ranks sharing one card) the data goes through host memory. A
 group of one rank still calls the backend, so a one-rank NCCL group runs
 real NCCL collectives.
+
+Inside a CUDA graph capture (`graphs.Graphed`) a collective is captured
+only where NCCL runs it on the card: the kernels NCCL enqueues go onto the
+capture stream and replay with the graph. A gloo collective, or one staged
+through host memory, would run once at capture and never again, so each
+function here raises inside a capture unless its group is NCCL's and its
+tensors are on the card.
 """
 
 from __future__ import annotations
@@ -15,8 +22,9 @@ from typing import List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather_cat", "all_reduce_", "broadcast_", "group_size",
-           "group_rank", "global_rank", "ppermute", "send_recv"]
+__all__ = ["all_gather_cat", "all_reduce_", "broadcast_", "capturing",
+           "group_size", "group_rank", "global_rank", "ppermute",
+           "send_recv"]
 
 
 def group_size(group=None) -> int:
@@ -34,8 +42,20 @@ def global_rank(group, rank_in_group: int) -> int:
     return dist.get_global_rank(group, rank_in_group)
 
 
+def capturing() -> bool:
+    """Whether this thread's current CUDA stream is capturing a graph."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
 def _via_host(t: torch.Tensor, group) -> bool:
-    return t.is_cuda and dist.get_backend(group) == "gloo"
+    backend = dist.get_backend(group)
+    if capturing() and (backend != "nccl" or not t.is_cuda):
+        raise RuntimeError(
+            f"a {backend} collective on a {t.device} tensor inside a CUDA "
+            f"graph capture would run at capture only; the captured step "
+            f"modes need an NCCL process group on the card")
+    return t.is_cuda and backend == "gloo"
 
 
 def all_reduce_(t: torch.Tensor, group=None,
@@ -79,6 +99,12 @@ def all_gather_cat(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
         parts = [torch.empty_like(host) for _ in range(n)]
         dist.all_gather(parts, host, group=group)
         return torch.cat(parts, dim=dim).to(t.device)
+    if dist.get_backend(group) == "nccl":
+        # one output tensor: NCCL writes it in place, with no staging
+        # buffer to copy out of (and none to hold past a graph capture)
+        out = src.new_empty((n, *src.shape))
+        dist.all_gather_into_tensor(out, src, group=group)
+        return torch.cat(out.unbind(0), dim=dim)
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim)

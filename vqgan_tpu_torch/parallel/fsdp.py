@@ -43,6 +43,7 @@ import torch
 from torch import nn
 
 from . import comm
+from .mesh import mean_over_data, replicate_module
 from .tp import tp_spec_for_path
 
 __all__ = ["fsdp_spec_for", "apply_fsdp_sharding", "compose_fsdp_with_tp",
@@ -223,11 +224,6 @@ class ShardedState:
 
     def __init__(self, state, mesh, mode: str,
                  min_size: int = _DEFAULT_MIN_SIZE):
-        from ..training.ldm_step import CapturableOptimizer
-
-        if isinstance(state.optimizer, CapturableOptimizer):
-            raise ValueError("a sharded state takes the eager optimizer "
-                             "(step_mode 'step')")
         self.state, self.mesh, self.mode = state, mesh, mode
         model, ema = state.model, state.ema_model
         specs = state_specs(model, mesh, mode, min_size)
@@ -237,11 +233,9 @@ class ShardedState:
         self.ema_params = dict(ema.named_parameters())
         self.trainable = [n for n, p in self.params.items()
                           if p.requires_grad]
-        self.data_group = mesh.group("data")
-        if mesh.distributed:  # every rank starts from rank 0's values
-            with torch.no_grad():
-                for p in (*self.params.values(), *self.ema_params.values()):
-                    comm.broadcast_(p.data, 0, None)
+        # every rank starts from rank 0's values
+        replicate_module(model, mesh)
+        replicate_module(ema, mesh)
 
         def piece(full, spec, grad):
             return (shard_tensor(full.detach(), spec, mesh)
@@ -304,18 +298,7 @@ class ShardedState:
             grads.append(p.grad if p.grad is not None
                          else torch.zeros_like(p))
             p.grad = None
-        n = self.mesh.shape["data"]
-        if self.mesh.distributed:
-            flat = torch.cat([g.reshape(-1).float() for g in grads])
-            comm.all_reduce_(flat, self.data_group)
-            out, i = [], 0
-            for g in grads:
-                out.append(flat[i:i + g.numel()].view_as(g).to(g.dtype))
-                i += g.numel()
-            grads = out
-        if n > 1:
-            torch._foreach_div_(grads, float(n))
-        return grads
+        return mean_over_data(grads, self.mesh)
 
     def pieces_of(self, grads: list) -> list:
         """This rank's piece of each whole gradient, by the moments'

@@ -18,11 +18,30 @@ entry per tensor dimension: an axis name or None; () replicates.
   device_put(batch, P("data"))      -> shard_batch: this rank's rows
   replicate(tree)                   -> every rank takes rank 0's values
   jax.process_index() == 0          -> is_main_process()
+
+The global batch. JAX jits one program over a batch placed P("data"):
+every reduction over the batch axis in it (a BatchNorm mean, a random
+draw of the batch's shape, an assignment over the whole batch) is over
+the global batch. Here each rank runs its rows, and a trainer's step runs
+its forward inside `global_batch(mesh)`, where
+- `draw_rows(draw, shape)` draws for the global batch, from a generator
+  that every rank holds in the same state, in the single-device order,
+  and keeps this rank's rows: every rank draws what one device would
+  (`global_shape(shape)` is the shape of the whole draw);
+- `sum_over_data(x)` sums over the "data" ranks (and so does the
+  gradient: each rank's cotangent is of its own share of the loss);
+- `gather_rows(x)` gives every rank's rows (no gradient), and
+  `own_rows(x)` this rank's rows of a tensor of the global batch.
+Outside the block, or where "data" has one rank, each is the plain
+single-device operation, bit for bit. The block is a context, as
+`torch.no_grad` is, so that the models and the diffusion library take no
+mesh argument: only the trainers' steps know the mesh.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence
+import contextlib
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,8 +51,10 @@ from . import comm
 from .init import process_count
 
 __all__ = ["Mesh", "make_mesh", "make_mesh_for_batch", "data_sharding",
-           "replicated", "shard_batch", "replicate", "is_main_process",
-           "placements", "local_rows", "tree_map"]
+           "replicated", "shard_batch", "replicate", "replicate_module",
+           "is_main_process", "placements", "local_rows", "tree_map",
+           "global_batch", "batch_mesh", "draw_rows", "gather_rows",
+           "global_shape", "own_rows", "sum_over_data", "mean_over_data"]
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
@@ -188,5 +209,114 @@ def replicate(tree: Any, mesh: Mesh) -> Any:
     return tree_map(put, tree)
 
 
+@torch.no_grad()
+def replicate_module(module: torch.nn.Module, mesh: Mesh) -> None:
+    """Every parameter and buffer of `module`, in place, with rank 0's
+    values on every rank."""
+    if mesh.distributed:
+        for t in (*module.parameters(), *module.buffers()):
+            comm.broadcast_(t.data, 0, None)
+
+
 def is_main_process() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
+
+
+_GLOBAL_BATCH: List[Mesh] = []
+
+
+@contextlib.contextmanager
+def global_batch(mesh: Optional[Mesh]):
+    """Inside the block the batch axis spans `mesh`'s "data" ranks (see
+    the module docstring); None leaves it this rank's."""
+    _GLOBAL_BATCH.append(mesh)
+    try:
+        yield
+    finally:
+        _GLOBAL_BATCH.pop()
+
+
+def batch_mesh() -> Optional[Mesh]:
+    """The mesh of the innermost `global_batch` block where its "data"
+    axis has more than one rank; None otherwise."""
+    mesh = _GLOBAL_BATCH[-1] if _GLOBAL_BATCH else None
+    if mesh is None or not mesh.distributed or mesh.shape["data"] == 1:
+        return None
+    return mesh
+
+
+def own_rows(x: torch.Tensor) -> torch.Tensor:
+    """Inside `global_batch`, this rank's rows of `x`, a tensor of the
+    global batch; `x` otherwise."""
+    mesh = batch_mesh()
+    return x if mesh is None else local_rows(x, mesh)
+
+
+def global_shape(shape: Sequence[int]) -> tuple:
+    """Inside `global_batch`, the shape of the global batch's tensor of
+    which a rank holds rows of `shape`; `shape` otherwise."""
+    mesh = batch_mesh()
+    n = 1 if mesh is None else mesh.shape["data"]
+    return (shape[0] * n, *shape[1:])
+
+
+def draw_rows(draw: Callable, shape: Sequence[int]) -> torch.Tensor:
+    """draw(shape), a random tensor whose leading axis is the batch (this
+    rank's shape[0] rows); inside `global_batch`, this rank's rows of
+    draw(the global batch's shape)."""
+    return own_rows(draw(global_shape(shape)))
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """Inside `global_batch`, every "data" rank's rows of `x` in rank
+    order (no gradient); `x` otherwise."""
+    mesh = batch_mesh()
+    if mesh is None:
+        return x
+    return comm.all_gather_cat(x.detach(), 0, mesh.group("data"))
+
+
+class _SumOverData(torch.autograd.Function):
+    """The sum over the group; the backward sums the cotangents over it
+    too, since each rank's cotangent is of its own share of the loss."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return comm.all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return comm.all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+def sum_over_data(x: torch.Tensor) -> torch.Tensor:
+    """Inside `global_batch`, `x` summed over the "data" ranks, with its
+    gradient; `x` otherwise."""
+    mesh = batch_mesh()
+    if mesh is None:
+        return x
+    return _SumOverData.apply(x, mesh.group("data"))
+
+
+@torch.no_grad()
+def mean_over_data(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]
+                   ) -> list:
+    """Each tensor averaged over `mesh`'s "data" ranks, in one flat fp32
+    all-reduce, each in its own dtype again: the gradients and the logs
+    of a step over the global batch. The tensors themselves where "data"
+    has one rank or there is no group (a one-rank group still runs its
+    collective, whose sum is the tensor itself)."""
+    tensors = list(tensors)
+    if mesh is None or not mesh.distributed or not tensors:
+        return tensors
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    comm.all_reduce_(flat, mesh.group("data"))
+    n = mesh.shape["data"]
+    if n > 1:
+        flat.div_(float(n))
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i:i + t.numel()].view_as(t).to(t.dtype))
+        i += t.numel()
+    return out

@@ -14,6 +14,15 @@ FID at each milestone with best/latest-only retention.
 dict (`.pt`); without it the FID uses a random-init Inception and is not
 calibrated.
 
+Under torchrun each process takes one GPU and joins an NCCL group (gloo
+with `--device cpu`), and the trainer is data parallel over the ranks, as
+the JAX CLI's mesh (`training/ddpm_trainer.py`); every rank computes
+its share of the dataset statistics and of each FID's samples, and rank 0
+writes the grids and checkpoints:
+
+    torchrun --nproc_per_node 4 -m vqgan_tpu_torch.train_ddpm \
+        --folder images --self_condition --immiscible
+
 Runs on the GPU by default (`--device cpu` to run on the CPU), with TF32
 off for fp32 matmuls and convolutions.
 """
@@ -89,20 +98,23 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
 
     from .device import resolve_device, set_full_fp32_precision
+    from .parallel.init import initialize_distributed
     from .training.ddpm_trainer import FolderDataset, Trainer
 
     device = resolve_device(args.device)
+    initialize_distributed(device)  # a no-op outside torchrun
     set_full_fp32_precision()
     model, diffusion = build(args, device)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"U-Net parameters: {n_params / 1e6:.1f}M")
 
     fid_eval = None
-    if args.calculate_fid:
+    if args.calculate_fid:  # each rank its share of the images
         import torch
 
         from .data import BatchLoader
-        from .eval.fid import FIDEvaluation, make_inception_feature_fn
+        from .eval.fid import (FIDEvaluation, make_inception_feature_fn,
+                               rank_batches)
 
         state_dict = None
         if args.inception_weights:
@@ -116,8 +128,10 @@ def main(argv=None) -> dict:
             batch_size=args.train_batch_size,
             num_fid_samples=args.num_fid_samples,
             stats_path=f"{args.results_folder}/dataset_stats.npz")
-        loader = BatchLoader(FolderDataset(args.folder, args.image_size),
-                             args.train_batch_size, shuffle=False,
+        real = FolderDataset(args.folder, args.image_size)
+        real.paths = [p for a, b in rank_batches(
+            len(real.paths), args.train_batch_size) for p in real.paths[a:b]]
+        loader = BatchLoader(real, args.train_batch_size, shuffle=False,
                              drop_last=False)
         fid_eval.load_or_precalc_real_stats(img for img, _ in iter(loader))
 

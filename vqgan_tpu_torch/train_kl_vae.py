@@ -12,10 +12,16 @@ constant or warmup-cosine learning rate, and milestone checkpoints
 `kl_vae-{m}.pt` every `--save_every` steps: {"model": the state dict},
 which `generate.load_vae`, `preprocess_latents` and `vae_reconstruction`
 read, beside `kl_vae-{m}.config.json`. As in the JAX CLI there is no
-resume, and no checkpoint off the save cadence. The JAX CLI's mesh is
-not ported here: the port's data parallelism and parameter sharding
-(`parallel/`) serve the latent-diffusion trainer (`train_latent_cfg
---param_sharding`), and this trainer runs on one device.
+resume, and no checkpoint off the save cadence.
+
+The JAX CLI replicates the state over a mesh and places each batch
+P("data"). Here, under torchrun, each process takes one GPU and joins an
+NCCL group (gloo with `--device cpu`); every rank reads the same global
+batch from the same seeded loader and steps on its rows, with the
+posterior noise of the global batch and the gradients averaged over the
+ranks (`training/kl_vae_step.py`), and rank 0 writes the milestones:
+
+    torchrun --nproc_per_node 4 -m vqgan_tpu_torch.train_kl_vae ...
 
 Runs on the GPU by default (`--device cpu` to run on the CPU), with TF32
 off for fp32 matmuls and convolutions.
@@ -34,6 +40,13 @@ from .data import BatchLoader, ImageFolderDataset, load_split
 from .device import resolve_device, set_full_fp32_precision
 from .models.autoencoder import AutoencoderConfig, KLVAE
 from .models.lpips import LPIPS
+from .parallel.init import barrier, initialize_distributed
+from .parallel.mesh import (
+    is_main_process,
+    local_rows,
+    make_mesh_for_batch,
+    replicate_module,
+)
 from .train_vqgan import read_lpips_npz
 from .training.kl_vae_step import (
     lpips_perceptual_fn,
@@ -76,8 +89,12 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Train the default KL-VAE. Returns `train`'s result."""
     args = parse_args(argv)
-    return train(args, AutoencoderConfig(resolution=args.image_size,
-                                         z_channels=args.latent_channels))
+    result = train(args, AutoencoderConfig(resolution=args.image_size,
+                                           z_channels=args.latent_channels))
+    if result["images_per_s"] is not None:
+        print(f"{result['timed_steps']} steps after warm-up: "
+              f"{result['images_per_s']:.2f} images/s")
+    return result
 
 
 def train(args, ae_config: AutoencoderConfig) -> dict:
@@ -86,11 +103,18 @@ def train(args, ae_config: AutoencoderConfig) -> dict:
     "timed_seconds", "images_per_s", "peak_memory_bytes" (CUDA only),
     "vae"}: images/s over the host seconds of the steps after the first
     `TIMING_WARMUP`, the device synchronised at both ends, saves
-    excluded."""
+    excluded. Under torchrun, data parallel over the ranks (see the module
+    docstring); the losses are the global batch's on every rank."""
     device = resolve_device(args.device)
+    initialize_distributed(device)  # a no-op outside torchrun
     set_full_fp32_precision()
+    mesh = (make_mesh_for_batch(args.batch_size, device=device)
+            if torch.distributed.is_initialized() else None)
+    main_rank = is_main_process()
     torch.manual_seed(args.seed)  # initial weights
     vae = KLVAE(ae_config).to(device)
+    if mesh is not None:  # every rank starts from rank 0's values
+        replicate_module(vae, mesh)
 
     perceptual_fn = None
     if args.perceptual_weight > 0:
@@ -101,13 +125,16 @@ def train(args, ae_config: AutoencoderConfig) -> dict:
         else:
             print("warning: LPIPS running with random weights")
         lpips = lpips.to(device).eval().requires_grad_(False)
+        if mesh is not None:
+            replicate_module(lpips, mesh)
         perceptual_fn = lpips_perceptual_fn(lpips, args.perceptual_weight)
 
     optimizer = make_kl_vae_optimizer(vae.parameters(), args.lr,
                                       args.lr_schedule, args.train_steps)
     train_step = make_kl_vae_train_step(vae, optimizer,
                                         kl_weight=args.kl_weight,
-                                        perceptual_fn=perceptual_fn)
+                                        perceptual_fn=perceptual_fn,
+                                        mesh=mesh)
     dataset = ImageFolderDataset(args.data_path, load_split(args.split),
                                  "train", image_size=args.image_size)
     loader = BatchLoader(dataset, args.batch_size, repeat=True,
@@ -132,11 +159,13 @@ def train(args, ae_config: AutoencoderConfig) -> dict:
                 sync()
                 timed_from = time.perf_counter()
             images, _ = next(batches)
-            parts = train_step(torch.from_numpy(images).to(device),
-                               generator=generator)
+            images = torch.from_numpy(images)
+            if mesh is not None:
+                images = local_rows(images, mesh)
+            parts = train_step(images.to(device), generator=generator)
             history[step] = torch.stack(
                 [parts["loss"], parts["rec_loss"], parts["kl_loss"]])
-            if (step + 1) % 50 == 0:
+            if (step + 1) % 50 == 0 and main_rank:
                 loss, rec, kl = history[step].tolist()
                 print(f"step {step + 1}: loss={loss:.5f} rec={rec:.5f} "
                       f"kl={kl:.1f}")
@@ -144,8 +173,11 @@ def train(args, ae_config: AutoencoderConfig) -> dict:
                 if timed_from is not None:
                     sync()
                     timed_seconds += time.perf_counter() - timed_from
-                ckpt.save((step + 1) // args.save_every,
-                          {"model": vae.state_dict()}, config=config)
+                if main_rank:
+                    ckpt.save((step + 1) // args.save_every,
+                              {"model": vae.state_dict()}, config=config)
+                if mesh is not None:
+                    barrier()
                 if timed_from is not None:
                     timed_from = time.perf_counter()
     finally:

@@ -23,10 +23,12 @@ with `--device cpu`), the mesh spans the ranks, and each rank trains on
 its rows of the global batch:
 
     torchrun --nproc_per_node 4 -m vqgan_tpu_torch.train_latent_cfg \
-        --param_sharding fsdp --step_mode step ...
+        --param_sharding fsdp --step_mode scan ...
 
 With one process the modes place the state on a mesh of one. The captured
-`scan` mode runs on one device only (`auto` picks `step` on a mesh).
+`scan` mode runs on the mesh in every mode, its graphs holding the NCCL
+collectives; where ranks share a card over gloo, whose collectives cannot
+be captured, `auto` picks `step`.
 
 Runs on the GPU by default (`--device cpu` to run on the CPU), with TF32
 off for fp32 matmuls and convolutions.
@@ -37,6 +39,8 @@ from __future__ import annotations
 import argparse
 import json
 from pathlib import Path
+
+import torch
 
 from .configs.ldm_config import BaselineLDMConfig, LDMConfig
 from .device import resolve_device, set_full_fp32_precision
@@ -110,9 +114,10 @@ def main(argv=None) -> dict:
     )
 
     step_mode = resolve_step_mode(args.step_mode, config.train_num_steps)
-    if args.step_mode == "auto" and (process_count() > 1 or
-                                     args.param_sharding != "replicated"):
-        step_mode = "step"  # the captured mode runs on one device only
+    if (args.step_mode == "auto" and device.type == "cuda"
+            and process_count() > 1
+            and torch.distributed.get_backend() != "nccl"):
+        step_mode = "step"  # gloo collectives cannot be captured
     if step_mode != args.step_mode:
         print(f"step_mode auto -> {step_mode} "
               f"({config.train_num_steps} steps)")

@@ -16,6 +16,13 @@ card) or `scan` (`--scan_block` steps per dispatch, CUDA graphs on the
 card); `auto` (the default) gives `scan` from 1000 steps and `split`
 below. The JAX CLI's `--fast_compile` tunes XLA and has no counterpart.
 
+Under torchrun each process takes one GPU and joins an NCCL group (gloo
+with `--device cpu`), and the trainer is data parallel over the ranks, as
+the JAX CLI's mesh over its chips; every step mode runs there:
+
+    torchrun --nproc_per_node 4 -m vqgan_tpu_torch.train_vqgan \
+        --step_mode scan ...
+
 Runs on the GPU by default (`--device cpu` to run on the CPU), with TF32
 off for fp32 matmuls and convolutions.
 """
@@ -28,6 +35,7 @@ from pathlib import Path
 
 from .configs.vqgan_config import VQGANConfig
 from .device import resolve_device, set_full_fp32_precision
+from .parallel.init import initialize_distributed
 
 __all__ = ["main", "parse_args", "read_lpips_npz"]
 
@@ -82,6 +90,7 @@ def main(argv=None) -> dict:
     images/s after the warm-up) with the trainer under "trainer"."""
     args = parse_args(argv)
     device = resolve_device(args.device)
+    initialize_distributed(device)  # a no-op outside torchrun
     set_full_fp32_precision()
     raw = json.loads(Path(args.config).read_text()) if args.config else {}
     raw.update({k: v for k, v in vars(args).items()

@@ -18,6 +18,21 @@ each milestone with best/latest-only checkpoint retention
 - Errors propagate: the JAX package prints a warning when a sample grid
   fails and goes on; here a failed grid (a kernel that does not launch,
   say) stops the run.
+
+Under a process group (torchrun) the trainer is data parallel, as the JAX
+trainer on its mesh (`make_mesh_for_batch`, the state replicated, the
+batch placed P("data")): every rank reads the same global batch from the
+same seeded loader and steps on its rows. The loss runs inside
+`parallel.mesh.global_batch`, so that every draw over the batch (t, the
+noise, the offset noise, a variant's times or sigmas) is the global
+batch's, drawn in the single-device order and sliced, the scalar
+self-conditioning coin is the same on every rank, and the immiscible
+assignment is solved once over the whole batch; the gradients are
+averaged over "data" before the clip, so the online weights and the EMA
+stay the same on every rank. Every rank samples its share of the FID's
+images (`eval.fid`); rank 0 samples the grids, keeps best / latest and writes the checkpoints while the others
+wait at a barrier, and every rank resumes from them. Any diffusion this
+trainer trains runs so: its draws go through `draw_rows`.
 """
 
 from __future__ import annotations
@@ -37,6 +52,15 @@ from ..data.datasets import load_image
 from ..data.native_image import loader_kind, make_batch_loader
 from ..data.prefetch import device_prefetch, to_device
 from ..data.splits import IMAGE_EXTENSIONS
+from ..parallel.init import barrier, process_index
+from ..parallel.mesh import (
+    global_batch,
+    is_main_process,
+    local_rows,
+    make_mesh_for_batch,
+    mean_over_data,
+    replicate_module,
+)
 from .ema import ema_update
 from .ldm_step import LDMTrainState, global_norm, make_ldm_optimizer
 
@@ -123,6 +147,11 @@ class Trainer:
         self.ema_decay = ema_decay
         self.ema_update_every = ema_update_every
 
+        self.mesh = (make_mesh_for_batch(train_batch_size, device=self.device)
+                     if torch.distributed.is_initialized() else None)
+        self.main = is_main_process()
+        if self.mesh is not None:  # every rank starts from rank 0's values
+            replicate_module(model, self.mesh)
         self.model = model.train()
         self.ema_model = copy.deepcopy(model).eval().requires_grad_(False)
         self.ema_diffusion = _with_denoiser(diffusion, self.ema_model)
@@ -148,19 +177,27 @@ class Trainer:
     def train_step(self, images, **loss_kwargs) -> torch.Tensor:
         """One optimizer step on NHWC images in [0, 1] (`loss_kwargs` go to
         the diffusion's loss: t, noise, self_cond_coin, ...); the loss,
-        detached, on the device."""
+        detached, on the device. On a mesh, images are this rank's rows,
+        the loss kwargs the global batch's (each rank takes its rows of
+        every one with a batch axis; a 0-d one is shared), and the loss is
+        the global batch's."""
         self.optimizer.zero_grad()
-        loss = self.diffusion.loss(images, generator=self.generator,
-                                   **loss_kwargs)
+        if self.mesh is not None:
+            loss_kwargs = {k: local_rows(torch.as_tensor(v), self.mesh)
+                           if torch.as_tensor(v).ndim else v
+                           for k, v in loss_kwargs.items()}
+        with global_batch(self.mesh):
+            loss = self.diffusion.loss(images, generator=self.generator,
+                                       **loss_kwargs)
         loss.backward()
-        grads = self.optimizer.grads()
+        grads = mean_over_data(self.optimizer.grads(), self.mesh)
         self.optimizer.step(grads, norm=global_norm(grads))
         ema_update(list(self.ema_model.parameters()),
                    list(self.model.parameters()), self.state.step,
                    decay=self.ema_decay, update_every=self.ema_update_every,
                    update_after_step=100)
         self.state.step += 1
-        return loss.detach()
+        return mean_over_data([loss.detach()], self.mesh)[0]
 
     def train(self, log_every: int = 100, timing_warmup: int = 5) -> dict:
         """Train up to `train_num_steps`. Returns {"losses": every step's
@@ -174,8 +211,10 @@ class Trainer:
         losses = []
         timed_from, timed_seconds = None, 0.0
         t_log = time.perf_counter()
+        rows = ((lambda x: local_rows(x, self.mesh)) if self.mesh is not None
+                else (lambda x: x))
         batches = device_prefetch(
-            iter(self.loader), lambda b: to_device(b[0], self.device),
+            iter(self.loader), lambda b: to_device(rows(b[0]), self.device),
             depth=2)
         try:
             for step in range(start, self.train_num_steps):
@@ -184,7 +223,7 @@ class Trainer:
                     timed_from = time.perf_counter()
                 _, images = next(batches)
                 losses.append(self.train_step(images))
-                if (step + 1) % log_every == 0:
+                if (step + 1) % log_every == 0 and self.main:
                     ips = log_every * self.batch_size / (
                         time.perf_counter() - t_log)
                     print(f"step {step + 1}: loss={float(losses[-1]):.4f} "
@@ -234,7 +273,12 @@ class Trainer:
         return out
 
     def save_and_sample(self, milestone: int):
-        self.sample_grid(milestone)
+        """The grid, the FID (with `calculate_fid`) and the checkpoint of
+        milestone `milestone`. On a mesh every rank samples its share of
+        the FID's images, from a generator seeded with its rank, and every rank gets the score; rank 0 makes
+        the grid and writes the checkpoints while the others wait."""
+        if self.main:
+            self.sample_grid(milestone)
         fid = None
         if self.calculate_fid and self.fid_evaluator is not None:
             def sampler(generator, n):
@@ -242,21 +286,28 @@ class Trainer:
                                                  generator=generator)
 
             fid = self.fid_evaluator.fid_score(
-                sampler, torch.Generator(self.device).manual_seed(0))
-            print(f"milestone {milestone}: FID {fid:.2f}")
+                sampler, torch.Generator(self.device).manual_seed(
+                    process_index()))
+            if self.main:
+                print(f"milestone {milestone}: FID {fid:.2f}")
         self.last_fid = fid
-        state = self.state.state_dict()
         if self.save_best_and_latest_only:
             # keep only "best" (by FID) and "latest"
             if fid is not None and fid < self.best_fid:
                 self.best_fid = fid
-                self.ckpt.save(0, state, config={"tag": "best", "fid": fid})
-            self.ckpt.save(1, state, config={"tag": "latest"})
+                self._save(0, {"tag": "best", "fid": fid})
+            self._save(1, {"tag": "latest"})
         else:
-            self.ckpt.save(milestone, state)
+            self._save(milestone)
+        if self.mesh is not None:
+            barrier()
+
+    def _save(self, milestone: int, config=None):
+        if self.main:
+            self.ckpt.save(milestone, self.state.state_dict(), config=config)
 
     def load(self, milestone: Optional[int] = None) -> int:
         """Resume from `milestone` (the latest when None); returns the
-        step."""
+        step. On a mesh every rank reads the same checkpoint."""
         self.state.load_state_dict(self.ckpt.restore(milestone))
         return self.state.step

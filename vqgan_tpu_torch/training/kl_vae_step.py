@@ -10,6 +10,13 @@ call; the logs stay on the device.
 The posterior noise comes from a `torch.Generator` on the model's device,
 or is injected (`noise`, NCHW), so that a test can drive the port and the
 JAX package with the same numbers: the two cannot share a random stream.
+
+On a mesh (`mesh`, the JAX CLI's batch placed P("data")) each rank steps
+on its rows of the global batch: the posterior noise is the global
+batch's draw (`parallel.mesh.draw_rows`: drawn from one generator in the
+single-device order, then sliced; injected noise is the global batch's
+too), the gradients are averaged over "data" before the clip, and the
+logs are the global batch's, the same on every rank.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from torch import nn
 
 from ..models.autoencoder import kl_vae_loss
 from ..models.lpips import perceptual_loss_fn
+from ..parallel.mesh import global_batch, local_rows, mean_over_data
 from .ldm_step import LDMOptimizer, warmup_cosine_decay_schedule
 
 __all__ = ["lpips_perceptual_fn", "make_kl_vae_optimizer",
@@ -60,21 +68,28 @@ def lpips_perceptual_fn(lpips: nn.Module, weight: float) -> Callable:
 
 def make_kl_vae_train_step(vae: nn.Module, optimizer: LDMOptimizer, *,
                            kl_weight: float = 1e-6,
-                           perceptual_fn: Optional[Callable] = None):
+                           perceptual_fn: Optional[Callable] = None,
+                           mesh=None):
     """train_step(images [B, H, W, C] in [0, 1], *, generator=None,
     noise=None) -> {"loss", "rec_loss", "kl_loss", "perceptual_loss"},
     detached 0-d tensors on the device. One update of `vae` by
-    `optimizer`."""
+    `optimizer`. On `mesh`, images are this rank's rows and `noise` (if
+    given) the global batch's."""
 
     def train_step(images, *, generator: Optional[torch.Generator] = None,
                    noise=None) -> dict:
         optimizer.zero_grad()
         x = images.permute(0, 3, 1, 2)
-        recon, posterior = vae(x, generator=generator, noise=noise)
+        if noise is not None and mesh is not None:
+            noise = local_rows(torch.as_tensor(noise), mesh)
+        with global_batch(mesh):
+            recon, posterior = vae(x, generator=generator, noise=noise)
         parts = kl_vae_loss(recon, x, posterior, kl_weight=kl_weight,
                             perceptual_fn=perceptual_fn)
         parts["loss"].backward()
-        optimizer.step(optimizer.grads())
-        return {k: v.detach() for k, v in parts.items()}
+        optimizer.step(mean_over_data(optimizer.grads(), mesh))
+        keys = list(parts)
+        return dict(zip(keys, mean_over_data(
+            [parts[k].detach() for k in keys], mesh)))
 
     return train_step

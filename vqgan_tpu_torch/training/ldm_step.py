@@ -243,7 +243,7 @@ class CapturableOptimizer(LDMOptimizer):
             due = mini + 1.0 >= self.every
             grads, norm = torch._foreach_mul(self.acc, 1.0), None
         if self.max_grad_norm is not None:
-            norm = global_norm(grads) if norm is None else norm
+            norm = self.norm_fn(grads) if norm is None else norm
             factor = torch.where(norm < self.max_grad_norm,
                                  torch.ones_like(norm),
                                  self.max_grad_norm / norm)
@@ -419,7 +419,7 @@ def make_ldm_train_step(diffusion, optimizer: LDMOptimizer, **step_kwargs):
 
 
 def make_ldm_scan_step(diffusion, optimizer: LDMOptimizer, *,
-                       graph: bool = True, **step_kwargs):
+                       graph: bool = True, core=None, **step_kwargs):
     """Block dispatch, the counterpart of the JAX package's
     `make_ldm_scan_step`: block_step(state, latents [K,B,H,W,C], classes
     [K,B], *, generator, t=None [K,B], noise=None [K,B,H,W,C],
@@ -433,8 +433,12 @@ def make_ldm_scan_step(diffusion, optimizer: LDMOptimizer, *,
     eagerly: the warm-up) and kept; `block_step.runners` holds them. On
     the CPU, and on the card with `graph` False, the same steps run
     eagerly. The graphs hold `state`'s tensors: a checkpoint loaded into
-    them in place (`load_state_dict` does so) leaves the graphs valid."""
-    core = _make_step_core(diffusion, optimizer, **step_kwargs)
+    them in place (`load_state_dict` does so) leaves the graphs valid.
+    `core`, a step body with `_make_step_core`'s contract (the sharded
+    step's, `sharded_step.make_sharded_ldm_scan_step`), replaces the one
+    built from `step_kwargs`."""
+    if core is None:
+        core = _make_step_core(diffusion, optimizer, **step_kwargs)
     device = diffusion.device
     counter = torch.zeros((), dtype=torch.long, device=device)
     runners = {}

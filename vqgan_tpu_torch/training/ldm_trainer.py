@@ -43,8 +43,11 @@ the TP modes where the world size is even, and each rank reads its rows of
 the global batch (`mesh.local_rows`); rank 0 logs, samples and writes the
 checkpoints, which hold whole tensors. With no process group, "replicated"
 is the single-device trainer and the other modes place the state on a
-mesh of one. The captured step mode runs one rank's step and is refused
-on a mesh: over a process group, use step_mode "step".
+mesh of one. Step mode "scan" runs on a mesh in every mode
+(`sharded_step.make_sharded_ldm_scan_step`): on the card each step's
+graph holds its NCCL collectives, ZeRO-1's gathers of the updated pieces
+included. Every rank reads the same losses, so every rank takes the same
+branch of the scan loop's one-dispatch-late read.
 """
 
 from __future__ import annotations
@@ -82,7 +85,10 @@ from .ldm_step import (
 )
 from .scan_loop import resolve_step_mode as _resolve_step_mode
 from .scan_loop import run_scan_loop
-from .sharded_step import make_sharded_ldm_train_step
+from .sharded_step import (
+    make_sharded_ldm_scan_step,
+    make_sharded_ldm_train_step,
+)
 from .watchdog import TrainingWatchdog, check_sample_range
 
 __all__ = ["LatentDiffusionTrainer", "STEP_MODES", "resolve_step_mode"]
@@ -102,14 +108,16 @@ class LatentDiffusionTrainer:
                  gradient_checkpointing: bool = False,
                  step_mode: str = "step", scan_block: int = 8,
                  param_sharding: str = "replicated",
-                 fsdp_min_size: Optional[int] = None):
+                 fsdp_min_size: Optional[int] = None, graph: bool = True):
         """`vae`: the port's KLVAE on `device`, for sample grids and for
         encoding latents missing from the cache; None trains from a full
         cache and saves checkpoints without grids. `gradient_checkpointing`
         trades a second denoiser forward per step for the activations it
         would keep. `step_mode` and `scan_block`, `param_sharding` and
         `fsdp_min_size` (the FSDP rule's size cutoff, 2^14 elements by
-        default): see the module docstring."""
+        default): see the module docstring. `graph` False runs the scan
+        mode's steps eagerly on the card as well: the reference a captured
+        run is held against."""
         if step_mode not in STEP_MODES:
             raise ValueError(f"step_mode must be one of {STEP_MODES}, got "
                              f"{step_mode!r}")
@@ -125,12 +133,6 @@ class LatentDiffusionTrainer:
         elif param_sharding != "replicated":
             self.mesh = named_mesh({"data": 1, "model": 1},
                                    resolve_device(device))
-        if self.mesh is not None and step_mode == "scan":
-            raise ValueError(
-                "step_mode 'scan' captures one rank's step in a CUDA graph "
-                "and does not hold the mesh's collectives; with "
-                f"param_sharding {param_sharding!r} on {self.mesh} use "
-                "step_mode 'step'")
         self.main = is_main_process()
         self.step_mode = step_mode
         self.scan_block = max(1, int(scan_block))
@@ -160,12 +162,6 @@ class LatentDiffusionTrainer:
             contrastive_start_step=cfg.contrastive_start_step,
             contrastive_temperature=cfg.contrastive_temperature,
             ema_decay=cfg.ema_decay, ema_update_every=cfg.ema_update_every)
-        if step_mode == "scan":
-            self.scan_step = make_ldm_scan_step(
-                self.diffusion, self.optimizer, **step_kwargs)
-        else:
-            self.train_step = make_ldm_train_step(
-                self.diffusion, self.optimizer, **step_kwargs)
         self.state = LDMTrainState(0, self.model, self.ema_model,
                                    self.optimizer)
         self.placed = None
@@ -173,8 +169,18 @@ class LatentDiffusionTrainer:
             self.placed = place_state(self.state, self.mesh, param_sharding,
                                       fsdp_min_size or _DEFAULT_MIN_SIZE)
             self.optimizer = self.state.optimizer
-            self.train_step = make_sharded_ldm_train_step(
-                self.diffusion, self.placed, **step_kwargs)
+            if step_mode == "scan":
+                self.scan_step = make_sharded_ldm_scan_step(
+                    self.diffusion, self.placed, graph=graph, **step_kwargs)
+            else:
+                self.train_step = make_sharded_ldm_train_step(
+                    self.diffusion, self.placed, **step_kwargs)
+        elif step_mode == "scan":
+            self.scan_step = make_ldm_scan_step(
+                self.diffusion, self.optimizer, graph=graph, **step_kwargs)
+        else:
+            self.train_step = make_ldm_train_step(
+                self.diffusion, self.optimizer, **step_kwargs)
 
         self.vae = vae
         self.loader = None
@@ -340,6 +346,8 @@ class LatentDiffusionTrainer:
 
         def log(step, logs, steps_per_s):
             host = {k: float(v[-1]) for k, v in logs.items()}
+            if not self.main:
+                return
             self.metrics.log(step, host)
             msg = f"step {step}/{num_steps} loss={host['loss']:.4f}"
             if "contrastive_loss" in host:

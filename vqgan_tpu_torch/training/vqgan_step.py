@@ -37,6 +37,17 @@ adaptive weight, and gates the adversarial term on the device.
   optax's clipping rule and MultiSteps accumulation.
 - `reset_codebook_moments` zeroes the Adam moments (and the accumulated
   gradient) of revived codebook rows.
+- On a mesh (`mesh`, its "data" axis over the ranks, each step given this
+  rank's rows of the global batch), every form computes the step of the
+  global batch, as the JAX package's jit over a batch placed P("data"):
+  the discriminator's BatchNorm statistics over the global batch (its
+  passes run inside `parallel.mesh.global_batch`), the adaptive weight
+  from the last layer's gradients of nll and g averaged over "data"
+  before their norms are taken, the G and D gradients averaged over
+  "data" before clipping and Adam, and the logs the global batch's and
+  the same on every rank (`usage_counts` the sum over the ranks, the
+  usage ratio from that sum, the losses averaged). With no mesh, or one
+  rank on "data", each is the single-device step bit for bit.
 
 Images and reconstructions cross the step functions in NHWC, as in JAX;
 the modules run NCHW.
@@ -57,6 +68,8 @@ from ..losses.gan import (
     generator_loss,
 )
 from ..graphs import BlockRunner, GraphPool
+from ..parallel import comm
+from ..parallel.mesh import global_batch, mean_over_data
 from .ldm_step import LDMOptimizer, make_ldm_optimizer
 
 __all__ = ["VQGANTrainState", "make_gan_optimizers",
@@ -147,12 +160,37 @@ def _nchw(images):
     return images.permute(0, 3, 1, 2)
 
 
+# logs that are already the global batch's on every rank: the adaptive
+# weight (from the averaged gradients) and the usage ratio (from the
+# summed histogram)
+_GLOBAL_LOGS = ("disc_weight", "codebook_usage_ratio")
+
+
+def _global_logs(log: dict, mesh) -> dict:
+    """The global batch's logs from this rank's: the usage histogram summed
+    over "data", the usage ratio from that sum, every other 0-d log (a
+    mean over this rank's rows) averaged over "data"."""
+    if mesh is None or not mesh.distributed:
+        return log
+    log = dict(log)
+    if "usage_counts" in log:
+        usage = comm.all_reduce_(log["usage_counts"].clone(),
+                                 mesh.group("data"))
+        log["usage_counts"] = usage
+        log["codebook_usage_ratio"] = (usage > 0).float().mean()
+    keys = [k for k, v in log.items()
+            if v.ndim == 0 and k not in _GLOBAL_LOGS]
+    log.update(zip(keys, mean_over_data([log[k] for k in keys], mesh)))
+    return log
+
+
 def _make_phases(*, disc_start: int, disc_weight: float,
                  perceptual_weight: float, disc_loss_type: str,
                  perceptual_fn: Optional[Callable],
-                 use_adaptive_weight: bool):
+                 use_adaptive_weight: bool, mesh=None):
     """The G and D updates, shared by the three dispatch forms, as the JAX
-    package shares its `_make_phases`."""
+    package shares its `_make_phases`; on `mesh` the global batch's (see
+    the module docstring)."""
 
     def g_phase(state: VQGANTrainState, images, step):
         """The G update at `step` (steps taken): a host integer, or a 0-d
@@ -165,7 +203,7 @@ def _make_phases(*, disc_start: int, disc_weight: float,
         state.vqvae.train()
         state.disc.eval()
         state.opt_g.zero_grad()
-        with _frozen(state.disc):
+        with _frozen(state.disc), global_batch(mesh):
             recon, loss_dict, _ = state.vqvae(x)
             with torch.set_grad_enabled(traced or active):
                 logits_fake = state.disc(recon)
@@ -179,6 +217,7 @@ def _make_phases(*, disc_start: int, disc_weight: float,
                 nll_grad, = torch.autograd.grad(nll, last, retain_graph=True)
                 g_grad, = torch.autograd.grad(-torch.mean(logits_fake), last,
                                               retain_graph=True)
+                nll_grad, g_grad = mean_over_data([nll_grad, g_grad], mesh)
                 adaptive = adaptive_disc_weight(torch.linalg.norm(nll_grad),
                                                 torch.linalg.norm(g_grad))
             gan_total, log = generator_loss(
@@ -188,10 +227,10 @@ def _make_phases(*, disc_start: int, disc_weight: float,
                 adaptive_weight=adaptive)
             total = gan_total + loss_dict["vq_loss"]
             total.backward()
-        state.opt_g.step(state.opt_g.grads())
+        state.opt_g.step(mean_over_data(state.opt_g.grads(), mesh))
         log = {**log, **loss_dict, "loss_total": total}
-        return (recon.detach().permute(0, 2, 3, 1),
-                {k: v.detach() for k, v in log.items()}, active)
+        log = _global_logs({k: v.detach() for k, v in log.items()}, mesh)
+        return recon.detach().permute(0, 2, 3, 1), log, active
 
     def d_phase(state: VQGANTrainState, images, recon, active=None):
         """The D update on the detached reconstruction: two train-mode
@@ -202,21 +241,23 @@ def _make_phases(*, disc_start: int, disc_weight: float,
         state.opt_d.zero_grad()
         kept = (None if active is None
                 else [b.clone() for b in state.disc.buffers()])
-        logits_real = state.disc(_nchw(images))
-        logits_fake = state.disc(_nchw(recon).detach())
+        with global_batch(mesh):
+            logits_real = state.disc(_nchw(images))
+            logits_fake = state.disc(_nchw(recon).detach())
         d_loss, log = discriminator_loss(
             logits_real, logits_fake,
             disc_active=True if active is None else active,
             disc_loss_type=disc_loss_type)
         d_loss.backward()
+        grads = mean_over_data(state.opt_d.grads(), mesh)
         if active is None:
-            state.opt_d.step(state.opt_d.grads())
+            state.opt_d.step(grads)
         else:
-            state.opt_d.step(state.opt_d.grads(), active=active)
+            state.opt_d.step(grads, active=active)
             with torch.no_grad():
                 for buf, old in zip(state.disc.buffers(), kept):
                     buf.copy_(torch.where(active, buf, old))
-        return {k: v.detach() for k, v in log.items()}
+        return _global_logs({k: v.detach() for k, v in log.items()}, mesh)
 
     return g_phase, d_phase
 
@@ -226,7 +267,7 @@ def make_vqgan_split_steps(*, disc_start: int = 10000,
                            perceptual_weight: float = 1.0,
                            disc_loss_type: str = "hinge",
                            perceptual_fn: Optional[Callable] = None,
-                           use_adaptive_weight: bool = False):
+                           use_adaptive_weight: bool = False, mesh=None):
     """(g_step, d_step):
 
         g_step(state, images)        -> (recon NHWC, detached; G log)
@@ -235,11 +276,13 @@ def make_vqgan_split_steps(*, disc_start: int = 10000,
     images [B, H, W, C] in [0, 1]. `g_step` updates the VQ-VAE and advances
     `state.step`; `d_step` updates the discriminator and is unconditional:
     the caller runs it only where the pre-increment step >= disc_start.
-    Logs hold detached tensors on the device (usage_counts is [K])."""
+    Logs hold detached tensors on the device (usage_counts is [K]). On
+    `mesh`, images are this rank's rows of the global batch."""
     g_phase, d_phase = _make_phases(
         disc_start=disc_start, disc_weight=disc_weight,
         perceptual_weight=perceptual_weight, disc_loss_type=disc_loss_type,
-        perceptual_fn=perceptual_fn, use_adaptive_weight=use_adaptive_weight)
+        perceptual_fn=perceptual_fn, use_adaptive_weight=use_adaptive_weight,
+        mesh=mesh)
 
     def g_step(state: VQGANTrainState, images):
         recon, log, _ = g_phase(state, images, state.step)
@@ -258,7 +301,8 @@ def make_vqgan_scan_steps(*, disc_start: int = 10000,
                           disc_loss_type: str = "hinge",
                           perceptual_fn: Optional[Callable] = None,
                           use_adaptive_weight: bool = False,
-                          usage_accum: Optional[torch.Tensor] = None):
+                          usage_accum: Optional[torch.Tensor] = None,
+                          mesh=None, graph: bool = True):
     """(scan_gd, scan_g), the counterpart of the JAX package's
     `make_vqgan_scan_steps`:
 
@@ -274,11 +318,15 @@ def make_vqgan_scan_steps(*, disc_start: int = 10000,
     CPU the steps run eagerly; `scan_gd.runners` and `scan_g.runners` hold
     the graphs, which share one memory pool (a run replays one or the
     other, never both at once). Both optimizers must be
-    `CapturableOptimizer`s."""
+    `CapturableOptimizer`s. On `mesh` the superbatch is [K, B/data, H, W,
+    C], this rank's rows of each batch, and on the card the graphs hold
+    the steps' NCCL collectives. `graph` False runs the steps eagerly on
+    the card too (the reference a captured run is held against)."""
     g_phase, d_phase = _make_phases(
         disc_start=disc_start, disc_weight=disc_weight,
         perceptual_weight=perceptual_weight, disc_loss_type=disc_loss_type,
-        perceptual_fn=perceptual_fn, use_adaptive_weight=use_adaptive_weight)
+        perceptual_fn=perceptual_fn, use_adaptive_weight=use_adaptive_weight,
+        mesh=mesh)
     counters = {}  # device -> the device step counter
     pool = GraphPool()
 
@@ -312,7 +360,7 @@ def make_vqgan_scan_steps(*, disc_start: int = 10000,
                 runners[id(state)] = BlockRunner(
                     body,
                     name="VQ-GAN G+D steps" if with_d else "VQ-GAN G steps",
-                    pool=pool)
+                    graph=graph, pool=pool)
             counter.fill_(state.step)
             out = runners[id(state)](superbatch)
             state.step += superbatch.shape[0]

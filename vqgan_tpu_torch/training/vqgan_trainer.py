@@ -39,6 +39,20 @@ their static inputs by a device-to-device copy.
 - Revival draws its rows from one generator seeded with seed ^ 0x5EED; the
   JAX trainer folds the step into its key, so the two draw other rows, and
   a resumed run starts the generator anew.
+
+Under a process group (torchrun) the trainer is data parallel, as the JAX
+trainer on its mesh (`make_mesh_for_batch`, the state replicated, the
+batch placed P("data")): every rank reads the same global batch from the
+same seeded loader and steps on its rows (`local_rows`; a scan superbatch
+is [K, B/data, ...]); the steps (`vqgan_step`, on the mesh) compute the
+global batch's BatchNorm statistics, adaptive weight, gradients and logs,
+so the state stays the same on every rank; the revival window sums the
+global usage and draws from the global batch's z rows with the same draw
+on every rank. Rank 0 writes the grids, the checkpoints (whole tensors,
+those of the single-device trainer) and the metrics log; every rank
+resumes from them. Every step mode runs on the mesh; on the card the
+captured ones hold the NCCL collectives in their graphs. With no process
+group it is the single-device trainer.
 """
 
 from __future__ import annotations
@@ -60,6 +74,14 @@ from ..device import resolve_device
 from ..models import LPIPS, VQVAE, PatchGANDiscriminator
 from ..models.lpips import perceptual_loss_fn
 from ..ops.vq import revive_dead_codes
+from ..parallel.init import barrier
+from ..parallel.mesh import (
+    global_batch,
+    is_main_process,
+    local_rows,
+    make_mesh_for_batch,
+    replicate_module,
+)
 from ..utils.metrics_log import MetricsLogger
 from .vqgan_step import (
     VQGANTrainState,
@@ -89,11 +111,13 @@ class VQGANTrainer:
     def __init__(self, config: VQGANConfig, split_path: Optional[str] = None,
                  lpips_weights: Optional[Dict[str, Dict]] = None,
                  device="cuda", step_mode: str = "split",
-                 scan_block: int = 8):
+                 scan_block: int = 8, graph: bool = True):
         """`lpips_weights`: {"vgg": torchvision VGG16 state, "lin": lpips
         lin state} for `LPIPS.load_torch_weights`; None keeps LPIPS at its
         random initialisation, as the JAX trainer does without weights.
-        `step_mode`, `scan_block`: see the module docstring."""
+        `step_mode`, `scan_block`: see the module docstring. `graph` False
+        runs the fused and scan modes' steps eagerly on the card as well:
+        the reference a captured run is held against."""
         if step_mode not in STEP_MODES:
             raise ValueError(f"step_mode must be one of {STEP_MODES}, got "
                              f"{step_mode!r}")
@@ -101,6 +125,9 @@ class VQGANTrainer:
         self.scan_block = max(1, int(scan_block))
         self.config = cfg = config
         self.device = resolve_device(device)
+        self.mesh = (make_mesh_for_batch(cfg.batch_size, device=self.device)
+                     if torch.distributed.is_initialized() else None)
+        self.main = is_main_process()
         dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                  else torch.float32)
         torch.manual_seed(cfg.seed)  # initial weights
@@ -121,6 +148,9 @@ class VQGANTrainer:
             self.lpips.load_torch_weights(lpips_weights["vgg"],
                                           lpips_weights["lin"])
         self.lpips = self.lpips.to(self.device).eval().requires_grad_(False)
+        if self.mesh is not None:  # every rank starts from rank 0's values
+            for module in (self.vqvae, self.disc, self.lpips):
+                replicate_module(module, self.mesh)
         n_params = sum(p.numel() for p in self.vqvae.parameters())
         print(f"VQ-VAE parameters: {n_params / 1e6:.1f}M")
 
@@ -140,11 +170,11 @@ class VQGANTrainer:
             perceptual_weight=cfg.perceptual_weight,
             disc_loss_type=cfg.disc_loss_type,
             perceptual_fn=perceptual_loss_fn(self.lpips),
-            use_adaptive_weight=cfg.use_adaptive_weight)
+            use_adaptive_weight=cfg.use_adaptive_weight, mesh=self.mesh)
         if step_mode == "split":
             self.g_step, self.d_step = make_vqgan_split_steps(**step_kwargs)
         else:
-            captured = dict(step_kwargs,
+            captured = dict(step_kwargs, graph=graph,
                             usage_accum=(self._usage_accum
                                          if self._revive_every else None))
             if step_mode == "fused":
@@ -167,7 +197,8 @@ class VQGANTrainer:
 
         self.ckpt = CheckpointManager(cfg.results_folder, prefix="vqgan")
         self.watchdog = TrainingWatchdog()
-        self.metrics = MetricsLogger(cfg.results_folder, run_name="vqgan")
+        self.metrics = (MetricsLogger(cfg.results_folder, run_name="vqgan")
+                        if self.main else None)
         self._revive_gen = torch.Generator(self.device).manual_seed(
             cfg.seed ^ 0x5EED)
 
@@ -180,9 +211,12 @@ class VQGANTrainer:
 
     def _prefetched(self):
         """The loader's ((images, labels), device images) pairs, each copy
-        enqueued two batches ahead."""
+        enqueued two batches ahead; on a mesh the device images are this
+        rank's rows."""
+        rows = ((lambda x: local_rows(x, self.mesh)) if self.mesh is not None
+                else (lambda x: x))
         return device_prefetch(
-            iter(self.loader), lambda b: to_device(b[0], self.device),
+            iter(self.loader), lambda b: to_device(rows(b[0]), self.device),
             depth=2)
 
     # ------------------------------------------------------------------
@@ -223,9 +257,10 @@ class VQGANTrainer:
 
     def revive(self, images: torch.Tensor, step: int) -> int:
         """Re-anchor the codes unused since the last revival to random
-        pre-quant features of `images` (NHWC) and zero their Adam moments."""
+        pre-quant features of `images` (NHWC; on a mesh this rank's rows,
+        and the draw is over every rank's) and zero their Adam moments."""
         codebook = self.vqvae.quantizer.embedding.weight
-        with torch.no_grad():
+        with torch.no_grad(), global_batch(self.mesh):
             z = self.vqvae.encode_pre_quant(images.permute(0, 3, 1, 2))
             new, n, dead = revive_dead_codes(
                 codebook, self._usage_accum, z.permute(0, 2, 3, 1),
@@ -234,7 +269,8 @@ class VQGANTrainer:
         reset_codebook_moments(self.opt_g, codebook, dead)
         self._usage_accum.zero_()
         n = int(n)
-        print(f"  [revive] step {step}: re-anchored {n} dead codes")
+        if self.main:
+            print(f"  [revive] step {step}: re-anchored {n} dead codes")
         return n
 
     def train(self, num_steps: Optional[int] = None, log_every: int = 50,
@@ -357,6 +393,8 @@ class VQGANTrainer:
             if seconds else None), "loader": self.loader_kind}
 
     def _log(self, step: int, num_steps: int, host: dict, ips: float):
+        if not self.main:
+            return
         self.metrics.log(step, {**host, "images_per_sec": ips})
         print(f"step {step}/{num_steps} g={host['total_loss']:.4f} "
               f"d={host.get('d_loss', 0.0):.4f} vq={host['vq_loss']:.4f} "
@@ -372,12 +410,18 @@ class VQGANTrainer:
         return recon.permute(0, 2, 3, 1).float().cpu().numpy()
 
     def save_and_sample(self, milestone: int, images=None):
-        if images is not None:
-            n = min(self.config.num_samples, len(images))
-            self._save_grid(images[:n], self.reconstruct(images[:n]),
-                            milestone)
-        self.ckpt.save(milestone, self.state.state_dict(),
-                       config=dataclasses.asdict(self.config))
+        """The reconstruction grid of `images` (the host batch) and
+        milestone `milestone`; on a mesh rank 0 writes both and the others
+        wait for it."""
+        if self.main:
+            if images is not None:
+                n = min(self.config.num_samples, len(images))
+                self._save_grid(images[:n], self.reconstruct(images[:n]),
+                                milestone)
+            self.ckpt.save(milestone, self.state.state_dict(),
+                           config=dataclasses.asdict(self.config))
+        if self.mesh is not None:
+            barrier()
 
     def _save_grid(self, images, recon, milestone: int):
         """One row per image: the input, then its reconstruction."""
@@ -392,6 +436,7 @@ class VQGANTrainer:
         Image.fromarray(grid).save(out / f"reconstruction-{milestone}.png")
 
     def load(self, milestone: Optional[int] = None) -> int:
-        """Resume from `milestone` (the latest when None); returns the step."""
+        """Resume from `milestone` (the latest when None); returns the step.
+        On a mesh every rank reads the same checkpoint."""
         self.state.load_state_dict(self.ckpt.restore(milestone))
         return self.state.step
