@@ -337,8 +337,9 @@ Phases, in order; any failure exits non-zero:
    printed beside the warm one of the turns), every
    call's launches gated exactly, captured within 1e-5 of the largest
    eager value (`drive_sampler_graphs`): the ancestral sampler at
-   LDMConfig's width (T 1000, batch 16, cond_scale 1) and the decode
-   (1000 + 1 forwards); `interpolate` from t = 250 (cut from 999; 250);
+   LDMConfig's width (T cut from 1000 to 250 for phase 6's 2-rank run,
+   batch 16, cond_scale 1) and the decode (250 + 1 forwards);
+   `interpolate` from t = 125 (cut from T - 1; 125);
    `bench_edm`'s Heun-32 and DPM++(2M) (512 and 256 at [16,256,4,64]);
    the library at 5i's widths with steps cut (learned variance and the
    weighted objective at T 20, guided ancestral T 20 and DDIM-20, RePaint
@@ -366,7 +367,12 @@ Phases, in order; any failure exits non-zero:
    attention, the plain version and fp64) and [2,1024,2,64] fp32 over 8
    (held to `sdpa_reference`), with the kernels' rows at the block
    shapes; `dryrun_multichip` at the card's world size, then at 2 ranks
-   sharing the card over gloo.
+   sharing the card over gloo; then `train_latent_cfg` at full width on 2
+   gloo ranks sharing the card, `--param_sharding fsdp` against
+   `replicated`, _GLOO2_STEPS eager steps each: each rank's bytes
+   allocated at the last step's start (resident) and at its peak, fsdp's
+   resident at most _GLOO2_RESIDENT_SHARE of replicated's, the weights
+   within the norm rule of replicated's.
 7. Print the kernels' JSON line, then the card line, then the device line.
 """
 
@@ -374,6 +380,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import shutil
 import subprocess
@@ -4761,10 +4768,11 @@ def drive_sampler_graphs(torch, kernels, seed: int, card: str):
     the warm one), every call's launches gated exactly; captured
     within 1e-5 of the largest eager value; samples/s of each, the
     graphs' capture seconds and pool bytes:
-    - the ancestral sampler at LDMConfig's full width (T 1000, batch 16,
-      cond_scale 1.0), then the fp32 decode: 1000 + 1 forwards;
-    - `interpolate` at that width from t = 250 (cut from T - 1 = 999):
-      250 forwards;
+    - the ancestral sampler at LDMConfig's full width (T cut from 1000 to
+      250 to pay for phase 6's 2-rank run; batch 16, cond_scale 1.0), then
+      the fp32 decode: 250 + 1 forwards;
+    - `interpolate` at that width from t = 125 (cut from T - 1): 125
+      forwards;
     - `bench_edm`'s Heun-32 and DPM++(2M) at its defaults (512 and 256
       forwards at [16, 256, 4, 64]);
     - the library's samplers at 5i's widths (train_ddpm's U-Net at 128 px,
@@ -4861,8 +4869,9 @@ def drive_sampler_graphs(torch, kernels, seed: int, card: str):
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        # --- the LDM U-Net: ancestral (T 1000) and interpolate -------------
-        cfg = LDMConfig(sampling_timesteps=1000)
+        # --- the LDM U-Net: ancestral (T 250) and interpolate --------------
+        # T 250 (cut from 1000 to pay for phase 6's 2-rank run)
+        cfg = LDMConfig(timesteps=250, sampling_timesteps=250)
         torch.manual_seed(seed + 40)
         diffusion, _ = load_model(cfg, device=dev)
         vae = load_vae(None, cfg.latent_channels, cfg.image_size, device=dev)
@@ -4886,12 +4895,12 @@ def drive_sampler_graphs(torch, kernels, seed: int, card: str):
         # the eager warm-up of both: the same ancestral step, 3 times (the
         # captured call before it ran the step eagerly once, and the decode)
         warm = (lambda: interpolate(3, False), {("flash_fwd", unet16): 3})
-        turns("ancestral_t1000_decode", ancestral,
-              {("flash_fwd", unet16): 1000, ("flash_fwd", vae16): 1}, 16,
+        turns("ancestral_t250_decode", ancestral,
+              {("flash_fwd", unet16): 250, ("flash_fwd", vae16): 1}, 16,
               diffusion._graphs, warm=warm)
-        turns("interpolate_from_t250",
-              lambda graph: interpolate(250, graph),
-              {("flash_fwd", unet16): 250}, 16, diffusion._graphs, warm=warm)
+        turns("interpolate_from_t125",
+              lambda graph: interpolate(125, graph),
+              {("flash_fwd", unet16): 125}, 16, diffusion._graphs, warm=warm)
         del diffusion, vae
 
         # --- EDM at bench_edm's defaults -----------------------------------
@@ -5016,6 +5025,14 @@ RING_CASES = (("ring_4096_bf16", (2, 4096, 8, 64), 4, "bfloat16"),
 # dK/dV partial is rounded to bf16 before the fp32 sum)
 _RING_BF16_FACTOR = 2.0
 _SCALE_OUT_STEPS = 6
+# phase 6's full-width run on 2 gloo ranks sharing the card: steps per
+# mode, and fsdp's resident bytes at a step's start as a share of
+# replicated's (parameters, Adam moments and EMA in halves: ~0.5)
+_GLOO2_STEPS = 3
+_GLOO2_RESIDENT_SHARE = 0.55
+# the tests' norm rule (tests/dp_check.py): the weights' moves from the
+# start within this share of the reference's moves, in norm
+_MOVE_NORM = 0.05
 
 
 def ring_ref(torch, q, k, v, do, dtype):
@@ -5360,6 +5377,120 @@ def ldm_scan_on_the_group(torch, kernels, common: list, work: Path,
     return rates
 
 
+def _state_bytes(trainer) -> tuple:
+    """(the device bytes of the train state a rank holds: the model's and
+    the EMA copy's tensors, the optimizer's pieces and its moments, each
+    storage once; the sizes of the other blocks the caching allocator
+    holds allocated, largest first)."""
+    import torch
+
+    placed, opt = trainer.placed, trainer.placed.optimizer
+    tensors = [*trainer.model.parameters(), *trainer.ema_model.parameters(),
+               *placed.opt_tensors.values(), *placed.ema_tensors.values(),
+               *(t for s in opt.inner.state.values() for t in s.values()
+                 if torch.is_tensor(t))]
+    seen = {}
+    for t in tensors:
+        if t.is_cuda:
+            s = t.untyped_storage()
+            seen[s.data_ptr()] = s.nbytes()
+    other = sorted((b["size"] for seg in torch.cuda.memory_snapshot()
+                    for b in seg["blocks"]
+                    if b["state"] == "active_allocated"
+                    and b["address"] not in seen), reverse=True)
+    return sum(seen.values()), other
+
+
+def _gloo2_rank(rank, world, argv, work, modes):
+    """On one of 2 gloo ranks sharing the card: `train_latent_cfg.main` on
+    `argv` under each mode, into `work`/gloo2_{mode}. Returns {mode: (each
+    step's resident bytes, each step's peak bytes, the losses, the
+    learning rate, `_state_bytes` after the run, rank 0's gathered
+    weights)}."""
+    from vqgan_tpu_torch import train_latent_cfg
+
+    out = {}
+    for mode in modes:
+        res = train_latent_cfg.main([*argv, "--param_sharding", mode,
+                                     "--results_folder",
+                                     str(Path(work) / f"gloo2_{mode}")])
+        trainer = res["trainer"]
+        weights = {k: v.float().cpu() for k, v in
+                   trainer.placed.gathered("model").items()}  # collective
+        out[mode] = (res["resident_bytes"], res["peak_bytes"],
+                     res["losses"], trainer.config.train_lr,
+                     _state_bytes(trainer), weights if rank == 0 else None)
+        del trainer, res, weights
+        gc.collect()  # the hooks tie the state to the model in a cycle
+    return out
+
+
+def fsdp_on_two_ranks(torch, common: list, work: Path, seed: int,
+                      card: str) -> dict:
+    """`train_latent_cfg` at full width on 2 gloo ranks sharing the card
+    (their collectives take the CUDA tensors through host memory),
+    `--param_sharding fsdp` against `replicated`, _GLOO2_STEPS eager steps
+    each. Fails unless fsdp's resident bytes at the last step's start are
+    at most _GLOO2_RESIDENT_SHARE of replicated's on each rank and its
+    weights' moves lie within _MOVE_NORM of replicated's in norm. Returns
+    the bytes and the distances."""
+    from vqgan_tpu_torch.build import build_cfg_unet_diffusion
+    from vqgan_tpu_torch.configs.ldm_config import LDMConfig
+    from vqgan_tpu_torch.parallel.launch import spawn
+
+    argv = list(common)
+    argv[argv.index("--train_num_steps") + 1] = str(_GLOO2_STEPS)
+    modes = ("replicated", "fsdp")
+    t0 = time.perf_counter()
+    ranks = spawn(_gloo2_rank, 2, (argv, str(work), modes), timeout=600,
+                  device="cuda")
+    seconds = time.perf_counter() - t0
+    config = json.loads(Path(argv[argv.index("--config") + 1]).read_text())
+    cfg = LDMConfig.from_dict({**config, "seed": seed})
+    torch.manual_seed(cfg.seed)  # the trainer's initial weights
+    init, _ = build_cfg_unet_diffusion(cfg, device="cpu")
+    init = {k: v.detach().float() for k, v in init.named_parameters()}
+    (_, _, _, lr, _, want), (_, _, losses, _, _, got) = (ranks[0][m]
+                                                         for m in modes)
+    keys = list(init)
+    moves = torch.cat([(got[k] - init[k]).flatten() for k in keys])
+    want_moves = torch.cat([(want[k] - init[k]).flatten() for k in keys])
+    norm = ((moves - want_moves).norm() / want_moves.norm()).item()
+    d_max = (moves - want_moves).abs().max().item()
+    out = {"seconds": seconds, "move_diff_norm_share": norm,
+           "max_abs_diff": d_max, "ranks": []}
+    for rank, result in enumerate(ranks):
+        line = {m: {"resident_bytes": result[m][0][-1],
+                    "peak_bytes": result[m][1][-1],
+                    "state_bytes": result[m][4][0],
+                    "other_blocks": result[m][4][1][:8]} for m in modes}
+        share = (line["fsdp"]["resident_bytes"]
+                 / line["replicated"]["resident_bytes"])
+        line["fsdp_resident_share"] = share
+        out["ranks"].append(line)
+        print(f"[{card}] train_latent_cfg on 2 gloo ranks sharing the card, "
+              f"rank {rank}, bytes at the start of step {_GLOO2_STEPS} / "
+              f"its peak: replicated {line['replicated']['resident_bytes']}"
+              f" / {line['replicated']['peak_bytes']}, fsdp "
+              f"{line['fsdp']['resident_bytes']} / "
+              f"{line['fsdp']['peak_bytes']} (resident share {share:.4f}); "
+              f"of it the train state (parameters, EMA, Adam) "
+              f"{line['replicated']['state_bytes']} / "
+              f"{line['fsdp']['state_bytes']}, the largest other blocks "
+              f"after the run {line['replicated']['other_blocks']} / "
+              f"{line['fsdp']['other_blocks']}")
+        if share > _GLOO2_RESIDENT_SHARE:
+            fail(f"fsdp's resident bytes on rank {rank} are {share:.4f} of "
+                 f"replicated's, over {_GLOO2_RESIDENT_SHARE}")
+    print(f"[{card}] fsdp vs replicated on 2 gloo ranks: {_GLOO2_STEPS} "
+          f"steps, losses {losses}, moves differ by {norm:.3e} of "
+          f"replicated's in norm (rule {_MOVE_NORM}), max|d| {d_max:.3e} "
+          f"(lr {lr}); {seconds:.3f} s")
+    if not all(np.isfinite(losses)) or norm > _MOVE_NORM:
+        fail("fsdp on 2 gloo ranks left the norm rule of replicated's")
+    return out
+
+
 def drive_scale_out(torch, kernels, peaks, seed: int, ldm: Path,
                     vqgan: Path, work: Path, card: str):
     """Phase 6, scale-out on the card. Returns ({(kernel, shape):
@@ -5560,10 +5691,12 @@ def drive_scale_out(torch, kernels, peaks, seed: int, ldm: Path,
           f"over gloo)")
     if "skipped" in line2:
         fail(f"the 2-rank dry run skipped a check: {line2}")
+    metrics["fsdp_gloo2"] = fsdp_on_two_ranks(torch, common, work, seed,
+                                              card)
     print("phase 6: with more than one rank, every mode ran on the card "
           "only over gloo (2 ranks sharing the card, at the dry run's "
-          "small U-Net); at full width and over NCCL, one rank; no mode "
-          "ran on several GPUs")
+          "small U-Net; fsdp and replicated also at full width); at full "
+          "width and over NCCL, one rank; no mode ran on several GPUs")
     metrics["dryrun_1"] = line
     metrics["dryrun_2_gloo"] = line2
     metrics["phase_seconds"] = time.perf_counter() - t_phase

@@ -509,3 +509,183 @@ def gloo_in_capture(rank, world):
     except RuntimeError as e:
         return str(e)
     return None
+
+
+class _GatheredBytes:
+    """The bytes of whole parameters alive while a sharded step runs: every
+    tensor `fsdp.gather_tensor` makes, and every cast of one (`Tensor.to`),
+    tracked by their storages; `peak` is the most alive at once, sampled
+    as each one is made."""
+
+    def __init__(self):
+        from torch.multiprocessing.reductions import StorageWeakRef
+
+        self.ref = StorageWeakRef
+        self.live = {}
+        self.peak = 0
+        self.on = False
+
+    def holds(self, t):
+        entry = self.live.get(t.untyped_storage()._cdata)
+        return entry is not None and not entry[0].expired()
+
+    def alive(self):
+        self.live = {k: v for k, v in self.live.items()
+                     if not v[0].expired()}
+        return sum(v[1] for v in self.live.values())
+
+    def add(self, t):
+        if not self.on:
+            return
+        s = t.untyped_storage()
+        self.live[s._cdata] = (self.ref(s), s.nbytes())
+        self.peak = max(self.peak, self.alive())
+
+
+def _layer_run(rank, world, cfg_kwargs, mode, min_size, batch, weights=None,
+               draws=None, trainer_kwargs=None, steps=1, step_mode="step",
+               save=False):
+    """One sharded LDM trainer under `mode`, `steps` steps on this rank's
+    rows of `batch` (the global draws `draws`, if given), instrumented:
+    the peak bytes of gathered parameters alive in the forward and the
+    backward, those alive between the two, each collective's kind and
+    size, what the model holds after the step, and the logs and gathered
+    state; with `save`, milestone 1 written after the steps. Returns
+    (that, a weak reference to the model)."""
+    import contextlib
+    import weakref
+
+    from vqgan_tpu_torch.configs.ldm_config import LDMConfig
+    from vqgan_tpu_torch.parallel import comm, fsdp
+    from vqgan_tpu_torch.parallel.mesh import local_rows
+    from vqgan_tpu_torch.training.ldm_trainer import LatentDiffusionTrainer
+
+    tr = LatentDiffusionTrainer(LDMConfig(**cfg_kwargs), device="cpu",
+                                param_sharding=mode, fsdp_min_size=min_size,
+                                step_mode=step_mode,
+                                **(trainer_kwargs or {}))
+    placed = tr.placed
+    if weights is not None:
+        fresh = placed.state_dict()
+        placed.load_state_dict({"step": 0, "model": weights,
+                                "ema": weights,
+                                "optimizer": fresh["optimizer"]})
+    tracked = _GatheredBytes()
+    calls = []
+    originals = (fsdp.gather_tensor, comm.all_reduce_, comm.reduce_scatter,
+                 torch.Tensor.to, placed.gradients, placed.holding_pieces)
+    between = []  # bytes alive after each forward, before its backward
+
+    def gather(*a, **k):
+        out = originals[0](*a, **k)
+        tracked.add(out)
+        return out
+
+    def all_reduce(t, *a, **k):
+        calls.append(("all_reduce", t.numel()))
+        return originals[1](t, *a, **k)
+
+    def reduce_scatter(t, dim, *a, **k):
+        calls.append(("reduce_scatter", tuple(t.shape)))
+        return originals[2](t, dim, *a, **k)
+
+    def to(self, *a, **k):
+        out = originals[3](self, *a, **k)
+        if out is not self and tracked.on and tracked.holds(self):
+            tracked.add(out)
+        return out
+
+    def gradients():
+        tracked.on = False
+        return originals[4]()
+
+    @contextlib.contextmanager
+    def holding():
+        with originals[5]():
+            yield
+        between.append(tracked.alive())
+
+    fsdp.gather_tensor, comm.all_reduce_ = gather, all_reduce
+    comm.reduce_scatter, torch.Tensor.to = reduce_scatter, to
+    placed.gradients, placed.holding_pieces = gradients, holding
+    latents, labels = (local_rows(torch.from_numpy(a), tr.mesh)
+                       for a in batch)
+    given = {} if draws is None else dict(
+        t=torch.from_numpy(draws[0]).long(), noise=torch.from_numpy(draws[1]))
+    logs = []
+    try:
+        for _ in range(steps):
+            tracked.on = True
+            calls.append(("step",))
+            if step_mode == "scan":
+                block = tr.dispatch_block(latents[None], labels[None].long())
+                logs.append({k: float(v[0]) for k, v in block.items()})
+            else:
+                log = tr.train_step(tr.state, latents, labels.long(),
+                                    generator=tr.generator, **given)
+                logs.append({k: float(v) for k, v in log.items()})
+    finally:
+        (fsdp.gather_tensor, comm.all_reduce_, comm.reduce_scatter,
+         torch.Tensor.to) = originals[:4]
+        del placed.gradients, placed.holding_pieces
+    if save:
+        tr.save_and_sample(1)
+    compute = LDMConfig(**cfg_kwargs).compute_dtype
+    ratio = 1.0 if compute == "float32" else 1.5  # the cast beside the fp32
+    names = {m: name for name, m in tr.model.named_modules()}
+    owned = {names[module]: ratio * sum(4 * _whole_numel(placed, n)
+                                        for _, n in attrs)
+             for module, attrs in placed._owned.items()}
+    return {
+        "mesh": dict(tr.mesh.shape), "logs": logs, "peak": tracked.peak,
+        "between": between,
+        "owned": owned, "calls": calls,
+        "whole_numel": {n: _whole_numel(placed, n) for n in placed.trainable},
+        "specs": {n: (placed.param_specs[n], placed.opt_specs[n])
+                  for n in placed.trainable},
+        "held": {n: p.numel() for n, p in placed.params.items()},
+        "ema_held": {n: p.numel() for n, p in placed.ema_params.items()},
+        "pieces": {n: t.numel() for n, t in placed.opt_tensors.items()},
+        "all_parameters": all(isinstance(p, torch.nn.Parameter)
+                              for m in tr.model.modules()
+                              for p in m._parameters.values()
+                              if p is not None),
+        "model": placed.gathered("model"), "ema": placed.gathered("ema")
+    }, weakref.ref(tr.model)
+
+
+def _whole_numel(placed, name):
+    n = placed.opt_tensors[name].numel()
+    return n * placed._ways(placed.opt_specs[name])
+
+
+def layer_by_layer(rank, world, runs, scatter_input):
+    """{key: `_layer_run(**kwargs)`} for each (key, kwargs) in `runs`, and
+    under its "freed" whether the trainer's model was freed after it;
+    under "scatter", per dim 0 and 1: `comm.reduce_scatter` of this rank's
+    multiple of `scatter_input` beside `all_reduce_` and this rank's slice;
+    under "refused", the message of a reduce-scatter inside what the
+    collectives take for a CUDA graph capture."""
+    from vqgan_tpu_torch.parallel import comm
+
+    import gc
+
+    out = {}
+    for key, kwargs in runs:
+        out[key], model = _layer_run(rank, world, **kwargs)
+        gc.collect()
+        out[key]["freed"] = model() is None
+    x = torch.from_numpy(scatter_input) * (rank + 1)
+    out["scatter"] = {
+        dim: (comm.reduce_scatter(x, dim),
+              comm.all_reduce_(x.clone()).chunk(world, dim)[rank])
+        for dim in (0, 1)}
+    capturing, comm.capturing = comm.capturing, lambda: True
+    try:
+        comm.reduce_scatter(x, 0)
+        out["refused"] = None
+    except RuntimeError as e:
+        out["refused"] = str(e)
+    finally:
+        comm.capturing = capturing
+    return out

@@ -12,10 +12,15 @@ global batches: under `torch.distributed.run` with `--nproc` processes
 - `train_vqgan --step_mode split` and `--step_mode scan` (batch 8);
 - `train_kl_vae` (batch 8);
 - `train_ddpm --self_condition --immiscible` (batch 16);
-- `train_latent_cfg --step_mode scan --param_sharding replicated`,
-  `zero1` and `fsdp` (batch 8), each held to the one-process replicated
-  run, and the sharded modes to the replicated one at `--nproc` (the same
-  rows a rank: bit for bit where the step's math is the same).
+- `train_latent_cfg --param_sharding replicated`, `zero1`, `fsdp` and
+  `fsdp_tp` (batch 8), in `--step_mode step` and `scan`, each held to the
+  one-process replicated run of its step mode, and the sharded modes to
+  the replicated one at `--nproc` (the same rows a rank: bit for bit
+  where the step's math is the same; the sharded modes' clipping norm is
+  summed from the ranks' pieces, so not bit for bit). Beside each rank's
+  latents/s, on the card, each rank's bytes allocated on the device at
+  the last step's start and at its peak (step mode), and in step mode
+  the sharded modes' largest resident bytes as a share of replicated's.
 
 Each pair's checkpoints after `--steps` steps are read back and compared:
 bit for bit, or the weights' moves from the seeded start within 5% of the
@@ -74,6 +79,7 @@ MOVE_ATOL, MOVE_NORM = 0.05, 0.05
 _TINY_VQGAN = dict(ch=8, ch_mult=[1, 2], num_res_blocks=1, z_channels=8,
                    num_embeddings=8, embedding_dim=8, disc_ndf=8,
                    disc_n_layers=2, compute_dtype="float32")
+LDM_MODES = ("replicated", "zero1", "fsdp", "fsdp_tp")
 _TINY_LDM = dict(dim=16, dim_mults=[1, 2], attn_heads=2, attn_dim_head=16,
                  latent_size=4, image_size=32, timesteps=20,
                  sampling_timesteps=3)
@@ -168,8 +174,7 @@ def _runs(args, data: dict, work: Path) -> list:
     ldm = ["--config", str(ldm_cfg), "--split", str(data["latent_split"]),
            "--latents_cache_folder", str(data["cache"]), "--data_path",
            str(data["images"]), "--seed", str(args.seed),
-           "--train_num_steps", str(n), "--step_mode", "scan",
-           "--scan_block", "4", *device]
+           "--train_num_steps", str(n), "--scan_block", "4", *device]
 
     def vqgan_init():
         from vqgan_tpu_torch.configs import VQGANConfig
@@ -212,17 +217,21 @@ def _runs(args, data: dict, work: Path) -> list:
            ("train_kl_vae", "train_kl_vae", kl_vae, "kl_vae", 4.5e-6,
             kl_vae_init),
            ("train_ddpm", "train_ddpm", ddpm, "model", 8e-5, ddpm_init)]
-    for mode in ("replicated", "zero1", "fsdp"):
-        out.append((f"train_latent_cfg scan {mode}", "train_latent_cfg",
-                    [*ldm, "--param_sharding", mode], "model", 4e-5,
-                    ldm_init))
+    for step_mode in ("step", "scan"):
+        for mode in LDM_MODES:
+            out.append((f"train_latent_cfg {step_mode} {mode}",
+                        "train_latent_cfg",
+                        [*ldm, "--step_mode", step_mode, "--param_sharding",
+                         mode], "model", 4e-5, ldm_init))
     return out
 
 
 def _launch(module: str, argv: list, nproc: int, results: Path,
-            log: Path) -> list:
+            log: Path) -> tuple:
     """Run the entry point (under torch.distributed.run with `nproc` > 1)
-    into `results`; returns the rates every process printed."""
+    into `results`; returns the rates every process printed, and the
+    (resident, peak) device bytes of the last step that each printed (the
+    LDM trainer's step mode on the card)."""
     from vqgan_tpu_torch.parallel.launch import free_port
 
     cmd = [sys.executable, "-m", f"vqgan_tpu_torch.{module}", *argv,
@@ -235,8 +244,12 @@ def _launch(module: str, argv: list, nproc: int, results: Path,
     if proc.returncode:
         raise RuntimeError(f"{' '.join(cmd)} exited {proc.returncode}: "
                            f"{(proc.stdout + proc.stderr)[-3000:]}")
-    return [float(m.group(1)) for m in re.finditer(
+    rates = [float(m.group(1)) for m in re.finditer(
         r"steps after warm-up: ([\d.]+) (?:images|latents)/s", proc.stdout)]
+    memory = [(int(m.group(1)), int(m.group(2))) for m in re.finditer(
+        r"device bytes of the last step: (\d+) resident at its start, "
+        r"(\d+) at its peak", proc.stdout)]
+    return rates, memory
 
 
 def _card() -> str:
@@ -384,32 +397,45 @@ def main(argv=None) -> dict:
             tag = name.replace(" ", "_")
             many = work / f"{tag}_n{args.nproc}"
             one = work / f"{tag}_n1"
-            rates = _launch(module, argv_, args.nproc, many,
-                            work / f"{tag}_n{args.nproc}.log")
-            want_dir = (work / "train_latent_cfg_scan_replicated_n1"
-                        if module == "train_latent_cfg" else one)
-            rates_one = None
+            rates, memory = _launch(module, argv_, args.nproc, many,
+                                    work / f"{tag}_n{args.nproc}.log")
+            step_mode = name.split()[1] if module == "train_latent_cfg" \
+                else None
+            want_dir = (work / f"train_latent_cfg_{step_mode}_replicated_n1"
+                        if step_mode else one)
+            rates_one = memory_one = None
             if not want_dir.exists():
-                rates_one = _launch(module, argv_ if module !=
-                                    "train_latent_cfg" else
-                                    [*argv_[:-1], "replicated"], 1,
-                                    want_dir, work / f"{tag}_n1.log")
+                rates_one, memory_one = _launch(
+                    module, argv_ if not step_mode else
+                    [*argv_[:-1], "replicated"], 1, want_dir,
+                    work / f"{tag}_n1.log")
             got = _checkpoint(many, prefix)
             line = {"run": name, "world": args.nproc, "steps": args.steps,
                     "device": card, "rates_per_rank": rates,
                     "rate_one_process": rates_one[0] if rates_one else None,
+                    **({"resident_bytes_per_rank": [m[0] for m in memory],
+                        "peak_bytes_per_rank": [m[1] for m in memory]}
+                       if memory else {}),
+                    **({"resident_bytes_one_process": memory_one[0][0],
+                        "peak_bytes_one_process": memory_one[0][1]}
+                       if memory_one else {}),
                     **compare(got, _checkpoint(want_dir, prefix),
                               {k: v.float() for part, sd in init_fn().items()
                                for k, v in ((f"{part}.{k}", v)
                                             for k, v in sd.items())},
                               lr)}
-            if module == "train_latent_cfg":
-                if "replicated" in name:
-                    ldm_world = got
-                elif ldm_world:
+            if step_mode:
+                if name.endswith(" replicated"):
+                    ldm_world[step_mode] = (got, memory)
+                elif step_mode in ldm_world:
+                    base, base_memory = ldm_world[step_mode]
                     line["vs_replicated_at_world"] = max(
                         (got[k] - v).abs().max().item()
-                        for k, v in ldm_world.items())
+                        for k, v in base.items())
+                    if memory and base_memory:
+                        line["resident_share_of_replicated"] = (
+                            max(m[0] for m in memory)
+                            / max(m[0] for m in base_memory))
             report[name] = line
             print(json.dumps(line), flush=True)
         ok = all(r["within_rule"] for r in report.values())

@@ -24,7 +24,12 @@ import torch.distributed as dist
 
 __all__ = ["all_gather_cat", "all_reduce_", "broadcast_", "capturing",
            "group_size", "group_rank", "global_rank", "ppermute",
-           "send_recv"]
+           "reduce_scatter", "send_recv"]
+
+
+# newer torch names it reduce_scatter_single (the old name warns)
+_reduce_scatter_tensor = getattr(dist, "reduce_scatter_single",
+                                 dist.reduce_scatter_tensor)
 
 
 def group_size(group=None) -> int:
@@ -108,6 +113,31 @@ def all_gather_cat(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """This rank's chunk along `dim` of the sum of every rank's `t` (equal
+    shapes, `dim` divisible by the group size), in group rank order: the
+    piece that `all_gather_cat(piece, dim)` puts back together. The
+    collective splits along its first dimension, so `dim` is moved there
+    and back."""
+    if not dist.is_initialized():
+        return t
+    n = group_size(group)
+    src = t.movedim(dim, 0).contiguous()
+    if src.shape[0] % n:
+        raise ValueError(f"dimension {dim} of size {src.shape[0]} does not "
+                         f"divide over {n} ranks")
+    shape = (src.shape[0] // n, *src.shape[1:])
+    if _via_host(src, group):
+        host = src.cpu()
+        out = host.new_empty(shape)
+        _reduce_scatter_tensor(out, host, group=group)
+        out = out.to(t.device)
+    else:
+        out = src.new_empty(shape)
+        _reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
 
 
 def send_recv(send: Sequence[torch.Tensor], dst: Optional[int],

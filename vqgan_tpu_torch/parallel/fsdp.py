@@ -15,20 +15,51 @@ Counterpart of vqgan_tpu/parallel/fsdp.py with its rules:
   the EMA copy; under "zero1" the parameters stay whole while the moments
   and the EMA are split as "fsdp" splits them.
 
-GSPMD derives the collectives from the placements. Here `ShardedState`
-does what they amount to, with explicit collectives (parallel/comm.py):
-- at the start of a step, the parameters that are stored split are
-  gathered over their axes into the modules (`unshard`);
-- after the backward, each gradient is averaged over "data"
-  (`reduce_grads`): the ranks along "model" hold the same rows and the
-  same gradients;
+GSPMD derives the collectives from the placements, and XLA runs them one
+layer at a time. Here `ShardedState` does what they amount to, with
+explicit collectives (parallel/comm.py), one module at a time:
+- each module that owns parameters stored split (fsdp, fsdp_tp, and the
+  split kernels of tp) gathers its own over their axes just before it
+  runs (a forward pre-hook) and drops the whole copies when it returns (a
+  forward hook), so in the forward only the running module's parameters
+  are whole: there is no prefetch of the next module's. A module's own
+  parameters stay whole through its children's forward too (the DiT's
+  `pos_emb`, the root's, through the whole forward; no U-Net module that
+  owns a split parameter has a child that owns one);
+- the gather is an autograd function (`_Gathered`) whose output stands in
+  for the parameter, and what autograd saves of it for the backward (the
+  gathered tensor, its cast to the compute dtype, or a view of either) is
+  kept as a note (`holding_pieces`'s saved-tensor hooks) from which the
+  backward gathers it again, so that no whole parameter lives from the
+  forward to the backward. Hooks on saved tensors, rather than a gather
+  before each module's backward, because the tensors saved are casts
+  (`models/layers.py` casts the weight to the compute dtype) that no
+  module hook sees; the function's backward is where the gradient is
+  complete;
+- the function's backward takes the whole gradient into this rank's
+  piece at once: the mean over "data" by a reduce-scatter, and along
+  "model" a slice (the ranks there hold the same rows and the same
+  gradient). It runs once for each gathering: a module called twice, or
+  recomputed by `gradient_checkpointing`'s `torch.utils.checkpoint` (its
+  recomputation gathers again, but its graph takes no gradient), adds
+  each use's piece into the piece's gradient;
+- under ZeRO-1 the parameters are whole and their moments split: a hook
+  after each whole gradient's accumulation reduce-scatters it into the
+  moments' piece and frees it;
+- the parameters stored whole (small or indivisible tensors, and all of
+  them under "replicated") keep one flat all-reduce after the backward
+  (`mean_over_data`);
 - the optimizer and the EMA update each rank's pieces only (Adam is
   elementwise, so a piece updates as it would inside the whole); the
-  clipping norm is that of the whole averaged gradient;
+  clipping norm is that of the whole averaged gradient, summed from the
+  pieces where any gradient is split (`piece_norm`);
 - after the update, ZeRO-1's whole parameters are gathered from their
-  updated pieces (`pin`, the counterpart of `pin_state_shardings`), and
-  the gathered copies of split parameters are freed (`reshard`).
-The whole model is gathered at once for a step, not one layer at a time.
+  updated pieces (`pin`, the counterpart of `pin_state_shardings`).
+`materialize` gathers the whole model for sampling and checkpoints, and
+`reshard` frees it again; between the two the module hooks stand aside.
+Parameters read outside their owner's forward are not gathered: the
+DiT's GPipe path (`dit_pipeline_forward`, which reads the blocks through
+`stacked_block_params`) takes a model with whole parameters.
 
 `state_dict` gathers every piece, so a checkpoint of any mode holds whole
 tensors under the names and in the format of the single-device trainer,
@@ -37,6 +68,7 @@ and `load_state_dict` splits one again.
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
@@ -214,13 +246,47 @@ def all_gather_rows(x: torch.Tensor, mesh, axis: str = "data"):
     return _AllGatherRows.apply(x, mesh.group(axis))
 
 
+class _Gathered(torch.autograd.Function):
+    """The whole parameter `name` of `sharded` from this rank's piece; the
+    backward takes the whole gradient into the piece
+    (`ShardedState.piece_of_mean`)."""
+
+    @staticmethod
+    def forward(ctx, piece, sharded, name):
+        ctx.sharded, ctx.name = sharded, name
+        whole = gather_tensor(piece, sharded.param_specs[name], sharded.mesh)
+        # with no process group the gather is the piece itself
+        return piece.clone() if whole is piece else whole
+
+    @staticmethod
+    def backward(ctx, g):
+        sharded = ctx.sharded
+        sharded.regathered.pop(ctx.name, None)
+        return (sharded.piece_of_mean(g, sharded.param_specs[ctx.name]),
+                None, None)
+
+
+class _Regather:
+    """What autograd keeps of a saved gathered parameter: its name, the
+    dtype of the cast saved (None: the gathered tensor itself) and the
+    view's geometry."""
+
+    __slots__ = ("name", "dtype", "size", "stride", "offset")
+
+    def __init__(self, name, dtype, t):
+        self.name, self.dtype = name, dtype
+        self.size, self.stride = t.shape, t.stride()
+        self.offset = t.storage_offset()
+
+
 class ShardedState:
     """An `LDMTrainState` placed on `mesh` under `mode` (see the module
     docstring). It replaces the state's optimizer by one over this rank's
     pieces (same hyperparameters) and keeps the pieces of the EMA copy;
     the modules hold whole tensors for what is stored whole, and for what
-    is stored split, whole tensors only between `unshard` and `reshard`.
-    Every rank starts from rank 0's values."""
+    is stored split, whole tensors only while their module runs (or
+    between `materialize` and `reshard`). Every rank starts from rank 0's
+    values. The sharded step runs its forward inside `holding_pieces`."""
 
     def __init__(self, state, mesh, mode: str,
                  min_size: int = _DEFAULT_MIN_SIZE):
@@ -233,6 +299,9 @@ class ShardedState:
         self.ema_params = dict(ema.named_parameters())
         self.trainable = [n for n, p in self.params.items()
                           if p.requires_grad]
+        # whether any gradient is held in pieces smaller than the whole
+        self.splits = any(self._ways(self.opt_specs[n]) > 1
+                          for n in self.trainable)
         # every rank starts from rank 0's values
         replicate_module(model, mesh)
         replicate_module(ema, mesh)
@@ -252,9 +321,101 @@ class ShardedState:
             old.learning_rate, group.get("weight_decay", 0.0),
             tuple(group["betas"]), old.max_grad_norm, old.warmup_steps,
             old.every, schedule=old.schedule)
-        state.optimizer.norm_fn = self.piece_norm
+        if self.splits:
+            state.optimizer.norm_fn = self.piece_norm
         self.optimizer = state.optimizer
+        # name -> {dtype: the whole tensor gathered again for the backward}
+        self.regathered: Dict[str, dict] = {}
+        self._whole = False  # between materialize("model") and reshard
+        self._owned = {}     # module -> [(attribute, parameter name)]
+        for mname, mod in model.named_modules():
+            for pname, _ in mod.named_parameters(recurse=False):
+                n = f"{mname}.{pname}" if mname else pname
+                if self.param_specs.get(n):
+                    self._owned.setdefault(mod, []).append((pname, n))
+        for mod in self._owned:
+            mod.register_forward_pre_hook(self._gather_own)
+            mod.register_forward_hook(self._drop_own, always_call=True)
+        for n in self.trainable:
+            if self.opt_specs[n] and not self.param_specs[n]:
+                self.params[n].register_post_accumulate_grad_hook(
+                    self._zero1_hook(n))
         self.reshard()
+
+    def _ways(self, spec) -> int:
+        """Into how many pieces `spec` splits a tensor."""
+        out = 1
+        for axis in spec:
+            if axis is not None:
+                out *= self.mesh.shape[axis]
+        return out
+
+    # -- one module at a time ------------------------------------------
+
+    def _gather_own(self, module, args) -> None:
+        if self._whole:
+            return
+        for attr, n in self._owned[module]:
+            module._parameters[attr] = _Gathered.apply(
+                self.opt_tensors[n], self, n)
+
+    def _drop_own(self, module, args, out) -> None:
+        if self._whole:
+            return
+        for attr, n in self._owned[module]:
+            module._parameters[attr] = self.params[n]
+
+    def _pack(self, t: torch.Tensor):
+        base = t if t._base is None else t._base
+        fn, dtype = base.grad_fn, None
+        if type(fn).__name__ == "ToCopyBackward0":
+            fn, dtype = fn.next_functions[0][0], base.dtype
+        if (not isinstance(fn, _Gathered._backward_cls)
+                or fn.sharded is not self or base.storage_offset()
+                or not base.is_contiguous()):
+            # detached: a tensor a node saves of its own output would
+            # otherwise hold that node, and a node the backward never runs
+            # (a branch the loss does not use) would live on in the cycle
+            return t.detach()
+        return _Regather(fn.name, dtype, t)
+
+    def _unpack(self, saved):
+        if not isinstance(saved, _Regather):
+            return saved
+        by_dtype = self.regathered.setdefault(saved.name, {})
+        whole = by_dtype.get(saved.dtype)
+        if whole is None:
+            with torch.no_grad():
+                whole = gather_tensor(self.opt_tensors[saved.name].detach(),
+                                      self.param_specs[saved.name],
+                                      self.mesh)
+                if saved.dtype is not None:
+                    whole = whole.to(saved.dtype)
+            by_dtype[saved.dtype] = whole
+        return whole.as_strided(saved.size, saved.stride, saved.offset)
+
+    def holding_pieces(self):
+        """A context within which autograd keeps a saved gathered
+        parameter as a note (`_Regather`), and the backward gathers it
+        again."""
+        return torch.autograd.graph.saved_tensors_hooks(self._pack,
+                                                        self._unpack)
+
+    def _zero1_hook(self, name: str):
+        # a weak reference: the parameter keeps its hooks where the cycle
+        # collector does not look, so a strong one would keep the state
+        sharded = weakref.ref(self)
+
+        def hook(p):
+            g, p.grad = p.grad, None
+            placed = sharded()
+            placed._add_grad(name, placed.piece_of_mean(
+                g, placed.opt_specs[name]))
+        return hook
+
+    def _add_grad(self, name: str, g: torch.Tensor) -> None:
+        piece = self.opt_tensors[name]
+        piece.grad = g if piece.grad is None else piece.grad + g
 
     # -- the step's collectives ----------------------------------------
 
@@ -263,17 +424,64 @@ class ShardedState:
         return [n for n, s in self.param_specs.items() if s]
 
     @torch.no_grad()
-    def unshard(self) -> None:
-        """Gather the parameters stored split into the model."""
-        for n in self.split_params:
-            self.params[n].data = gather_tensor(self.opt_tensors[n],
-                                                self.param_specs[n],
-                                                self.mesh)
+    def piece_of_mean(self, g: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's piece under `spec` of the mean over "data" of the
+        whole gradient `g`: a reduce-scatter along the dimension split over
+        "data" (an all-reduce of the piece where none is), and along
+        "model" a slice."""
+        mesh = self.mesh
+        scatter = None
+        for d, axis in enumerate(spec):
+            if axis == "model":
+                g = g.chunk(mesh.shape["model"], d)[mesh.coord("model")]
+            elif axis == "data":
+                scatter = d
+        if not mesh.distributed:
+            return g.contiguous()
+        group = mesh.group("data")
+        if scatter is None:
+            g = comm.all_reduce_(g.clone(memory_format=torch.contiguous_format),
+                                 group)
+        else:
+            g = comm.reduce_scatter(g, scatter, group)
+        n = mesh.shape["data"]
+        return g.div_(float(n)) if n > 1 else g
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad()
+        for n in self.trainable:
+            self.params[n].grad = None
+
+    @torch.no_grad()
+    def gradients(self) -> list:
+        """After the backward: each trainable parameter's gradient averaged
+        over "data", in its moments' placement (zero where it took no
+        part). The pieces come from the backward's hooks; the gradients of
+        what is stored whole are averaged here, in one flat all-reduce."""
+        whole = [n for n in self.trainable if not self.opt_specs[n]]
+        grads = []
+        for n in whole:
+            p = self.params[n]
+            grads.append(p.grad if p.grad is not None
+                         else torch.zeros_like(p))
+            p.grad = None
+        means = dict(zip(whole, mean_over_data(grads, self.mesh)))
+        self.regathered.clear()
+        out = []
+        for n in self.trainable:
+            if n in means:
+                out.append(means[n])
+            else:
+                piece = self.opt_tensors[n]
+                out.append(piece.grad if piece.grad is not None
+                           else torch.zeros_like(piece))
+        return out
 
     @torch.no_grad()
     def reshard(self) -> None:
         """Free the model's gathered copies of split parameters, and the
         EMA module's tensors that the EMA keeps in pieces."""
+        self._whole = False
         for n in self.split_params:
             self.params[n].data = self.params[n].data.new_empty(0)
         for n, spec in self.ema_specs.items():
@@ -288,37 +496,15 @@ class ShardedState:
                 self.params[n].data.copy_(gather_tensor(
                     self.opt_tensors[n], self.opt_specs[n], self.mesh))
 
-    @torch.no_grad()
-    def reduce_grads(self) -> list:
-        """Each trainable parameter's gradient averaged over "data" (zero
-        where it took no part), in one flat all-reduce."""
-        grads = []
-        for n in self.trainable:
-            p = self.params[n]
-            grads.append(p.grad if p.grad is not None
-                         else torch.zeros_like(p))
-            p.grad = None
-        return mean_over_data(grads, self.mesh)
-
-    def pieces_of(self, grads: list) -> list:
-        """This rank's piece of each whole gradient, by the moments'
-        placement."""
-        return [shard_tensor(g, self.opt_specs[n], self.mesh)
-                if self.opt_specs[n] else g
-                for n, g in zip(self.trainable, grads)]
-
     def piece_norm(self, pieces: list) -> torch.Tensor:
-        """The global norm of a gradient held in pieces (the accumulated
-        gradient of MultiSteps k > 1): each piece's sum of squares over
-        the ranks that hold it once."""
+        """The global norm of a gradient held in pieces (each step's, and
+        the accumulated gradient of MultiSteps k > 1): each piece's sum of
+        squares over the ranks that hold it once."""
         world = comm.group_size(None) if self.mesh.distributed else 1
         total = torch.zeros((), dtype=torch.float32,
                             device=pieces[0].device)
         for n, g in zip(self.trainable, pieces):
-            split = 1
-            for axis in self.opt_specs[n]:
-                if axis is not None:
-                    split *= self.mesh.shape[axis]
+            split = self._ways(self.opt_specs[n])
             total = total + g.float().pow(2).sum() * (split / world)
         if self.mesh.distributed:
             comm.all_reduce_(total, None)
@@ -356,6 +542,7 @@ class ShardedState:
         module = self.state.model if which == "model" else (
             self.state.ema_model)
         params = self.params if which == "model" else self.ema_params
+        self._whole = self._whole or which == "model"
         for n, t in self.gathered(which).items():
             params[n].data = t
         return module

@@ -132,6 +132,10 @@ def main(argv=None) -> dict:
     if result["latents_per_s"] is not None:
         print(f"{result['timed_steps']} steps after warm-up: "
               f"{result['latents_per_s']:.2f} latents/s")
+    if result.get("resident_bytes"):
+        print(f"device bytes of the last step: {result['resident_bytes'][-1]}"
+              f" resident at its start, {result['peak_bytes'][-1]} at its "
+              f"peak")
     return {**result, "trainer": trainer}
 
 

@@ -242,7 +242,10 @@ class LatentDiffusionTrainer:
         "latents_per_s", "loader"}: host seconds of the steps after the
         first `timing_warmup`, the device synchronised at both ends,
         checkpoint saves (and in scan mode the graph captures) excluded;
-        the loader's kind."""
+        the loader's kind. In step mode on the card also "resident_bytes"
+        and "peak_bytes": for each step the bytes allocated on the device
+        as it starts and the most allocated while it runs (the caching
+        allocator's counts, kept on the host: nothing waits for them)."""
         if self.step_mode == "scan":
             return self._train_scan(num_steps, log_every, timing_warmup)
         cfg = self.config
@@ -267,14 +270,21 @@ class LatentDiffusionTrainer:
         timed_from = None
         timed_seconds = 0.0
         t_log, n_log = time.perf_counter(), 0
+        on_card = self.device.type == "cuda"
+        resident, peak = [], []
         try:
             for step in range(start, num_steps):
                 if step - start == timing_warmup:
                     self._sync()
                     timed_from = time.perf_counter()
                 _, (latents, labels) = next(batches)
+                if on_card:
+                    resident.append(torch.cuda.memory_allocated(self.device))
+                    torch.cuda.reset_peak_memory_stats(self.device)
                 log = self.train_step(self.state, latents, labels,
                                       generator=self.generator)
+                if on_card:
+                    peak.append(torch.cuda.max_memory_allocated(self.device))
                 drain()  # the previous step's loss; this step stays queued
                 pending = (step + 1, log["loss"])
                 n_log += 1
@@ -309,11 +319,14 @@ class LatentDiffusionTrainer:
         timed_steps = max(num_steps - start - timing_warmup, 0)
         if num_steps > start and (not every or num_steps % every):
             self.save_and_sample(num_steps // every + 1 if every else 1)
-        return {"losses": losses, "timed_steps": timed_steps,
-                "timed_seconds": timed_seconds,
-                "latents_per_s": (timed_steps * cfg.train_batch_size
-                                  / timed_seconds if timed_seconds else None),
-                "loader": kind}
+        out = {"losses": losses, "timed_steps": timed_steps,
+               "timed_seconds": timed_seconds,
+               "latents_per_s": (timed_steps * cfg.train_batch_size
+                                 / timed_seconds if timed_seconds else None),
+               "loader": kind}
+        if on_card:
+            out.update(resident_bytes=resident, peak_bytes=peak)
+        return out
 
     def dispatch_block(self, latents, labels) -> dict:
         """Run len(latents) steps as one dispatch (step_mode "scan") on

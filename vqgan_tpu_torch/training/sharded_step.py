@@ -11,16 +11,29 @@ the single-device step's math:
   too, and each rank takes its rows of them. Immiscible noise is assigned
   over the whole batch (`diffusion/gaussian.py`);
 - the loss is the mean over the global batch: each rank's mean over its
-  rows, averaged over "data"; the gradient likewise (`reduce_grads`);
+  rows, averaged over "data"; the gradient likewise;
+- the forward runs inside `ShardedState.holding_pieces`: each module
+  gathers its own split parameters just before it runs and drops them
+  after, the backward gathers them again where it needs them, and each
+  split gradient is reduce-scattered into this rank's piece as soon as it
+  is complete (`parallel/fsdp.py`); the whole model is never gathered
+  for a step, and no whole gradient of a split parameter is all-reduced.
+  The gradients of what is stored whole take one flat all-reduce after
+  the backward (`ShardedState.gradients`);
 - the SupCon branch, where on, is computed over the whole batch from
   every rank's features (a differentiable gather);
-- clipping is by the global norm of the whole averaged gradient; Adam and
-  the EMA update each rank's pieces.
+- clipping is by the global norm of the whole averaged gradient, summed
+  from the pieces where any gradient is split (`piece_norm`), else as the
+  single-device step computes it; Adam and the EMA update each rank's
+  pieces.
 
 `make_sharded_ldm_scan_step` runs the same step body in blocks, as
 `make_ldm_scan_step` does off the mesh: on the card one step's CUDA graph
-with its NCCL collectives (the gathers of split parameters, the gradient
-all-reduce, ZeRO-1's gathers of the updated pieces) replayed per step.
+with its NCCL collectives (each module's gathers in the forward and in
+the backward, the reduce-scatters and all-reduces the backward's hooks
+make, the flat all-reduce, ZeRO-1's gathers of the updated pieces)
+replayed per step. The hooks decide nothing from the data, so the
+capture records what every step runs.
 """
 
 from __future__ import annotations
@@ -63,15 +76,8 @@ def _make_sharded_core(diffusion, placed: ShardedState, *,
             return None
         return local_rows(torch.as_tensor(x, device=diffusion.device), mesh)
 
-    def core(state: LDMTrainState, step, latents, classes, *,
-             generator: Optional[torch.Generator] = None, t=None,
-             noise=None, cond_drop_mask=None) -> dict:
-        latents = torch.as_tensor(latents, device=diffusion.device)
-        classes = torch.as_tensor(classes, device=diffusion.device)
-        placed.unshard()
-        kwargs = dict(t=rows(t), noise=rows(noise),
-                      cond_drop_mask=rows(cond_drop_mask),
-                      cond_drop_prob=cond_drop_prob, generator=generator)
+    def forward(step, latents, classes, kwargs):
+        """(the loss to differentiate, the logs)."""
         if use_contrastive:
             with global_batch(mesh):
                 diff_loss, feats = diffusion.loss(
@@ -91,21 +97,33 @@ def _make_sharded_core(diffusion, placed: ShardedState, *,
             log["loss"] = (log["diffusion_loss"]
                            + contrastive_weight * gate * log[
                                "contrastive_loss"])
-        else:
-            with global_batch(mesh):
-                total = diff_loss = diffusion.loss(latents, classes,
-                                                   **kwargs)
-            log = {"diffusion_loss": mean_over_data(
-                [diff_loss.detach().float()], mesh)[0]}
-            log["loss"] = log["diffusion_loss"]
+            return total, log
+        with global_batch(mesh):
+            total = diffusion.loss(latents, classes, **kwargs)
+        log = {"diffusion_loss": mean_over_data(
+            [total.detach().float()], mesh)[0]}
+        log["loss"] = log["diffusion_loss"]
+        return total, log
+
+    def core(state: LDMTrainState, step, latents, classes, *,
+             generator: Optional[torch.Generator] = None, t=None,
+             noise=None, cond_drop_mask=None) -> dict:
+        latents = torch.as_tensor(latents, device=diffusion.device)
+        classes = torch.as_tensor(classes, device=diffusion.device)
+        placed.zero_grad()
+        kwargs = dict(t=rows(t), noise=rows(noise),
+                      cond_drop_mask=rows(cond_drop_mask),
+                      cond_drop_prob=cond_drop_prob, generator=generator)
+        with placed.holding_pieces():
+            total, log = forward(step, latents, classes, kwargs)
         total.backward()
-        grads = placed.reduce_grads()
-        log["grad_norm"] = global_norm(grads)
-        placed.optimizer.step(placed.pieces_of(grads), norm=log["grad_norm"])
+        grads = placed.gradients()
+        log["grad_norm"] = (placed.piece_norm(grads) if placed.splits
+                            else global_norm(grads))
+        placed.optimizer.step(grads, norm=log["grad_norm"])
         ema_update(placed.ema_targets(), placed.ema_sources(), step,
                    decay=ema_decay, update_every=ema_update_every,
                    update_after_step=ema_update_after_step)
-        placed.reshard()
         return log
 
     if placed.mode == "zero1":
