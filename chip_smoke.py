@@ -373,7 +373,24 @@ Phases, in order; any failure exits non-zero:
    allocated at the last step's start (resident) and at its peak, fsdp's
    resident at most _GLOO2_RESIDENT_SHARE of replicated's, the weights
    within the norm rule of replicated's.
-7. Print the kernels' JSON line, then the card line, then the device line.
+7. The FLOP accounting and the roofline tools (`drive_measurement_tools`):
+   each operator's registered FLOP formula (`utils/flops.py`) equal to the
+   counter's count of its plain version on the card, at one shape each;
+   then, in this process, `bench_attention`, `bench_vq`,
+   `profile_training` and `profile_sampling` at the JAX CLIs' defaults,
+   their records under this run's work directory: each flash row
+   launching each of its kernels once per iteration, each kernel row of
+   `bench_vq` once per call, its indices at each K against the library's
+   (exact mode) or the plain version's (bf16 mode) under the flip rule of
+   phase 3, the G step and its captured chains launching the VQ kernel
+   once and each flash kernel 7 times per step (at 128 px the VQ-VAE
+   attends at 16 x 16 in 7 blocks), the samplers 1 forward per U-Net or
+   VAE call and 8 per Karras forward; every timed record of the four
+   tools but the host floor (a trivial program, no FLOPs by design)
+   carrying an MFU and a bound share, and every share any record carries
+   above 0 and at most 1 (a missing or zero share is a count that
+   collapsed, one over 1 a count too high). Prints the phase's seconds.
+8. Print the kernels' JSON line, then the card line, then the device line.
 """
 
 from __future__ import annotations
@@ -392,19 +409,16 @@ from pathlib import Path
 
 import numpy as np
 
+from vqgan_tpu_torch.utils.flops import (  # the peaks and work formulas
+    backward_work,
+    bound,
+    flash_fwd_work,
+    peaks_for,
+    vq_work,
+)
+
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "chip_smoke"
-
-# NVIDIA data-sheet peaks (SXM parts, dense, at the full 700 W limit). The
-# fastest fp32-accurate product on these cards is 3xTF32, three TF32
-# products on the tensor cores (495 TFLOP/s), so fp32's rate is a third of
-# that, not the 67 TFLOP/s of the fp32 units.
-_PEAKS = {
-    "H100": {"bytes_per_s": 3.35e12, "bfloat16": 989e12,
-             "float32": 495e12 / 3},
-    "H200": {"bytes_per_s": 4.8e12, "bfloat16": 989e12,
-             "float32": 495e12 / 3},
-}
 
 # tolerance of kernel vs plain version, both fp32 math on the card: they
 # differ only in summation order (fp32) or in one final bf16 rounding step
@@ -473,10 +487,6 @@ def tensor_core_instructions(kernels) -> dict:
     return counts
 
 
-def peaks_for(name: str) -> dict:
-    return _PEAKS["H200"] if "H200" in name else _PEAKS["H100"]
-
-
 def cuda_ms(torch, fn, iters: int) -> float:
     """Mean time of one call on the card, by CUDA events over `iters`
     calls after one warm-up call."""
@@ -506,14 +516,6 @@ def device_ms(torch, fn, iters: int, stream=None) -> float:
         for _ in range(iters):
             fn()
     return cuda_ms(torch, graph.replay, 3) / iters
-
-
-def bound(peaks: dict, n_bytes: int, flops: int, dtype: str):
-    """(bound ms, "bytes" or "operations"): the least time the card could
-    take to move `n_bytes` once or to do `flops` at `dtype`'s peak rate."""
-    t_bytes = n_bytes / peaks["bytes_per_s"] * 1e3
-    t_ops = flops / peaks[dtype] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def outside_rounding(torch, got, ref, atol: float):
@@ -738,11 +740,8 @@ def check_flash_fwd(torch, peaks, seed: int):
 
         library_ms = cuda_ms(torch, library, iters)
         lib_dev_ms = device_ms(torch, library, iters)
-        itemsize = q.element_size()
-        n_bytes = (2 * b * s_q * h * d + 2 * b * s_kv * h * d) * itemsize \
-            + 4 * b * h * s_q
-        bound_ms, bound_by = bound(peaks, n_bytes,
-                                   4 * b * h * s_q * s_kv * d, dt)
+        bound_ms, bound_by = bound(
+            peaks, *flash_fwd_work(b, s_q, s_kv, h, d, q.element_size()), dt)
         row = rows[("flash_fwd", label)] = {
             "name": "flash_fwd",
             "key": row_key(label, b, s_q, h, d, dt),
@@ -848,21 +847,6 @@ def bwd_cases():
         (label, b, s_q, s_kv, h, d, dt, True, False, True)
         for label, b, s_q, s_kv, h, d, dt, _ in library_attention_cases()
         if label not in ("ddpm_mid_repaint", "unet1d_mid_gen")]
-
-
-def backward_work(b, s_q, s_kv, h, d, itemsize) -> dict:
-    """{kernel name: (bytes, operations)} of the backward kernels at
-    [b, s_q, h, d] with s_kv kv rows: each input read once and each output
-    written once (LSE and delta in fp32), 2 operations per multiply-add of
-    the products (dQ: S, dP, dS K; dK/dV: S, dP, P^T dO, dS^T Q)."""
-    n_q, n_kv = b * s_q * h * d, b * s_kv * h * d
-    stats = 2 * 4 * b * h * s_q
-    return {
-        "flash_bwd_dq": ((3 * n_q + 2 * n_kv) * itemsize + stats,
-                         6 * b * h * s_q * s_kv * d),
-        "flash_bwd_dkv": ((2 * n_q + 4 * n_kv) * itemsize + stats,
-                          8 * b * h * s_q * s_kv * d),
-    }
 
 
 def backward_in_fp64(torch, q, k, v, do, lse, delta, scale) -> dict:
@@ -1091,13 +1075,6 @@ def vq_cases():
         ("vqgan_rank4", 2048, 128, 256, False, True),
         ("vqgan128_audit", 4096, 128, 256, False, False),
     ]
-
-
-def vq_work(n: int, k: int, d: int):
-    """(bytes, operations) of one nearest-code search: z, the codebook and
-    |e|^2 read once (fp32, as the wrapper takes them), the indices and the
-    usage written once; 2 N K D operations for the cross term."""
-    return 4 * (n * d + k * d + k + n + k), 2 * n * k * d
 
 
 def check_vq(torch, peaks, seed: int):
@@ -5128,8 +5105,7 @@ def ring_rows(torch, peaks, label, shape, n, dt):
     lib_bwd = device_ms(torch, lambda: torch.autograd.grad(
         side_out, leaves, gt, retain_graph=True), iters, stream=side)
     work = backward_work(b, blk, blk, h, d, q.element_size())
-    work["flash_fwd"] = ((4 * b * blk * h * d) * q.element_size()
-                         + 4 * b * h * blk, 4 * b * h * blk * blk * d)
+    work["flash_fwd"] = flash_fwd_work(b, blk, blk, h, d, q.element_size())
     rows = {}
     for name, (kernel, plain) in calls.items():
         ms = device_ms(torch, kernel, iters)
@@ -5706,6 +5682,203 @@ def drive_scale_out(torch, kernels, peaks, seed: int, ldm: Path,
     return counts, rows, metrics
 
 
+# the one timed record without FLOPs by design: a trivial program's time
+HOST_FLOOR = "host dispatch floor"
+SHARE_KEYS = ("mfu", "mfu_true", "mfu_device_only", "roofline_fraction",
+              "per_step_vs_body_roofline", "per_nfe_vs_fwd_roofline")
+
+
+def _shares_in_range(label: str, records):
+    """Fail on any record whose MFU or share of a bound is missing, <= 0
+    or over 1: a share over 1 means a count that is too high, a missing or
+    zero one a count that collapsed (a program with no FLOPs or no bytes
+    gives no MFU or no bound share). Every timed record (wall or device
+    ms) must carry both "mfu" and "roofline_fraction", but the host floor;
+    every share key a record has must hold a value in (0, 1]."""
+    for rec in records:
+        name = rec.get("program") or rec
+        timed = "t_measured_ms" in rec or "ms" in rec or "us" in rec
+        if timed and not str(name).startswith(HOST_FLOOR):
+            for key in ("mfu", "roofline_fraction"):
+                if rec.get(key) is None:
+                    fail(f"{label}: {name} has no {key}")
+        for key in SHARE_KEYS:
+            if key not in rec:
+                continue
+            value = rec[key]
+            if value is None:
+                if str(name).startswith(HOST_FLOOR):
+                    continue
+                fail(f"{label}: {name} has {key} None")
+            if not 0.0 < value <= 1.0:
+                fail(f"{label}: {name} has {key} {value}, outside (0, 1]")
+
+
+def drive_measurement_tools(torch, kernels, work: Path, card: str) -> dict:
+    """Phase 7: the FLOP formulas against the plain versions' counts, then
+    the four measurement tools at the JAX CLIs' defaults, gated by their
+    launches, the VQ indices and their shares (module docstring)."""
+    from vqgan_tpu_torch import (
+        bench_attention,
+        bench_vq,
+        profile_sampling,
+        profile_training,
+    )
+    from vqgan_tpu_torch.kernels.ops import OPS
+    from vqgan_tpu_torch.ops.attention import (
+        flash_bwd_dkv_reference,
+        flash_bwd_dq_reference,
+        flash_forward_reference,
+    )
+    from vqgan_tpu_torch.ops.vq import vq_lookup_reference
+    from vqgan_tpu_torch.utils.flops import count_flops
+
+    t_phase = time.perf_counter()
+    metrics = {}
+    gen = torch.Generator("cuda").manual_seed(7)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, do = (randn(2, 256, 4, 64) for _ in range(4))
+    lse = randn(2, 4, 256, dtype=torch.float32)
+    delta = randn(2, 4, 256, dtype=torch.float32)
+    z, cb = randn(8192, 256, dtype=torch.float32), randn(
+        1024, 256, dtype=torch.float32)
+    pairs = {
+        "flash_fwd": ((OPS["flash_fwd"], q, k, v, 0.125),
+                      (flash_forward_reference, q, k, v, 0.125)),
+        "flash_bwd_dq": ((OPS["flash_bwd_dq"], q, k, v, do, lse, delta,
+                          0.125),
+                         (flash_bwd_dq_reference, q, k, v, do, lse, delta,
+                          0.125)),
+        "flash_bwd_dkv": ((OPS["flash_bwd_dkv"], q, k, v, do, lse, delta,
+                           0.125),
+                          (flash_bwd_dkv_reference, q, k, v, do, lse, delta,
+                           0.125)),
+        "vq_nearest": ((OPS["vq_nearest"], z, cb, "fp32"),
+                       (vq_lookup_reference, z, cb, "fp32")),
+    }
+    formulas = {}
+    for name, (op_call, plain_call) in pairs.items():
+        by_formula = count_flops(*op_call)
+        by_plain = count_flops(*plain_call, fake=False)
+        formulas[name] = by_formula
+        print(f"phase 7 {name}: formula {by_formula} FLOPs, the counter's "
+              f"count of the plain version on the card {by_plain}")
+        if by_formula != by_plain or by_formula <= 0:
+            fail(f"{name}'s FLOP formula {by_formula} != its plain "
+                 f"version's count {by_plain}")
+    metrics["formula_flops"] = formulas
+    del q, k, v, do, lse, delta, z, cb
+
+    t0 = time.perf_counter()
+    rows = bench_attention.main([])
+    for row in rows:
+        if row["route"] != "flash":
+            continue
+        want = ({"flash_fwd": 1.0} if row["pass"] == "fwd" else
+                {"flash_fwd": 1.0, "flash_bwd_dq": 1.0,
+                 "flash_bwd_dkv": 1.0})
+        if row["launches_per_iter"] != want:
+            fail(f"bench_attention S={row['seq']} {row['pass']}: launches "
+                 f"per iteration {row['launches_per_iter']}, want {want}")
+    _shares_in_range("bench_attention", rows)
+    metrics["bench_attention"] = {
+        f"S={r['seq']} {r['route']} {r['pass']}": {
+            key: r.get(key) for key in ("ms", "flops_per_step", "bytes",
+                                        "tflops_per_sec", "mfu",
+                                        "t_tensor_core_ms", "t_hbm_ms",
+                                        "roofline_fraction")}
+        for r in rows}
+    metrics["bench_attention_seconds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rows = bench_vq.main([])
+    _shares_in_range("bench_vq", rows)
+    for row in rows:
+        want = 0.0 if row["route"] == "library" else 1.0
+        if row["launches_per_call"] != want:
+            fail(f"bench_vq K={row['k']} {row['route']}: "
+                 f"{row['launches_per_call']} launches per call, want "
+                 f"{want}")
+    by_k = {}
+    for row in rows:
+        by_k.setdefault(row["k"], {})[row["route"]] = row
+    for kk, routes in by_k.items():
+        lib = routes["library"]
+        z, cb = lib["z"], lib["codebook"]
+        for route, mode, want in (
+                ("kernel_fp32", "fp32", lib["indices"]),
+                ("kernel", "bf16", vq_lookup_reference(z, cb, "bf16")[1])):
+            flips, far, excess = vq_index_flips(
+                torch, z, cb, routes[route]["indices"].int(), want.int(),
+                mode, _VQ_FLIP_RTOL)
+            against = ("the library" if mode == "fp32"
+                       else "the plain bf16 version")
+            print(f"bench_vq K={kk} {route}: {flips} index flips against "
+                  f"{against} ({far} not near-ties, largest score excess "
+                  f"{excess:.3e})")
+            if far:
+                fail(f"bench_vq K={kk} {route}: {far} indices that are "
+                     f"not near-ties differ")
+    metrics["bench_vq"] = {
+        f"K={r['k']} {r['route']}": {
+            key: r[key] for key in ("us", "gb_per_s", "flops_per_step",
+                                    "bytes", "mfu", "t_tensor_core_ms",
+                                    "t_hbm_ms", "roofline_fraction")}
+        for r in rows}
+    metrics["bench_vq_seconds"] = time.perf_counter() - t0
+    del rows, by_k
+
+    t0 = time.perf_counter()
+    records = profile_training.main(
+        ["--out", str(work / "training_roofline.json")])
+    # at 128 px the VQ-VAE attends at 16 x 16 in its last encoder level (2
+    # blocks), both mid blocks and its first decoder level (3 blocks)
+    per_step = {"vq_nearest": 1.0, "flash_fwd": 7.0, "flash_bwd_dq": 7.0,
+                "flash_bwd_dkv": 7.0}
+    for rec in records:
+        name = rec["program"]
+        if " captured " in name:  # a chain of CHAIN steps
+            want = {key: profile_training.CHAIN * n
+                    for key, n in per_step.items()}
+        elif name.startswith("g_step"):
+            want = per_step
+        elif name.startswith("d_step"):
+            want = {}
+        else:
+            continue
+        if rec["kernel_launches"] != want:
+            fail(f"profile_training {name}: launches "
+                 f"{rec['kernel_launches']}, want {want}")
+    _shares_in_range("profile_training", records)
+    metrics["profile_training"] = records
+    metrics["profile_training_seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    records = profile_sampling.main(
+        ["--out", str(work / "sampling_roofline.json")])
+    wants = {"cfg4 full": 151.0, "cfg4 DDIM": 150.0, "cfg4 VAE": 1.0,
+             "cfg4 single": 1.0, "cfg5 EDM": 512.0, "cfg5 single": 8.0}
+    for rec in records:
+        want = [n for prefix, n in wants.items()
+                if rec["program"].startswith(prefix)]
+        if want and rec["kernel_launches"] != {"flash_fwd": want[0]}:
+            fail(f"profile_sampling {rec['program']}: launches "
+                 f"{rec['kernel_launches']}, want {want[0]} flash_fwd")
+    _shares_in_range("profile_sampling", records)
+    metrics["profile_sampling"] = records
+    metrics["profile_sampling_seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    metrics["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 7: {metrics['phase_seconds']:.3f} s")
+    return metrics
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5728,6 +5901,8 @@ def main():
           f"must read through {expected_image_loader(jpeg)}")
     name = torch.cuda.get_device_name(0)
     peaks = peaks_for(name)
+    if peaks is None:
+        fail(f"no data-sheet peaks for {name} in utils/flops.PEAKS")
     set_full_fp32_precision()
     t0 = time.perf_counter()
     build_all(KERNELS.values())
@@ -5768,7 +5943,7 @@ def main():
             work = Path(work)
             for phase in ("ldm", "vqgan", "kl_vae", "gmm", "serving",
                           "stage2", "pixel", "library", "captured",
-                          "scale_out"):
+                          "scale_out", "tools"):
                 (work / phase).mkdir()
             train_counts, rate = drive_training(torch, KERNELS, args.seed,
                                                 work / "ldm")
@@ -5817,6 +5992,9 @@ def main():
                 work / "vqgan", work / "scale_out", card)
             rows.update(scale_rows)
             print("scale-out: " + json.dumps(scale_metrics))
+            tool_metrics = drive_measurement_tools(
+                torch, KERNELS, work / "tools", card)
+            print("measurement tools: " + json.dumps(tool_metrics))
         for key, n in [*train_counts.items(), *vq_counts.items(),
                        *kl_counts.items(), *gmm_counts.items(),
                        *serving_counts.items(), *stage2_counts.items(),

@@ -201,8 +201,12 @@ def test_load_weights_unwraps_reference_containers(tmp_path):
 def test_entry_points_default_to_gpu_and_raise_without_one(monkeypatch,
                                                           tmp_path):
     from vqgan_tpu_torch import (
+        bench_attention,
+        bench_vq,
         generate,
         profile_generate,
+        profile_sampling,
+        profile_training,
         profile_vqgan_train,
         train_vqgan,
     )
@@ -226,6 +230,10 @@ def test_entry_points_default_to_gpu_and_raise_without_one(monkeypatch,
                                  results_folder=str(tmp_path)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profile_vqgan_train.main([])
+    for tool in (bench_attention, bench_vq, profile_training,
+                 profile_sampling):  # the measurement tools
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tool.main([])
 
 
 def test_time_sampling_times_each_sampler_and_raises_without_a_gpu(

@@ -356,7 +356,7 @@ def test_bench_vq_takes_source_copies_and_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(bench_vq, "_start_build", None)  # never reached
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        bench_vq.main([])
+        bench_vq.main(["--variant", "wide=other/vq.cu"])
 
 
 @pytest.fixture
