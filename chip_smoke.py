@@ -5,7 +5,10 @@
     python3 chip_smoke.py --kernels-only  # build + kernel and small checks
 
 Phases, in order; any failure exits non-zero:
-1. A CUDA device must be present; print its name and power limit. Probe
+1. A CUDA device must be present; print its name and power limit, and
+   the version of the system's zstd library (`libzstd.so.1`, which the
+   reader of the JAX package's checkpoints binds; without it the run
+   stops). Probe
    whether g++ finds libjpeg's `jpeglib.h` (installing nothing): with it,
    the image trainers of 5c and 5h must read through the native C++ ring
    ("native_ring"), without it through the Python BatchLoader ("python").
@@ -58,7 +61,9 @@ Phases, in order; any failure exits non-zero:
    backward, and VQ at [2048,256] x [128,256], each under the rule of its
    dtype (the VQ-VAE shape's 2e-3 rule stays with batch 8: at batch 2 the
    largest dQ lies in [0.25, 0.5), where half a bf16 step is 2.4e-3 of
-   it). Time each
+   it); phase 8's, the JAX fixture's fp32 U-Net (head width 8, alone
+   and in the guided chain), KL-VAE and VQ-VAE (head width 16) and its
+   VQ at [768,8]x[8,8]. Time each
    kernel through its operator (the host time every path pays; the flash
    forward also through its ctypes wrapper alone), its plain version and
    one PyTorch library call at the main paths' shapes (and a few others),
@@ -390,7 +395,19 @@ Phases, in order; any failure exits non-zero:
    carrying an MFU and a bound share, and every share any record carries
    above 0 and at most 1 (a missing or zero share is a count that
    collapsed, one over 1 a count too high). Prints the phase's seconds.
-8. Print the kernels' JSON line, then the card line, then the device line.
+8. The JAX package's Orbax checkpoints (`check_jax_fixture`): the
+   committed fixture tests/fixtures/jax_orbax/ (a small LDM after two
+   steps of the JAX trainer, a narrow KL-VAE, a tiny VQ-GAN;
+   tests/_make_jax_orbax_fixture.py) read with no JAX by the port's
+   reader (each checkpoint's read seconds and MB/s beside the card line)
+   and its CLIs' loaders (`generate.load_checkpoint` + `load_model`,
+   `load_weights`, `load_vqvae`), then run on the card with TF32 off:
+   the U-Net on the EMA weights, a DDIM-10 chain at cond_scale 3.0 from
+   the stored noise decoded by the KL-VAE, the VQ-VAE's indices (exact
+   but for JAX's near-ties, `_FIXTURE_TIE`) and reconstruction, each
+   within `_FIXTURE_ATOL` of the JAX outputs in expected.npz, with the
+   launches of `_FIXTURE_LAUNCHES`. Prints the phase's seconds.
+9. Print the kernels' JSON line, then the card line, then the device line.
 """
 
 from __future__ import annotations
@@ -606,6 +623,13 @@ def attention_cases():
         ("vqvae_mid_rank4", 2, 1024, 1024, 1, 512, "bfloat16", True),
         ("kl_vae_mid_rank4", 2, 1024, 1024, 1, 512, "float32", True),
         ("ddpm_mid_rank4", 4, 256, 260, 4, 32, "bfloat16", True),
+        # phase 8's, the JAX package's fixture (fp32): its U-Net's mid
+        # attention in one forward of 3 and in the CFG chain (6 rows), the
+        # KL-VAE's mid attention, the VQ-VAE's attention at 16 x 16
+        ("fixture_unet_mid", 3, 64, 64, 2, 8, "float32", True),
+        ("fixture_unet_cfg", 6, 64, 64, 2, 8, "float32", True),
+        ("fixture_kl_vae_mid", 3, 64, 64, 1, 16, "float32", True),
+        ("fixture_vqvae_attn", 3, 256, 256, 1, 16, "float32", True),
     ] + library_attention_cases()
 
 
@@ -1074,6 +1098,9 @@ def vq_cases():
         # 8); and its latent audit (batch 16)
         ("vqgan_rank4", 2048, 128, 256, False, True),
         ("vqgan128_audit", 4096, 128, 256, False, False),
+        # phase 8's: the JAX fixture's VQ-VAE, 3 grids of 16 x 16 against
+        # its 8 codes of 8 dims
+        ("fixture_vq", 768, 8, 8, False, True),
     ]
 
 
@@ -1126,7 +1153,8 @@ def check_vq(torch, peaks, seed: int):
                      f"{label} {mode}")
             if dup and (idx >= k // 2).any():  # the upper copies
                 fail("vq_nearest broke a tie toward a higher index")
-            if label not in ("vqgan_main", "vqgan_rank4", "bench_k8192"):
+            if label not in ("vqgan_main", "vqgan_rank4", "bench_k8192",
+                             "fixture_vq"):
                 continue
 
             iters = 20 if k >= 8192 else 200
@@ -5879,6 +5907,139 @@ def drive_measurement_tools(torch, kernels, work: Path, card: str) -> dict:
     return metrics
 
 
+FIXTURE = ROOT / "tests" / "fixtures" / "jax_orbax"
+# phase 8's tolerances against the JAX package's fp32 outputs on its CPU
+# (expected.npz): the port computes in fp32 with TF32 off, so only the
+# order of summation differs (every output measured within 1e-6 to 5e-6
+# of JAX's, on a CPU and on an H100). The DDIM-10 chain at cond_scale 3.0
+# carries each step's difference into the next and scales it by the
+# guidance, as phase 4's chain does: a 20x margin for it and the rest.
+_FIXTURE_ATOL = {"unet_out": 1e-4, "sample_latents": 1e-4,
+                 "sample_images": 1e-4, "vq_recon": 1e-4}
+# phase 8's launches on the card: the U-Net forward, the DDIM-10 chain
+# (both halves of the guidance in one batch of 6), the KL-VAE decode, and
+# the VQ-VAE's encode to indices (attention at 16 x 16 in the encoder's
+# second level and its middle) and decode (its middle and 16 x 16 level)
+_FIXTURE_LAUNCHES = {
+    ("flash_fwd", (3, 64, 2, 8, "float32")): 1,
+    ("flash_fwd", (6, 64, 2, 8, "float32")): 10,
+    ("flash_fwd", (3, 64, 1, 16, "float32")): 1,
+    ("flash_fwd", (3, 256, 1, 16, "float32")): 5,
+    ("vq_nearest", (768, 8, 8, "fp32")): 1,
+}
+# a VQ index may differ from JAX's only where JAX's two nearest codes lie
+# within this share of |z|^2 + |e|^2 (the encoders' fp32 sums differ in
+# order, so a near-tie can go either way)
+_FIXTURE_TIE = 1e-5
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def tree_bytes(node) -> int:
+    """Bytes of the arrays in a tree of dicts and lists."""
+    if isinstance(node, dict):
+        node = list(node.values())
+    if isinstance(node, list):
+        return sum(tree_bytes(v) for v in node)
+    return node.nbytes if isinstance(node, np.ndarray) else 0
+
+
+def check_jax_fixture(torch, kernels, device, fixture: Path = FIXTURE):
+    """Phase 8: the JAX package's Orbax checkpoints in
+    tests/fixtures/jax_orbax/ (tests/_make_jax_orbax_fixture.py) read by
+    the port's CLI loaders and run on `device`, held to the JAX modules'
+    outputs in expected.npz under `_FIXTURE_ATOL`. Returns ({(kernel,
+    shape): launches}, metrics: each whole checkpoint's read seconds and
+    MB/s on disk, the loaders' seconds, the errors)."""
+    from vqgan_tpu_torch import generate
+    from vqgan_tpu_torch.checkpoint.load import load_vqvae, load_weights
+    from vqgan_tpu_torch.checkpoint.orbax import read_orbax
+    from vqgan_tpu_torch.models.autoencoder import AutoencoderConfig, KLVAE
+
+    t_phase = time.perf_counter()
+    meta = json.loads((fixture / "fixture.json").read_text())
+    want = dict(np.load(fixture / "expected.npz"))
+    paths = {"ldm": fixture / "ldm" / f"model-{meta['ldm_milestone']}",
+             "kl_vae": (fixture / "kl_vae"
+                        / f"kl_vae-{meta['kl_vae_milestone']}"),
+             "vqgan": fixture / "vqgan" / f"vqgan-{meta['vqgan_milestone']}"}
+    metrics = {"reads": {}}  # each whole checkpoint, optimizer state too
+    for name, path in paths.items():
+        t = time.perf_counter()
+        tree = read_orbax(path)
+        secs = time.perf_counter() - t
+        disk = dir_bytes(path)
+        metrics["reads"][name] = {
+            "read_s": secs, "disk_bytes": disk,
+            "param_bytes": tree_bytes(tree), "mb_per_s": disk / 1e6 / secs}
+
+    t = time.perf_counter()
+    config, weights = generate.load_checkpoint(fixture / "ldm")
+    diffusion, unet = generate.load_model(config, weights, device)
+    unet.eval()
+    vae_cfg = {k: tuple(v) if isinstance(v, list) else v
+               for k, v in meta["kl_vae"].items()}
+    vae = load_weights(KLVAE(AutoencoderConfig(**vae_cfg)),
+                       paths["kl_vae"]).to(device).eval()
+    vqvae, _ = load_vqvae(paths["vqgan"], device=device)
+    metrics["load_s"] = time.perf_counter() - t
+
+    def put(name, dtype=None):
+        x = torch.from_numpy(want[name]).to(device)
+        return x if dtype is None else x.to(dtype)
+
+    def nchw(x):
+        return x.permute(0, 3, 1, 2)
+
+    reset_counts(kernels)
+    with torch.inference_mode():
+        x = put("unet_x")
+        got = {"unet_out": unet(
+            nchw(x), put("unet_t", torch.long),
+            put("unet_classes", torch.long),
+            cond_drop_mask=torch.zeros(len(x), dtype=torch.bool,
+                                       device=device)).permute(0, 2, 3, 1)}
+        init = put("init_noise")
+        got["sample_latents"] = diffusion.ddim_sample(
+            tuple(init.shape), put("sample_classes", torch.long),
+            cond_scale=meta["cond_scale"], rescaled_phi=meta["rescaled_phi"],
+            init_noise=init, step_noise=put("step_noise"))
+        got["sample_images"] = vae.decode_latents(got["sample_latents"])
+        vq_x = nchw(put("vq_x"))
+        idx = vqvae.encode_to_indices(vq_x)
+        got["vq_recon"] = vqvae.decode_from_indices(idx).permute(0, 2, 3, 1)
+    counts = read_counts(kernels)
+
+    want_idx = want["vq_indices"].astype(np.int64)
+    got_idx = idx.long().cpu().numpy()
+    flips = got_idx != want_idx
+    far = int((flips.reshape(-1) & (want["vq_gap"] > _FIXTURE_TIE)).sum())
+    metrics["vq_index_flips"] = int(flips.sum())
+    errors = {name: float(np.abs(got[name].float().cpu().numpy()
+                                 - want[name]).max()) for name in got}
+    metrics["max_abs_err"] = errors
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    print(f"phase 8, the JAX fixture on {device}: reads "
+          + json.dumps(metrics["reads"])
+          + f"; loaders {metrics['load_s']:.3f} s"
+          f"; max|port - JAX| {json.dumps(errors)} (tolerance "
+          f"{json.dumps(_FIXTURE_ATOL)}); VQ index flips {int(flips.sum())} "
+          f"({far} not near-ties); launches {counts}")
+    if not finite or far or any(
+            errors[k] > _FIXTURE_ATOL[k] for k in errors
+            if not (k == "vq_recon" and flips.any())):
+        fail("the JAX fixture's outputs on the port disagree with "
+             "expected.npz")
+    if torch.device(device).type == "cuda" and counts != _FIXTURE_LAUNCHES:
+        fail(f"the JAX fixture launched {counts}, expected "
+             f"{_FIXTURE_LAUNCHES}")
+    metrics["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 8 seconds: {metrics['seconds']:.3f}")
+    return counts, metrics
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5889,6 +6050,7 @@ def main():
 
     import torch
 
+    from vqgan_tpu_torch.checkpoint import _zstd
     from vqgan_tpu_torch.device import set_full_fp32_precision
     from vqgan_tpu_torch.kernels import KERNELS, build_all
 
@@ -5896,6 +6058,8 @@ def main():
         fail("no CUDA device")
     card = card_line()
     print(f"card: {card}")
+    # the JAX package's checkpoints (phase 8) need the system's zstd
+    print(f"zstd: {_zstd.LIBRARY} {_zstd.version()} through ctypes")
     jpeg = libjpeg_headers()
     print(f"libjpeg headers (g++ finds jpeglib.h): {jpeg}; image trainers "
           f"must read through {expected_image_loader(jpeg)}")
@@ -5995,13 +6159,16 @@ def main():
             tool_metrics = drive_measurement_tools(
                 torch, KERNELS, work / "tools", card)
             print("measurement tools: " + json.dumps(tool_metrics))
+        fixture_counts, fixture_metrics = check_jax_fixture(
+            torch, KERNELS, "cuda")
+        print(f"JAX fixture ({card}): " + json.dumps(fixture_metrics))
         for key, n in [*train_counts.items(), *vq_counts.items(),
                        *kl_counts.items(), *gmm_counts.items(),
                        *serving_counts.items(), *stage2_counts.items(),
                        *pixel_counts.items(), *input_counts.items(),
                        *library_counts.items(),
                        *captured_counts.items(), *sampler_counts.items(),
-                       *scale_counts.items()]:
+                       *scale_counts.items(), *fixture_counts.items()]:
             counts[key] = counts.get(key, 0) + n
         for row in rows.values():
             row["launches"] = counts.get((row["name"], row["key"]), 0)

@@ -325,7 +325,8 @@ def test_profile_steps_reads_every_wall_time_before_any_profiled_run(
     assert out["g"]["device_ms"] is None
 
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "vqgan_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zarr",
+              "ml_dtypes", "vqgan_tpu")
 
 
 def _imported_roots(path):

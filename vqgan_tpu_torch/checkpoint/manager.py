@@ -4,8 +4,11 @@ Counterpart of vqgan_tpu/checkpoint/manager.py. Milestone `m` is the file
 `{prefix}-{m}.pt` (a dict the trainer composes: step, model, EMA and
 optimizer state), its config `{prefix}-{m}.config.json`, and the pointer
 `{prefix}-latest.json` names the newest. The JAX package writes Orbax
-directories `{prefix}-{m}/` in the same place; the port cannot read those
-and says so.
+directories `{prefix}-{m}/` in the same place with the same config and
+pointer files; they count as milestones here, and `checked_path` returns
+such a directory, which `load.load_weights` reads. `restore`, the
+trainers' resume, refuses one: mapping the JAX package's optax state onto
+the port's optimizers is not ported yet.
 """
 
 from __future__ import annotations
@@ -48,12 +51,24 @@ class CheckpointManager:
         return path
 
     def all_milestones(self):
-        out = []
-        for p in self.directory.glob(f"{self.prefix}-*.pt"):
-            suffix = p.stem.rsplit("-", 1)[-1]
-            if suffix.isdigit():
-                out.append(int(suffix))
-        return sorted(out)
+        """Every milestone, as a .pt file of the port or an Orbax directory
+        of the JAX package. Raises where one milestone has both."""
+        files, dirs = set(), set()
+        for p in self.directory.glob(f"{self.prefix}-*"):
+            suffix = p.name[len(self.prefix) + 1:]
+            if p.is_dir() and suffix.isdigit():
+                dirs.add(int(suffix))
+            elif p.suffix == ".pt" and suffix[:-3].isdigit():
+                files.add(int(suffix[:-3]))
+        if files & dirs:
+            raise self._both_forms(min(files & dirs))
+        return sorted(files | dirs)
+
+    def _both_forms(self, milestone: int) -> ValueError:
+        path = self.path(milestone)
+        return ValueError(f"milestone {milestone} is both {path} and the "
+                          f"Orbax directory {path.with_suffix('')}; remove "
+                          f"one")
 
     def latest_milestone(self) -> Optional[int]:
         p = self._latest_pointer()
@@ -63,19 +78,19 @@ class CheckpointManager:
         return milestones[-1] if milestones else None
 
     def checked_path(self, milestone: Optional[int] = None) -> Path:
-        """The file of `milestone` (the latest when None). Raises where there
-        is none, with a message where an Orbax directory stands instead."""
+        """The .pt file or the Orbax directory of `milestone` (the latest
+        when None). Raises where there is none, or both."""
         if milestone is None:
             milestone = self.latest_milestone()
             if milestone is None:
                 raise FileNotFoundError(
                     f"no checkpoints under {self.directory}")
         path = self.path(milestone)
-        if not path.exists() and path.with_suffix("").is_dir():
-            raise ValueError(
-                f"{path.with_suffix('')} is an Orbax checkpoint of the JAX "
-                f"package; the port reads only its own {self.prefix}-*.pt "
-                f"checkpoints")
+        orbax_dir = path.with_suffix("")
+        if path.exists() and orbax_dir.is_dir():
+            raise self._both_forms(milestone)
+        if orbax_dir.is_dir():
+            return orbax_dir
         if not path.exists():
             raise FileNotFoundError(path)
         return path
@@ -83,8 +98,15 @@ class CheckpointManager:
     def restore(self, milestone: Optional[int] = None,
                 map_location="cpu") -> Dict[str, Any]:
         """The state saved at `milestone` (the latest when None)."""
-        return torch.load(self.checked_path(milestone),
-                          map_location=map_location, weights_only=True)
+        path = self.checked_path(milestone)
+        if path.is_dir():
+            raise ValueError(
+                f"{path} is an Orbax checkpoint of the JAX package: the port "
+                f"loads its weights (generate --checkpoint, load_weights), "
+                f"but resuming training from a JAX train state (its optax "
+                f"state onto the port's optimizers) is not ported yet; see "
+                f"ROADMAP.md")
+        return torch.load(path, map_location=map_location, weights_only=True)
 
     def load_config(self, milestone: Optional[int] = None) -> Optional[Dict]:
         if milestone is None:

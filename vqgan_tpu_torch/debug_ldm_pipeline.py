@@ -4,8 +4,9 @@
         [--data_path data/Normal_line] [--image_size 256] \\
         [--latent_channels 4] [--device cpu]
 
-Counterpart of cli/debug_ldm_pipeline.py, on a port KL-VAE checkpoint (a
-`train_kl_vae` milestone or a state dict):
+Counterpart of cli/debug_ldm_pipeline.py, on a KL-VAE checkpoint (a
+`train_kl_vae` milestone of the port or, as an Orbax directory, of the JAX
+package, or a state dict):
 
 1. a decode from a random latent (normal x 0.18215, from a generator
    seeded with 0) must not be constant: std > 0.01;

@@ -10,7 +10,9 @@ under `--data_path` (sorted, in zero-padded batches of `--batch_size`) with
 the KL-VAE's posterior mean (`encode_images_mean`) or the VQ-VAE's
 quantised latents (`encode_images`), print the latents' min, max, mean,
 std, p1 and p99, the normalisation advice, and for a VQ-VAE the codebook's
-statistics. Runs on the GPU by default (`--device cpu` for the CPU).
+statistics. Either path may also be an Orbax directory of the JAX package
+(`kl_vae-{m}/`, `vqgan-{m}/`). Runs on the GPU by default (`--device cpu`
+for the CPU).
 """
 
 from __future__ import annotations
@@ -51,9 +53,11 @@ def normalization_advice(stats: dict) -> str:
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--vae_path", default=None, help="KL-VAE state dict")
+    ap.add_argument("--vae_path", default=None,
+                    help="KL-VAE state dict or Orbax checkpoint directory")
     ap.add_argument("--vqgan_path", default=None,
-                    help="vqgan-*.pt of the port's VQ-GAN trainer, or a "
+                    help="vqgan-*.pt of the port's VQ-GAN trainer, "
+                         "vqgan-*/ of the JAX package's (Orbax), or a "
                          "VQ-VAE state dict")
     ap.add_argument("--data_path", required=True)
     ap.add_argument("--num_images", type=int, default=100)

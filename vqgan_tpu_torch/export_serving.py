@@ -7,14 +7,19 @@
     python -m vqgan_tpu_torch.export_serving --mode vq_codec \\
         --vqgan_path results/vqgan/vqgan-1.pt --out codec_artifact \\
         [--selftest]
+    python -m vqgan_tpu_torch.export_serving --checkpoint results/ldm_jax \
+        --vae_path results/kl_vae/kl_vae-1 --out serving_artifact  # Orbax
 
 Counterpart of cli/export_serving.py. Mode `cfg_sampler` packages the
 generate.py hot path, the CFG DDIM sampler (a U-Net or DiT checkpoint of
-the port's trainer, rebuilt from its config) and the KL-VAE decode, as a `torch.export` directory
-(`serving/export.py`: one step program that the loader loops over, and a
-decode program); `serve_generate` and `serve_http` run it with no model
-code. Mode `vq_codec` packages the VQ-VAE index codec (images -> int
-indices -> images) of a `vqgan-*.pt` checkpoint as two programs.
+the port's trainer or the JAX package's, rebuilt from its config) and the
+KL-VAE decode, as a `torch.export` directory (`serving/export.py`: one
+step program that the loader loops over, and a decode program);
+`serve_generate` and `serve_http` run it with no model code. Mode
+`vq_codec` packages the VQ-VAE index codec (images -> int indices ->
+images) of a `vqgan-*.pt` checkpoint, or of the JAX package's Orbax
+`vqgan-*/`, as two programs. `--vae_path` is a KL-VAE state dict or an
+Orbax directory (`kl_vae-{m}/`).
 
 `--selftest` reloads the artifact and holds it against the live pipeline on
 the same noise and classes: images within rtol 1e-4, atol 1e-5 on [0, 1]
@@ -296,13 +301,15 @@ def parse_args(argv=None):
     ap.add_argument("--mode", choices=["cfg_sampler", "vq_codec"],
                     default="cfg_sampler")
     ap.add_argument("--checkpoint", default=None,
-                    help="results folder of the port's LDM trainer "
-                         "(cfg_sampler mode)")
+                    help="results folder of the port's LDM trainer or "
+                         "the JAX package's (cfg_sampler mode)")
     ap.add_argument("--milestone", type=int, default=None)
     ap.add_argument("--vae_path", default=None,
-                    help="KL-VAE state dict (cfg_sampler mode)")
+                    help="KL-VAE state dict or Orbax checkpoint "
+                         "directory (cfg_sampler mode)")
     ap.add_argument("--vqgan_path", default=None,
-                    help="vqgan-*.pt of the port's VQ-GAN trainer, or a "
+                    help="vqgan-*.pt of the port's VQ-GAN trainer, "
+                         "vqgan-*/ of the JAX package's (Orbax), or a "
                          "VQ-VAE state dict (vq_codec mode)")
     ap.add_argument("--image_size", type=int, default=None,
                     help="vq_codec: override the checkpoint's image size")

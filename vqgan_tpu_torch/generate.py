@@ -7,12 +7,14 @@
 Counterpart of cli/generate.py, with its flags and its output layout:
 per user, batches of at most `--batch_size` DDIM samples, decoded by the
 KL-VAE and written as `ID_{user}/generated_{i:03d}.jpg` at quality 95.
-Denoiser weights come from a results folder of the port's trainer
-(`--checkpoint DIR [--milestone M]`: its config, which names the backbone,
-the CFG U-Net or the DiT, and its EMA weights, as the JAX CLI reads its
-checkpoints; the JAX package's Orbax checkpoints are refused with a
-message), or from a PyTorch state-dict file (the port's or the reference
-models'), or are drawn at random from `--seed` with `--random_init`.
+Denoiser weights come from a results folder of the port's trainer or of
+the JAX package's (`--checkpoint DIR [--milestone M]`: its config, which
+names the backbone, the CFG U-Net or the DiT, and its EMA weights, as the
+JAX CLI reads its checkpoints; a JAX milestone is the Orbax directory
+`model-{m}/`), or from a PyTorch state-dict file (the port's or the
+reference models'), or are drawn at random from `--seed` with
+`--random_init`. `--vae_path` is a KL-VAE state dict or an Orbax
+directory (`train_kl_vae`'s `kl_vae-{m}/` of the JAX package).
 
 Runs on the GPU by default (`--device cpu` to run on the CPU). fp32 matmuls
 and convolutions run in full fp32 (TF32 off), as the JAX package's "highest"
@@ -51,9 +53,10 @@ def load_model(config: LDMConfig, unet_weights=None, device="cuda"):
 
 
 def load_checkpoint(checkpoint, milestone=None):
-    """(LDMConfig, weights file) of a results folder of the port's trainer:
-    the config saved with `milestone` (the latest when None) and the file
-    whose EMA weights `load_weights` reads."""
+    """(LDMConfig, weights) of a results folder of the port's trainer or
+    the JAX package's: the config saved with `milestone` (the latest when
+    None) and the milestone's `model-{m}.pt` or Orbax directory
+    `model-{m}/`, whose EMA weights `load_weights` reads."""
     ckpt = CheckpointManager(checkpoint, prefix="model")
     weights = ckpt.checked_path(milestone)
     milestone = int(weights.stem.rsplit("-", 1)[-1])
@@ -85,13 +88,15 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--checkpoint", default=None,
                     help="results folder of the port's trainer "
-                         "(model-{milestone}.pt and its config)")
+                         "(model-{milestone}.pt and its config) or the JAX "
+                         "package's (model-{milestone}/, Orbax)")
     ap.add_argument("--milestone", type=int, default=None,
                     help="with --checkpoint; default the latest")
     ap.add_argument("--unet_weights", default=None,
                     help="CFG U-Net state dict (.pt), port or reference")
     ap.add_argument("--vae_weights", "--vae_path", dest="vae_weights",
-                    default=None, help="KL-VAE state dict (.pt)")
+                    default=None, help="KL-VAE state dict (.pt) or Orbax "
+                    "checkpoint directory")
     ap.add_argument("--config", default=None,
                     help="JSON of LDMConfig fields (default: LDMConfig())")
     ap.add_argument("--random_init", action="store_true",

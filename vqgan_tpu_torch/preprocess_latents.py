@@ -13,8 +13,8 @@ times the scale factor (`KLVAE.encode_images_mean`, NHWC) in batches of
 `--batch_size`, the last batch as short as it falls, and stored as
 `user_{label:02d}_{stem}.npy` (`LatentCache`), which `train_latent_cfg`
 reads. `--vae_path` is a KL-VAE state dict (.pt): a `train_kl_vae`
-milestone or a reference `kl_vae_best.pt`. The JAX package's Orbax
-directories are refused.
+milestone or a reference `kl_vae_best.pt`; or an Orbax directory of the
+JAX package's `train_kl_vae` (`kl_vae-{m}/`).
 
 Runs on the GPU by default (`--device cpu` to run on the CPU), with TF32
 off for fp32 matmuls and convolutions.
@@ -45,7 +45,8 @@ __all__ = ["main", "parse_args"]
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--vae_path", required=True,
-                    help="KL-VAE state dict (.pt)")
+                    help="KL-VAE state dict (.pt) or Orbax "
+                         "checkpoint directory")
     ap.add_argument("--data_path", required=True)
     ap.add_argument("--output_split", default="data_split.json")
     ap.add_argument("--cache_folder", default="./latents_cache")

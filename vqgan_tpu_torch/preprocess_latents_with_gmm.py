@@ -57,7 +57,8 @@ USER_K_VALUES.update({2: 5, 7: 3, 13: 5, 19: 3, 26: 5})
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--vae_path", required=True,
-                    help="KL-VAE state dict (.pt)")
+                    help="KL-VAE state dict (.pt) or Orbax "
+                         "checkpoint directory")
     ap.add_argument("--data_path", required=True)
     ap.add_argument("--output_split", default="data_split.json")
     ap.add_argument("--cache_folder", default="./latents_cache")

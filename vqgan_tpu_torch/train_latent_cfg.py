@@ -9,12 +9,13 @@ Counterpart of cli/train_latent_cfg.py: LDMConfig (or, with `--baseline`,
 the all-optimizations-off BaselineLDMConfig) with the flags' overrides, and
 a JSON of further LDMConfig fields with `--config`; the CFG U-Net (or,
 with `--model_type dit`, the DiT) trained on the cached latents, with
-resume. `--vae_path` is a KL-VAE state dict
-(`.pt`); with it, latents missing from the cache are encoded and every
-checkpoint comes with a sample grid. `--step_mode scan` runs
-`--scan_block` steps per dispatch, on the card as CUDA graphs (the JAX
-package's one-program scan); `auto` (the default) picks it for runs of 1000
-steps or more, as the JAX CLI does, and the eager `step` mode otherwise.
+resume. `--vae_path` is a KL-VAE state dict (`.pt`) or an Orbax
+directory of the JAX package (`kl_vae-{m}/`); with it, latents missing
+from the cache are encoded and every checkpoint comes with a sample grid.
+`--step_mode scan` runs `--scan_block` steps per dispatch, on the card as
+CUDA graphs (the JAX package's one-program scan); `auto` (the default)
+picks it for runs of 1000 steps or more, as the JAX CLI does, and the
+eager `step` mode otherwise.
 
 `--param_sharding` is the JAX CLI's flag with its choices: "replicated"
 (data parallel), "zero1", "fsdp", "tp" or "fsdp_tp" (parallel/fsdp.py).
@@ -52,7 +53,8 @@ __all__ = ["main", "parse_args"]
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--vae_path", default=None,
-                    help="KL-VAE state dict (.pt)")
+                    help="KL-VAE state dict (.pt) or Orbax "
+                         "checkpoint directory")
     ap.add_argument("--data_path", default=None)
     ap.add_argument("--split", default=None, help="data split JSON")
     ap.add_argument("--results_folder", default=None)

@@ -14,7 +14,8 @@ every 500 steps, resume from "latest" or a milestone). The csv
 `--dim_mults` / `--attention_head_dim` are validated with the JAX CLI's
 error cases, and the arguments map to the same LDMConfig.
 `--gradient_checkpointing` recomputes the U-Net forward in the backward
-pass. `--pretrained_vae_path` is a KL-VAE state dict (`.pt`), read as
+pass. `--pretrained_vae_path` is a KL-VAE state dict (`.pt`) or an Orbax
+directory of the JAX package, read as
 `train_latent_cfg --vae_path` reads one: with it, every milestone writes a
 sample grid, and latents missing from the cache are encoded.
 

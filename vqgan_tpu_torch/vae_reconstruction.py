@@ -12,7 +12,8 @@ reference's simplified SSIM, the table, the verdict by the reference's
 thresholds (PSNR > 30 and SSIM > 0.9 "very good"; PSNR > 25 and SSIM >
 0.85 "medium"; else "bad"), and in `--output_dir` a `reconstructions.png`
 of [input | reconstruction] rows and `metrics.json`. `--vae_path` is a
-KL-VAE state dict (.pt).
+KL-VAE state dict (.pt) or an Orbax directory of the JAX package
+(`kl_vae-{m}/`).
 
 Runs on the GPU by default (`--device cpu` to run on the CPU), with TF32
 off for fp32 matmuls and convolutions.
@@ -38,7 +39,8 @@ __all__ = ["main", "parse_args", "verdict"]
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--vae_path", required=True,
-                    help="KL-VAE state dict (.pt)")
+                    help="KL-VAE state dict (.pt) or Orbax "
+                         "checkpoint directory")
     ap.add_argument("--data_path", required=True)
     ap.add_argument("--num_images", type=int, default=10)
     ap.add_argument("--image_size", type=int, default=256)

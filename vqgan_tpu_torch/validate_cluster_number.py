@@ -66,7 +66,8 @@ def find_elbow_point(values) -> int:
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--vae_path", required=True,
-                    help="KL-VAE state dict (.pt)")
+                    help="KL-VAE state dict (.pt) or Orbax "
+                         "checkpoint directory")
     ap.add_argument("--data_path", required=True)
     ap.add_argument("--output_dir", default="./cluster_validation")
     ap.add_argument("--num_users", type=int, default=31)
