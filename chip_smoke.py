@@ -63,7 +63,9 @@ Phases, in order; any failure exits non-zero:
    largest dQ lies in [0.25, 0.5), where half a bf16 step is 2.4e-3 of
    it); phase 8's, the JAX fixture's fp32 U-Net (head width 8, alone
    and in the guided chain), KL-VAE and VQ-VAE (head width 16) and its
-   VQ at [768,8]x[8,8]. Time each
+   VQ at [768,8]x[8,8], and its resumed training steps: flash forward
+   and backward at [8,64,2,8] and [8,256,1,16], VQ at [2048,8]x[8,8].
+   Time each
    kernel through its operator (the host time every path pays; the flash
    forward also through its ctypes wrapper alone), its plain version and
    one PyTorch library call at the main paths' shapes (and a few others),
@@ -406,8 +408,20 @@ Phases, in order; any failure exits non-zero:
    the stored noise decoded by the KL-VAE, the VQ-VAE's indices (exact
    but for JAX's near-ties, `_FIXTURE_TIE`) and reconstruction, each
    within `_FIXTURE_ATOL` of the JAX outputs in expected.npz, with the
-   launches of `_FIXTURE_LAUNCHES`. Prints the phase's seconds.
+   launches of `_FIXTURE_LAUNCHES`. Then (`check_jax_resume`) the port's
+   trainers resume the fixture's LDM milestone (step mode, and scan mode
+   over the `CapturableOptimizer`, its second step a captured graph) and
+   VQ-GAN milestone by their own `load` (the JAX optax state mapped onto
+   the port's optimizers) and take the two steps that the JAX trainers
+   took from them, with the same batches and draws (resume_expected.npz):
+   losses and gradient norms within `_RESUME_RTOL` of JAX's, parameter
+   and EMA updates by `_RESUME_MOVE` (the VQ-GAN's by its share rule),
+   each kernel of `_RESUME_KEYS` launched. Prints each resume's seconds
+   and the phase's.
 9. Print the kernels' JSON line, then the card line, then the device line.
+
+A `[clock]` line before each phase gives the seconds since the start: the
+run's timeline against the 1200 s it may take.
 """
 
 from __future__ import annotations
@@ -630,6 +644,10 @@ def attention_cases():
         ("fixture_unet_cfg", 6, 64, 64, 2, 8, "float32", True),
         ("fixture_kl_vae_mid", 3, 64, 64, 1, 16, "float32", True),
         ("fixture_vqvae_attn", 3, 256, 256, 1, 16, "float32", True),
+        # phase 8's resumed training steps at the fixture's batch of 8: the
+        # U-Net's mid attention, the VQ-VAE's attentions at 16 x 16
+        ("fixture_unet_train", 8, 64, 64, 2, 8, "float32", True),
+        ("fixture_vqvae_train", 8, 256, 256, 1, 16, "float32", True),
     ] + library_attention_cases()
 
 
@@ -867,6 +885,11 @@ def bwd_cases():
          True),
         ("ddpm_mid_rank4", 4, 256, 260, 4, 32, "bfloat16", True, False,
          True),
+        # phase 8's resumed training steps (the JAX fixture, fp32)
+        ("fixture_unet_train", 8, 64, 64, 2, 8, "float32", True, False,
+         True),
+        ("fixture_vqvae_train", 8, 256, 256, 1, 16, "float32", True, False,
+         True),
     ] + [  # phase 5i's training and forward + backward shapes
         (label, b, s_q, s_kv, h, d, dt, True, False, True)
         for label, b, s_q, s_kv, h, d, dt, _ in library_attention_cases()
@@ -1101,6 +1124,8 @@ def vq_cases():
         # phase 8's: the JAX fixture's VQ-VAE, 3 grids of 16 x 16 against
         # its 8 codes of 8 dims
         ("fixture_vq", 768, 8, 8, False, True),
+        # and phase 8's resumed VQ-GAN steps: 8 grids of 16 x 16
+        ("fixture_vq_train", 2048, 8, 8, False, True),
     ]
 
 
@@ -1154,7 +1179,7 @@ def check_vq(torch, peaks, seed: int):
             if dup and (idx >= k // 2).any():  # the upper copies
                 fail("vq_nearest broke a tie toward a higher index")
             if label not in ("vqgan_main", "vqgan_rank4", "bench_k8192",
-                             "fixture_vq"):
+                             "fixture_vq", "fixture_vq_train"):
                 continue
 
             iters = 20 if k >= 8192 else 200
@@ -6040,6 +6065,221 @@ def check_jax_fixture(torch, kernels, device, fixture: Path = FIXTURE):
     return counts, metrics
 
 
+# phase 8's resumed steps (`check_jax_resume`), against the JAX trainers'
+# steps from the same milestones (resume_expected.npz): the losses and
+# gradient norms at the tests' rtol (fp32 on both sides, TF32 off: the
+# sums differ in order only); each parameter's update within 0.05 x lr of
+# JAX's (the tests' rule), plus float16's rounding of the stored update
+# (2^-11 of it; the writer stores update / lr in fp16): the LDM's in
+# every element. The VQ-GAN's by test_torch_port_vqgan_train's rule
+# instead: its fixture resumes at Adam's count 0, whose first updates are
+# sign-like (m / sqrt(v) = +-1 for a lone gradient), so a conv bias under
+# GroupNorm, whose gradient is 0 in exact arithmetic and rounding noise in
+# practice, moves about lr one way on one side and the other way on the
+# other; its updates agree within the rule in all but 1% of the elements,
+# and differ by at most 5% of JAX's in norm. Its logs bar
+# "perceptual_loss": both sides resume at perceptual weight 0 over LPIPS
+# networks of random weights of their own.
+_RESUME_RTOL = 1e-4
+_RESUME_MOVE = 0.05
+_RESUME_FP16 = 2.0 ** -11
+_RESUME_VQGAN_MISS = 0.01
+_RESUME_VQGAN_NORM = 0.05
+# the kernels the resumed steps must reach, by shape: the U-Net's mid
+# attention at batch 8 (2 heads x 8) and the VQ-VAE's four attentions at
+# 16 x 16 (1 x 16), forward and backward; the VQ-VAE's quantizer, 8 grids
+# of 16 x 16 against 8 codes of 8 dims
+_RESUME_KEYS = {
+    *((k, (8, 64, 2, 8, "float32")) for k in FLASH),
+    *((k, (8, 256, 1, 16, "float32")) for k in FLASH),
+    ("vq_nearest", (2048, 8, 8, "fp32")),
+}
+
+
+def _moves_within(torch, label, got_before, got_after, want, prefix, lr,
+                  miss: float = 0.0, norm=None):
+    """Each parameter's update (after - before) / lr against JAX's in
+    `want` under `prefix`: at most a `miss` share of the elements beyond
+    `_RESUME_MOVE` (+ the fp16 rounding), and with `norm` the difference
+    at most that share of JAX's updates in norm. Returns (the largest
+    difference, the share beyond, the difference's norm share)."""
+    diffs, refs, beyond = [], [], []
+    for key, stored in want.items():
+        if not key.startswith(prefix):
+            continue
+        name = key[len(prefix):]
+        move = ((got_after[name].double() - got_before[name].double()) / lr
+                ).cpu().reshape(-1)
+        ref = torch.from_numpy(stored.astype(np.float64)).reshape(-1)
+        diffs.append(move - ref)
+        refs.append(ref)
+        beyond.append((move - ref).abs() > _RESUME_MOVE
+                      + _RESUME_FP16 * ref.abs())
+    diff, ref, beyond = torch.cat(diffs), torch.cat(refs), torch.cat(beyond)
+    worst = float(diff.abs().max())
+    share = float(beyond.double().mean())
+    norm_share = float(diff.norm() / ref.norm()) if ref.norm() > 0 else 0.0
+    if share > miss or (norm is not None and norm_share > norm):
+        fail(f"{label}: {share:.3%} of the updates off JAX's by more than "
+             f"{_RESUME_MOVE} x lr (allowed {miss:.0%}), the difference "
+             f"{norm_share:.3%} of them in norm (largest {worst:.3e} x lr)")
+    return worst, share, norm_share
+
+
+def _logs_within(label, got: dict, want: dict) -> float:
+    """The largest relative difference of the logged values from JAX's."""
+    worst = 0.0
+    for key, ref in want.items():
+        ref = np.asarray(ref, np.float64)
+        err = np.abs(np.asarray(got[key], np.float64) - ref)
+        worst = max(worst, float((err / np.maximum(np.abs(ref), 1e-30)
+                                  ).max()))
+        if (err > _RESUME_RTOL * np.abs(ref) + 1e-7).any():
+            fail(f"{label}: {key} {got[key]} against JAX's {ref.tolist()} "
+                 f"(rtol {_RESUME_RTOL})")
+    return worst
+
+
+def check_jax_resume(torch, kernels, device, fixture: Path = FIXTURE):
+    """Phase 8's resume: the port's trainers resumed from the committed JAX
+    milestones by their own `load` (the LDM in step mode and in scan mode
+    over the `CapturableOptimizer`, the VQ-GAN in split mode), each taking
+    the two steps the JAX trainers took from them with the same batches
+    and draws (resume_expected.npz, tests/_make_jax_orbax_fixture.py),
+    held to JAX's by `_RESUME_RTOL` and `_RESUME_MOVE`. Returns ({(kernel,
+    shape): launches}, metrics: each resume's seconds, the largest
+    differences)."""
+    from vqgan_tpu_torch.configs import LDMConfig, VQGANConfig
+    from vqgan_tpu_torch.training.ldm_trainer import LatentDiffusionTrainer
+    from vqgan_tpu_torch.training.vqgan_trainer import VQGANTrainer
+
+    t_phase = time.perf_counter()
+    want = dict(np.load(fixture / "resume_expected.npz"))
+    metrics = {"resume_s": {}, "log_rel_err": {}, "move_err_x_lr": {}}
+
+    def put(name, dtype=None):
+        x = torch.from_numpy(want[name]).to(device)
+        return x if dtype is None else x.to(dtype)
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def params(module):
+        return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+    def resumed(label, make, milestone):
+        trainer = make()
+        sync()
+        t = time.perf_counter()
+        start = trainer.load(milestone)
+        sync()
+        metrics["resume_s"][label] = time.perf_counter() - t
+        return trainer, start
+
+    reset_counts(kernels)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as work:
+        work = Path(work)
+        for name in ("ldm", "vqgan"):
+            shutil.copytree(fixture / name, work / name)
+        raw = json.loads((work / "ldm" / "model-1.config.json").read_text())
+        cfg = LDMConfig.from_dict({**raw, "results_folder":
+                                   str(work / "ldm")})
+        lat, lab = put("ldm_latents"), put("ldm_labels", torch.long)
+        t_draw, noise = put("ldm_t", torch.long), put("ldm_noise")
+        want_logs = {"loss": want["ldm_loss"],
+                     "grad_norm": want["ldm_grad_norm"]}
+        for mode in ("step", "scan"):
+            label = f"ldm_{mode}"
+            trainer, start = resumed(label, lambda: LatentDiffusionTrainer(
+                cfg, device=device, step_mode=mode), 1)
+            if start != int(want["ldm_start"]):
+                fail(f"{label} resumed at step {start}, JAX's trainer at "
+                     f"{int(want['ldm_start'])}")
+            before = (params(trainer.model), params(trainer.ema_model))
+            if mode == "step":
+                logs = [trainer.train_step(
+                    trainer.state, lat[i], lab[i], generator=trainer.generator,
+                    t=t_draw[i], noise=noise[i]) for i in range(len(lat))]
+                got = {k: [float(log[k]) for log in logs] for k in want_logs}
+            else:
+                logs = trainer.scan_step(
+                    trainer.state, lat, lab, generator=trainer.generator,
+                    t=t_draw, noise=noise)
+                got = {k: logs[k].float().cpu().tolist() for k in want_logs}
+            sync()
+            metrics["log_rel_err"][label] = _logs_within(label, got,
+                                                         want_logs)
+            metrics["move_err_x_lr"][label] = max(
+                _moves_within(torch, f"{label} params", before[0],
+                              params(trainer.model), want, "ldm_params.",
+                              cfg.train_lr)[0],
+                _moves_within(torch, f"{label} EMA", before[1],
+                              params(trainer.ema_model), want, "ldm_ema.",
+                              cfg.train_lr)[0])
+            if trainer.state.step != start + len(lat):
+                fail(f"{label}: step {trainer.state.step} after the steps")
+            del trainer, logs
+
+        raw = json.loads((work / "vqgan" / "vqgan-1.config.json"
+                          ).read_text())
+        vcfg = VQGANConfig.from_dict({**raw, "perceptual_weight": 0.0,
+                                      "results_folder": str(work / "vqgan")})
+        trainer, start = resumed("vqgan_split", lambda: VQGANTrainer(
+            vcfg, device=device, step_mode="split"), 1)
+        if start != int(want["vqgan_start"]):
+            fail(f"vqgan resumed at step {start}, JAX's trainer at "
+                 f"{int(want['vqgan_start'])}")
+        before = (params(trainer.vqvae), params(trainer.disc))
+        images = put("vqgan_images", torch.float32) / 255.0
+        logs = [trainer.dispatch_step(images[i], start + i)
+                for i in range(len(images))]
+        sync()
+        want_logs = {k[len("vqgan_log."):]: v for k, v in want.items()
+                     if k.startswith("vqgan_log.")
+                     and k != "vqgan_log.perceptual_loss"}
+        got = {k: [float(log[k]) for log in logs] for k in want_logs}
+        metrics["log_rel_err"]["vqgan_split"] = _logs_within(
+            "vqgan_split", got, want_logs)
+        (metrics["move_err_x_lr"]["vqgan_split"],
+         metrics["vqgan_moves_beyond"], metrics["vqgan_move_norm_share"]) = (
+            _moves_within(torch, "vqgan_split params", before[0],
+                          params(trainer.vqvae), want, "vqgan_params.",
+                          vcfg.learning_rate, miss=_RESUME_VQGAN_MISS,
+                          norm=_RESUME_VQGAN_NORM))
+        # disc_start lies past these steps: the discriminator stays put
+        if any(not torch.equal(v, trainer.disc.state_dict()[k])
+               for k, v in before[1].items()):
+            fail("vqgan_split: the discriminator moved before disc_start")
+        del trainer, logs
+    counts = read_counts(kernels)
+    metrics["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 8, resumed from the JAX milestones on {device}: resume "
+          f"seconds {json.dumps(metrics['resume_s'])}; largest relative "
+          f"log difference {json.dumps(metrics['log_rel_err'])} (rtol "
+          f"{_RESUME_RTOL}); largest update difference x lr "
+          f"{json.dumps(metrics['move_err_x_lr'])} (rule {_RESUME_MOVE} + "
+          f"fp16 rounding; the VQ-GAN's beyond it in "
+          f"{metrics['vqgan_moves_beyond']:.3%} of its elements, "
+          f"{metrics['vqgan_move_norm_share']:.3%} in norm); launches "
+          f"{counts}")
+    if torch.device(device).type == "cuda" and (
+            set(counts) != _RESUME_KEYS or not all(counts.values())):
+        fail(f"the resumed steps launched {counts}, expected each of "
+             f"{sorted(_RESUME_KEYS)}")
+    print(f"phase 8 resume seconds: {metrics['seconds']:.3f}")
+    return counts, metrics
+
+
+_START = time.perf_counter()
+
+
+def clock(label: str) -> None:
+    """The seconds since the script started, before `label`'s phase: the
+    run's timeline against its 1200 s limit."""
+    print(f"[clock] {time.perf_counter() - _START:.1f} s: {label}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -6082,9 +6322,11 @@ def main():
     if any(not hmma[source] for source in TENSOR_CORE_SOURCES):
         fail(f"{TENSOR_CORE_SOURCES} must run on the tensor cores: {hmma}")
 
+    clock("phase 3")
     rows = {**check_flash_fwd(torch, peaks, args.seed),
             **check_flash_bwd(torch, peaks, args.seed),
             **check_vq(torch, peaks, args.seed)}
+    clock("phase 4")
     check_small_pipeline(torch, KERNELS, args.seed)
     check_small_training(torch, KERNELS, args.seed)
     check_small_vqgan(torch, KERNELS, args.seed)
@@ -6093,10 +6335,13 @@ def main():
     check_small_dit_and_remat(torch, KERNELS, args.seed)
     check_small_ddpm_and_karras(torch, KERNELS, args.seed)
     check_small_diffusion_library(torch, KERNELS, args.seed)
+    clock("phase 4i")
     eager_rates = check_small_captured(torch, KERNELS, args.seed)
+    clock("phase 4j")
     check_small_sampler_graphs(torch, KERNELS, args.seed)
 
     if not args.kernels_only:
+        clock("phase 5")
         counts, rates = drive_main_path(torch, KERNELS, args.seed)
         print("samples/s (captured sampler): " + json.dumps(rates)
               + f"; phase 4i's DDIM-150 + decode at batch 16, eager and "
@@ -6109,18 +6354,23 @@ def main():
                           "stage2", "pixel", "library", "captured",
                           "scale_out", "tools"):
                 (work / phase).mkdir()
+            clock("phase 5b")
             train_counts, rate = drive_training(torch, KERNELS, args.seed,
                                                 work / "ldm")
             print(f"latents/s: {rate}")
+            clock("phase 5c")
             vq_counts, vq_rates = drive_vqgan_training(
                 torch, KERNELS, args.seed, work / "vqgan", jpeg)
             print("images/s: " + json.dumps(vq_rates))
+            clock("phase 5d")
             kl_counts, kl_rate = drive_kl_vae_slice(torch, KERNELS,
                                                     args.seed, work / "kl_vae")
             print(f"KL-VAE training images/s: {kl_rate}")
+            clock("phase 5e")
             gmm_counts, gmm_metrics = drive_gmm_classifier_slice(
                 torch, KERNELS, args.seed, work / "gmm")
             print("GMM / classifier / FID slice: " + json.dumps(gmm_metrics))
+            clock("phase 5f")
             serving_counts, serving_metrics = drive_serving(
                 torch, KERNELS, args.seed, work / "serving", card,
                 ldm_results=work / "ldm" / "results",
@@ -6129,39 +6379,53 @@ def main():
                 kl_ckpt=work / "kl_vae" / "kl_vae" / "kl_vae-2.pt",
                 images=work / "kl_vae" / "images", generate_rates=rates)
             print("serving slice: " + json.dumps(serving_metrics))
+            clock("phase 5g")
             stage2_counts, stage2_metrics = drive_stage2_rest(
                 torch, KERNELS, args.seed, work / "stage2", work / "ldm",
                 card)
             print("stage-2 rest: " + json.dumps(stage2_metrics))
+            clock("phase 5h")
             pixel_counts, pixel_metrics = drive_pixel_diffusion(
                 torch, KERNELS, args.seed, work / "pixel", card, jpeg)
             print("pixel-space diffusion: " + json.dumps(pixel_metrics))
+            clock("phase 5l")
             input_counts, input_metrics = drive_input_pipeline(
                 torch, KERNELS, args.seed, work / "vqgan", work / "ldm",
                 work / "kl_vae" / "kl_vae" / "kl_vae-2.pt",
                 work / "kl_vae" / "images", card, jpeg)
             print("input pipeline: " + json.dumps(input_metrics))
+            clock("phase 5i")
             library_counts, library_metrics = drive_diffusion_library(
                 torch, KERNELS, args.seed, work / "library", card)
             print("diffusion library: " + json.dumps(library_metrics))
+            clock("phase 5j")
             captured_counts, captured_metrics = drive_captured_training(
                 torch, KERNELS, args.seed, work / "captured", work / "ldm",
                 work / "vqgan", card)
             print("captured training: " + json.dumps(captured_metrics))
+            clock("phase 5k")
             sampler_counts, sampler_metrics = drive_sampler_graphs(
                 torch, KERNELS, args.seed, card)
             print("captured samplers: " + json.dumps(sampler_metrics))
+            clock("phase 6")
             scale_counts, scale_rows, scale_metrics = drive_scale_out(
                 torch, KERNELS, peaks, args.seed, work / "ldm",
                 work / "vqgan", work / "scale_out", card)
             rows.update(scale_rows)
             print("scale-out: " + json.dumps(scale_metrics))
+            clock("phase 7")
             tool_metrics = drive_measurement_tools(
                 torch, KERNELS, work / "tools", card)
             print("measurement tools: " + json.dumps(tool_metrics))
+        clock("phase 8")
         fixture_counts, fixture_metrics = check_jax_fixture(
             torch, KERNELS, "cuda")
         print(f"JAX fixture ({card}): " + json.dumps(fixture_metrics))
+        resume_counts, resume_metrics = check_jax_resume(torch, KERNELS,
+                                                         "cuda")
+        print(f"JAX resume ({card}): " + json.dumps(resume_metrics))
+        for key, n in resume_counts.items():
+            fixture_counts[key] = fixture_counts.get(key, 0) + n
         for key, n in [*train_counts.items(), *vq_counts.items(),
                        *kl_counts.items(), *gmm_counts.items(),
                        *serving_counts.items(), *stage2_counts.items(),
@@ -6176,6 +6440,7 @@ def main():
                 fail(f"main-path shape {row['shape']} never reached "
                      f"{row['name']}: {counts}")
 
+    clock("phase 9")
     for row in rows.values():
         del row["key"]
     print(json.dumps({"kernels": list(rows.values())}))

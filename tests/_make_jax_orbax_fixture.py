@@ -28,6 +28,24 @@ Runs with JAX on the CPU (8 virtual devices, as the tests). Writes:
   gap between each row's nearest and second-nearest codebook distance as a
   share of |z|^2 + |e|^2.
 
+- `resume_expected.npz`: the JAX trainers resumed from `ldm/model-1/`
+  and `vqgan/vqgan-1/` by their own `load`, two steps each on batches
+  drawn from a numpy seed: the LDM's batches, the `t` and noise its steps
+  drew (replayed from its PRNG key, and checked against the step's loss),
+  each step's loss and gradient norm; the VQ-GAN's uint8 images, each
+  step's scalar logs. The VQ-GAN resumes at perceptual weight 0: its
+  LPIPS network is a random initialisation (no weights in the
+  checkpoint), which the port cannot rebuild without JAX. Each
+  parameter's update after - before, over the learning rate, in the
+  port's names and layout, as float16: the rule that `chip_smoke.py`
+  applies is |port update / lr - stored| <= 0.05 + 2^-11 |stored| (the
+  tests' 0.05 x lr, plus float16's rounding of the stored value).
+
+    JAX_PLATFORMS=cpu python tests/_make_jax_orbax_fixture.py --resume_only
+
+writes only `resume_expected.npz`, from the committed milestones, which
+stay byte for byte.
+
 The whole directory stays under 2 MB. The tests read it with `orbax` and
 with the port and hold the two equal, so a fixture that no longer matches
 its checkpoints fails; `chip_smoke.py` (phase 8) runs it on the card.
@@ -59,6 +77,8 @@ VQGAN = dict(image_size=32, ch=8, ch_mult=(1, 2), num_res_blocks=1,
              disc_n_layers=2, compute_dtype="float32", batch_size=8, seed=0)
 BATCH = 3
 SEED = 20
+RESUME_SEED = 21
+RESUME_STEPS = 2
 
 
 def _copy_milestone(src: Path, dst: Path, prefix: str, milestone: int):
@@ -71,9 +91,125 @@ def _copy_milestone(src: Path, dst: Path, prefix: str, milestone: int):
             shutil.copy2(src / name, dst / name)
 
 
+def _updates(port_state, before, after, lr: float, prefix: str) -> dict:
+    """Each parameter's (after - before) / lr in the port's names, fp16."""
+    import numpy as np
+
+    a, b = port_state(after), port_state(before)
+    return {f"{prefix}.{k}": ((a[k].double() - b[k].double()) / lr).numpy()
+            .astype(np.float16) for k in a}
+
+
+def write_resume_expected(out: Path) -> dict:
+    """resume_expected.npz from the milestones under `out` (see the module
+    docstring); returns its arrays."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from vqgan_tpu.configs import LDMConfig, VQGANConfig
+    from vqgan_tpu.training.ldm_trainer import LatentDiffusionTrainer
+    from vqgan_tpu.training.vqgan_trainer import VQGANTrainer
+    from vqgan_tpu_torch.checkpoint.from_jax import (
+        cfg_unet_state_from_jax,
+        vqvae_state_from_jax,
+    )
+
+    rng = np.random.default_rng(RESUME_SEED)
+    want = {}
+    here = Path.cwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)
+        # --- the LDM trainer, resumed ------------------------------------
+        shutil.copytree(out / "ldm", tmp / "ldm")
+        cfg = LDMConfig(results_folder="ldm", **LDM)
+        trainer = LatentDiffusionTrainer(cfg)
+        start = trainer.load(1)
+        before = jax.device_get(trainer.state)
+        shape = (cfg.train_batch_size, cfg.latent_size, cfg.latent_size,
+                 cfg.latent_channels)
+        rows = {k: [] for k in ("latents", "labels", "t", "noise", "loss",
+                                "grad_norm")}
+        for i in range(RESUME_STEPS):
+            latents = rng.standard_normal(shape).astype(np.float32)
+            labels = rng.integers(0, cfg.num_users, shape[0], dtype=np.int32)
+            # the draws of the JAX step (ldm_step: fold_in(rng, step), then
+            # GaussianDiffusion.loss's split and p_losses' split)
+            key = jax.random.fold_in(trainer._rng, start + i)
+            k_t, k_p = jax.random.split(key)
+            t = jax.random.randint(k_t, (shape[0],), 0, cfg.timesteps)
+            noise = jax.random.normal(jax.random.split(k_p, 3)[0], shape,
+                                      jnp.float32)
+            replayed = trainer.diffusion.p_losses(
+                trainer.state.params, k_p,
+                trainer.diffusion.normalize(jnp.asarray(latents)), t,
+                jnp.asarray(labels), noise=noise,
+                cond_drop_prob=cfg.cond_drop_prob)
+            trainer.state, log = trainer.train_step(
+                trainer.state, trainer._put(jnp.asarray(latents)),
+                trainer._put(jnp.asarray(labels)), trainer._rng)
+            log = {k: float(v) for k, v in jax.device_get(log).items()}
+            assert abs(float(replayed) - log["loss"]) <= 1e-5 * log["loss"], \
+                (float(replayed), log["loss"])
+            for k, v in (("latents", latents), ("labels", labels),
+                         ("t", np.asarray(t)), ("noise", np.asarray(noise)),
+                         ("loss", log["loss"]),
+                         ("grad_norm", log["grad_norm"])):
+                rows[k].append(v)
+        after = jax.device_get(trainer.state)
+        want.update({f"ldm_{k}": np.asarray(v) for k, v in rows.items()})
+        want["ldm_start"] = np.asarray(start)
+        want.update(_updates(cfg_unet_state_from_jax, before.params,
+                             after.params, cfg.train_lr, "ldm_params"))
+        want.update(_updates(cfg_unet_state_from_jax, before.ema_params,
+                             after.ema_params, cfg.train_lr, "ldm_ema"))
+
+        # --- the VQ-GAN trainer, resumed ----------------------------------
+        shutil.copytree(out / "vqgan", tmp / "vqgan")
+        vcfg = VQGANConfig(results_folder="vqgan", perceptual_weight=0.0,
+                           **VQGAN)
+        vtrainer = VQGANTrainer(vcfg)
+        vstart = vtrainer.load(1)
+        vbefore = jax.device_get(vtrainer.state)
+        images, logs = [], []
+        for i in range(RESUME_STEPS):
+            x = rng.integers(0, 256, (vcfg.batch_size, vcfg.image_size,
+                                      vcfg.image_size, 3), dtype=np.uint8)
+            vtrainer.state, log = vtrainer.dispatch_step(
+                vtrainer.state,
+                vtrainer._put(jnp.asarray(x.astype(np.float32) / 255.0)),
+                vstart + i)
+            images.append(x)
+            logs.append({k: float(v) for k, v in jax.device_get(log).items()
+                         if np.ndim(v) == 0})
+        vafter = jax.device_get(vtrainer.state)
+        want["vqgan_images"] = np.stack(images)
+        want["vqgan_start"] = np.asarray(vstart)
+        for k in logs[0]:
+            want[f"vqgan_log.{k}"] = np.asarray([log[k] for log in logs])
+        want.update(_updates(vqvae_state_from_jax, vbefore.vqvae_params,
+                             vafter.vqvae_params, vcfg.learning_rate,
+                             "vqgan_params"))
+        os.chdir(here)
+    np.savez_compressed(out / "resume_expected.npz", **want)
+    return want
+
+
+def _check_size(out: Path) -> None:
+    total = sum(p.stat().st_size for p in out.rglob("*") if p.is_file())
+    print(f"{out}: {total} bytes in "
+          f"{sum(1 for p in out.rglob('*') if p.is_file())} files")
+    if total > 2 * 2**20:
+        raise SystemExit(f"the fixture is {total} bytes, over 2 MiB")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=str(FIXTURE))
+    ap.add_argument("--resume_only", action="store_true",
+                    help="write only resume_expected.npz, from the "
+                         "milestones already under --out")
     args = ap.parse_args(argv)
 
     flags = os.environ.get("XLA_FLAGS", "")
@@ -87,6 +223,11 @@ def main(argv=None):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "highest")
     sys.path.insert(0, str(REPO))
+    out = Path(args.out).resolve()
+    if args.resume_only:
+        write_resume_expected(out)
+        _check_size(out)
+        return
     from vqgan_tpu.checkpoint import CheckpointManager
     from vqgan_tpu.configs import LDMConfig, VQGANConfig
     from vqgan_tpu.models import KLVAE, VQVAE
@@ -94,7 +235,6 @@ def main(argv=None):
     from vqgan_tpu.training.ldm_trainer import LatentDiffusionTrainer
     from vqgan_tpu.training.vqgan_trainer import VQGANTrainer
 
-    out = Path(args.out).resolve()
     if out.exists():
         shutil.rmtree(out)
     out.mkdir(parents=True)
@@ -208,12 +348,10 @@ def main(argv=None):
         "vqgan_milestone": 1, "cond_scale": cfg.cond_scale,
         "rescaled_phi": cfg.rescaled_phi,
         "written_by": "tests/_make_jax_orbax_fixture.py"}, indent=2))
-    total = sum(p.stat().st_size for p in out.rglob("*") if p.is_file())
-    print(f"wrote {out}: {total} bytes in "
-          f"{sum(1 for p in out.rglob('*') if p.is_file())} files; "
-          f"smallest relative VQ distance gap {expected['vq_gap'].min():.3e}")
-    if total > 2 * 2**20:
-        raise SystemExit(f"the fixture is {total} bytes, over 2 MiB")
+    print(f"smallest relative VQ distance gap "
+          f"{expected['vq_gap'].min():.3e}")
+    write_resume_expected(out)
+    _check_size(out)
 
 
 if __name__ == "__main__":

@@ -689,3 +689,32 @@ def layer_by_layer(rank, world, runs, scatter_input):
     finally:
         comm.capturing = capturing
     return out
+
+
+def resumed_steps(rank, world, cfg_kwargs, mode, min_size, batches, draws):
+    """The port's LDM trainer under `mode` (FSDP cutoff `min_size`)
+    resumed from the milestone in its results folder (a JAX train state),
+    then one step per batch of `batches` (the global batch, this rank
+    taking its rows) with the global draws `draws` ((t, noise) per step).
+    Returns {"start", "step", "split" (how many parameters are split),
+    "logs", "model", "ema"} (the whole tensors after the steps)."""
+    from vqgan_tpu_torch.configs.ldm_config import LDMConfig
+    from vqgan_tpu_torch.parallel.mesh import local_rows
+    from vqgan_tpu_torch.training.ldm_trainer import LatentDiffusionTrainer
+
+    tr = LatentDiffusionTrainer(LDMConfig.from_dict(cfg_kwargs),
+                                device="cpu", param_sharding=mode,
+                                fsdp_min_size=min_size)
+    start = tr.load()
+    logs = []
+    for (latents, labels), (t, noise) in zip(batches, draws):
+        log = tr.train_step(
+            tr.state, local_rows(torch.from_numpy(latents), tr.mesh),
+            local_rows(torch.from_numpy(labels), tr.mesh).long(),
+            generator=tr.generator, t=torch.from_numpy(t).long(),
+            noise=torch.from_numpy(noise))
+        logs.append({k: float(v) for k, v in log.items()})
+    after = tr.placed.state_dict()
+    return {"start": start, "step": tr.state.step,
+            "split": len(tr.placed.split_params), "logs": logs,
+            "model": after["model"], "ema": after["ema"]}

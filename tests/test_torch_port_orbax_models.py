@@ -19,7 +19,9 @@
   the shared loaders; `generate` and `diagnose_latent_range` run through.
 - The committed fixture (tests/fixtures/jax_orbax/) through phase 8 of
   chip_smoke.py on the CPU, against the JAX outputs it stores.
-- `--resume` refuses a JAX milestone; a milestone in both forms raises.
+- `CheckpointManager.restore` of a JAX milestone, given the port's train
+  state, yields that state's own `state_dict()` form; a milestone in both
+  forms raises.
 """
 
 import dataclasses
@@ -54,7 +56,9 @@ from vqgan_tpu_torch.checkpoint.from_jax import (
 )
 from vqgan_tpu_torch.checkpoint.load import load_vqvae
 from vqgan_tpu_torch.checkpoint.orbax import read_orbax
+from vqgan_tpu_torch.configs import LDMConfig
 from vqgan_tpu_torch.data.datasets import load_image
+from vqgan_tpu_torch.training.ldm_trainer import LatentDiffusionTrainer
 
 torch.set_num_threads(4)
 
@@ -391,12 +395,27 @@ def test_committed_fixture_through_phase_8_on_the_cpu():
     assert metrics["vq_index_flips"] == 0
 
 
-def test_resume_refuses_a_jax_milestone_and_both_forms_raise(dirs, tmp_path):
-    ckpt = CheckpointManager(dirs["unet"][0], prefix="model")
+def test_resume_yields_the_port_state_of_a_jax_milestone_and_both_forms_raise(
+        dirs, tmp_path):
+    root, _, cfg, ema = dirs["unet"]
+    ckpt = CheckpointManager(root, prefix="model")
     assert ckpt.all_milestones() == [1] and ckpt.latest_milestone() == 1
-    assert ckpt.checked_path() == dirs["unet"][0] / "model-1"
-    with pytest.raises(ValueError, match="optax .* not ported yet"):
-        ckpt.restore()
+    assert ckpt.checked_path() == root / "model-1"
+    with pytest.raises(ValueError, match=r"restore\(state=\)"):
+        ckpt.restore()  # a JAX train state needs the port state it resumes
+    trainer = LatentDiffusionTrainer(LDMConfig.from_dict(
+        {**dataclasses.asdict(cfg), "results_folder": str(root)}),
+        device="cpu")
+    got = ckpt.restore(state=trainer.state)
+    mine = trainer.state.state_dict()
+    assert got.keys() == mine.keys() and got["step"] == 5
+    for part in ("model", "ema"):
+        assert got[part].keys() == mine[part].keys()
+    assert torch.equal(got["ema"]["init_conv.weight"],
+                        cfg_unet_state_from_jax(ema)["init_conv.weight"])
+    assert got["optimizer"]["count"] == 0  # the state's optax.init
+    trainer.state.load_state_dict(got)
+    assert trainer.state.step == 5
     both = CheckpointManager(tmp_path, prefix="model")
     (tmp_path / "model-2").mkdir()
     torch.save({}, tmp_path / "model-2.pt")

@@ -7,8 +7,9 @@ optimizer state), its config `{prefix}-{m}.config.json`, and the pointer
 directories `{prefix}-{m}/` in the same place with the same config and
 pointer files; they count as milestones here, and `checked_path` returns
 such a directory, which `load.load_weights` reads. `restore`, the
-trainers' resume, refuses one: mapping the JAX package's optax state onto
-the port's optimizers is not ported yet.
+trainers' resume, reads one given the train state it resumes: the JAX
+train state (its optax state included) comes back in that state's own
+`state_dict()` form (`train_state.train_state_from_jax`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,9 @@ from pathlib import Path
 from typing import Any, Dict, Optional
 
 import torch
+
+from .orbax import is_orbax_checkpoint, read_orbax
+from .train_state import train_state_from_jax
 
 __all__ = ["CheckpointManager"]
 
@@ -95,17 +99,24 @@ class CheckpointManager:
             raise FileNotFoundError(path)
         return path
 
-    def restore(self, milestone: Optional[int] = None,
-                map_location="cpu") -> Dict[str, Any]:
-        """The state saved at `milestone` (the latest when None)."""
+    def restore(self, milestone: Optional[int] = None, map_location="cpu",
+                state=None) -> Dict[str, Any]:
+        """The state saved at `milestone` (the latest when None). An Orbax
+        directory of the JAX package comes back as `state.state_dict()`
+        would give it: `state` is the train state that resumes it (an
+        `LDMTrainState`, `VQGANTrainState` or `ShardedState`), and the
+        call raises without one, or for a directory Orbax did not write."""
         path = self.checked_path(milestone)
         if path.is_dir():
-            raise ValueError(
-                f"{path} is an Orbax checkpoint of the JAX package: the port "
-                f"loads its weights (generate --checkpoint, load_weights), "
-                f"but resuming training from a JAX train state (its optax "
-                f"state onto the port's optimizers) is not ported yet; see "
-                f"ROADMAP.md")
+            if not is_orbax_checkpoint(path):
+                raise ValueError(f"{path} is a directory but not an Orbax "
+                                 f"checkpoint (no _METADATA)")
+            if state is None:
+                raise ValueError(
+                    f"{path} is an Orbax checkpoint of the JAX package: "
+                    f"restore(state=) maps its train state onto the port "
+                    f"state that resumes it")
+            return train_state_from_jax(read_orbax(path), state)
         return torch.load(path, map_location=map_location, weights_only=True)
 
     def load_config(self, milestone: Optional[int] = None) -> Optional[Dict]:

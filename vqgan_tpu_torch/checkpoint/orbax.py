@@ -7,8 +7,9 @@ KL-VAE parameters of its `train_kl_vae`) holds:
 
 - `_METADATA`, JSON: each leaf's key path (`key_type` 1 for a sequence
   index, 2 for a dict key or attribute name) and its value type
-  ("jax.Array", "np.ndarray" and "scalar" are arrays; "None", "Dict" and
-  "List" are a None, {} or [] that has no data), and the storage flags
+  ("jax.Array", "np.ndarray" and "scalar" are arrays; "None", "Dict",
+  "List" and "Tuple" are a None, {}, [] or () that has no data, such as
+  optax.MultiSteps' empty `skip_state`), and the storage flags
   `use_ocdbt` and `use_zarr3`;
 - an OCDBT database (`ocdbt.OcdbtReader`) of zarr v2 arrays: leaf
   `a.b.0` has the metadata `a.b.0/.zarray` and its chunks `a.b.0/i.j`,
@@ -39,7 +40,7 @@ from .ocdbt import OcdbtReader
 __all__ = ["is_orbax_checkpoint", "read_orbax", "top_level_keys"]
 
 _ARRAYS = ("jax.Array", "np.ndarray", "scalar")
-_EMPTY = {"None": lambda: None, "Dict": dict, "List": list}
+_EMPTY = {"None": lambda: None, "Dict": dict, "List": list, "Tuple": list}
 _SEQUENCE, _DICT = 1, 2
 
 

@@ -12,7 +12,9 @@ exact assignment on the host, as the JAX CLI's default), offset noise, and
 FID at each milestone with best/latest-only retention.
 `--inception_weights` is a torchvision / pytorch-fid InceptionV3 state
 dict (`.pt`); without it the FID uses a random-init Inception and is not
-calibrated.
+calibrated. `--resume` takes the port's `model-{m}.pt` and the JAX
+package's Orbax `model-{m}/` alike (its optax state mapped onto the
+port's optimizer), printing the step.
 
 Under torchrun each process takes one GPU and joins an NCCL group (gloo
 with `--device cpu`), and the trainer is data parallel over the ranks, as
@@ -63,7 +65,9 @@ def parse_args(argv=None):
                     help="torchvision / pytorch-fid InceptionV3 state dict "
                          "(.pt)")
     ap.add_argument("--resume", type=int, default=None,
-                    help="milestone to resume from; -1 for the latest")
+                    help="milestone to resume from (a .pt file of the port "
+                         "or an Orbax directory of the JAX package); -1 "
+                         "for the latest")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)

@@ -16,6 +16,11 @@ from the cache are encoded and every checkpoint comes with a sample grid.
 CUDA graphs (the JAX package's one-program scan); `auto` (the default)
 picks it for runs of 1000 steps or more, as the JAX CLI does, and the
 eager `step` mode otherwise.
+`--resume` takes the port's `model-{m}.pt` milestones and the JAX
+package's Orbax milestones `model-{m}/` alike: the JAX train state (step,
+weights, EMA, optax's Adam moments and counts, a MultiSteps accumulator)
+is mapped onto this trainer's optimizer in any step and sharding mode,
+and the step printed is the JAX step; the noise stream is the port's own.
 
 `--param_sharding` is the JAX CLI's flag with its choices: "replicated"
 (data parallel), "zero1", "fsdp", "tp" or "fsdp_tp" (parallel/fsdp.py).
@@ -62,7 +67,9 @@ def parse_args(argv=None):
     ap.add_argument("--train_num_steps", type=int, default=None)
     ap.add_argument("--train_batch_size", type=int, default=None)
     ap.add_argument("--resume", type=int, default=None,
-                    help="milestone to resume from; -1 for the latest")
+                    help="milestone to resume from (a .pt file of the port "
+                         "or an Orbax directory of the JAX package); -1 "
+                         "for the latest")
     ap.add_argument("--model_type", choices=("unet", "dit"), default=None,
                     help="denoiser backbone: the CFG U-Net (default) or the "
                          "DiT transformer (models/dit.py)")

@@ -18,6 +18,9 @@ pass. `--pretrained_vae_path` is a KL-VAE state dict (`.pt`) or an Orbax
 directory of the JAX package, read as
 `train_latent_cfg --vae_path` reads one: with it, every milestone writes a
 sample grid, and latents missing from the cache are encoded.
+`--resume_from_checkpoint` resumes a milestone of the port or of the JAX
+package (an Orbax `model-{m}/`, its optax state mapped onto the port's
+optimizer), printing the step it resumes at.
 
 Runs on the GPU by default (`--device cpu` to run on the CPU), with TF32
 off for fp32 matmuls and convolutions.
@@ -61,7 +64,9 @@ def parse_args(argv=None):
     ap.add_argument("--num_inference_steps", type=int, default=100)
     ap.add_argument("--checkpointing_steps", type=int, default=500)
     ap.add_argument("--resume_from_checkpoint", default=None,
-                    help="'latest' or a milestone number")
+                    help="'latest' or a milestone number (a .pt file "
+                         "of the port or an Orbax directory of the JAX "
+                         "package)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--dim_mults", default="1,2,4,4",
                     help="csv per-level width multipliers")

@@ -15,6 +15,9 @@ the JAX CLI's `.npz` of exported weights: torchvision VGG16 tensors under
 card) or `scan` (`--scan_block` steps per dispatch, CUDA graphs on the
 card); `auto` (the default) gives `scan` from 1000 steps and `split`
 below. The JAX CLI's `--fast_compile` tunes XLA and has no counterpart.
+`--resume` takes the port's `vqgan-{m}.pt` and the JAX package's Orbax
+`vqgan-{m}/` alike (both optax states mapped onto the port's optimizers,
+the discriminator's BatchNorm statistics with it), printing the step.
 
 Under torchrun each process takes one GPU and joins an NCCL group (gloo
 with `--device cpu`), and the trainer is data parallel over the ranks, as
@@ -54,7 +57,9 @@ def parse_args(argv=None):
                     dest="save_and_sample_every",
                     help="checkpoint + reconstruction-grid cadence in steps")
     ap.add_argument("--resume", type=int, default=None,
-                    help="milestone to resume from; -1 for the latest")
+                    help="milestone to resume from (a .pt file of the port "
+                         "or an Orbax directory of the JAX package); -1 "
+                         "for the latest")
     ap.add_argument("--revive_dead_codes_every", type=int, default=None,
                     help="re-anchor codes unused for this many steps to "
                          "random encoder outputs (0 or unset: off)")

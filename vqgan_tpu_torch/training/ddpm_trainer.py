@@ -307,7 +307,11 @@ class Trainer:
             self.ckpt.save(milestone, self.state.state_dict(), config=config)
 
     def load(self, milestone: Optional[int] = None) -> int:
-        """Resume from `milestone` (the latest when None); returns the
-        step. On a mesh every rank reads the same checkpoint."""
-        self.state.load_state_dict(self.ckpt.restore(milestone))
+        """Resume from `milestone` (the latest when None): a `.pt` file of
+        the port, or a JAX package's Orbax milestone `model-{m}/` of a
+        model family with a converter (`checkpoint.load.jax_state_for`;
+        another raises TypeError). Returns the step. On a mesh every rank
+        reads the same checkpoint."""
+        self.state.load_state_dict(self.ckpt.restore(milestone,
+                                                     state=self.state))
         return self.state.step

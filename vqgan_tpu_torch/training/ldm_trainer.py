@@ -454,9 +454,12 @@ class LatentDiffusionTrainer:
             out / f"sample-{milestone}.png")
 
     def load(self, milestone: Optional[int] = None) -> int:
-        """Resume from `milestone` (the latest when None); returns the step.
-        On a mesh each rank reads the whole state and keeps its pieces."""
-        full = self.ckpt.restore(milestone)
+        """Resume from `milestone` (the latest when None): a `.pt` file of
+        the port, or a JAX package's Orbax milestone `model-{m}/` (its
+        optax state mapped onto this trainer's optimizer, whatever the
+        step mode). Returns the step. On a mesh each rank reads the whole
+        state and keeps its pieces."""
+        full = self.ckpt.restore(milestone, state=self.placed or self.state)
         if self.placed is not None:
             self.placed.load_state_dict(full)
         else:

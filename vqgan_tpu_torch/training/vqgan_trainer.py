@@ -436,7 +436,11 @@ class VQGANTrainer:
         Image.fromarray(grid).save(out / f"reconstruction-{milestone}.png")
 
     def load(self, milestone: Optional[int] = None) -> int:
-        """Resume from `milestone` (the latest when None); returns the step.
-        On a mesh every rank reads the same checkpoint."""
-        self.state.load_state_dict(self.ckpt.restore(milestone))
+        """Resume from `milestone` (the latest when None): a `.pt` file of
+        the port, or a JAX package's Orbax milestone `vqgan-{m}/` (both
+        optax states mapped onto this trainer's optimizers, whatever the
+        step mode). Returns the step. On a mesh every rank reads the same
+        checkpoint."""
+        self.state.load_state_dict(self.ckpt.restore(milestone,
+                                                     state=self.state))
         return self.state.step
