@@ -123,7 +123,8 @@ Phases, in order; any failure exits non-zero:
    split steps, held as 4c holds; DDIM-150 + decode at LDMConfig's full
    width, batch 16, cond_scale 1 and 3, the captured sampler (one step's
    graph replayed per step) against the eager loop (images within 1e-5 of the largest; 151 forwards per batch
-   either way), timed in turns. Every launch gate counts through the
+   either way), timed in turns (eager, captured; the pass back cut to
+   pay for phase 6's TP serving). Every launch gate counts through the
    replays.
 5. Drive generation, `python -m vqgan_tpu_torch.generate`, at full width
    with seeded random weights: LDMConfig defaults (dim 96, mults 1-2-4-4,
@@ -202,23 +203,28 @@ Phases, in order; any failure exits non-zero:
    encode and PCA + GMM seconds per user, the users that fell back to
    diagonal covariances, classifier training images/s over epoch 2 (and
    the loader's alone, and the step's on a batch resident on the card),
-   Inception images/s, the FIDs and the phase's seconds.
+   Inception images/s, the FIDs and the phase's seconds. Runs in a
+   process of its own (`PhaseProcess`) beside 5f and 5g, joined after 5g.
 5f. Drive the serving path at full width through its entry points, from
    the checkpoints of 5b (LDM, with its seeded KL-VAE), 5c (VQ-GAN) and
    5d (KL-VAE): `export_serving --selftest` at batch 16, cond_scale 1.0
    and 3.0 / rescaled_phi 0.7 (artifact vs live pipeline within rtol
    1e-4, atol 1e-5; 151 flash forwards per generated batch, counted
    through the operators, and no other launch); one DDIM step timed in
-   turns as the live module, as the served program and as the program
-   with the no-op nodes `torch.export` keeps (one forward launch each);
+   turns (2 of 10 steps, cut from 3 of 20 to pay for phase 6's TP
+   serving) as the live module, as the served program and as the program
+   with the no-op nodes `torch.export` keeps (one forward launch each),
+   the live pipeline loaded once for it and the next;
    two live decodes of one batch, which must agree bit for bit with cuDNN
    held to deterministic algorithms (the selftests run so);
    one batch of 16 from the live sampler and from the served one, each
    eager and captured, in one pass of turns (images within 1e-5, 151
    forwards each; the pass back was cut to pay for phase 6's trainers);
-   `serve_generate` of 1 user x 16 (the JPG layout, finite images); `serve_http --port 0` in a
-   subprocess (/healthz warm, POSTs of 2 images returning 256 x 256 JPEGs,
-   user_id 0 answered 400); the VQ codec of 5c's milestone at batch 8
+   `serve_generate` of 1 user x 16 (the JPG layout, finite images);
+   `serve_http --port 0` in a subprocess, started as the cond_scale 3.0
+   export begins and answered and stopped as it ends, before anything is
+   timed (/healthz warm, 2 POSTs of 2 images returning 256 x 256 JPEGs,
+   cut from 3; user_id 0 answered 400); the VQ codec of 5c's milestone at batch 8
    (`--mode vq_codec --selftest`: indices equal to the live codec's; 1 VQ
    launch at [8192,256]x[128,256] and 1 forward at [8,1024,1,512] bf16 per
    encode, 1 forward per decode), its encode and decode timed; and
@@ -274,7 +280,7 @@ Phases, in order; any failure exits non-zero:
    of their indices and repeat across two rings of one seed;
    `debug_ldm_pipeline` on 5d's KL-VAE milestone and images (1 forward at
    [1,1024,1,512] and 4 at [8,1024,1,512] fp32); one A/B in turns
-   (python, native, native, python) of 5g's Diffusers-style trainer
+   (python, native; the pass back cut for phase 6) of 5g's Diffusers-style trainer
    (batch 24, no VAE, 20 steps, 1 launch of each flash kernel per step at
    [24,16,8,32]): the BatchLoader with a synchronous copy against the
    native latent reader with prefetch, latents/s. Each number beside the
@@ -316,7 +322,7 @@ Phases, in order; any failure exits non-zero:
    by 16); then the eager and captured modes' latents/s and images/s in
    turns, with each graph's capture seconds and pool bytes: each run 16
    steps, 8 timed after 8 (cut from 32 to keep the smoke within its
-   time).
+   time), one pass of each sequence (the pass back cut for phase 6).
 4j. The captured samplers (one step's CUDA graph replayed per step;
    cudnn.deterministic pinned) at 4g-4h's tiny widths, fp32: the
    ancestral sampler (CFG U-Net at cond_scale 3; a self-conditioned DDPM
@@ -355,7 +361,9 @@ Phases, in order; any failure exits non-zero:
    decode: 4 x (150 + 1) forwards), its JSON line printed. Prints each
    path's eager and captured samples/s, capture seconds and pool bytes.
    Phases 5g, 5h and 5i sample through the graphs too (the samplers'
-   default on the card), their launch gates unchanged.
+   default on the card), their launch gates unchanged. 5h and 5i each run
+   in a process of their own (`PhaseProcess`) beside 5j and 5k, started
+   after 5l (whose loaders' rates run alone) and joined after 5k.
 6. Scale-out (`drive_scale_out`): before the group, `train_vqgan`
    (split), `train_kl_vae` and `train_ddpm --self_condition --immiscible`
    at full width and a rank's batch of a world of 4 (2, 2 and 4), the
@@ -373,13 +381,32 @@ Phases, in order; any failure exits non-zero:
    [2,4096,8,64] bf16 over 4 blocks (held to the whole-sequence flash
    attention, the plain version and fp64) and [2,1024,2,64] fp32 over 8
    (held to `sdpa_reference`), with the kernels' rows at the block
-   shapes; `dryrun_multichip` at the card's world size, then at 2 ranks
-   sharing the card over gloo; then `train_latent_cfg` at full width on 2
-   gloo ranks sharing the card, `--param_sharding fsdp` against
+   shapes; `dryrun_multichip` at the card's world size; and on 2 gloo
+   ranks sharing the card (`start_two_ranks`, which run beside this
+   process's trainers above and are joined before the ring's timed rows),
+   `train_latent_cfg` at full width, `--param_sharding fsdp` against
    `replicated`, _GLOO2_STEPS eager steps each: each rank's bytes
    allocated at the last step's start (resident) and at its peak, fsdp's
    resident at most _GLOO2_RESIDENT_SHARE of replicated's, the weights
-   within the norm rule of replicated's.
+   within the norm rule of replicated's, then on the same ranks the dry
+   run at n = 2 (what `dryrun_multichip(2)` runs on each rank; it fails on
+   any check skipped). Tensor-parallel serving: from
+   5b's checkpoint, the step and decode exported at batch 16 with every
+   TP kernel split (`tp_param_specs`: the U-Net's 54 to_qkv, to_q, to_k,
+   to_v and to_out kernels; the KL-VAE's attention names match no TP key,
+   so the decode stays whole, as in JAX) at model 2 (cond_scale 3.0, the
+   first _TP_CHAIN DDIM pairs) and at model 1 (cond_scale 1.0, DDIM-150);
+   on the NCCL group of world 1 the model-1 artifact (each gather over a
+   group of one, captured with the step) against 5f's data-only one,
+   captured, _TP_TURNS calls each in turns (151 forwards per call, the
+   images within the tests' rule); on the same 2 gloo ranks as the fsdp
+   run, the model-2 artifact against 5f's cond_scale 3.0 artifact of whole
+   weights (its chain cut to the same pairs), eagerly: each rank's images
+   within rtol 1e-4, atol 1e-5 of the whole-weight ones and equal on both
+   ranks, _TP_CHAIN + 1 forwards per call at shapes phase 3 holds (added
+   to the kernels' line), its split kernels' pieces half their whole
+   bytes, graph=True refused over gloo. Steps cut to pay for it:
+   _SCAN_STEPS 12 -> 8, _GLOO2_STEPS 3 -> 2.
 7. The FLOP accounting and the roofline tools (`drive_measurement_tools`):
    each operator's registered FLOP formula (`utils/flops.py`) equal to the
    counter's count of its plain version on the card, at one shape each;
@@ -421,7 +448,11 @@ Phases, in order; any failure exits non-zero:
 9. Print the kernels' JSON line, then the card line, then the device line.
 
 A `[clock]` line before each phase gives the seconds since the start: the
-run's timeline against the 1200 s it may take.
+run's timeline against the 1200 s it may take. Phases 5e, 5h and 5i and
+phase 6's two gloo ranks run beside the main process, so the host-timed
+numbers of the phases they run beside are taken with a neighbour on the
+card and the host; the kernels' rows (phases 3 and 6's ring) and phase
+6's world-1 serving turns are timed with none.
 """
 
 from __future__ import annotations
@@ -1714,8 +1745,8 @@ def ddim_captured_vs_eager(torch, kernels, seed: int) -> dict:
     the eager loop (`graph=False`), images within 1e-5 of the largest
     eager value, 151 forward launches per decoded batch either way, the
     first captured call (a step, the capture, the replays) equal to the
-    later ones. Timed in turns (eager, captured, captured, eager) after
-    that first call; returns samples/s."""
+    later ones. Timed in turns (eager, captured; the pass back cut to pay
+    for phase 6) after that first call; returns samples/s."""
     from vqgan_tpu_torch.configs import LDMConfig
     from vqgan_tpu_torch.generate import load_model, load_vae
 
@@ -1742,7 +1773,8 @@ def ddim_captured_vs_eager(torch, kernels, seed: int) -> dict:
                     read_counts(kernels))
 
         first = run(True)  # the capture, before the turns
-        out = [run(graph) for graph in (False, True, True, False)]
+        # (eager, captured): the pass back was cut to pay for phase 6
+        out = [run(graph) for graph in (False, True)]
         eager, captured = out[0][0], out[1][0]
         err = (captured - eager).abs().max().item()
         size = eager.abs().max().item()
@@ -1755,14 +1787,13 @@ def ddim_captured_vs_eager(torch, kernels, seed: int) -> dict:
         if not torch.equal(first[0], captured):
             fail("the captured sampler's first call (its capture) differs "
                  "from its replays")
-        secs = {"eager": (out[0][1] + out[3][1]) / 2,
-                "captured": (out[1][1] + out[2][1]) / 2}
+        secs = {"eager": out[0][1], "captured": out[1][1]}
         rates[cond_scale] = {k: 16 / v for k, v in secs.items()}
         graph = next(iter(diffusion._graphs.values()))
         print(f"DDIM-150 + decode, batch 16, cond_scale {cond_scale}: "
               f"captured vs eager max|diff| {err:.3e} (max|image| "
-              f"{size:.3e}); seconds per batch in turns (eager, captured, "
-              f"captured, eager) {[round(o[1], 4) for o in out]}; "
+              f"{size:.3e}); seconds per batch in turns (eager, captured) "
+              f"{[round(o[1], 4) for o in out]}; "
               f"samples/s {rates[cond_scale]}; capture "
               f"{graph.capture_seconds:.3f} s, pool {graph.pool_bytes} B")
         diffusion._graphs.clear()
@@ -2480,9 +2511,10 @@ def drive_captured_training(torch, kernels, seed: int, work: Path,
     - rates in turns in this process, each run a fresh trainer of 16 steps
       (cut from 32 to keep the smoke in its time) timed after its first 8
       (captures excluded): the U-Net's and the
-      DiT's step and scan modes (step, scan, scan, step); the VQ-GAN's
-      split, scan and fused at disc_start 0 (split, scan, fused, fused,
-      scan, split); with each graph's capture seconds and pool bytes.
+      DiT's step and scan modes (step, scan); the VQ-GAN's split, scan and
+      fused at disc_start 0 (split, scan, fused; the pass back of each
+      sequence cut to pay for phase 6's TP serving); with each graph's
+      capture seconds and pool bytes.
     Returns ({(kernel, shape): launches}, {metric: value})."""
     from vqgan_tpu_torch import train_latent_cfg, train_vqgan
     from vqgan_tpu_torch.checkpoint import CheckpointManager
@@ -2625,7 +2657,7 @@ def drive_captured_training(torch, kernels, seed: int, work: Path,
     for model, runs in sequences.items():
         rates = {label: [] for label, _ in runs}
         graphs = {}
-        for label, make in runs + runs[::-1]:
+        for label, make in runs:  # the pass back cut to pay for phase 6
             reset_counts(kernels)
             trainer, rate_key = make()
             trainer.save_and_sample = lambda *args: None  # no checkpoints
@@ -2636,7 +2668,7 @@ def drive_captured_training(torch, kernels, seed: int, work: Path,
             del trainer, result
         turns[model] = {"rates": rates, "graphs": graphs}
         print(f"[{card}] {model} training rates in turns "
-              f"({' '.join(label for label, _ in runs + runs[::-1])}), 8 "
+              f"({' '.join(label for label, _ in runs)}), 8 "
               f"steps after 8 each: " + "; ".join(
                   f"{label} {[round(r, 4) for r in vals]}"
                   for label, vals in rates.items())
@@ -3269,7 +3301,7 @@ def http_json(url: str, body: dict | None = None, timeout: float = 300):
         return e.code, json.loads(e.read())
 
 
-def time_served_step(torch, kernels, counts, card: str, ldm_results: Path,
+def time_served_step(torch, kernels, counts, card: str, diffusion,
                      artifact: Path, unet_key) -> dict:
     """Host ms of one DDIM step at batch 16, cond_scale 1.0, in turns in
     this process: the live `DDIMStep` of the checkpoint, the artifact's
@@ -3278,12 +3310,9 @@ def time_served_step(torch, kernels, counts, card: str, ldm_results: Path,
     no other launch. Returns {variant: [ms per step of each turn]}."""
     import torch.export as export
 
-    from vqgan_tpu_torch import generate
     from vqgan_tpu_torch.diffusion.gaussian import DDIMStep
     from vqgan_tpu_torch.serving import load_program
 
-    config, weights = generate.load_checkpoint(ldm_results)
-    diffusion, _ = generate.load_model(config, weights, "cuda")
     variants = {"live": DDIMStep(diffusion, 1.0, 0.0),
                 "served": load_program(artifact / "step.pt2"),
                 "served, no-op nodes kept":
@@ -3294,7 +3323,8 @@ def time_served_step(torch, kernels, counts, card: str, ldm_results: Path,
     t = torch.full((16,), 999, dtype=torch.long, device="cuda")
     t_next = torch.full((16,), 992, dtype=torch.long, device="cuda")
     classes = torch.zeros((16,), dtype=torch.long, device="cuda")
-    steps, turns = 20, 2  # 2 turns, cut from 3 to pay for phase 6
+    # 2 turns of 10, cut from 3 turns of 20 to pay for phase 6
+    steps, turns = 10, 2
     times = {name: [] for name in variants}
 
     def run():
@@ -3320,8 +3350,8 @@ def time_served_step(torch, kernels, counts, card: str, ldm_results: Path,
     return times
 
 
-def served_vs_live(torch, kernels, counts, card: str, ldm_results: Path,
-                   vae_pt: Path, artifact: Path, expected) -> dict:
+def served_vs_live(torch, kernels, counts, card: str, diffusion, vae,
+                   artifact: Path, expected) -> dict:
     """Seconds per batch of 16 at cond_scale 1.0 (150 DDIM steps and the
     decode), from one generator seed, in turns in this process: the live
     sampler (`ddim_sample` and `decode_latents`, as `generate` runs them)
@@ -3332,13 +3362,8 @@ def served_vs_live(torch, kernels, counts, card: str, ldm_results: Path,
     the turns. The served images equal the live ones (within 1e-5 of the
     largest) in each mode; 151 forwards per batch (`expected`: 4
     batches). Returns {variant: [seconds per batch]}."""
-    from vqgan_tpu_torch import generate
     from vqgan_tpu_torch.serving import load_cfg_sampler
 
-    config, weights = generate.load_checkpoint(ldm_results)
-    diffusion, _ = generate.load_model(config, weights, "cuda")
-    vae = generate.load_vae(vae_pt, config.latent_channels,
-                            config.image_size, device="cuda")
     sampler = load_cfg_sampler(artifact, "cuda")
     classes = torch.zeros((16,), dtype=torch.long, device="cuda")
 
@@ -3418,6 +3443,57 @@ def decode_repeatability(torch, kernels, counts, card: str, vae_pt: Path,
     return {"default": out[False], "deterministic": out[True]}
 
 
+def stop_process(proc) -> None:
+    """Terminate a subprocess this script started (kill it after 60 s)."""
+    if proc is None or proc.poll() is not None:
+        return
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def serve_over_http(proc, card: str, seed: int) -> list:
+    """The `serve_http --port 0` subprocess `proc` of 5f's cond_scale 1.0
+    artifact: /healthz warm, two POSTs of 2 images (two decodable 256 x 256
+    JPEGs each), user_id 0 answered 400; then it is stopped. Returns the
+    requests' seconds."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    try:
+        port = wait_for_port(proc, 300)
+        base = f"http://127.0.0.1:{port}"
+        status, health = http_json(f"{base}/healthz")
+        if status != 200 or health.get("warm") is not True:
+            fail(f"/healthz: {status} {health}")
+        latencies = []
+        for i in range(2):  # cut from 3 to pay for phase 6
+            t0 = time.perf_counter()
+            status, reply = http_json(f"{base}/generate", {
+                "user_id": 2, "num_images": 2, "seed": seed + i})
+            latencies.append(time.perf_counter() - t0)
+            if status != 200 or len(reply.get("images", [])) != 2:
+                fail(f"/generate: {status} {str(reply)[:200]}")
+        for b64 in reply["images"]:
+            with Image.open(io.BytesIO(base64.b64decode(b64))) as img:
+                if img.size != (256, 256) or img.mode != "RGB":
+                    fail(f"/generate returned a {img.size} {img.mode} image")
+        status, bad = http_json(f"{base}/generate", {"user_id": 0})
+        if status != 400:
+            fail(f"/generate with user_id 0 answered {status}, not 400")
+        print(f"[{card}] serve_http: /healthz warm; 2 requests of 2 images "
+              f"(a batch of 16 each) in {latencies} s (the daemon's own: "
+              f"{reply['latency_s']:.4f} s for the last); user_id 0 -> 400")
+        return latencies
+    finally:
+        stop_process(proc)
+
+
 def drive_serving(torch, kernels, seed: int, work: Path, card: str,
                   ldm_results: Path, vae_pt: Path, vqgan_ckpt: Path,
                   kl_ckpt: Path, images: Path, generate_rates: dict):
@@ -3445,14 +3521,10 @@ def drive_serving(torch, kernels, seed: int, work: Path, card: str,
       16: [16, 1024, 1, 512] fp32) and of the VQ-GAN (batches of 8) over
       100 of 5d's images: finite statistics.
     Returns ({(kernel, shape): launches}, {metric: value})."""
-    import base64
-    import io
-
-    from PIL import Image
-
     from vqgan_tpu_torch import (
         diagnose_latent_range,
         export_serving,
+        generate,
         serve_generate,
     )
     from vqgan_tpu_torch.serving import load_vq_codec
@@ -3472,31 +3544,52 @@ def drive_serving(torch, kernels, seed: int, work: Path, card: str,
         return {("flash_fwd", unet_key[cond_scale]): 150 * n_batches,
                 ("flash_fwd", vae_key): n_batches}
 
-    artifacts = {}
-    for cond_scale, phi in ((1.0, 0.0), (3.0, 0.7)):
-        out = artifacts[cond_scale] = work / f"cfg_sampler_{cond_scale}"
-        # the selftest generates one batch from the artifact and one from
-        # the live pipeline
-        result, secs = gated(
-            f"export_serving cond_scale {cond_scale} --selftest",
-            lambda: export_serving.main([
-                "--checkpoint", str(ldm_results), "--vae_path", str(vae_pt),
-                "--out", str(out), "--batch_size", "16", "--cond_scale",
-                str(cond_scale), "--rescaled_phi", str(phi), "--selftest"]),
-            per_batch(cond_scale, 2))
-        programs = result["meta"]["programs"]
-        err = result["selftest"]["max_abs_diff"]
-        metrics[f"export cond_scale {cond_scale}"] = {
-            "programs": programs, "selftest_max_abs_diff": err,
-            "whole_call_s": secs}
-        print(f"[{card}] export_serving cond_scale {cond_scale}: "
-              + ", ".join(f"{k}.pt2 exported and saved in "
-                          f"{v['seconds']:.3f} s, {v['bytes']} bytes"
-                          for k, v in programs.items())
-              + f"; selftest max|artifact - live| {err:.3e}")
+    artifacts, daemon = {}, None
+    try:
+        for cond_scale, phi in ((1.0, 0.0), (3.0, 0.7)):
+            if cond_scale == 3.0:
+                # serve_http starts up (imports, loads, captures) while the
+                # cond_scale 3.0 artifact is exported; it is answered and
+                # stopped before anything below is timed
+                daemon = subprocess.Popen(
+                    [sys.executable, "-u", "-m",
+                     "vqgan_tpu_torch.serve_http", "--artifact",
+                     str(artifacts[1.0]), "--port", "0"],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True, cwd=ROOT)
+            out = artifacts[cond_scale] = work / f"cfg_sampler_{cond_scale}"
+            # the selftest generates one batch from the artifact and one
+            # from the live pipeline
+            result, secs = gated(
+                f"export_serving cond_scale {cond_scale} --selftest",
+                lambda: export_serving.main([
+                    "--checkpoint", str(ldm_results), "--vae_path",
+                    str(vae_pt), "--out", str(out), "--batch_size", "16",
+                    "--cond_scale", str(cond_scale), "--rescaled_phi",
+                    str(phi), "--selftest"]),
+                per_batch(cond_scale, 2))
+            programs = result["meta"]["programs"]
+            err = result["selftest"]["max_abs_diff"]
+            metrics[f"export cond_scale {cond_scale}"] = {
+                "programs": programs, "selftest_max_abs_diff": err,
+                "whole_call_s": secs}
+            print(f"[{card}] export_serving cond_scale {cond_scale}: "
+                  + ", ".join(f"{k}.pt2 exported and saved in "
+                              f"{v['seconds']:.3f} s, {v['bytes']} bytes"
+                              for k, v in programs.items())
+                  + f"; selftest max|artifact - live| {err:.3e}")
+        metrics["http_latency_s"] = serve_over_http(daemon, card, seed)
+    finally:
+        stop_process(daemon)
 
+    # the live pipeline of the timed step and of the samplers in turns,
+    # loaded once
+    config, weights = generate.load_checkpoint(ldm_results)
+    diffusion, _ = generate.load_model(config, weights, "cuda")
+    vae = generate.load_vae(vae_pt, config.latent_channels,
+                            config.image_size, device="cuda")
     metrics["step_ms"] = time_served_step(torch, kernels, counts, card,
-                                          ldm_results, artifacts[1.0],
+                                          diffusion, artifacts[1.0],
                                           unet_key[1.0])
     metrics["decode_repeat"] = decode_repeatability(
         torch, kernels, counts, card, vae_pt, vae_key)
@@ -3504,10 +3597,11 @@ def drive_serving(torch, kernels, seed: int, work: Path, card: str,
     torch.backends.cudnn.deterministic = True  # the decoders' upsampling,
     try:                                       # as in the export selftest
         metrics["served_vs_live"] = served_vs_live(
-            torch, kernels, counts, card, ldm_results, vae_pt,
-            artifacts[1.0], per_batch(1.0, 4))
+            torch, kernels, counts, card, diffusion, vae, artifacts[1.0],
+            per_batch(1.0, 4))
     finally:
         torch.backends.cudnn.deterministic = deterministic
+    del diffusion, vae, weights
 
     result, secs = gated(
         "serve_generate 1 user x 16",
@@ -3523,44 +3617,6 @@ def drive_serving(torch, kernels, seed: int, work: Path, card: str,
           f"cond_scale 1.0 (phase 5's generate: "
           f"{generate_rates['cond_scale 1.0']:.4f}); whole call "
           f"{secs:.3f} s")
-
-    proc = subprocess.Popen(
-        [sys.executable, "-u", "-m", "vqgan_tpu_torch.serve_http",
-         "--artifact", str(artifacts[1.0]), "--port", "0"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        cwd=ROOT)
-    try:
-        port = wait_for_port(proc, 300)
-        base = f"http://127.0.0.1:{port}"
-        status, health = http_json(f"{base}/healthz")
-        if status != 200 or health.get("warm") is not True:
-            fail(f"/healthz: {status} {health}")
-        latencies = []
-        for i in range(3):
-            t0 = time.perf_counter()
-            status, reply = http_json(f"{base}/generate", {
-                "user_id": 2, "num_images": 2, "seed": seed + i})
-            latencies.append(time.perf_counter() - t0)
-            if status != 200 or len(reply.get("images", [])) != 2:
-                fail(f"/generate: {status} {str(reply)[:200]}")
-        for b64 in reply["images"]:
-            with Image.open(io.BytesIO(base64.b64decode(b64))) as img:
-                if img.size != (256, 256) or img.mode != "RGB":
-                    fail(f"/generate returned a {img.size} {img.mode} image")
-        status, bad = http_json(f"{base}/generate", {"user_id": 0})
-        if status != 400:
-            fail(f"/generate with user_id 0 answered {status}, not 400")
-        metrics["http_latency_s"] = latencies
-        print(f"[{card}] serve_http: /healthz warm; 3 requests of 2 images "
-              f"(a batch of 16 each) in {latencies} s (the daemon's own: "
-              f"{reply['latency_s']:.4f} s for the last); user_id 0 -> 400")
-    finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
 
     codec = work / "vq_codec"
     result, secs = gated(
@@ -4215,7 +4271,7 @@ def drive_input_pipeline(torch, kernels, seed: int, vqgan: Path, ldm: Path,
       at [1, 1024, 1, 512] fp32 (the random-latent decode) and 4 at [8,
       1024, 1, 512] (encode, decode, the invariance check's two decodes);
       healthy or not (a 20-step KL-VAE may reconstruct poorly) reported;
-    - one A/B in turns (python, native, native, python): the
+    - one A/B in turns (python, native; the pass back cut for phase 6): the
       Diffusers-style trainer of 5g (batch 24, head dim 32, no VAE, 20
       steps, 1 launch of each flash kernel per step at [24, 16, 8, 32])
       with the BatchLoader and a synchronous copy against the native
@@ -4348,8 +4404,8 @@ def drive_input_pipeline(torch, kernels, seed: int, vqgan: Path, ldm: Path,
     key = (24, 16, 8, 32, "bfloat16")
     patched = ldm_trainer.LatentDiffusionTrainer._prefetched
     turns = {"python_sync_copy": [], "native_latents": []}
-    for arm in ("python_sync_copy", "native_latents", "native_latents",
-                "python_sync_copy"):
+    # one pair: the pass back was cut to pay for phase 6
+    for arm in ("python_sync_copy", "native_latents"):
         if arm == "python_sync_copy":
             ldm_trainer.LatentDiffusionTrainer._prefetched = \
                 python_sync_batches
@@ -4371,7 +4427,7 @@ def drive_input_pipeline(torch, kernels, seed: int, vqgan: Path, ldm: Path,
                  f"{result['losses']}")
         turns[arm].append(result["latents_per_s"])
     metrics["diffusers_ab_latents_per_s"] = turns
-    print(f"[{card}] A/B in turns (python, native, native, python), "
+    print(f"[{card}] A/B in turns (python, native), "
           f"train_stage1_diffusers batch 24, 15 steps after a warm-up of "
           f"5: "
           f"latents/s {json.dumps(turns)}")
@@ -5058,11 +5114,20 @@ _SCALE_OUT_STEPS = 6
 # phase 6's full-width run on 2 gloo ranks sharing the card: steps per
 # mode, and fsdp's resident bytes at a step's start as a share of
 # replicated's (parameters, Adam moments and EMA in halves: ~0.5)
-_GLOO2_STEPS = 3
+_GLOO2_STEPS = 2  # cut from 3 to pay for the TP serving check
 _GLOO2_RESIDENT_SHARE = 0.55
 # the tests' norm rule (tests/dp_check.py): the weights' moves from the
 # start within this share of the reference's moves, in norm
 _MOVE_NORM = 0.05
+# phase 6's tensor-parallel serving artifacts (batch 16, every TP kernel
+# split): the 2-rank check runs the first _TP_CHAIN (t, t_next) pairs of
+# the checkpoint's DDIM chain; its images and the world-1 run's are held
+# to the artifact of whole weights by the tests' rule
+# (tests/test_torch_port_tp_serving.py: the JAX CLI's selftest rule);
+# _TP_TURNS timed calls of each artifact at world 1
+_TP_CHAIN = 5
+_TP_RTOL, _TP_ATOL = 1e-4, 1e-5
+_TP_TURNS = 2
 
 
 def ring_ref(torch, q, k, v, do, dtype):
@@ -5194,7 +5259,7 @@ _DP_KL_KEY = (2, 1024, 1, 512, "float32")
 _DP_DDPM_KEY = (4, 256, 4, 32, "bfloat16")
 _LDM_KEY = (8, 16, 8, 64, "bfloat16")
 # the scan runs on the group: blocks of 2, timed from step 6
-_SCAN_STEPS = 12
+_SCAN_STEPS = 8  # cut from 12 to pay for the TP serving check
 
 
 def _dp_vqgan_counts(g_steps: int, grids: int) -> dict:
@@ -5430,13 +5495,67 @@ def _state_bytes(trainer) -> tuple:
     return sum(seen.values()), other
 
 
-def _gloo2_rank(rank, world, argv, work, modes):
+def _tp_rank(tp_dirs) -> dict:
+    """On one of 2 gloo ranks sharing the card: the model-2 artifact
+    ("tp2") and the artifact of whole weights ("whole3") on the same noise
+    and classes, eagerly (gloo's gathers go through the host, which a CUDA
+    graph cannot capture), cuDNN pinned to deterministic algorithms.
+    Returns {name: {"images", "launches", "seconds", "weight_bytes",
+    "allocated"}} and under "refused" what graph=True raised."""
+    import torch
+
+    from vqgan_tpu_torch.kernels import KERNELS
+    from vqgan_tpu_torch.serving import load_cfg_sampler
+
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator("cuda").manual_seed(0)
+    init = torch.randn((16, 32, 32, 4), generator=g, device="cuda")
+    steps = torch.randn((_TP_CHAIN, 16, 32, 32, 4), generator=g,
+                        device="cuda")
+    classes = torch.arange(16, device="cuda") % 31
+    out = {}
+    for name in ("tp2", "whole3"):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        sampler = load_cfg_sampler(tp_dirs[name], "cuda")
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated() - before
+        reset_counts(KERNELS)
+        t0 = time.perf_counter()
+        images = sampler(classes, init_noise=init, step_noise=steps,
+                         graph=False)
+        torch.cuda.synchronize()
+        out[name] = {"images": images.cpu(), "launches": read_counts(KERNELS),
+                     "seconds": time.perf_counter() - t0,
+                     "weight_bytes": sampler.weight_bytes(),
+                     "allocated": allocated}
+        if name == "tp2":
+            try:
+                sampler(classes, init_noise=init, step_noise=steps,
+                        graph=True)
+                out["refused"] = None
+            except ValueError as e:
+                out["refused"] = str(e)
+        del sampler, images
+        gc.collect()  # the loaded programs hold cycles
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gloo2_rank(rank, world, argv, work, modes, tp_dirs):
     """On one of 2 gloo ranks sharing the card: `train_latent_cfg.main` on
-    `argv` under each mode, into `work`/gloo2_{mode}. Returns {mode: (each
-    step's resident bytes, each step's peak bytes, the losses, the
-    learning rate, `_state_bytes` after the run, rank 0's gathered
-    weights)}."""
+    `argv` under each mode, into `work`/gloo2_{mode} (first, so that its
+    resident bytes are a fresh process's), then the dry run at n = 2 (what
+    `dryrun_multichip(2)` runs on each of its ranks), then the
+    tensor-parallel serving check (`_tp_rank`). Returns ({mode: (each step's resident bytes, each step's
+    peak bytes, the losses, the learning rate, `_state_bytes` after the
+    run, rank 0's gathered weights)}, `_tp_rank`'s result, the dry run's
+    line)."""
+    import torch
+
     from vqgan_tpu_torch import train_latent_cfg
+    from vqgan_tpu_torch.device import set_full_fp32_precision
+    from vqgan_tpu_torch.dryrun_multichip import run_rank
 
     out = {}
     for mode in modes:
@@ -5451,29 +5570,79 @@ def _gloo2_rank(rank, world, argv, work, modes):
                      _state_bytes(trainer), weights if rank == 0 else None)
         del trainer, res, weights
         gc.collect()  # the hooks tie the state to the model in a cycle
-    return out
+    set_full_fp32_precision()  # as dryrun_multichip's ranks run
+    t0 = time.perf_counter()
+    line = run_rank(world, f"cuda:{torch.cuda.current_device()}")
+    line = f"{line} ({time.perf_counter() - t0:.3f} s)"
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, _tp_rank(tp_dirs), line
 
 
-def fsdp_on_two_ranks(torch, common: list, work: Path, seed: int,
-                      card: str) -> dict:
-    """`train_latent_cfg` at full width on 2 gloo ranks sharing the card
-    (their collectives take the CUDA tensors through host memory),
-    `--param_sharding fsdp` against `replicated`, _GLOO2_STEPS eager steps
-    each. Fails unless fsdp's resident bytes at the last step's start are
-    at most _GLOO2_RESIDENT_SHARE of replicated's on each rank and its
-    weights' moves lie within _MOVE_NORM of replicated's in norm. Returns
-    the bytes and the distances."""
-    from vqgan_tpu_torch.build import build_cfg_unet_diffusion
-    from vqgan_tpu_torch.configs.ldm_config import LDMConfig
-    from vqgan_tpu_torch.parallel.launch import spawn
-
+def _gloo2_argv(common: list) -> list:
     argv = list(common)
     argv[argv.index("--train_num_steps") + 1] = str(_GLOO2_STEPS)
-    modes = ("replicated", "fsdp")
-    t0 = time.perf_counter()
-    ranks = spawn(_gloo2_rank, 2, (argv, str(work), modes), timeout=600,
-                  device="cuda")
-    seconds = time.perf_counter() - t0
+    return argv
+
+
+_GLOO2_MODES = ("replicated", "fsdp")
+
+
+def start_two_ranks(common: list, work: Path, tp_dirs: dict):
+    """Start `_gloo2_rank` on 2 gloo ranks sharing the card in a thread of
+    this process, so that the main process goes on with its own runs while
+    the ranks run; returns a function that joins them and returns (each
+    rank's result, the seconds they took). The thread only waits on the
+    ranks: nothing in it touches this process's random state or card."""
+    import threading
+
+    from vqgan_tpu_torch.parallel.launch import spawn
+
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            box["ranks"] = spawn(
+                _gloo2_rank, 2, (_gloo2_argv(common), str(work),
+                                 _GLOO2_MODES,
+                                 {k: str(v) for k, v in tp_dirs.items()}),
+                timeout=600, device="cuda", threads=2)
+        except BaseException as e:  # re-raised by the join
+            box["error"] = e
+        box["seconds"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in box:
+            fail(f"the 2 gloo ranks failed: {box['error']!r}")
+        return box["ranks"], box["seconds"]
+
+    return join
+
+
+def fsdp_on_two_ranks(torch, common: list, seed: int, card: str,
+                      ranks: list, seconds: float) -> tuple:
+    """`train_latent_cfg` at full width on the 2 gloo ranks of
+    `start_two_ranks` sharing the card (their collectives take the CUDA
+    tensors through host memory), `--param_sharding fsdp` against
+    `replicated`, _GLOO2_STEPS eager steps each. Fails unless fsdp's
+    resident bytes at the last step's start are at most
+    _GLOO2_RESIDENT_SHARE of replicated's on each rank and its weights'
+    moves lie within _MOVE_NORM of replicated's in norm. The same ranks ran
+    the dry run at n = 2 and the tensor-parallel serving check
+    (`_tp_rank`, held by `check_tp_ranks`). Returns (the bytes and the
+    distances, each rank's `_tp_rank` result, rank 0's dry-run line)."""
+    from vqgan_tpu_torch.build import build_cfg_unet_diffusion
+    from vqgan_tpu_torch.configs.ldm_config import LDMConfig
+
+    argv, modes = _gloo2_argv(common), _GLOO2_MODES
+    tp_ranks = [r[1] for r in ranks]
+    dry_line = ranks[0][2]
+    ranks = [r[0] for r in ranks]
     config = json.loads(Path(argv[argv.index("--config") + 1]).read_text())
     cfg = LDMConfig.from_dict({**config, "seed": seed})
     torch.manual_seed(cfg.seed)  # the trainer's initial weights
@@ -5517,11 +5686,207 @@ def fsdp_on_two_ranks(torch, common: list, work: Path, seed: int,
           f"(lr {lr}); {seconds:.3f} s")
     if not all(np.isfinite(losses)) or norm > _MOVE_NORM:
         fail("fsdp on 2 gloo ranks left the norm rule of replicated's")
-    return out
+    return out, tp_ranks, dry_line
+
+
+def export_tp_artifacts(torch, ldm: Path, served: Path, work: Path,
+                        card: str) -> dict:
+    """Phase 6's tensor-parallel serving artifacts, exported from phase
+    5b's checkpoint and its KL-VAE at batch 16 by `export_cfg_sampler` with
+    `tp_param_specs` of the step and the decode (every to_qkv, to_q, to_k,
+    to_v and to_out kernel of the U-Net; the KL-VAE's attention, q, k, v
+    and proj_out, matches no TP key and stays whole, as in JAX):
+    - "tp2": model 2, cond_scale 3.0 / rescaled_phi 0.7, the first
+      _TP_CHAIN pairs of the DDIM chain (the 2-rank check);
+    - "tp1": model 1, cond_scale 1.0, the whole chain (NCCL world 1, each
+      gather over a group of one);
+    - "whole3": phase 5f's cond_scale 3.0 artifact of whole weights, its
+      programs linked and its meta.json's chain cut to tp2's pairs;
+    - "whole1": phase 5f's cond_scale 1.0 artifact as it is.
+    Returns {name: directory} and, under "metrics", each export's seconds
+    and bytes."""
+    import os
+
+    from vqgan_tpu_torch import export_serving, generate
+    from vqgan_tpu_torch.parallel.mesh import Mesh
+    from vqgan_tpu_torch.parallel.tp import tp_param_specs
+    from vqgan_tpu_torch.serving import export_cfg_sampler
+
+    config, weights = generate.load_checkpoint(ldm / "results")
+    diffusion, _ = generate.load_model(config, weights, "cuda")
+    vae = generate.load_vae(ldm / "kl_vae.pt", config.latent_channels,
+                            config.image_size, device="cuda")
+    pairs = diffusion.ddim_time_pairs()
+    dirs, metrics = {}, {}
+    for name, model, cond_scale, phi, chain in (
+            ("tp2", 2, 3.0, 0.7, pairs[:_TP_CHAIN]),
+            ("tp1", 1, 1.0, 0.0, pairs)):
+        step, decode = export_serving.cfg_programs(diffusion, vae,
+                                                   cond_scale, phi)
+        mesh = Mesh({"data": 1, "model": model}, "cuda")
+        specs = {"step": tp_param_specs(step, mesh),
+                 "decode": tp_param_specs(decode, mesh)}
+        if not specs["step"] or specs["decode"]:
+            fail(f"TP specs: {len(specs['step'])} split step kernels, "
+                 f"decode {specs['decode']}")
+        dirs[name] = work / name
+        meta = export_cfg_sampler(
+            step, decode, dirs[name], batch_size=16,
+            latent_shape=(diffusion.channels, diffusion.image_size,
+                          diffusion.image_size), ddim_pairs=chain,
+            num_users=config.num_users, cond_scale=cond_scale,
+            rescaled_phi=phi, mesh=mesh, param_specs=specs)
+        metrics[name] = {
+            "programs": meta["programs"], "split_kernels": len(specs["step"]),
+            "split_weights_bytes": (dirs[name] / "split_weights.pt").stat()
+            .st_size}
+        print(f"[{card}] TP artifact {name} (model {model}, cond_scale "
+              f"{cond_scale}, {len(chain)} DDIM pairs, "
+              f"{len(specs['step'])} split kernels): "
+              + ", ".join(f"{k}.pt2 {v['bytes']} bytes in "
+                          f"{v['seconds']:.3f} s"
+                          for k, v in meta["programs"].items())
+              + f", split_weights.pt {metrics[name]['split_weights_bytes']}"
+                f" bytes")
+    del diffusion, vae, weights
+    dirs["whole1"] = served / "cfg_sampler_1.0"
+    dirs["whole3"] = work / "whole3"
+    dirs["whole3"].mkdir()
+    for f in ("step.pt2", "decode.pt2"):
+        os.link(served / "cfg_sampler_3.0" / f, dirs["whole3"] / f)
+    meta = json.loads((served / "cfg_sampler_3.0" / "meta.json").read_text())
+    if meta["ddim_pairs"][:_TP_CHAIN] != [list(p) for p in
+                                          pairs[:_TP_CHAIN]]:
+        fail("5f's artifact runs another DDIM chain than the checkpoint's")
+    meta["ddim_pairs"] = meta["ddim_pairs"][:_TP_CHAIN]
+    (dirs["whole3"] / "meta.json").write_text(json.dumps(meta))
+    torch.cuda.empty_cache()
+    return {**dirs, "metrics": metrics}
+
+
+def check_tp_ranks(torch, tp_ranks, card: str, held_keys) -> tuple:
+    """The 2-rank tensor-parallel check's results: on each rank the model-2
+    artifact's images within _TP_RTOL, _TP_ATOL of the whole-weight
+    artifact's (and their largest difference), both ranks' images equal,
+    _TP_CHAIN + 1 flash forwards per call at shapes that phase 3 holds,
+    the split kernels' pieces 1 / 2 of their whole bytes, graph=True
+    refused over gloo. Returns the metrics and the ranks' launches (both
+    artifacts', for the kernels' line)."""
+    counts, metrics = {}, {"ranks": []}
+    want = {("flash_fwd", (32, 16, 8, 64, "bfloat16")): _TP_CHAIN,
+            ("flash_fwd", (16, 1024, 1, 512, "float32")): 1}
+    for rank, res in enumerate(tp_ranks):
+        tp, whole = res["tp2"], res["whole3"]
+        d = (tp["images"] - whole["images"]).abs()
+        bound = _TP_ATOL + _TP_RTOL * whole["images"].abs()
+        rec = {"max_abs_diff": d.max().item(),
+               "bit_for_bit": bool(d.max().item() == 0.0),
+               "seconds": {"tp2": tp["seconds"], "whole3": whole["seconds"]},
+               "weight_bytes": {"tp2": tp["weight_bytes"],
+                                "whole3": whole["weight_bytes"]},
+               "allocated_at_load": {"tp2": tp["allocated"],
+                                     "whole3": whole["allocated"]}}
+        metrics["ranks"].append(rec)
+        wb = tp["weight_bytes"]
+        print(f"[{card}] TP artifact on 2 gloo ranks sharing the card, rank "
+              f"{rank}: {_TP_CHAIN} DDIM steps at cond_scale 3.0 + decode, "
+              f"eager, {tp['seconds']:.3f} s (whole weights "
+              f"{whole['seconds']:.3f} s); max|TP - whole| "
+              f"{rec['max_abs_diff']:.3e} (bit for bit: "
+              f"{rec['bit_for_bit']}); weights held {wb['held']} bytes, of "
+              f"them split pieces {wb['split_held']} of {wb['split_whole']}"
+              f" whole (whole-weight artifact: "
+              f"{whole['weight_bytes']['held']}); allocated at load "
+              f"{tp['allocated']} / {whole['allocated']}; launches "
+              f"{tp['launches']}; graph=True: {res['refused']!r}")
+        if not bool((d <= bound).all()) or not bool(
+                torch.isfinite(tp["images"]).all()):
+            fail(f"rank {rank}: the TP artifact's images leave the rule of "
+                 f"the whole-weight artifact's")
+        if not torch.equal(tp["images"], tp_ranks[0]["tp2"]["images"]):
+            fail(f"rank {rank}'s images differ from rank 0's")
+        for label, got in (("tp2", tp["launches"]),
+                           ("whole3", whole["launches"])):
+            if got != want:
+                fail(f"rank {rank} {label}: launches {got}, expected {want}")
+            for key, n in got.items():
+                if key not in held_keys:
+                    fail(f"{label} launched {key}, no shape of phase 3")
+                counts[key] = counts.get(key, 0) + n
+        if wb["split_held"] * 2 != wb["split_whole"] or wb["held"] != (
+                whole["weight_bytes"]["held"] - wb["split_held"]):
+            fail(f"rank {rank} holds {wb}, not the pieces alone")
+        if not res["refused"] or "gloo" not in res["refused"]:
+            fail(f"graph=True over gloo was not refused: {res['refused']}")
+    return metrics, counts
+
+
+def time_tp_world1(torch, kernels, tp_dirs: dict, card: str) -> tuple:
+    """On the NCCL group of world 1: the model-1 artifact ("tp1", every
+    gather over a group of one, captured with the step) against phase 5f's
+    data-only artifact ("whole1") at batch 16, cond_scale 1.0, the DDIM-150
+    chain and the decode, captured (the loader's default on the card): an
+    untimed capture of each, then _TP_TURNS calls of each in turns (whole,
+    tp, tp, whole), from one seed. The images of each call within
+    _TP_RTOL, _TP_ATOL of whole1's first; 151 forwards per call through
+    the replays. Returns ({variant: [seconds per call]}, launches)."""
+    from vqgan_tpu_torch.serving import load_cfg_sampler
+
+    samplers = {name: load_cfg_sampler(tp_dirs[name], "cuda")
+                for name in ("whole1", "tp1")}
+    classes = torch.zeros((16,), dtype=torch.long, device="cuda")
+
+    def call(name):
+        gen = torch.Generator("cuda").manual_seed(5)
+        return samplers[name](classes, generator=gen)
+
+    for name in samplers:
+        call(name)  # the capture
+    order = ["whole1", "tp1", "tp1", "whole1"] * (_TP_TURNS // 2)
+    times = {name: [] for name in samplers}
+    images = {}
+    counts = {}
+
+    def run():
+        for name in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            images.setdefault(name, []).append(call(name))
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+
+    run_gated(torch, kernels, "whole-weight and TP (model 1) artifacts in "
+              "turns, captured", run,
+              {("flash_fwd", (16, 16, 8, 64, "bfloat16")): 150 * len(order),
+               ("flash_fwd", (16, 1024, 1, 512, "float32")): len(order)},
+              counts)
+    ref = images["whole1"][0]
+    errs = [(img - ref).abs().max().item() for name in images
+            for img in images[name]]
+    within = all(bool(((img - ref).abs()
+                       <= _TP_ATOL + _TP_RTOL * ref.abs()).all())
+                 for name in images for img in images[name])
+    wb = samplers["tp1"].weight_bytes()
+    per_step = {name: [t / 150 * 1e3 for t in ts]
+                for name, ts in times.items()}
+    print(f"[{card}] NCCL world 1, batch 16, cond_scale 1.0, DDIM-150 + "
+          f"decode captured, seconds per call in turns: "
+          + "; ".join(f"{n} {', '.join(f'{t:.4f}' for t in ts)}"
+                      for n, ts in times.items())
+          + " (ms per DDIM step, the decode included: "
+          + "; ".join(f"{n} {', '.join(f'{t:.3f}' for t in ts)}"
+                      for n, ts in per_step.items())
+          + f"); max|image - whole1's first| {max(errs):.3e}; TP weights "
+            f"{wb}; graphs {samplers['tp1'].graphs.stats()}")
+    if not within:
+        fail(f"the model-1 artifact and the data-only one disagree: {errs}")
+    return {"seconds_per_call": times, "ms_per_step": per_step,
+            "max_abs_diff": max(errs), "weight_bytes": wb}, counts
 
 
 def drive_scale_out(torch, kernels, peaks, seed: int, ldm: Path,
-                    vqgan: Path, work: Path, card: str):
+                    vqgan: Path, work: Path, card: str, served: Path,
+                    held_keys):
     """Phase 6, scale-out on the card. Returns ({(kernel, shape):
     launches} of its main path, its kernel rows, metrics).
 
@@ -5548,16 +5913,35 @@ def drive_scale_out(torch, kernels, peaks, seed: int, ldm: Path,
       (`ldm_scan_on_the_group`), with cuDNN and PyTorch's deterministic
       algorithms (the VQ lookup's codebook gradient is an `index_add_`),
       every run gated by its launches and bit for bit.
+    - Tensor-parallel serving (`export_tp_artifacts`): on the group, the
+      model-1 artifact against 5f's data-only one, captured, in turns
+      (`time_tp_world1`); on the 2 gloo ranks of `fsdp_on_two_ranks`, the
+      model-2 artifact against the whole-weight one (`check_tp_ranks`),
+      every launch at a shape of `held_keys` (phase 3's rows).
     """
     import torch.distributed as dist
 
     from vqgan_tpu_torch import train_latent_cfg
-    from vqgan_tpu_torch.dryrun_multichip import dryrun_multichip, run_rank
+    from vqgan_tpu_torch.dryrun_multichip import run_rank
     from vqgan_tpu_torch.ops.attention import flash_attention
     from vqgan_tpu_torch.parallel import initialize_distributed
     from vqgan_tpu_torch.parallel.launch import free_port
 
     t_phase = time.perf_counter()
+    tp_dirs = export_tp_artifacts(torch, ldm, served, work, card)
+    t_export = time.perf_counter() - t_phase
+    config = work / "scale_out.json"
+    config.write_text(json.dumps({"save_and_sample_every": 1000}))
+    common = ["--split", str(ldm / "data_split.json"),
+              "--latents_cache_folder", str(ldm / "latents_cache"),
+              "--data_path", str(ldm / "images"), "--seed", str(seed),
+              "--config", str(config), "--step_mode", "step",
+              "--train_num_steps", str(_SCALE_OUT_STEPS)]
+    # the 2 gloo ranks run beside this process's trainers (bit-for-bit and
+    # launch gates only), and are joined before the timed ring rows and
+    # the world-1 serving turns
+    join_two_ranks = start_two_ranks(common, work, tp_dirs)
+    t_dp0 = time.perf_counter()
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -5567,19 +5951,12 @@ def drive_scale_out(torch, kernels, peaks, seed: int, ldm: Path,
         refs = dp_trainers(torch, kernels, seed, vqgan, work, card,
                            dp_counts, grouped=False)
     torch.use_deterministic_algorithms(False)
-    t_refs = time.perf_counter() - t_phase
+    t_refs = time.perf_counter() - t_dp0
     initialize_distributed("cuda", backend="nccl",
                            init_method=f"tcp://127.0.0.1:{free_port()}",
                            world_size=1, rank=0)
     print(f"phase 6: process group {dist.get_backend()} world "
           f"{dist.get_world_size()} on {card}")
-    config = work / "scale_out.json"
-    config.write_text(json.dumps({"save_and_sample_every": 1000}))
-    common = ["--split", str(ldm / "data_split.json"),
-              "--latents_cache_folder", str(ldm / "latents_cache"),
-              "--data_path", str(ldm / "images"), "--seed", str(seed),
-              "--config", str(config), "--step_mode", "step",
-              "--train_num_steps", str(_SCALE_OUT_STEPS)]
     train_key = (8, 16, 8, 64, "bfloat16")
     g = torch.Generator("cuda").manual_seed(seed)
     ring_inputs = {}
@@ -5651,6 +6028,10 @@ def drive_scale_out(torch, kernels, peaks, seed: int, ldm: Path,
     t_dp = time.perf_counter() - t0 + t_refs
     print(f"phase 6 data-parallel trainers and scan on the group: "
           f"{t_dp:.3f} s (of it {t_refs:.3f} s before the group)")
+    t0 = time.perf_counter()
+    two_ranks, two_seconds = join_two_ranks()
+    print(f"phase 6: the 2 gloo ranks took {two_seconds:.3f} s; waited "
+          f"{time.perf_counter() - t0:.3f} s for them after the trainers")
 
     # --- the ring against flash attention, the plain version, fp64 -------
     metrics = {"modes": {m: {"latents_per_s": r["latents_per_s"],
@@ -5708,20 +6089,24 @@ def drive_scale_out(torch, kernels, peaks, seed: int, ldm: Path,
     for label, shape, n, dt in RING_CASES:
         rows.update(ring_rows(torch, peaks, label, shape, n, dt))
 
-    # --- the dry run at the card's world size, then at 2 ranks -----------
+    # --- tensor-parallel serving at world 1, then the dry run ----------
+    t0 = time.perf_counter()
+    metrics["tp_world1"], tp_counts = time_tp_world1(torch, kernels, tp_dirs,
+                                                     card)
+    metrics["tp_world1"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     line = run_rank(dist.get_world_size(), "cuda")
     print(f"{line} ({time.perf_counter() - t0:.3f} s, NCCL world 1)")
     dist.destroy_process_group()
     torch.backends.cudnn.deterministic = deterministic
-    t0 = time.perf_counter()
-    line2 = dryrun_multichip(2, "cuda", timeout=300)
-    print(f"{line2} ({time.perf_counter() - t0:.3f} s, 2 ranks on one card "
-          f"over gloo)")
+    metrics["fsdp_gloo2"], tp_ranks, line2 = fsdp_on_two_ranks(
+        torch, common, seed, card, two_ranks, two_seconds)
+    print(f"{line2}, 2 ranks on one card over gloo")
     if "skipped" in line2:
         fail(f"the 2-rank dry run skipped a check: {line2}")
-    metrics["fsdp_gloo2"] = fsdp_on_two_ranks(torch, common, work, seed,
-                                              card)
+    metrics["tp_gloo2"], tp2_counts = check_tp_ranks(torch, tp_ranks, card,
+                                                     held_keys)
+    metrics["tp_export"] = {**tp_dirs.pop("metrics"), "seconds": t_export}
     print("phase 6: with more than one rank, every mode ran on the card "
           "only over gloo (2 ranks sharing the card, at the dry run's "
           "small U-Net; fsdp and replicated also at full width); at full "
@@ -5730,7 +6115,8 @@ def drive_scale_out(torch, kernels, peaks, seed: int, ldm: Path,
     metrics["dryrun_2_gloo"] = line2
     metrics["phase_seconds"] = time.perf_counter() - t_phase
     print(f"phase 6: {metrics['phase_seconds']:.3f} s")
-    for key, n in dp_counts.items():
+    for key, n in [*dp_counts.items(), *tp_counts.items(),
+                   *tp2_counts.items()]:
         counts[key] = counts.get(key, 0) + n
     return counts, rows, metrics
 
@@ -6280,6 +6666,72 @@ def clock(label: str) -> None:
     print(f"[clock] {time.perf_counter() - _START:.1f} s: {label}")
 
 
+def _phase_child(conn, name: str, args: tuple) -> None:
+    """In a process of its own: load the kernels (built by the main
+    process), run this script's phase function `name` on `args`, send its
+    (launches, metrics) back. Its counts start at 0 in this process."""
+    import torch
+
+    from vqgan_tpu_torch.device import set_full_fp32_precision
+    from vqgan_tpu_torch.kernels import KERNELS, build_all
+
+    set_full_fp32_precision()
+    build_all(KERNELS.values())
+    conn.send(globals()[name](torch, KERNELS, *args))
+    conn.close()
+
+
+class PhaseProcess:
+    """A self-contained phase (its own data, models and directory) run in
+    a process of its own while the main process goes on with the next
+    phases; `result()` joins it. The phases share the card and the host's
+    cores, so their host-timed numbers are taken beside a neighbour. A
+    failure in the phase fails the run when it is joined; its process is
+    a daemon, so it ends with the script whatever happens."""
+
+    def __init__(self, label: str, name: str, *args):
+        import multiprocessing as mp
+        import os
+
+        ctx = mp.get_context("spawn")
+        self.label, self.t0 = label, time.perf_counter()
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_phase_child, args=(child, name, args),
+                                daemon=True)
+        # the phase's host linear algebra (FID's square root) on 2 cores
+        before = {k: os.environ.get(k) for k in ("OPENBLAS_NUM_THREADS",
+                                                 "MKL_NUM_THREADS")}
+        os.environ.update({k: "2" for k in before})
+        try:
+            self.proc.start()
+        finally:
+            for k, v in before.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        child.close()
+
+    def result(self, timeout: float = 900):
+        sys.stdout.flush()
+        result = None
+        try:
+            if self.conn.poll(timeout):
+                result = self.conn.recv()
+        except EOFError:  # the phase exited without a result
+            pass
+        self.proc.join(60)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+        if result is None or self.proc.exitcode:
+            fail(f"{self.label} failed in its process (exit code "
+                 f"{self.proc.exitcode})")
+        print(f"{self.label}: joined {time.perf_counter() - self.t0:.3f} "
+              f"s after its process started")
+        return result
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -6366,10 +6818,14 @@ def main():
             kl_counts, kl_rate = drive_kl_vae_slice(torch, KERNELS,
                                                     args.seed, work / "kl_vae")
             print(f"KL-VAE training images/s: {kl_rate}")
-            clock("phase 5e")
-            gmm_counts, gmm_metrics = drive_gmm_classifier_slice(
-                torch, KERNELS, args.seed, work / "gmm")
-            print("GMM / classifier / FID slice: " + json.dumps(gmm_metrics))
+            # 5e, 5h and 5i each run in a process of their own beside the
+            # phases after them (5e beside 5f and 5g; 5h and 5i beside 5j
+            # and 5k): each makes its own data and models, no other phase
+            # reads their files, and their host-bound parts (FID's square
+            # roots, eager launches, start-ups) overlap the main process's
+            clock("phase 5e (its own process, beside 5f-5g)")
+            gmm = PhaseProcess("phase 5e", "drive_gmm_classifier_slice",
+                               args.seed, work / "gmm")
             clock("phase 5f")
             serving_counts, serving_metrics = drive_serving(
                 torch, KERNELS, args.seed, work / "serving", card,
@@ -6384,20 +6840,21 @@ def main():
                 torch, KERNELS, args.seed, work / "stage2", work / "ldm",
                 card)
             print("stage-2 rest: " + json.dumps(stage2_metrics))
-            clock("phase 5h")
-            pixel_counts, pixel_metrics = drive_pixel_diffusion(
-                torch, KERNELS, args.seed, work / "pixel", card, jpeg)
-            print("pixel-space diffusion: " + json.dumps(pixel_metrics))
+            gmm_counts, gmm_metrics = gmm.result()
+            print("GMM / classifier / FID slice: " + json.dumps(gmm_metrics))
+            # the loaders' rates first, with no phase beside them
             clock("phase 5l")
             input_counts, input_metrics = drive_input_pipeline(
                 torch, KERNELS, args.seed, work / "vqgan", work / "ldm",
                 work / "kl_vae" / "kl_vae" / "kl_vae-2.pt",
                 work / "kl_vae" / "images", card, jpeg)
             print("input pipeline: " + json.dumps(input_metrics))
-            clock("phase 5i")
-            library_counts, library_metrics = drive_diffusion_library(
-                torch, KERNELS, args.seed, work / "library", card)
-            print("diffusion library: " + json.dumps(library_metrics))
+            clock("phase 5h (its own process, beside 5j-5k)")
+            pixel = PhaseProcess("phase 5h", "drive_pixel_diffusion",
+                                 args.seed, work / "pixel", card, jpeg)
+            clock("phase 5i (its own process, beside 5j-5k)")
+            library = PhaseProcess("phase 5i", "drive_diffusion_library",
+                                   args.seed, work / "library", card)
             clock("phase 5j")
             captured_counts, captured_metrics = drive_captured_training(
                 torch, KERNELS, args.seed, work / "captured", work / "ldm",
@@ -6407,10 +6864,15 @@ def main():
             sampler_counts, sampler_metrics = drive_sampler_graphs(
                 torch, KERNELS, args.seed, card)
             print("captured samplers: " + json.dumps(sampler_metrics))
+            pixel_counts, pixel_metrics = pixel.result()
+            print("pixel-space diffusion: " + json.dumps(pixel_metrics))
+            library_counts, library_metrics = library.result()
+            print("diffusion library: " + json.dumps(library_metrics))
             clock("phase 6")
             scale_counts, scale_rows, scale_metrics = drive_scale_out(
                 torch, KERNELS, peaks, args.seed, work / "ldm",
-                work / "vqgan", work / "scale_out", card)
+                work / "vqgan", work / "scale_out", card, work / "serving",
+                {(row["name"], row["key"]) for row in rows.values()})
             rows.update(scale_rows)
             print("scale-out: " + json.dumps(scale_metrics))
             clock("phase 7")

@@ -109,6 +109,32 @@ def served(rank, world, outdir, classes, init, steps):
                    step_noise=steps)
 
 
+def tp_served(rank, world, outdir, partner, classes, init, steps):
+    """A tensor-parallel artifact run on every rank, beside `partner` (an
+    artifact of whole weights, or None) on the same noise: (the gathered
+    images, the partner's, this rank's mesh coordinates, the split
+    parameters of its step program as it holds them, `weight_bytes()`,
+    and what graph=True raised over gloo)."""
+    from vqgan_tpu_torch.serving import load_cfg_sampler
+    from vqgan_tpu_torch.serving.export import _flat
+
+    sampler = load_cfg_sampler(outdir, "cpu")
+    args = (torch.from_numpy(classes),)
+    noise = dict(init_noise=init, step_noise=steps)
+    images = sampler(*args, **noise)
+    want = (None if partner is None
+            else load_cfg_sampler(partner, "cpu")(*args, **noise))
+    held = {name: sampler._step.get_parameter(_flat(name)).detach().clone()
+            for name in sampler.meta["param_specs"]["step"]}
+    try:
+        sampler(*args, **noise, graph=True)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    coords = {a: sampler.mesh.coord(a) for a in sampler.mesh.axis_names}
+    return images, want, coords, held, sampler.weight_bytes(), refused
+
+
 def numpy_tree(x):
     """Copies as numpy (never views of a tensor's storage)."""
     if isinstance(x, dict):

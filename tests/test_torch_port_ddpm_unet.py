@@ -12,7 +12,7 @@ carried into the port with `ddpm_unet_state_from_jax`.
   output is (x 1.5), and within 5e-2 of the largest output of it.
 - The space-to-depth channel order, pinned alone.
 - The names `ddpm_unet_state_from_jax` defines, and that it copies.
-- Dropout > 0 raises.
+- Dropout: test_torch_port_dropout.py.
 - On a card (marker `gpu`, skipped without one): the full attention at the
   training shape's Skv = Sq + 4, kernels against the plain versions.
 """
@@ -187,11 +187,6 @@ def test_state_names_are_pinned_and_copied():
     state["init_conv.bias"].add_(1.0)
     assert np.abs(np.asarray(params["params"]["init_conv"]["bias"])).max() \
         < 1.0
-
-
-def test_dropout_raises():
-    with pytest.raises(NotImplementedError):
-        Unet(**UNET, dropout=0.1)
 
 
 def test_full_attention_hands_sdpa_a_view_and_memory_tokens(monkeypatch):

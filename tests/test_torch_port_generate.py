@@ -342,7 +342,8 @@ def _imported_roots(path):
 @pytest.mark.parametrize("path", sorted(
     p.relative_to(REPO).as_posix()
     for p in [*(REPO / "vqgan_tpu_torch").rglob("*.py"),
-              REPO / "chip_smoke.py", REPO / "tests" / "dp_check.py"]))
+              REPO / "chip_smoke.py", REPO / "tests" / "dp_check.py",
+              REPO / "tests" / "tp_serve_check.py"]))
 def test_port_imports_no_jax(path):
     bad = [name for name in _imported_roots(REPO / path)
            if name.split(".")[0] in _FORBIDDEN]

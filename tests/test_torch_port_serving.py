@@ -17,7 +17,9 @@ package, on the CPU at a small size.
 - `torch.library.opcheck` of each operator on the CPU.
 - The serving package and hosts import no model code (statically, and in
   a fresh interpreter).
-- Multi-device export raises (the CLIs: test_torch_port_serving_cli.py).
+- The multi-device exports' refusals: an uneven split, a spec naming no
+  parameter, arg_specs or param_specs without a mesh, and a gloo group
+  under graph=True.
 """
 
 import ast
@@ -35,6 +37,7 @@ import pytest
 import torch
 from flax.traverse_util import flatten_dict, unflatten_dict
 
+import _torch_dist_workers as workers
 from vqgan_tpu.diffusion import GaussianDiffusion as JGaussianDiffusion
 from vqgan_tpu.models import CFGUnet as JCFGUnet
 from vqgan_tpu.models import KLVAE as JKLVAE
@@ -52,6 +55,9 @@ from vqgan_tpu_torch.models import KLVAE, VQVAE, CFGUnet
 from vqgan_tpu_torch.models.autoencoder import AutoencoderConfig
 from vqgan_tpu_torch.models.layers import AttnBlock
 from vqgan_tpu_torch.models.unet_cfg import Attention
+from vqgan_tpu_torch.parallel.launch import spawn
+from vqgan_tpu_torch.parallel.mesh import Mesh
+from vqgan_tpu_torch.parallel.tp import tp_param_specs
 from vqgan_tpu_torch.serving import (
     export_cfg_sampler,
     export_vq_codec,
@@ -430,18 +436,53 @@ def test_serving_hosts_load_no_model_code_at_run_time():
     assert not [m for m in loaded if m.startswith(_MODEL_CODE)], loaded
 
 
-def test_multi_device_export_raises(tmp_path):
-    # data-parallel artifacts are ported (test_torch_port_pipeline.py);
-    # weights split over the mesh (TP serving) are not
-    from vqgan_tpu_torch.parallel.mesh import Mesh
+REFUSALS = {
+    # a split that does not divide, as JAX's NamedSharding refuses it
+    "uneven_split": (dict(mesh=Mesh({"model": 3}, "cpu"), param_specs=None),
+                     "does not divide over 3 'model' ranks"),
+    "spec_naming_no_parameter": (
+        dict(mesh=Mesh({"model": 2}, "cpu"),
+             param_specs={"step": {"model.no_such.weight": ("model",)}}),
+        "no parameter 'model.no_such.weight'"),
+    "arg_specs_without_mesh": (dict(arg_specs=(("data",),)),
+                               "arg_specs needs a mesh"),
+    "param_specs_without_mesh": (dict(param_specs={"step": {}}),
+                                 "param_specs needs a mesh"),
+    "gloo_group_under_graph": (None, "gloo, which a CUDA graph cannot"),
+}
 
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        export_cfg_sampler(None, None, tmp_path, batch_size=2,
-                           latent_shape=(4, 4, 4), ddim_pairs=[], num_users=1,
-                           cond_scale=1.0, rescaled_phi=0.0,
-                           mesh=Mesh({"data": 2}, "cpu"), param_specs={})
-    with pytest.raises(NotImplementedError, match="'data' only"):
-        export_cfg_sampler(None, None, tmp_path, batch_size=2,
-                           latent_shape=(4, 4, 4), ddim_pairs=[], num_users=1,
-                           cond_scale=1.0, rescaled_phi=0.0,
-                           mesh=Mesh({"data": 1, "model": 2}, "cpu"))
+
+@pytest.mark.parametrize("case", sorted(REFUSALS))
+def test_multi_device_export_refusals(pipelines, tmp_path, case):
+    # data-parallel artifacts: test_torch_port_pipeline.py; tensor-parallel
+    # ones: test_torch_port_tp_serving.py
+    _, (tdiff, tvae) = pipelines
+    step, decode = export_serving.cfg_programs(tdiff, tvae, 1.0, 0.0)
+    kwargs, message = REFUSALS[case]
+    kwargs = None if kwargs is None else dict(kwargs)
+    common = dict(batch_size=B, latent_shape=(4, 8, 8),
+                  ddim_pairs=tdiff.ddim_time_pairs(), num_users=3,
+                  cond_scale=1.0, rescaled_phi=0.0)
+    if case == "uneven_split":
+        kwargs["param_specs"] = {"step": tp_param_specs(step)}
+        with pytest.raises(ValueError, match=message):
+            tp_param_specs(step, kwargs["mesh"])
+    if kwargs is not None:
+        with pytest.raises(ValueError, match=message):
+            export_cfg_sampler(step, decode, tmp_path, **kwargs, **common)
+        assert not (tmp_path / "step.pt2").exists()
+        return
+    # a TP artifact on a gloo group of one: graph=True is refused, not run
+    # eagerly
+    mesh = Mesh({"model": 1}, "cpu")
+    export_cfg_sampler(step, decode, tmp_path, mesh=mesh,
+                       param_specs={"step": tp_param_specs(step, mesh)},
+                       **common)
+    init, steps = noise()
+    (images, _, _, _, nbytes, refused), = spawn(
+        workers.tp_served, 1,
+        (str(tmp_path), None, np.array([0, 2, 1]), torch.from_numpy(init),
+         torch.from_numpy(steps)), timeout=300)
+    assert refused is not None and message in refused
+    assert nbytes["split_held"] == nbytes["split_whole"] > 0
+    assert torch.isfinite(images).all()

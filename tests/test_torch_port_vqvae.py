@@ -12,7 +12,7 @@ filled from a numpy seed and carried into the port with
 - With z_channels != embedding_dim (pre/post-quant 1x1 convs).
 - The index codec round trip and the NHWC image functions.
 - A port state dict goes back to JAX through `load_torch_vqvae`.
-- dropout > 0 raises instead of being ignored.
+- Dropout: test_torch_port_dropout.py.
 """
 
 import jax
@@ -26,8 +26,6 @@ from vqgan_tpu.checkpoint.torch_import import load_torch_vqvae
 from vqgan_tpu.models import VQVAE as JVQVAE
 from vqgan_tpu_torch.checkpoint import vqvae_state_from_jax
 from vqgan_tpu_torch.models import VQVAE
-from vqgan_tpu_torch.models.autoencoder import AutoencoderConfig, KLVAE
-from vqgan_tpu_torch.models.layers import ResnetBlock
 
 torch.set_num_threads(2)
 
@@ -179,14 +177,3 @@ def test_state_dict_goes_back_to_jax():
     for key, value in flat.items():
         np.testing.assert_array_equal(np.asarray(flat_back[key]), value,
                                       err_msg=str(key))
-
-
-def test_dropout_raises_instead_of_being_ignored():
-    with pytest.raises(NotImplementedError, match="dropout"):
-        ResnetBlock(8, dropout=0.1)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        VQVAE(**TINY, dropout=0.1)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        KLVAE(AutoencoderConfig(ch=16, ch_mult=(1, 2), num_res_blocks=1,
-                                resolution=16, dropout=0.2))
-    VQVAE(**TINY, dropout=0.0)  # the shipped configs' value

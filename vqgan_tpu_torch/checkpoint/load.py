@@ -159,7 +159,8 @@ def load_vqvae(path, image_size: int | None = None, device="cuda"):
             state = state["vqvae"]
     vqvae = VQVAE(
         ch=cfg.ch, ch_mult=cfg.ch_mult, num_res_blocks=cfg.num_res_blocks,
-        attn_resolutions=cfg.attn_resolutions, resolution=cfg.image_size,
+        attn_resolutions=cfg.attn_resolutions, dropout=cfg.dropout,
+        resolution=cfg.image_size,
         z_channels=cfg.z_channels, num_embeddings=cfg.num_embeddings,
         embedding_dim=cfg.embedding_dim, commitment_cost=cfg.commitment_cost,
         out_channels=cfg.out_channels,

@@ -37,7 +37,10 @@ programs take batch_size / N rows, and the loader runs on N ranks that each
 sample their rows of the batch and gather the images
 (`serving/export.py`). Its `--selftest` runs the artifact on N spawned
 ranks (gloo; on one card they share it) and holds the gathered images
-against the live pipeline on the whole batch.
+against the live pipeline on the whole batch. A tensor-parallel artifact
+has no flag, as in the JAX CLI: the library's
+`serving.export_cfg_sampler(..., mesh=, param_specs=)` writes one from
+`cfg_programs`' modules, and `serve_generate` runs it under torchrun.
 """
 
 from __future__ import annotations

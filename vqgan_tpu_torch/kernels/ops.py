@@ -20,6 +20,25 @@ dispatcher from the inputs' device:
   and at run time they dispatch to the kernels again. The VQ wrapper's
   padding and alignment checks run only in the CUDA implementation.
 
+Beside them, one collective that an exported program can hold:
+
+    torch.ops.vqgan_tpu_torch.tp_gather(piece, dim, parts, axis) -> whole
+
+every rank's `piece` of a parameter split over the mesh axis `axis`,
+concatenated along `dim` in rank order (`parts` ranks; the fake
+implementation needs the count to give the whole's shape). A serving
+artifact whose weights are split over its mesh (`serving/export.py`'s
+`param_specs`) holds one per split parameter and gathers each when the
+program runs. The axis is a name, resolved when the operator runs against
+the process groups that the loader binds with `mesh_axes` for its calls:
+a name, not a group, because a program is traced in one process, before
+any group exists, and loaded by ranks whose groups are their own. (The
+other way, `torch.distributed._functional_collectives`, traces into
+`_c10d_functional` nodes that bake in a group's name, which the loader's
+groups would then have to be created to match.) CPU and CUDA alike run
+`parallel.comm.all_gather_cat`: NCCL on the card, where a CUDA graph
+captures it; gloo through the host, which raises inside a capture.
+
 They are registered with `torch.library.Library.define` and `impl`, which
 costs the host less per call than `torch.library.custom_op`; the U-Net's
 small attention calls are bound by that host time. Importing this module
@@ -30,6 +49,9 @@ imports this module first.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Dict
+
 import torch
 
 from . import reference
@@ -38,7 +60,8 @@ from .flash_fwd import flash_fwd
 from .vq import vq_nearest
 
 __all__ = ["NAMESPACE", "OPS", "flash_fwd_op", "flash_bwd_dq_op",
-           "flash_bwd_dkv_op", "vq_nearest_op"]
+           "flash_bwd_dkv_op", "vq_nearest_op", "tp_gather_op",
+           "mesh_axes"]
 
 NAMESPACE = "vqgan_tpu_torch"
 _BWD_ARGS = ("Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, "
@@ -110,7 +133,54 @@ for _name, (_cuda, _cpu, _fake) in _IMPLS.items():
     _LIB.impl(_name, _contiguous(_cpu), "CPU")
     torch.library.register_fake(f"{NAMESPACE}::{_name}", _fake, lib=_LIB)
 
+# the process group of each mesh axis that `tp_gather` may name, bound by
+# `mesh_axes` around a loaded program's calls
+_AXES: Dict[str, object] = {}
+
+
+@contextlib.contextmanager
+def mesh_axes(groups: Dict[str, object]):
+    """Inside the block `tp_gather` over axis a gathers over groups[a] (a
+    process group, or None for a mesh of one process with no group)."""
+    saved = dict(_AXES)
+    _AXES.clear()
+    _AXES.update(groups)
+    try:
+        yield
+    finally:
+        _AXES.clear()
+        _AXES.update(saved)
+
+
+def _tp_gather(piece, dim, parts, axis):
+    from ..parallel.comm import all_gather_cat
+
+    if axis not in _AXES:
+        raise RuntimeError(
+            f"tp_gather over mesh axis {axis!r} with no group bound for it; "
+            f"run the program inside kernels.ops.mesh_axes")
+    whole = all_gather_cat(piece, dim, _AXES[axis])
+    if whole.shape[dim] != parts * piece.shape[dim]:
+        raise RuntimeError(
+            f"tp_gather over {axis!r}: the program was traced for {parts} "
+            f"ranks, the group gathered {whole.shape[dim] // piece.shape[dim]}")
+    return piece.clone() if whole is piece else whole
+
+
+def _tp_gather_fake(piece, dim, parts, axis):
+    shape = list(piece.shape)
+    shape[dim] *= parts
+    return piece.new_empty(shape)
+
+
+_LIB.define("tp_gather(Tensor piece, int dim, int parts, str axis) -> Tensor")
+_LIB.impl("tp_gather", _tp_gather, "CPU")
+_LIB.impl("tp_gather", _tp_gather, "CUDA")
+torch.library.register_fake(f"{NAMESPACE}::tp_gather", _tp_gather_fake,
+                            lib=_LIB)
+
 _NS = getattr(torch.ops, NAMESPACE)
+tp_gather_op = _NS.tp_gather.default
 flash_fwd_op = _NS.flash_fwd.default
 flash_bwd_dq_op = _NS.flash_bwd_dq.default
 flash_bwd_dkv_op = _NS.flash_bwd_dkv.default

@@ -56,8 +56,9 @@ class _Mid(nn.Module):
         self.attn_1 = AttnBlock(channels, dtype=dtype)
         self.block_2 = ResnetBlock(channels, dtype=dtype, dropout=dropout)
 
-    def forward(self, h):
-        return self.block_2(self.attn_1(self.block_1(h)))
+    def forward(self, h, deterministic: bool = True, generator=None):
+        h = self.block_1(h, deterministic, generator)
+        return self.block_2(self.attn_1(h), deterministic, generator)
 
 
 class _Level(nn.Module):
@@ -72,9 +73,9 @@ class _Level(nn.Module):
             self.add_module(resample_name, resample)
         self.resample_name = resample_name if resample is not None else None
 
-    def forward(self, h):
+    def forward(self, h, deterministic: bool = True, generator=None):
         for i, block in enumerate(self.block):
-            h = block(h)
+            h = block(h, deterministic, generator)
             if len(self.attn):
                 h = self.attn[i](h)
         if self.resample_name is not None:
@@ -110,11 +111,11 @@ class Encoder(nn.Module):
         self.conv_out = Conv2d(block_in, out_ch, 3, padding=1, dtype=dtype)
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, generator=None):
         h = self.conv_in(x.to(self.dtype))
         for level in self.down:
-            h = level(h)
-        h = self.mid(h)
+            h = level(h, deterministic, generator)
+        h = self.mid(h, deterministic, generator)
         return self.conv_out(F.silu(self.norm_out(h)))
 
 
@@ -149,10 +150,10 @@ class Decoder(nn.Module):
         self.final_sigmoid = cfg.final_sigmoid
         self.dtype = dtype
 
-    def forward(self, z):
-        h = self.mid(self.conv_in(z.to(self.dtype)))
+    def forward(self, z, deterministic: bool = True, generator=None):
+        h = self.mid(self.conv_in(z.to(self.dtype)), deterministic, generator)
         for level in reversed(self.up):
-            h = level(h)
+            h = level(h, deterministic, generator)
         h = self.conv_out(F.silu(self.norm_out(h)))
         return torch.sigmoid(h) if self.final_sigmoid else h
 
@@ -211,22 +212,29 @@ class KLVAE(nn.Module):
         self.post_quant_conv = Conv2d(config.z_channels, config.z_channels, 1,
                                       dtype=dtype)
 
-    def encode(self, x) -> DiagonalGaussian:
-        """NCHW images -> posterior over NCHW latents."""
-        return DiagonalGaussian(self.quant_conv(self.encoder(x)))
+    def encode(self, x, *, deterministic: bool = True,
+               generator=None) -> DiagonalGaussian:
+        """NCHW images -> posterior over NCHW latents. Dropout runs only
+        under deterministic=False, its masks drawn from `generator`."""
+        return DiagonalGaussian(self.quant_conv(
+            self.encoder(x, deterministic, generator)))
 
-    def decode(self, z):
+    def decode(self, z, *, deterministic: bool = True, generator=None):
         """NCHW latents -> NCHW images."""
-        return self.decoder(self.post_quant_conv(z.to(self.dtype)))
+        return self.decoder(self.post_quant_conv(z.to(self.dtype)),
+                            deterministic, generator)
 
     def forward(self, x, *, generator=None, noise=None,
-                sample_posterior: bool = True):
+                sample_posterior: bool = True, deterministic: bool = True):
         """NCHW images -> (NCHW reconstruction, posterior); the latent is
-        sampled with `noise` (NCHW) or from `generator`."""
-        posterior = self.encode(x)
+        sampled with `noise` (NCHW) or from `generator`, which also draws
+        the dropout masks under deterministic=False."""
+        posterior = self.encode(x, deterministic=deterministic,
+                                generator=generator)
         z = (posterior.sample(generator, noise) if sample_posterior
              else posterior.mean)
-        return self.decode(z), posterior
+        return self.decode(z, deterministic=deterministic,
+                           generator=generator), posterior
 
     def encode_images(self, x, *, generator=None):
         """NHWC images in [0, 1] -> scaled NHWC latents."""

@@ -25,7 +25,6 @@ __all__ = [
     "GroupNorm",
     "RMSNorm",
     "ResnetBlock",
-    "check_no_dropout",
     "Dropout",
     "AttnBlock",
     "with_memory_tokens",
@@ -169,53 +168,57 @@ class RMSNorm(nn.Module):
         return (normed * self.g * (x.shape[1] ** 0.5)).to(x.dtype)
 
 
-def check_no_dropout(dropout: float) -> None:
-    """Raise for dropout > 0, which the port does not implement: the JAX
-    package draws its dropout bits from its own generator, so a port of it
-    could not be held against it. Every shipped config has dropout 0."""
-    if dropout > 0.0:
-        raise NotImplementedError(
-            f"dropout={dropout} is not supported by the PyTorch port; "
-            f"use dropout=0.0")
-
-
 class Dropout(nn.Module):
     """Dropout with the JAX package's switch: it runs only when the caller
     passes deterministic=False (flax's `nn.Dropout(deterministic=)`), never
     because the module is in train mode. The JAX package's trainers never
-    pass it, so they train without dropout, and so do the port's."""
+    pass it, so they train without dropout, and so do the port's. Where it
+    runs it keeps each element with probability 1 - p and scales the kept
+    ones by 1 / (1 - p), as flax does, with the mask drawn from `generator`
+    (the default generator where None); JAX draws its mask from its own
+    key, so the two agree in distribution only."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
 
-    def forward(self, x, deterministic: bool = True):
+    def forward(self, x, deterministic: bool = True,
+                generator: torch.Generator | None = None):
         if deterministic or self.p == 0.0:
             return x
-        return F.dropout(x, self.p, training=True)
+        if self.p >= 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class ResnetBlock(nn.Module):
     """GroupNorm, SiLU, conv3x3 twice, with a 1x1 shortcut when the channel
-    count changes. `dropout` must be 0 (`check_no_dropout`)."""
+    count changes; with `dropout` > 0, a `Dropout` between the second SiLU
+    and conv2 that runs only under deterministic=False."""
 
     def __init__(self, in_channels: int, out_channels: int | None = None,
                  dtype=torch.float32, dropout: float = 0.0):
         super().__init__()
-        check_no_dropout(dropout)
         out_channels = out_channels or in_channels
         self.norm1 = GroupNorm(in_channels)
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1,
                             dtype=dtype)
         self.norm2 = GroupNorm(out_channels)
+        self.dropout = Dropout(dropout) if dropout > 0.0 else None
         self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1,
                             dtype=dtype)
         self.nin_shortcut = (Conv2d(in_channels, out_channels, 1, dtype=dtype)
                              if in_channels != out_channels else None)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True,
+                generator: torch.Generator | None = None):
         h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = F.silu(self.norm2(h))
+        if self.dropout is not None:
+            h = self.dropout(h, deterministic, generator)
+        h = self.conv2(h)
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h

@@ -15,7 +15,9 @@ Parity points with the JAX package:
   not as einops' `b c (h p1) (w p2) -> b (c p1 p2) h w`.
 - Full attention hands `sdpa` q as a view of the `to_qkv` projection and k,
   v as new tensors with the memory tokens in front: Skv = H * W + 4.
-- Dropout must be 0 (`check_no_dropout`); `train_ddpm` never sets it.
+- `dropout` sits in the first conv block of every ResNet block and runs
+  only under deterministic=False, as in the JAX package, whose trainers
+  never pass it (nor do the port's).
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ from .layers import (
     Linear,
     RMSNorm,
     UpsampleNearest,
-    check_no_dropout,
     from_heads,
     lecun_normal_init_,
     with_memory_tokens,
@@ -142,8 +143,10 @@ class Attention(nn.Module):
 
 class Unet(nn.Module):
     """forward(x [B,C,H,W], time [B], x_self_cond=None, *,
-    return_features=False) -> [B, out_dim, H, W] fp32 (and the mid-block
-    features [B, mid_dim], L2-normalised, with return_features)."""
+    return_features=False, deterministic=True, generator=None) -> [B,
+    out_dim, H, W] fp32 (and the mid-block features [B, mid_dim],
+    L2-normalised, with return_features). Dropout runs only under
+    deterministic=False, its masks drawn from `generator`."""
 
     def __init__(
         self,
@@ -164,7 +167,6 @@ class Unet(nn.Module):
         dtype=torch.float32,
     ):
         super().__init__()
-        check_no_dropout(dropout)
         self.channels = channels
         self.self_condition = self_condition
         self.dtype = dtype
@@ -204,25 +206,29 @@ class Unet(nn.Module):
         for ind, (dim_in, dim_out) in enumerate(in_out):
             is_last = ind == len(in_out) - 1
             self.downs.append(nn.ModuleList([
-                ResnetBlock(dim_in, dim_in, time_dim, dtype),
-                ResnetBlock(dim_in, dim_in, time_dim, dtype),
+                ResnetBlock(dim_in, dim_in, time_dim, dtype, dropout),
+                ResnetBlock(dim_in, dim_in, time_dim, dtype, dropout),
                 attention(ind, dim_in),
                 Conv2d(dim_in, dim_out, 3, padding=1, dtype=dtype) if is_last
                 else SpaceToDepthDownsample(dim_in, dim_out, dtype),
             ]))
 
         mid_dim = dims[-1]
-        self.mid_block1 = ResnetBlock(mid_dim, mid_dim, time_dim, dtype)
+        self.mid_block1 = ResnetBlock(mid_dim, mid_dim, time_dim, dtype,
+                                      dropout)
         self.mid_attn = Attention(mid_dim, heads[-1], dim_head[-1], dtype)
-        self.mid_block2 = ResnetBlock(mid_dim, mid_dim, time_dim, dtype)
+        self.mid_block2 = ResnetBlock(mid_dim, mid_dim, time_dim, dtype,
+                                      dropout)
 
         self.ups = nn.ModuleList()
         for ind, (dim_in, dim_out) in enumerate(reversed(in_out)):
             is_last = ind == len(in_out) - 1
             stage = num_stages - 1 - ind
             self.ups.append(nn.ModuleList([
-                ResnetBlock(dim_out + dim_in, dim_out, time_dim, dtype),
-                ResnetBlock(dim_out + dim_in, dim_out, time_dim, dtype),
+                ResnetBlock(dim_out + dim_in, dim_out, time_dim, dtype,
+                            dropout),
+                ResnetBlock(dim_out + dim_in, dim_out, time_dim, dtype,
+                            dropout),
                 attention(stage, dim_out),
                 Conv2d(dim_out, dim_in, 3, padding=1, dtype=dtype) if is_last
                 else UpsampleNearest(dim_out, dim_in, dtype=dtype),
@@ -230,12 +236,14 @@ class Unet(nn.Module):
 
         self.out_dim = out_dim or channels * (2 if learned_variance else 1)
         self.final_res_block = ResnetBlock(init_dim * 2, init_dim, time_dim,
-                                           dtype)
+                                           dtype, dropout)
         self.final_conv = Conv2d(init_dim, self.out_dim, 1)  # fp32
         lecun_normal_init_(self)
 
     def forward(self, x, time, x_self_cond=None, *,
-                return_features: bool = False):
+                return_features: bool = False, deterministic: bool = True,
+                generator=None):
+        drop = (deterministic, generator)
         if self.self_condition:
             if x_self_cond is None:
                 x_self_cond = torch.zeros_like(x)
@@ -246,29 +254,29 @@ class Unet(nn.Module):
 
         hs = []
         for block1, block2, attn, downsample in self.downs:
-            x = block1(x, t)
+            x = block1(x, t, *drop)
             hs.append(x)
-            x = block2(x, t)
+            x = block2(x, t, *drop)
             x = attn(x) + x
             hs.append(x)
             x = downsample(x)
 
-        x = self.mid_block1(x, t)
+        x = self.mid_block1(x, t, *drop)
         x = self.mid_attn(x) + x
         features = None
         if return_features:
             pooled = x.float().mean(dim=(2, 3))
             features = pooled / torch.clamp(
                 torch.linalg.norm(pooled, dim=-1, keepdim=True), min=1e-12)
-        x = self.mid_block2(x, t)
+        x = self.mid_block2(x, t, *drop)
 
         for block1, block2, attn, upsample in self.ups:
-            x = block1(torch.cat([x, hs.pop()], dim=1), t)
-            x = block2(torch.cat([x, hs.pop()], dim=1), t)
+            x = block1(torch.cat([x, hs.pop()], dim=1), t, *drop)
+            x = block2(torch.cat([x, hs.pop()], dim=1), t, *drop)
             x = attn(x) + x
             x = upsample(x)
 
-        x = self.final_res_block(torch.cat([x, r], dim=1), t)
+        x = self.final_res_block(torch.cat([x, r], dim=1), t, *drop)
         out = self.final_conv(x)
         if return_features:
             return out, features

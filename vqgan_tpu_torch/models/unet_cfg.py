@@ -25,7 +25,15 @@ from torch import nn
 
 from ..ops.attention import sdpa
 from ..parallel.mesh import draw_rows
-from .layers import Conv2d, Linear, RMSNorm, UpsampleNearest, from_heads, to_heads
+from .layers import (
+    Conv2d,
+    Dropout,
+    Linear,
+    RMSNorm,
+    UpsampleNearest,
+    from_heads,
+    to_heads,
+)
 
 __all__ = ["CFGUnet", "SinusoidalPosEmb", "draw_cond_drop_mask"]
 
@@ -75,38 +83,47 @@ class RandomOrLearnedSinusoidalPosEmb(nn.Module):
 
 
 class Block(nn.Module):
-    """conv3x3, RMSNorm, optional FiLM scale/shift, SiLU."""
+    """conv3x3, RMSNorm, optional FiLM scale/shift, SiLU, and with `dropout`
+    > 0 a `Dropout` that runs only under deterministic=False."""
 
-    def __init__(self, dim: int, dim_out: int, dtype):
+    def __init__(self, dim: int, dim_out: int, dtype, dropout: float = 0.0):
         super().__init__()
         self.proj = Conv2d(dim, dim_out, 3, padding=1, dtype=dtype)
         self.norm = RMSNorm(dim_out)
+        self.dropout = Dropout(dropout) if dropout > 0.0 else None
 
-    def forward(self, x, scale_shift=None):
+    def forward(self, x, scale_shift=None, deterministic: bool = True,
+                generator=None):
         x = self.norm(self.proj(x))
         if scale_shift is not None:
             scale, shift = scale_shift
             x = x * (scale + 1.0) + shift
-        return F.silu(x)
+        x = F.silu(x)
+        if self.dropout is not None:
+            x = self.dropout(x, deterministic, generator)
+        return x
 
 
 class ResnetBlock(nn.Module):
     """Two conv blocks with FiLM from one conditioning vector (the CFG U-Net
     passes time and class embeddings concatenated, the DDPM U-Net the time
-    embedding) and a 1x1 residual conv when the channel count changes."""
+    embedding) and a 1x1 residual conv when the channel count changes. The
+    first block's `dropout` (the DDPM U-Net's; 0 in the CFG U-Net) runs
+    only under deterministic=False."""
 
-    def __init__(self, dim: int, dim_out: int, cond_dim: int, dtype):
+    def __init__(self, dim: int, dim_out: int, cond_dim: int, dtype,
+                 dropout: float = 0.0):
         super().__init__()
         self.mlp = nn.Sequential(nn.SiLU(),
                                  Linear(cond_dim, dim_out * 2, dtype=dtype))
-        self.block1 = Block(dim, dim_out, dtype)
+        self.block1 = Block(dim, dim_out, dtype, dropout)
         self.block2 = Block(dim_out, dim_out, dtype)
         self.res_conv = (Conv2d(dim, dim_out, 1, dtype=dtype)
                          if dim != dim_out else None)
 
-    def forward(self, x, cond):
+    def forward(self, x, cond, deterministic: bool = True, generator=None):
         scale_shift = self.mlp(cond)[:, :, None, None].chunk(2, dim=1)
-        h = self.block2(self.block1(x, scale_shift=scale_shift))
+        h = self.block2(self.block1(x, scale_shift, deterministic, generator))
         return h + (self.res_conv(x) if self.res_conv is not None else x)
 
 

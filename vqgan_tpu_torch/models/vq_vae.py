@@ -113,24 +113,29 @@ class VQVAE(nn.Module):
         self.quantizer = VectorQuantizer(num_embeddings, embedding_dim,
                                          commitment_cost, loss_convention)
 
-    def encode(self, x):
-        """NCHW images -> (z_q NCHW, indices [B, h, w], loss dict)."""
-        z = self.pre_quant_conv(self.encoder(x))
+    def encode(self, x, *, deterministic: bool = True, generator=None):
+        """NCHW images -> (z_q NCHW, indices [B, h, w], loss dict). Dropout
+        runs only under deterministic=False, its masks drawn from
+        `generator`."""
+        z = self.pre_quant_conv(self.encoder(x, deterministic, generator))
         z_q, loss_dict, indices = self.quantizer(z)
         return self.post_quant_conv(z_q), indices, loss_dict
 
-    def encode_pre_quant(self, x):
+    def encode_pre_quant(self, x, *, deterministic: bool = True,
+                         generator=None):
         """NCHW images -> pre-quant encoder features, NCHW: the candidate
         pool for dead-code revival."""
-        return self.pre_quant_conv(self.encoder(x))
+        return self.pre_quant_conv(self.encoder(x, deterministic, generator))
 
-    def decode(self, z_q):
-        return self.decoder(z_q)
+    def decode(self, z_q, *, deterministic: bool = True, generator=None):
+        return self.decoder(z_q, deterministic, generator)
 
-    def forward(self, x):
+    def forward(self, x, *, deterministic: bool = True, generator=None):
         """NCHW images -> (reconstruction NCHW, loss dict, indices)."""
-        z_q, indices, loss_dict = self.encode(x)
-        return self.decode(z_q), loss_dict, indices
+        z_q, indices, loss_dict = self.encode(
+            x, deterministic=deterministic, generator=generator)
+        return (self.decode(z_q, deterministic=deterministic,
+                            generator=generator), loss_dict, indices)
 
     def encode_to_indices(self, x):
         return self.encode(x)[1]

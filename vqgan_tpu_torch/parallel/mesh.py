@@ -13,6 +13,8 @@ entry per tensor dimension: an axis name or None; () replicates.
 `placements` turns one into DTensor placements.
 
   jax.sharding.Mesh                 -> Mesh (make_mesh, make_mesh_for_batch)
+  serving's _default_mesh_like      -> mesh_like (an artifact's recorded
+                                       axes over the process group)
   NamedSharding(mesh, P("data"))    -> data_sharding(mesh) == ("data",)
   NamedSharding(mesh, P())          -> replicated(mesh) == ()
   device_put(batch, P("data"))      -> shard_batch: this rank's rows
@@ -50,7 +52,8 @@ import torch.distributed as dist
 from . import comm
 from .init import process_count
 
-__all__ = ["Mesh", "make_mesh", "make_mesh_for_batch", "data_sharding",
+__all__ = ["Mesh", "make_mesh", "make_mesh_for_batch", "mesh_like",
+           "data_sharding",
            "replicated", "shard_batch", "replicate", "replicate_module",
            "is_main_process", "placements", "local_rows", "tree_map",
            "global_batch", "batch_mesh", "draw_rows", "gather_rows",
@@ -149,6 +152,20 @@ def make_mesh_for_batch(batch_size: int, model: int = 1,
         raise ValueError(f"the global batch {batch_size} does not divide "
                          f"over {n} data-parallel ranks")
     return make_mesh(data=data, model=model, device=device)
+
+
+def mesh_like(layout: Dict[str, Any], device="cuda") -> Mesh:
+    """The mesh of an exported artifact's recorded layout (meta.json's
+    {"axes", "shape", "nr_devices"}, e.g. ("data", "model") in JAX's
+    order) over every rank of the default group, as the JAX package's
+    loader builds one over its first devices; its axes' groups (`group`,
+    `coord`) are the serving ranks' ("data": whose rows, "model": whose
+    pieces of the split weights)."""
+    shape = dict(zip(layout["axes"], layout["shape"]))
+    n = int(np.prod(list(shape.values()), dtype=np.int64))
+    if n != layout.get("nr_devices", n):
+        raise ValueError(f"layout {layout}: its shape covers {n} ranks")
+    return named_mesh(shape, device)
 
 
 def data_sharding(mesh: Mesh, ndim: Optional[int] = None) -> tuple:

@@ -15,6 +15,11 @@ placement its consumer does not take. JAX's spec splits the fused qkv
 output contiguously (for 2 ranks: q with half of k, then the rest of k
 with v), which is not a split by heads, so head-parallel attention would
 need another order of the rows than JAX's placement.
+
+`tp_param_specs` gives a module's parameters the same placement as a
+table, name -> spec, for the serving artifacts (`serving/export.py`'s
+`param_specs`), which hold each rank's pieces and gather them when the
+program runs.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from typing import Dict, Optional, Sequence
 
 from torch import nn
 
-__all__ = ["tp_spec_for_path", "apply_tp_sharding"]
+__all__ = ["tp_spec_for_path", "tp_param_specs", "apply_tp_sharding"]
 
 # column-parallel: output features split over 'model'
 _COL_KEYS = ("to_qkv", "to_q", "to_k", "to_v")
@@ -50,6 +55,33 @@ def tp_spec_for_path(path: str, leaf, layout: Optional[Sequence[int]] = None,
             spec[layout[-2]] = "model"
             return tuple(spec)
     return ()
+
+
+def tp_param_specs(module: nn.Module, mesh=None) -> Dict[str, tuple]:
+    """The TP placement of each parameter of `module` that it splits, in
+    torch's dimension order: name -> spec ("model" on the split dimension,
+    None elsewhere); the parameters it does not list stay whole. With
+    `mesh`, a split dimension that does not divide by its "model" size
+    raises, as JAX's NamedSharding does."""
+    from .fsdp import jax_layout
+
+    out = {}
+    for mname, mod in module.named_modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            name = f"{mname}.{pname}" if mname else pname
+            if name in out:
+                continue
+            spec = tp_spec_for_path(name, p, *jax_layout(mod, pname, p.ndim))
+            if not spec:
+                continue
+            n = 1 if mesh is None else mesh.shape.get("model", 1)
+            dim = spec.index("model")
+            if p.shape[dim] % n:
+                raise ValueError(
+                    f"{name}: dimension {dim} of {tuple(p.shape)} does not "
+                    f"divide over {n} 'model' ranks")
+            out[name] = spec
+    return out
 
 
 def apply_tp_sharding(model: nn.Module, mesh) -> Dict[str, object]:

@@ -5,7 +5,10 @@ Counterpart of vqgan_tpu/serving/export.py. An artifact is a directory:
 
     <program>.pt2   a program saved with `torch.export.save`, weights inside
     meta.json       config, batch size, shapes, export device, export
-                    seconds and bytes of each program
+                    seconds and bytes of each program, the mesh and the
+                    split parameters' specs
+    split_weights.pt  the whole tensors of the split parameters (only
+                    where `param_specs` splits some)
 
 - `export_program` / `load_program`: any module, traced at its example
   inputs' shapes.
@@ -38,9 +41,22 @@ Counterpart of vqgan_tpu/serving/export.py. An artifact is a directory:
   loader runs on dp ranks of a process group: each draws the global
   batch's noise (or takes the given noise), runs its rows, and the ranks
   gather the images, so every rank returns what one device returns for
-  the whole batch. `param_specs` (weights split over the mesh, TP serving)
-  raises `NotImplementedError`: the port's TP placement gathers its
-  kernels for compute, which an exported program cannot do.
+  the whole batch.
+- Tensor-parallel artifacts (`param_specs`, e.g. `parallel.tp.
+  tp_param_specs` of each program: the to_qkv / to_q / to_k / to_v
+  kernels split on their output features over "model", the to_out
+  kernels on their input features), on a mesh of any axes ("data" x
+  "model" in JAX's order): each program is traced with piece-shaped
+  parameters, and gathers each whole kernel from the ranks' pieces where
+  it runs (`torch.ops.vqgan_tpu_torch.tp_gather`), as GSPMD gathers a
+  kernel whose placement its consumer does not take. So a rank's device
+  holds only its pieces of the split kernels between calls, and the
+  images are those of the whole-weight artifact bit for bit. As JAX
+  saves whole weights and places them at load, `split_weights.pt` holds
+  the whole split tensors and the loader writes this rank's pieces into
+  its programs, so one directory serves any ranks of the same axis
+  layout. The call-time inputs are split over "data" and whole over the
+  other axes, as above.
 """
 
 from __future__ import annotations
@@ -57,7 +73,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..graphs import ChainGraphs, ChainStep, resolve_graph, run_chain
-from ..kernels import ops  # noqa: F401  (registers the operators)
+from ..kernels import ops
 
 __all__ = ["export_program", "load_program", "export_cfg_sampler",
            "load_cfg_sampler", "CFGSampler", "export_vq_codec",
@@ -75,22 +91,40 @@ class _StoredWeights(nn.Module):
     for None) and cast back to each one's own dtype when the program runs.
     Only these copies are the program's parameters; what else the module
     reads (buffers, the diffusion schedule) `torch.export` keeps as
-    constants."""
+    constants. A parameter that `splits` places over axes of a mesh of
+    `mesh_shape` is stored as a piece (the first rank's; a loader writes
+    its own) and gathered whole where the program runs; `wholes` keeps
+    the whole stored tensors of those."""
 
-    def __init__(self, module: nn.Module, dtype):
+    def __init__(self, module: nn.Module, dtype, splits=None,
+                 mesh_shape=None):
         super().__init__()
         object.__setattr__(self, "_module", module)  # not a submodule
         self._params = []
+        self.wholes = {}
         for name, p in module.named_parameters():
             stored = p.detach()
             if dtype is not None and p.is_floating_point():
                 stored = stored.to(dtype)
+            gathers = tuple((d, mesh_shape[axis], axis) for d, axis in
+                            enumerate((splits or {}).get(name, ()))
+                            if axis is not None)
+            if gathers:
+                self.wholes[name] = stored.cpu()
+                for d, n, _ in gathers:
+                    stored = stored.chunk(n, dim=d)[0]
+                stored = stored.clone(memory_format=torch.contiguous_format)
             self.register_parameter(_flat(name),
                                     nn.Parameter(stored, requires_grad=False))
-            self._params.append((name, p.dtype))
+            self._params.append((name, p.dtype, gathers))
 
     def forward(self, *args):
-        state = {n: getattr(self, _flat(n)).to(d) for n, d in self._params}
+        state = {}
+        for name, dtype, gathers in self._params:
+            t = getattr(self, _flat(name))
+            for d, n, axis in gathers:
+                t = ops.tp_gather_op(t, d, n, axis)
+            state[name] = t.to(dtype)
         return torch.func.functional_call(self._module, state, args)
 
 
@@ -110,21 +144,29 @@ def round_weights(module: nn.Module, params_dtype: str) -> nn.Module:
 
 
 def export_program(module: nn.Module, example_args: Sequence, path,
-                   params_dtype: str = "float32") -> dict:
+                   params_dtype: str = "float32", splits=None,
+                   mesh_shape=None) -> dict:
     """Trace `module` with `torch.export` at `example_args`' shapes (no
-    gradient), its floating weights stored in `params_dtype`, and save it
-    to `path` (a .pt2 file). Returns {"seconds": export and save, "bytes":
-    the file's size}."""
+    gradient), its floating weights stored in `params_dtype` and those that
+    `splits` places over a mesh of `mesh_shape` as pieces gathered where
+    it runs (`_StoredWeights`), and save it to `path` (a .pt2 file).
+    Returns {"seconds": export and save, "bytes": the file's size}, and
+    with `splits` "wholes": the whole stored tensors of the split
+    parameters, by name."""
     if params_dtype not in _DTYPES:
         raise ValueError(f"params_dtype must be one of {sorted(_DTYPES)}, "
                          f"got {params_dtype!r}")
     t0 = time.perf_counter()
-    program = _StoredWeights(module.eval(), _DTYPES[params_dtype])
+    program = _StoredWeights(module.eval(), _DTYPES[params_dtype], splits,
+                             mesh_shape)
     with torch.no_grad():
         exported = torch.export.export(program, tuple(example_args))
     torch.export.save(exported, str(path))
-    return {"seconds": time.perf_counter() - t0,
-            "bytes": Path(path).stat().st_size}
+    out = {"seconds": time.perf_counter() - t0,
+           "bytes": Path(path).stat().st_size}
+    if splits:
+        out["wholes"] = program.wholes
+    return out
 
 
 def load_program(path, location: Optional[dict] = None):
@@ -164,28 +206,60 @@ def _drop_no_ops(graph) -> None:
     graph.lint()
 
 
-def _data_parallel(mesh, arg_specs, param_specs, batch_size: int) -> int:
-    """The data-parallel degree of an export (1 without a mesh)."""
-    if param_specs is not None:
-        raise NotImplementedError(
-            "param_specs: tensor-parallel serving artifacts are not ported; "
-            "the weights of an artifact are whole on each device")
+def _layout(mesh, arg_specs, param_specs, batch_size: int, programs: dict):
+    """(the data-parallel degree, meta.json's "mesh", the split parameters
+    of each program: name -> spec) of an export; (1, None, {}) without a
+    mesh."""
     if mesh is None:
-        if arg_specs is not None:
-            raise ValueError("arg_specs needs a mesh")
-        return 1
-    if any(n > 1 for a, n in mesh.shape.items() if a != "data"):
-        raise NotImplementedError(
-            f"serving meshes split the batch over 'data' only, got "
-            f"{dict(mesh.shape)}")
+        for name, given in (("arg_specs", arg_specs),
+                            ("param_specs", param_specs)):
+            if given is not None:
+                raise ValueError(f"{name} needs a mesh")
+        return 1, None, {}
     for spec in arg_specs or ():
-        if tuple(spec)[:1] not in ((), ("data",), (None,)):
+        if tuple(spec)[:1] not in ((), ("data",), (None,)) or any(
+                a is not None for a in tuple(spec)[1:]):
             raise NotImplementedError(
                 f"call-time inputs split over 'data' or whole, got {spec}")
-    dp = mesh.shape["data"]
+    splits = {}
+    for prog, specs in (param_specs or {}).items():
+        if prog not in programs:
+            raise ValueError(f"param_specs: no program {prog!r}; the "
+                             f"programs are {sorted(programs)}")
+        params = dict(programs[prog].named_parameters())
+        splits[prog] = {}
+        for name, spec in specs.items():
+            if name not in params:
+                raise ValueError(f"param_specs: {prog} has no parameter "
+                                 f"{name!r}")
+            shape = tuple(params[name].shape)
+            spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+            axes = [a for a in spec if a is not None]
+            if len(spec) > len(shape) or len(set(axes)) != len(axes) or any(
+                    a not in mesh.shape for a in axes):
+                raise ValueError(f"param_specs: {prog}.{name} {shape} cannot "
+                                 f"take {spec} on a mesh {mesh.shape}")
+            for d, a in enumerate(spec):
+                if a is not None and shape[d] % mesh.shape[a]:
+                    raise ValueError(
+                        f"param_specs: {prog}.{name}: dimension {d} of "
+                        f"{shape} does not divide over {mesh.shape[a]} "
+                        f"{a!r} ranks")
+            if axes:
+                splits[prog][name] = spec
+    dp = mesh.shape.get("data", 1)
     if batch_size % dp:
         raise ValueError(f"batch {batch_size} does not divide over dp={dp}")
-    return dp
+    if not any(splits.values()) and all(
+            n == 1 for a, n in mesh.shape.items() if a != "data"):
+        # only the batch is split: the one-axis record of a data-parallel
+        # artifact, which needs no mesh where dp is 1
+        layout = ({"axes": ["data"], "shape": [dp], "nr_devices": dp}
+                  if dp > 1 else None)
+    else:
+        layout = {"axes": list(mesh.shape), "shape": list(mesh.shape.values()),
+                  "nr_devices": mesh.size}
+    return dp, layout, splits
 
 
 def _device_of(module: nn.Module) -> torch.device:
@@ -227,10 +301,16 @@ def export_cfg_sampler(step: nn.Module, decode: nn.Module, outdir, *,
     img: one CFG DDIM step at the baked cond_scale and rescaled_phi (e.g.
     `diffusion.gaussian.DDIMStep`); decode(img [B,C,h,w]) -> NHWC images in
     [0, 1]. `latent_shape` is (C, h, w); `ddim_pairs` the (t, t_next) pairs
-    the loader loops over, in order. `mesh` (a "data" axis of dp ranks)
-    makes a data-parallel artifact: the programs run B / dp rows on each
-    rank. Returns the meta.json written."""
-    dp = _data_parallel(mesh, arg_specs, param_specs, batch_size)
+    the loader loops over, in order. `mesh` makes a multi-rank artifact:
+    its "data" axis (dp ranks) splits the batch, so the programs run
+    B / dp rows on each rank, and `param_specs` ({"step": {name: spec},
+    "decode": {...}}, a spec per parameter as `parallel.tp.tp_param_specs`
+    gives them; the parameters it does not list stay whole) splits
+    weights over its axes. The mesh is only read for its shape: the
+    export runs in one process. Returns the meta.json written."""
+    programs = {"step": step, "decode": decode}
+    dp, layout, splits = _layout(mesh, arg_specs, param_specs, batch_size,
+                                 programs)
     outdir = Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
     device = _device_of(step)
@@ -244,19 +324,24 @@ def export_cfg_sampler(step: nn.Module, decode: nn.Module, outdir, *,
 
     # a tensor of its own for each input: an input given twice would be
     # traced as one
-    programs = {
-        "step": export_program(step, (img(), labels(), labels(), labels(),
-                                      img()),
-                               outdir / "step.pt2", params_dtype),
-        "decode": export_program(decode, (img(),), outdir / "decode.pt2",
-                                 params_dtype),
-    }
+    examples = {"step": (img(), labels(), labels(), labels(), img()),
+                "decode": (img(),)}
+    exported, wholes = {}, {}
+    for name, module in programs.items():
+        out = export_program(module, examples[name], outdir / f"{name}.pt2",
+                             params_dtype, splits.get(name),
+                             None if mesh is None else mesh.shape)
+        wholes[name] = out.pop("wholes", {})
+        exported[name] = out
+    meta = {"kind": "cfg_sampler", "programs": exported,
+            "batch_size": batch_size, "rank_batch_size": b, "mesh": layout}
+    if any(splits.values()):
+        torch.save(wholes, outdir / "split_weights.pt")
+        meta["param_specs"] = {name: {p: list(spec) for p, spec in
+                                      specs.items()}
+                               for name, specs in splits.items()}
     return _write_meta(outdir, {
-        "kind": "cfg_sampler", "programs": programs,
-        "batch_size": batch_size, "rank_batch_size": b,
-        "mesh": ({"axes": ["data"], "shape": [dp], "nr_devices": dp}
-                 if dp > 1 else None),
-        "latent_shape": list(latent_shape),
+        **meta, "latent_shape": list(latent_shape),
         "ddim_pairs": [list(map(int, p)) for p in ddim_pairs],
         "num_users": int(num_users), "cond_scale": float(cond_scale),
         "rescaled_phi": float(rescaled_phi), "params_dtype": params_dtype,
@@ -286,11 +371,17 @@ class CFGSampler:
     draws. `graph` False runs the loaded step from Python; True on the CPU
     raises. The decode runs after the loop, outside the graph.
 
-    A data-parallel artifact runs on the "data" axis of `mesh` (by
-    default a mesh over every rank of the process group), which must have
-    the artifact's dp ranks: each rank takes its rows of the classes and
-    of the global batch's noise, and the images of all ranks are gathered,
-    so each rank returns [B, H, W, 3]."""
+    A multi-rank artifact runs on `mesh` (by default a mesh of meta.json's
+    axes over every rank of the process group, as JAX's loader builds one
+    over the first devices), which must have the artifact's axes: each
+    rank takes its "data" rows of the classes and of the global batch's
+    noise, and the images of all "data" ranks are gathered, so each rank
+    returns [B, H, W, 3]. Where the artifact splits weights, this rank's
+    pieces of them are written into its programs from split_weights.pt,
+    and the programs gather them over their axes' groups when they run. A
+    CUDA graph captures those gathers only where NCCL runs them: over a
+    gloo group `graph` True raises, rather than run eagerly, and None runs
+    eagerly."""
 
     def __init__(self, outdir, device="cuda", mesh=None):
         outdir = Path(outdir)
@@ -301,30 +392,98 @@ class CFGSampler:
         saved = torch.device(self.meta["device"])
         if saved.type == "cuda" and saved.index is None:
             saved = torch.device("cuda", 0)
-        # a rank of a data-parallel artifact runs it on its own card
+        # a rank of a multi-rank artifact runs it on its own card
         location = ({str(saved): str(self.device)}
                     if saved != self.device else None)
         self.batch_size = int(self.meta["batch_size"])
         self.rank_batch = int(self.meta.get("rank_batch_size",
                                             self.batch_size))
-        self.mesh = None
+        self.mesh, self._dp = None, 1
         layout = self.meta.get("mesh")
         if layout is not None:
-            from ..parallel.mesh import named_mesh
+            from ..parallel.mesh import mesh_like
 
-            dp = layout["shape"][0]
-            self.mesh = mesh or named_mesh({"data": dp}, self.device)
-            if self.mesh.shape.get("data") != dp:
-                raise ValueError(f"{outdir} serves on {dp} data-parallel "
+            shape = dict(zip(layout["axes"], layout["shape"]))
+            self.mesh = mesh or mesh_like(layout, self.device)
+            self._dp = shape.get("data", 1)
+            for axis, n in shape.items():
+                if self.mesh.shape.get(axis, 1) == n:
+                    continue
+                if axis == "data":
+                    raise ValueError(f"{outdir} serves on {n} data-parallel "
+                                     f"ranks, the mesh has {self.mesh.shape}")
+                raise ValueError(f"{outdir} serves on a {axis!r} axis of {n} "
                                  f"ranks, the mesh has {self.mesh.shape}")
         self.num_users = int(self.meta["num_users"])
         self.latent_shape = tuple(self.meta["latent_shape"])
         self._step = load_program(outdir / "step.pt2", location)
         self._decode = load_program(outdir / "decode.pt2", location)
+        splits = self.meta.get("param_specs") or {}
+        self._axes = {}
+        if any(splits.values()):
+            wholes = torch.load(outdir / "split_weights.pt",
+                                map_location="cpu", weights_only=True,
+                                mmap=True)
+            for name, program in (("step", self._step),
+                                  ("decode", self._decode)):
+                self._place_pieces(program, splits.get(name, {}),
+                                   wholes.get(name, {}))
+            self._axes = {a: self.mesh.group(a) for specs in splits.values()
+                          for spec in specs.values() for a in spec
+                          if a is not None}
         pairs = torch.tensor(self.meta["ddim_pairs"], dtype=torch.long,
                              device=self.device)
         self._pairs = pairs[:, :, None].expand(-1, -1, self.rank_batch)
         self.graphs = ChainGraphs()
+
+    @torch.no_grad()
+    def _place_pieces(self, program, specs: dict, wholes: dict) -> None:
+        """Write this rank's piece of each whole split tensor into the
+        parameter that holds it in `program`."""
+        for name, spec in specs.items():
+            piece = wholes[name]
+            for d, axis in enumerate(spec):
+                if axis is not None:
+                    piece = piece.chunk(self.mesh.shape[axis], dim=d)[
+                        self.mesh.coord(axis)]
+            param = program.get_parameter(_flat(name))
+            if param.shape != piece.shape:
+                raise ValueError(f"split_weights.pt's {name}: a piece of "
+                                 f"{tuple(piece.shape)}, the program holds "
+                                 f"{tuple(param.shape)}")
+            param.copy_(piece)
+
+    def weight_bytes(self) -> dict:
+        """{"held": the bytes of every parameter this rank's programs hold,
+        "split_held": of it the split parameters' pieces, "split_whole":
+        those parameters' whole bytes}."""
+        splits = self.meta.get("param_specs") or {}
+        held = split_held = split_whole = 0
+        for name, program in (("step", self._step), ("decode", self._decode)):
+            specs = {_flat(k): v for k, v in splits.get(name, {}).items()}
+            for pname, p in program.named_parameters():
+                n = p.numel() * p.element_size()
+                held += n
+                spec = specs.get(pname)
+                if spec is not None:
+                    split_held += n
+                    split_whole += n * int(np.prod(
+                        [self.mesh.shape[a] for a in spec if a is not None]))
+        return {"held": held, "split_held": split_held,
+                "split_whole": split_whole}
+
+    def _graph(self, graph: Optional[bool]) -> bool:
+        """Whether the loop runs as a CUDA graph: `resolve_graph`'s rule,
+        where NCCL runs the weights' gathers or there are none."""
+        hosted = [a for a, g in self._axes.items()
+                  if g is not None and torch.distributed.get_backend(g)
+                  != "nccl"]
+        if hosted and graph:
+            raise ValueError(
+                f"graph=True: the weights' gathers over {hosted} run on "
+                f"gloo, which a CUDA graph cannot capture; an NCCL group "
+                f"replays them (graph=False runs eagerly)")
+        return False if hosted else resolve_graph(graph, self.device)
 
     def __call__(self, classes, *, generator: torch.Generator = None,
                  init_noise=None, step_noise=None,
@@ -337,7 +496,7 @@ class CFGSampler:
         given = {name: _as_nchw(x, dev) for name, x in
                  (("init_noise", init_noise), ("step_noise", step_noise))
                  if x is not None}
-        if self.mesh is not None:
+        if self._dp > 1:
             classes = self._rows(classes)
             if "init_noise" in given:
                 given["init_noise"] = self._rows(given["init_noise"])
@@ -354,9 +513,8 @@ class CFGSampler:
                                       noise)}
 
         step = ChainStep(body, graphs=self.graphs, key="served DDIM step",
-                         graph=resolve_graph(graph, dev),
-                         name="served DDIM step")
-        with torch.inference_mode():
+                         graph=self._graph(graph), name="served DDIM step")
+        with torch.inference_mode(), ops.mesh_axes(self._axes):
             img = given.get("init_noise")
             if img is None:
                 img = self._randn(generator)
@@ -367,7 +525,7 @@ class CFGSampler:
                                    "noise": given.get("step_noise")},
                             generators=[generator])["img"]
             images = self._decode(img)
-        if self.mesh is not None:
+        if self._dp > 1:
             from ..parallel.comm import all_gather_cat
 
             images = all_gather_cat(images, 0, self.mesh.group("data"))
@@ -382,14 +540,14 @@ class CFGSampler:
         """The global batch's noise; this rank's rows of it."""
         noise = torch.randn((self.batch_size, *self.latent_shape),
                             generator=generator, device=self.device)
-        return noise if self.mesh is None else self._rows(noise)
+        return noise if self._dp == 1 else self._rows(noise)
 
 
 def load_cfg_sampler(outdir, device="cuda", mesh=None) -> CFGSampler:
     """Load a serving directory of `export_cfg_sampler` on `device` (the
     type it was exported on, on this process's card of that type); a
-    data-parallel one on `mesh`'s "data" axis (default: every rank of the
-    process group)."""
+    multi-rank one on `mesh` (default: meta.json's axes over every rank of
+    the process group)."""
     return CFGSampler(outdir, device, mesh)
 
 
