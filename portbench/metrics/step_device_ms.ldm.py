@@ -1,0 +1,6 @@
+"""`step_device_ms.train` in the latent-diffusion cell, where it moves
+`train_latents_per_s`: the same reader."""
+
+from portbench.run import load_reader
+
+read = load_reader("step_device_ms.train")
